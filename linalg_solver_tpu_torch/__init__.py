@@ -1,0 +1,12 @@
+"""linalg_solver_tpu_torch — the PyTorch/CUDA port of ``linalg_solver_tpu``.
+
+Module paths and function names follow the JAX package, so each
+function's counterpart is found under the same name there.  The port
+imports ``torch`` and numpy only; its hand-written CUDA kernels live in
+``csrc/`` and are compiled with ``nvcc`` at first use
+(``ops/kernels/_build.py``).
+
+Ported so far: the batched dense solve ``ops.dispatch.solve_batched``
+(random-butterfly preconditioning + pivot-free LU + refinement in one
+kernel launch, with a lane-compacted rescue).
+"""

@@ -1,0 +1,106 @@
+"""Build and load the port's CUDA kernels.
+
+At first use, every ``csrc/*.cu`` of the package is compiled by ``nvcc``
+for ``sm_90a`` into one shared library with a plain C interface, which
+is loaded with ``ctypes`` (no PyTorch headers, so a build takes seconds).
+The library lands in ``linalg_solver_tpu_torch/_build/`` under a name
+that carries a hash of the sources and flags, so it is rebuilt only when
+they change.  Without ``nvcc`` a build raises; there is no fallback.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parents[2]
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC",
+)
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+#: C signature of each exported function: (restype, argtypes)
+_SIGNATURES = {
+    "solve_fused_rbt_f32": (_I, [_P] * 7 + [_I] * 5 + [_P]),
+    "solve_fused_smem_bytes": (ctypes.c_size_t, [_I, _I]),
+    "kernels_error_string": (ctypes.c_char_p, [_I]),
+}
+
+_lock = threading.Lock()
+_lib = None
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    candidate = Path(cuda_home) / "bin" / "nvcc"
+    if candidate.is_file():
+        return str(candidate)
+    raise RuntimeError(
+        "nvcc not found (PATH, $CUDA_HOME/bin, /usr/local/cuda/bin): the "
+        "port's CUDA kernels cannot be built on this machine"
+    )
+
+
+def _sources() -> list:
+    return sorted(CSRC.glob("*.cu"))
+
+
+def library_path() -> Path:
+    """Where the library for the current sources and flags lives."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in _sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"libkernels_{h.hexdigest()[:16]}.so"
+
+
+def build() -> Path:
+    """Compile the sources unless the library for them already exists."""
+    out = library_path()
+    if out.exists():
+        return out
+    nvcc = _nvcc()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
+            f"{proc.stdout}{proc.stderr}"
+        )
+    os.replace(tmp, out)  # atomic: a concurrent build sees all or nothing
+    return out
+
+
+def load() -> ctypes.CDLL:
+    """The loaded kernel library, built at first use."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            lib = ctypes.CDLL(str(build()))
+            for name, (restype, argtypes) in _SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.restype = restype
+                fn.argtypes = argtypes
+            _lib = lib
+        return _lib
+
+
+def check(err: int, what: str) -> None:
+    """Raise if a C entry point returned a CUDA error."""
+    if err != 0:
+        msg = load().kernels_error_string(err).decode()
+        raise RuntimeError(f"{what}: CUDA error {err} ({msg})")

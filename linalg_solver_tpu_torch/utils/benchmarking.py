@@ -1,0 +1,38 @@
+"""CUDA-event timing (counterpart of ``device_slope_time`` in
+``linalg_solver_tpu.utils.benchmarking``).
+
+PyTorch returns from a CUDA call before the device has finished, so a
+host clock without a synchronise measures the enqueue.  ``cuda_time``
+brackets each run with a pair of CUDA events on the current stream,
+synchronises once after all runs, and reports the median.  There is no
+CPU fallback: timing a CPU run under a device name would be wrong.
+"""
+
+from __future__ import annotations
+
+import statistics
+from typing import Callable
+
+import torch
+
+
+def cuda_time(fn: Callable, *args, warmup: int = 3, iters: int = 10) -> float:
+    """Median seconds per call of ``fn(*args)`` on the current CUDA
+    device, after ``warmup`` untimed calls."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("cuda_time needs a CUDA device")
+    if iters < 1:
+        raise ValueError(f"iters must be >= 1, got {iters}")
+    for _ in range(warmup):
+        fn(*args)
+    events = [
+        (torch.cuda.Event(enable_timing=True),
+         torch.cuda.Event(enable_timing=True))
+        for _ in range(iters)
+    ]
+    for start, end in events:
+        start.record()
+        fn(*args)
+        end.record()
+    torch.cuda.synchronize()
+    return statistics.median(s.elapsed_time(e) for s, e in events) / 1e3

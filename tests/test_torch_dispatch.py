@@ -1,0 +1,193 @@
+"""The port's batched solve as a whole: ``linalg_solver_tpu_torch.ops
+.dispatch.solve_batched(backend="auto")`` against the JAX package's
+``dispatch.solve_batched(backend="rbt")`` (the fused kernel in interpret
+mode plus its rescue), on the same numpy inputs.
+
+The port's default butterfly draw (a torch generator) differs from the
+JAX threefry draw, so the two refined solutions agree only to f32
+rounding of the solution: rtol 1e-4 per system, and a float64 residual
+≤ 1e-5 on every finite system.  Fed the JAX draws, ``ops.rbt
+.solve_rbt_batched`` runs the same arithmetic as the JAX fused path and
+is held to 1e-5."""
+
+import numpy as np
+import pytest
+
+import jax
+import jax.numpy as jnp
+import torch
+
+from linalg_solver_tpu.ops import dispatch as jdispatch
+from linalg_solver_tpu.ops import rbt as jrbt
+from linalg_solver_tpu_torch.ops import dispatch, rbt
+from linalg_solver_tpu_torch.ops.kernels import solve_fused as sf
+from linalg_solver_tpu_torch.ops.kernels.solve_fused import fits
+from linalg_solver_tpu_torch.utils import systems
+
+
+def _batch(B, N, seed, k=None):
+    rng = np.random.RandomState(seed)
+    a = (rng.randn(B, N, N) + 4.0 * np.sqrt(N) * np.eye(N)).astype(
+        np.float32)
+    shape = (B, N) if k is None else (B, N, k)
+    return a, rng.randn(*shape).astype(np.float32)
+
+
+def _resid(a, b, x):
+    """Worst relative residual per system, in float64."""
+    a64 = a.astype(np.float64)
+    b3 = b.reshape(b.shape[0], b.shape[1], -1).astype(np.float64)
+    x3 = x.reshape(b3.shape).astype(np.float64)
+    r = np.einsum("bij,bjk->bik", a64, x3) - b3
+    return np.abs(r).max(axis=(1, 2)) / np.abs(b3).max(axis=(1, 2))
+
+
+def _jax_diags(n, keys):
+    """The JAX package's (U, V) draw for PRNG keys ``keys``, as the
+    port's ``[2, n]`` tensors."""
+    d = rbt.shrink_depth(n)
+    return rbt.diags_from_numpy(*(
+        [np.asarray(v) for v in jrbt.rbt_diags(
+            jax.random.PRNGKey(key), n, d, jnp.float32)]
+        for key in keys
+    ))
+
+
+def _both(a, b):
+    xj = np.asarray(jdispatch.solve_batched(
+        jnp.asarray(a), jnp.asarray(b), backend="rbt"))
+    xt = dispatch.solve_batched(
+        torch.from_numpy(a), torch.from_numpy(b), backend="auto").numpy()
+    assert xt.shape == xj.shape == b.shape
+    return xj, xt
+
+
+def _assert_close(xj, xt, lanes, rtol=1e-4):
+    for i in lanes:
+        err = np.max(np.abs(xt[i] - xj[i]))
+        assert err <= rtol * np.max(np.abs(xj[i])), (i, err)
+
+
+def test_clean_systems():
+    a, b = _batch(4, 64, seed=1)
+    xj, xt = _both(a, b)
+    _assert_close(xj, xt, range(4))
+    assert _resid(a, b, xt).max() <= 1e-5
+
+
+def test_zero_leading_minor_is_rescued():
+    """A full-rank system whose leading 16x16 minor is zero: pivot-free
+    LU alone meets a zero pivot; the butterfly (with the rescue behind
+    it) solves it."""
+    a, b = _batch(5, 64, seed=11)
+    a[1, :16, :16] = 0.0
+    xj, xt = _both(a, b)
+    _assert_close(xj, xt, range(5))
+    assert _resid(a, b, xt).max() <= 1e-5
+
+
+def test_nan_system_is_non_finite_and_contained():
+    a, b = _batch(5, 64, seed=23)
+    a[3, 10, 11] = np.nan
+    xj, xt = _both(a, b)
+    assert not np.isfinite(xj[3]).all() and not np.isfinite(xt[3]).all()
+    keep = [0, 1, 2, 4]
+    _assert_close(xj, xt, keep)
+    assert _resid(a[keep], b[keep], xt[keep]).max() <= 1e-5
+
+
+def test_singular_system_is_non_finite():
+    """An exactly singular system fails the redraw too and ends in the
+    pivoted solve, which returns non-finite values."""
+    a, b = _batch(4, 64, seed=31)
+    a[2] = 0.0
+    xt = dispatch.solve_batched(torch.from_numpy(a), torch.from_numpy(b))
+    xt = xt.numpy()
+    assert not np.isfinite(xt[2]).all()
+    keep = [0, 1, 3]
+    assert _resid(a[keep], b[keep], xt[keep]).max() <= 1e-5
+
+
+def test_matrix_rhs_k4():
+    a, b = _batch(3, 64, seed=13, k=4)
+    xj, xt = _both(a, b)
+    _assert_close(xj, xt, range(3))
+    assert _resid(a, b, xt).max() <= 1e-5
+
+
+@pytest.mark.parametrize("ir_steps", [1, 2])
+def test_rbt_with_the_jax_draws_matches_jax(ir_steps):
+    """``solve_rbt_batched`` fed the JAX draws (keys 17/29, redraw
+    101/103) against the JAX fused path with its rescue, system by system
+    to 1e-5.  System 1 is built so that the main draw meets a zero pivot
+    and the redraw solves it; system 2 holds a NaN and ends in the
+    pivoted solve."""
+    n = 64
+    a, b = _batch(4, n, seed=41)
+    U, V = _jax_diags(n, rbt.MAIN_SEEDS)
+    a[1] = systems.pivot_system(torch.from_numpy(a[1]), U, V, 0.0).numpy()
+    a[2, 5, 6] = np.nan
+    _, bad = sf.solve_fused_rbt(
+        torch.from_numpy(a), torch.from_numpy(b), U, V, ir_steps=ir_steps)
+    assert bad.tolist() == [False, True, True, False]
+    xj = np.asarray(jrbt.pallas_solve_rbt_batched(
+        jnp.asarray(a), jnp.asarray(b), ir_steps=ir_steps, interpret=True))
+    xt = rbt.solve_rbt_batched(
+        torch.from_numpy(a), torch.from_numpy(b), ir_steps=ir_steps,
+        diags=(U, V), rescue_diags=_jax_diags(n, rbt.RESCUE_SEEDS),
+    ).numpy()
+    assert not np.isfinite(xj[2]).all() and not np.isfinite(xt[2]).all()
+    keep = [0, 1, 3]
+    _assert_close(xj, xt, keep, rtol=1e-5)
+    assert _resid(a[keep], b[keep], xt[keep]).max() <= 1e-5
+
+
+@pytest.mark.parametrize(
+    "n,k", [(63, None), (64, 9), (796, None), (576, 8)],
+    ids=["odd_n", "k_over_8", "smem_k1", "smem_k8"],
+)
+def test_auto_raises_outside_the_kernel_reach(n, k):
+    """The last two are the smallest even N whose shared memory exceeds a
+    block's on sm_90, at k=1 and k=8."""
+    b_shape = (1, n) if k is None else (1, n, k)
+    a, b = torch.zeros(1, n, n), torch.zeros(b_shape)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        dispatch.solve_batched(a, b)
+
+
+def test_kernel_reach_boundary():
+    assert fits(794, 1) and not fits(796, 1)
+    assert fits(574, 8) and not fits(576, 8)
+    assert fits(256, 8) and not fits(256, 9) and not fits(255, 1)
+
+
+def test_xla_backend_is_the_library_solve():
+    a, b = _batch(3, 63, seed=4)
+    x = dispatch.solve_batched(
+        torch.from_numpy(a), torch.from_numpy(b), backend="xla")
+    assert x.shape == b.shape
+    assert _resid(a, b, x.numpy()).max() <= 1e-5
+    with pytest.raises(ValueError, match="unknown backend"):
+        dispatch.solve_batched(
+            torch.from_numpy(a), torch.from_numpy(b), backend="pallas")
+
+
+@pytest.mark.parametrize("k", [None, 3], ids=["vector", "matrix"])
+def test_gradient_matches_library_autograd(k):
+    a, b = _batch(2, 32, seed=5, k=k)
+    w = torch.from_numpy(np.random.RandomState(6).randn(*b.shape))
+    grads = []
+    for solve in (
+        lambda at, bt: dispatch.solve_batched(at, bt, backend="auto"),
+        lambda at, bt: (
+            torch.linalg.solve(at, bt.unsqueeze(-1)).squeeze(-1)
+            if k is None else torch.linalg.solve(at, bt)
+        ),
+    ):
+        at = torch.from_numpy(a).requires_grad_()
+        bt = torch.from_numpy(b).requires_grad_()
+        (solve(at, bt) * w.float()).sum().backward()
+        grads.append((at.grad, bt.grad))
+    for got, want in zip(grads[0], grads[1]):
+        err = (got - want).abs().max() / want.abs().max()
+        assert float(err) <= 1e-4
