@@ -6,7 +6,13 @@ imports ``torch`` and numpy only; its hand-written CUDA kernels live in
 ``csrc/`` and are compiled with ``nvcc`` at first use
 (``ops/kernels/_build.py``).
 
-Ported so far: the batched dense solve ``ops.dispatch.solve_batched``
-(random-butterfly preconditioning + pivot-free LU + refinement in one
-kernel launch, with a lane-compacted rescue).
+Ported so far:
+
+- the batched dense solve ``ops.dispatch.solve_batched``
+  (random-butterfly preconditioning + pivot-free LU + refinement in one
+  kernel launch, with a lane-compacted rescue);
+- the batched small-N inverse ``ops.dispatch.inverse_batched`` (the
+  fused RBT inverse with its gate and rescue in one kernel launch, and
+  the pivoted Gauss–Jordan kernel beside it), with ``det_batched`` and
+  ``rank_batched`` on the pivoted kernel.
 """

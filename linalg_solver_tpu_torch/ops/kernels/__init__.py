@@ -1,2 +1,73 @@
 """Hand-written CUDA kernels of the port, each beside its plain PyTorch
-version (counterpart of ``linalg_solver_tpu.ops.pallas``)."""
+version (counterpart of ``linalg_solver_tpu.ops.pallas``).
+
+- ``solve_fused`` — the one-launch RBT solve
+- ``inv_rbt`` — the fused RBT inverse with its in-kernel rescue
+- ``gauss_jordan`` — pivoted Gauss–Jordan: inverse, solve, det, rank
+
+The functions below are the facade ``ops.dispatch`` routes to, as the
+JAX package's ``ops.pallas`` is: ``inverse_batched`` takes the fused RBT
+inverse where it reaches and the pivoted kernel elsewhere; solve, det
+and rank run on the pivoted kernel.  Past the kernels' shared memory
+they raise.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from . import gauss_jordan, inv_rbt
+
+#: augmented width the pivoted kernel needs per op
+_WIDTH = {
+    "inverse": lambda n: 2 * n,
+    "solve": lambda n: n + 1,
+    "det": lambda n: n,
+    "rank": lambda n: n,
+}
+
+
+def supports(op: str, n: int) -> bool:
+    """Whether a kernel takes ``op`` on ``N = n`` (for ``rank``, ``n``
+    is the larger side of the matrix)."""
+    if op not in _WIDTH:
+        return False
+    if op == "inverse" and inv_rbt.fits(n):
+        return True
+    return gauss_jordan.fits(n, _WIDTH[op](n))
+
+
+def _require(op: str, n: int) -> None:
+    if not supports(op, n):
+        raise ValueError(
+            f"{op} at N={n}: past the kernels' shared memory (see "
+            f"gauss_jordan.fits and inv_rbt.fits)")
+
+
+def inverse_batched(a: torch.Tensor) -> torch.Tensor:
+    """Small-N batched inverse: the fused RBT kernel where ``inv_rbt.fits``
+    (in-kernel gate and rescue, no host read), else the pivoted kernel."""
+    n = a.shape[-1]
+    if inv_rbt.fits(n):
+        return inv_rbt.inverse_rbt_fused_batched(a)
+    _require("inverse", n)
+    return gauss_jordan.inverse_batched(a)
+
+
+def solve_batched(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    _require("solve", a.shape[-1])
+    return gauss_jordan.solve_batched(a, b)
+
+
+def det_batched(a: torch.Tensor) -> torch.Tensor:
+    _require("det", a.shape[-1])
+    return gauss_jordan.det_batched(a)
+
+
+def rank_batched(
+    a: torch.Tensor, tol: Optional[torch.Tensor] = None
+) -> torch.Tensor:
+    _require("rank", max(a.shape[-2:]))
+    return gauss_jordan.rank_batched(a, tol=tol)

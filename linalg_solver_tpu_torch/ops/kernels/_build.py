@@ -1,11 +1,13 @@
 """Build and load the port's CUDA kernels.
 
-At first use, every ``csrc/*.cu`` of the package is compiled by ``nvcc``
-for ``sm_90a`` into one shared library with a plain C interface, which
-is loaded with ``ctypes`` (no PyTorch headers, so a build takes seconds).
+At first use, every ``csrc/*.cu`` of the package is compiled by its own
+``nvcc`` for ``sm_90a`` (all started together) and the objects are
+linked into one shared library with a plain C interface, which is
+loaded with ``ctypes`` (no PyTorch headers, so a build takes seconds).
 The library lands in ``linalg_solver_tpu_torch/_build/`` under a name
-that carries a hash of the sources and flags, so it is rebuilt only when
-they change.  Without ``nvcc`` a build raises; there is no fallback.
+that carries a hash of the sources, headers and flags, so it is rebuilt
+only when they change.  Without ``nvcc`` a build raises; there is no
+fallback.
 """
 
 from __future__ import annotations
@@ -21,10 +23,8 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
-)
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -32,6 +32,10 @@ _I = ctypes.c_int
 _SIGNATURES = {
     "solve_fused_rbt_f32": (_I, [_P] * 7 + [_I] * 5 + [_P]),
     "solve_fused_smem_bytes": (ctypes.c_size_t, [_I, _I]),
+    "gauss_jordan_f32": (_I, [_P] * 5 + [_I] * 3 + [_P]),
+    "gj_smem_bytes": (ctypes.c_size_t, [_I, _I]),
+    "inv_rbt_f32": (_I, [_P] * 8 + [_I] * 4 + [_P]),
+    "inv_rbt_smem_bytes": (ctypes.c_size_t, [_I]),
     "kernels_error_string": (ctypes.c_char_p, [_I]),
 }
 
@@ -60,28 +64,50 @@ def _sources() -> list:
 def library_path() -> Path:
     """Where the library for the current sources and flags lives."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    for src in sorted([*CSRC.glob("*.cu"), *CSRC.glob("*.cuh")]):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"libkernels_{h.hexdigest()[:16]}.so"
 
 
+def _run_all(cmds: list) -> None:
+    """Run the commands at once; raise with the output of those that
+    failed, after all have ended."""
+    procs = [
+        subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                         text=True)
+        for cmd in cmds
+    ]
+    failed = []
+    for cmd, proc in zip(cmds, procs):
+        out, err = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}"
+                          f"\n{out}{err}")
+    if failed:
+        raise RuntimeError("\n".join(failed))
+
+
 def build() -> Path:
-    """Compile the sources unless the library for them already exists."""
+    """Compile the sources unless the library for them already exists:
+    one ``nvcc -c`` per source, all at once, then one link."""
     out = library_path()
     if out.exists():
         return out
     nvcc = _nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tag = f"{out.stem}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in _sources()]
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-            f"{proc.stdout}{proc.stderr}"
-        )
-    os.replace(tmp, out)  # atomic: a concurrent build sees all or nothing
+    try:
+        _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+                  for src, obj in zip(_sources(), objs)])
+        _run_all([[nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp),
+                   *map(str, objs)]])
+        os.replace(tmp, out)  # atomic: a concurrent build sees all or none
+    finally:
+        for path in (*objs, tmp):
+            path.unlink(missing_ok=True)
     return out
 
 

@@ -1,0 +1,264 @@
+"""Batched Gauss–Jordan with in-place partial pivoting (counterpart of
+``linalg_solver_tpu.ops.pallas.gj_kernel``), and the inverse, solve,
+determinant and rank built on it.
+
+``gauss_jordan_tiled`` launches ``csrc/gauss_jordan.cu`` (one thread
+block per matrix, the ``[N, W]`` array in shared memory) on a CUDA
+tensor, and runs ``gauss_jordan_reference``, the same steps in plain
+PyTorch vectorised over the batch, on a CPU tensor.  On a CUDA tensor it
+launches the kernel or raises; it never falls back.  ``LAUNCHES``
+counts kernel launches.
+
+Step ``j`` takes as pivot the first row of largest ``|a[:, j]|`` among
+the rows not pivoted yet (a NaN counts as the largest, as in
+``jnp.argmax``).  If its magnitude exceeds the matrix's ``tol`` the row
+is normalised and column ``j`` eliminated from every other row; else the
+column is skipped.  Rows are never swapped: ``perm[j]`` is the physical
+row that holds pivot ``j``.  The pivot row and value are read the way
+the TPU kernel reads them, as a sum of the column times a one-hot mask,
+so a non-finite entry anywhere in a column makes them NaN.
+
+Not ported: the padding of W to a multiple of 8, the identity filler
+to 128 lanes and the ``[N, W, B]`` transpose, which exist for the TPU's
+tiles and lanes.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import torch
+
+#: shared memory a thread block may use on sm_90 (bytes)
+_MAX_SMEM = 232448
+
+#: csrc/gauss_jordan.cu's threads per block (8 warps)
+_NWARP = 8
+
+#: kernel launches since import (or since the caller last reset it)
+LAUNCHES = 0
+
+
+class GJResult(NamedTuple):
+    reduced: torch.Tensor  # [B, N, W] fully reduced array, rows in place
+    perm: torch.Tensor     # [B, N] int32: physical row holding pivot j
+    pivots: torch.Tensor   # [B, N] pivot values in order (0 if skipped)
+
+
+def smem_bytes(n: int, w: int) -> int:
+    """Shared memory the kernel takes for an ``[n, w]`` array, in bytes:
+    the mirror of ``gj_smem_floats`` in ``csrc/gj_pivot.cuh`` (the array
+    with an odd row stride, the staged pivot row, two per-column counts
+    of non-finite entries, and per-row coefficient, pivoted flag, perm,
+    pivot and argmax slots)."""
+    ld = w | 1
+    return 4 * (n * ld + w + 2 * w + 3 * n + n + 2 * _NWARP)
+
+
+def fits(n: int, w: int) -> bool:
+    """Whether the kernel takes an ``[n, w]`` array (``w >= n``)."""
+    return 1 <= n <= w and smem_bytes(n, w) <= _MAX_SMEM
+
+
+def _check(a: torch.Tensor, tol: Optional[torch.Tensor]):
+    if a.dim() != 3 or a.shape[2] < a.shape[1]:
+        raise ValueError(f"a must be [B, N, W >= N]; got {tuple(a.shape)}")
+    if a.is_complex():
+        raise TypeError("gauss_jordan_tiled takes real matrices")
+    B = a.shape[0]
+    a32 = a.to(torch.float32)
+    if tol is None:
+        tol = torch.zeros(B, dtype=torch.float32, device=a.device)
+    if tuple(tol.shape) != (B,):
+        raise ValueError(f"tol must be [{B}]; got {tuple(tol.shape)}")
+    return a32, tol.to(device=a.device, dtype=torch.float32)
+
+
+def gauss_jordan_tiled(
+    a: torch.Tensor, tol: Optional[torch.Tensor] = None
+) -> GJResult:
+    """Eliminate columns ``0..N-1`` of every ``[N, W]`` matrix of ``a``
+    (``W >= N``; columns past N are carried along).  ``tol`` is a
+    per-matrix pivot threshold ``[B]`` (default 0: any nonzero pivot).
+    Other real dtypes are cast to f32."""
+    a32, tol = _check(a, tol)
+    if a32.is_cuda:
+        return _launch(a32, tol)
+    if a32.device.type == "cpu":
+        return gauss_jordan_reference(a32, tol)
+    raise ValueError(f"gauss_jordan_tiled: no kernel for {a32.device}")
+
+
+def _launch(a32: torch.Tensor, tol: torch.Tensor) -> GJResult:
+    global LAUNCHES
+    from . import _build
+
+    B, n, w = a32.shape
+    lib = _build.load()
+    smem = lib.gj_smem_bytes(n, w)
+    if smem > _MAX_SMEM:
+        raise ValueError(
+            f"[{n}, {w}] needs {smem} bytes of shared memory per block; "
+            f"the kernel has {_MAX_SMEM}"
+        )
+    a32 = a32.contiguous()
+    tol = tol.contiguous()
+    dev = a32.device
+    reduced = torch.empty_like(a32)
+    perm = torch.empty(B, n, dtype=torch.int32, device=dev)
+    pivots = torch.empty(B, n, dtype=torch.float32, device=dev)
+    if B == 0:
+        return GJResult(reduced, perm, pivots)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.gauss_jordan_f32(
+            a32.data_ptr(), tol.data_ptr(), reduced.data_ptr(),
+            perm.data_ptr(), pivots.data_ptr(), B, n, w, stream,
+        )
+    _build.check(err, "gauss_jordan launch")
+    LAUNCHES += 1
+    return GJResult(reduced, perm, pivots)
+
+
+def _first_argmax(masked: torch.Tensor) -> torch.Tensor:
+    """``jnp.argmax`` over axis 1 of ``[B, n]``: the first index of the
+    maximum, where a NaN counts as the maximum (the first NaN wins)."""
+    n = masked.shape[1]
+    rows = torch.arange(n, device=masked.device)
+    nan = masked.isnan()
+    top = torch.where(nan, -torch.inf, masked).amax(dim=1, keepdim=True)
+    cand = torch.where(nan.any(dim=1, keepdim=True), nan, masked == top)
+    return torch.where(cand, rows, n).amin(dim=1)
+
+
+def fms(x: torch.Tensor, c: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """``x − c·p`` of f32 tensors as one fused multiply-add (the kernels'
+    ``fmaf``; XLA on the CPU fuses the JAX kernels' ``x - c * p`` the
+    same way).  The product of two f32 is exact in float64; rounding the
+    float64 difference to f32 rounds twice, which differs from one fused
+    rounding only in rare halfway cases, by one unit in the last place."""
+    return (x.double() - c.double() * p.double()).to(torch.float32)
+
+
+def gauss_jordan_reference(
+    a: torch.Tensor, tol: Optional[torch.Tensor] = None
+) -> GJResult:
+    """Plain-PyTorch version of the kernel, vectorised over the batch:
+    the same contract as ``gauss_jordan_tiled`` on any device.  One step
+    is the TPU kernel's, written for a batch: the pivot row and value are
+    one-hot sums, the coefficient is ``where(row == p, 1 − 1/piv,
+    col/piv) · act`` and the update ``row − coeff · pivot_row`` (one
+    rounding, ``fms``)."""
+    arr, tol = _check(a, tol)
+    B, n, w = arr.shape
+    dev, dt = arr.device, arr.dtype
+    rows = torch.arange(n, device=dev)
+    pivoted = torch.zeros(B, n, dtype=torch.bool, device=dev)
+    perm = torch.zeros(B, n, dtype=torch.int32, device=dev)
+    pivs = torch.zeros(B, n, dtype=dt, device=dev)
+    for j in range(n):
+        col = arr[:, :, j]
+        masked = torch.where(pivoted, -torch.inf, col.abs())
+        p = _first_argmax(masked)
+        is_p = rows[None, :] == p[:, None]
+        oh = is_p.to(dt)
+        pivot_val = (col * oh).sum(dim=1)
+        has = pivot_val.abs() > tol
+        inv_piv = 1.0 / torch.where(has, pivot_val, 1.0)
+        pivot_row = (arr * oh[:, :, None]).sum(dim=1)
+        coeff = torch.where(
+            is_p, 1.0 - inv_piv[:, None], col * inv_piv[:, None]
+        ) * has.to(dt)[:, None]
+        arr = fms(arr, coeff[:, :, None], pivot_row[:, None, :])
+        pivoted = pivoted | (is_p & has[:, None])
+        perm[:, j] = p.to(torch.int32)
+        pivs[:, j] = torch.where(has, pivot_val, 0.0)
+    return GJResult(arr, perm, pivs)
+
+
+def _perm_parity(perm: torch.Tensor) -> torch.Tensor:
+    """Sign of the pivot-order permutation, ±1 f32, by counting
+    inversions."""
+    n = perm.shape[-1]
+    pi = perm.to(torch.int64)
+    idx = torch.arange(n, device=perm.device)
+    k_lt_l = idx[:, None] < idx[None, :]
+    inversions = ((pi[..., :, None] > pi[..., None, :]) & k_lt_l).sum(
+        dim=(-2, -1))
+    return torch.where(inversions % 2 == 0, 1.0, -1.0)
+
+
+def take_rows(src: torch.Tensor, perm: torch.Tensor) -> torch.Tensor:
+    """``src[b, perm[b, j], :]`` for ``src [B, n, k]``."""
+    return torch.take_along_dim(src, perm.long()[:, :, None], dim=1)
+
+
+def _like(x: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
+    """The f32 result ``x`` in the dtype of a floating input ``a``, as
+    ``inv_rbt.inverse_rbt_fused_batched`` returns it."""
+    return x.to(a.dtype) if a.is_floating_point() else x
+
+
+def _inverse(a: torch.Tensor, eliminate) -> torch.Tensor:
+    """Pivoted inverse through ``eliminate`` (the kernel or its plain
+    version) on ``[A | I]``: row j of ``A⁻¹`` is physical row ``perm[j]``
+    of the right half."""
+    B, n, _ = a.shape
+    eye = torch.eye(n, dtype=torch.float32, device=a.device).expand(B, n, n)
+    res = eliminate(torch.cat([a.to(torch.float32), eye], dim=2))
+    return take_rows(res.reduced[:, :, n:], res.perm)
+
+
+def inverse_batched(a: torch.Tensor) -> torch.Tensor:
+    """Batched inverse by the pivoted kernel on ``[A | I]``."""
+    return _like(_inverse(a, gauss_jordan_tiled), a)
+
+
+def inverse_reference(a: torch.Tensor) -> torch.Tensor:
+    """Plain version of ``inverse_batched`` (f32), on any device."""
+    return _inverse(a, gauss_jordan_reference)
+
+
+def solve_batched(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Batched unique-solution solve by the pivoted kernel on
+    ``[A | b]``; ``b`` is ``[B, N]`` or ``[B, N, k]``."""
+    n = a.shape[-1]
+    vector_input = b.dim() == 2
+    rhs = b[:, :, None] if vector_input else b
+    res = gauss_jordan_tiled(
+        torch.cat([a.to(torch.float32), rhs.to(torch.float32)], dim=2))
+    x = take_rows(res.reduced[:, :, n:], res.perm)
+    return _like(x[:, :, 0] if vector_input else x, a)
+
+
+def det_batched(a: torch.Tensor) -> torch.Tensor:
+    """Batched determinant: parity(pivot order) × Π pivot values."""
+    res = gauss_jordan_tiled(a)
+    return _like(_perm_parity(res.perm) * torch.prod(res.pivots, dim=-1), a)
+
+
+def default_rank_tol(a: torch.Tensor) -> torch.Tensor:
+    """``rank_batched``'s default per-matrix threshold for ``a [B, M, N]``.
+    Gauss–Jordan residues are larger than an SVD's, so it is 100x the
+    usual max(M, N)·eps·max|A| rank tolerance."""
+    eps = torch.finfo(torch.float32).eps
+    return max(a.shape[-2:]) * 100 * eps * a.to(torch.float32).abs().amax(
+        dim=(1, 2))
+
+
+def rank_batched(
+    a: torch.Tensor, tol: Optional[torch.Tensor] = None
+) -> torch.Tensor:
+    """Batched numerical rank (pivots above a per-matrix tolerance
+    ``tol [B]``); rectangular input is square-padded with zeros."""
+    B, m, n = a.shape
+    a32 = a.to(torch.float32)
+    if m != n:
+        size = max(m, n)
+        padded = a32.new_zeros(B, size, size)
+        padded[:, :m, :n] = a32
+        a32 = padded
+    if tol is None:
+        tol = default_rank_tol(a32)
+    res = gauss_jordan_tiled(a32, tol=tol)
+    return (res.pivots.abs() > 0).sum(dim=-1).to(torch.int32)

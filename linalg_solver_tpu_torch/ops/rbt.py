@@ -89,6 +89,29 @@ def default_diags(
     )
 
 
+#: generator seed of the inverse's Rademacher probe (a PRNG key in the
+#: JAX package, as the butterfly seeds are)
+PROBE_SEED = 83
+
+
+@functools.lru_cache(maxsize=16)
+def default_probe(n: int, device: str) -> torch.Tensor:
+    """The seeded Rademacher probe of the inverse's gate: ``[n]`` f32 of
+    ±1 drawn on a CPU generator seeded ``PROBE_SEED``, moved to
+    ``device``.  Cached like ``default_diags``."""
+    g = torch.Generator().manual_seed(PROBE_SEED)
+    bits = torch.randint(0, 2, (n,), generator=g, dtype=torch.int64)
+    return (2.0 * bits - 1.0).to(torch.float32).to(device)
+
+
+def probe_from_numpy(
+    v: np.ndarray, device: torch.device | str = "cpu"
+) -> torch.Tensor:
+    """The JAX package's probe (``jax.random.rademacher`` as a numpy
+    array) → the port's ``[n]`` f32 tensor."""
+    return torch.from_numpy(np.asarray(v, np.float32).copy()).to(device)
+
+
 def _bf_level(x: torch.Tensor, r: torch.Tensor, seg: int, trans: bool):
     """One butterfly level along axis 1 of ``x [B, N, K]``: block-diag of
     ``N/seg`` butterflies ``(1/√2)[[R0, R1], [R0, −R1]]`` with per-level

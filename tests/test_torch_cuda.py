@@ -11,15 +11,22 @@ import pytest
 import torch
 
 from linalg_solver_tpu_torch.ops import dispatch, rbt
+from linalg_solver_tpu_torch.ops.kernels import gauss_jordan as gj
+from linalg_solver_tpu_torch.ops.kernels import inv_rbt
 from linalg_solver_tpu_torch.ops.kernels import solve_fused as sf
 from linalg_solver_tpu_torch.utils import systems
 
-# The kernel's panel-blocked LU and FMA contraction round differently
-# from the plain version's rank-1 updates; both refine to the solution
-# of a well-conditioned system, so they agree to a few f32 roundings of
-# it (≤ 5e-7 measured on an H100).  1e-5 relative is the bound
-# chip_smoke.py holds them to; the unrefined solution of the small-pivot
-# probe system misses it by ~100x.
+# The solve kernel's panel-blocked LU and FMA contraction round
+# differently from the plain version's rank-1 updates; both refine to
+# the solution of a well-conditioned system, so they agree to a few f32
+# roundings of it (≤ 5e-7 measured on an H100).  The inverse kernels run
+# the plain versions' operations in the same order and agree to the bit
+# or within a rounding (≤ 3.7e-9 relative measured on an H100): the
+# probe's sums run in another order, and the plain version rounds its
+# fused multiply-adds twice.
+# 1e-5 relative is the bound chip_smoke.py holds all three to; the
+# unrefined solution of the small-pivot probe system misses it by
+# ~1000x, and the inverse without its rescue misses the flags.
 RTOL = 1e-5
 
 
@@ -41,12 +48,12 @@ def _batch(B, N, seed, k=None, dev="cpu"):
 
 def _probe(a, U, V):
     """Systems 2 (zero) and 5 (NaN) flagged; 6 with a zero leading minor
-    (flagged only without the butterfly); 7 with a 1e-3 first pivot
-    after the butterfly (off by ~1e-3 without refinement)."""
+    (flagged only without the butterfly); 7 with a SMALL_PIVOT first
+    pivot after the butterfly (off by ≥ 2e-3 without refinement)."""
     a[2] = 0.0
     a[5, 3, 7] = float("nan")
     a[6] = systems.zero_minor_system(a[6])
-    a[7] = systems.pivot_system(a[7], U, V, 1e-3)
+    a[7] = systems.pivot_system(a[7], U, V, systems.SMALL_PIVOT)
     return a
 
 
@@ -108,13 +115,16 @@ def test_kernel_ir_steps(cuda, ir_steps):
 @pytest.mark.cuda
 def test_kernel_check_sees_missing_refinement(cuda):
     """The comparison above fails for the kernel run without refinement:
-    its small-pivot system is off by far more than RTOL."""
+    the values of its small-pivot system 7 are off by far more than
+    RTOL, whether or not the loose unrefined gate also flags it."""
     a, b = _batch(8, 64, seed=65, dev=cuda)
     U, V = rbt.default_diags(64, rbt.MAIN_SEEDS, str(cuda))
     a = _probe(a, U, V)
-    x0, bad0 = sf.solve_fused_rbt(a, b, U, V, ir_steps=0)
+    x0, _ = sf.solve_fused_rbt(a, b, U, V, ir_steps=0)
     x_ref, bad_ref = sf.solve_fused_rbt_reference(a, b, U, V)
-    assert _worst_rel(x0, bad0, x_ref, bad_ref) > 10 * RTOL
+    assert not bool(bad_ref[7])
+    err = (x0[7] - x_ref[7]).abs().max() / x_ref[7].abs().max()
+    assert float(err) > 10 * RTOL
 
 
 @pytest.mark.cuda
@@ -176,3 +186,154 @@ def test_main_path_gradient(cuda):
         grads.append((at.grad, bt.grad))
     for got, want in zip(*grads):
         assert float((got - want).abs().max() / want.abs().max()) <= 1e-4
+
+
+def _inverse_probe(B, n, seed, dev):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    a = torch.randn(B, n, n, generator=g, device=dev)
+    a += 4.0 * n**0.5 * torch.eye(n, device=dev)
+    draw = rbt.default_diags(n, rbt.MAIN_SEEDS, str(dev))
+    redraw = rbt.default_diags(n, rbt.RESCUE_SEEDS, str(dev))
+    return systems.inverse_probe_batch(a, draw, redraw), draw, redraw
+
+
+def _rel_per_matrix(x, x_ref):
+    d = (x - x_ref).abs().amax(dim=(1, 2))
+    return d / x_ref.abs().amax(dim=(1, 2)).clamp_min(1e-30)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,n", [(8, 32), (8, 64), (8, 128), (8, 164),
+                                 (1024, 64)])
+@pytest.mark.parametrize("rescue", [True, False])
+def test_inverse_kernel_matches_plain_version(cuda, B, n, rescue):
+    a, draw, redraw = _inverse_probe(B, n, n + B, cuda)
+    probe = rbt.default_probe(n, str(cuda))
+    before = inv_rbt.LAUNCHES
+    x, bad = inv_rbt.inverse_rbt_fused(a, draw, redraw, probe, rescue)
+    torch.cuda.synchronize()
+    assert inv_rbt.LAUNCHES == before + 1
+    x_ref, bad_ref = inv_rbt.inverse_rbt_fused_reference(
+        a, draw, redraw, probe, rescue)
+    assert torch.equal(bad, bad_ref)
+    want = systems.INVERSE_FLAGGED if rescue else [1, 2, 4, 5, 6]
+    assert bad.nonzero().flatten().tolist() == want
+    assert torch.equal(torch.isfinite(x), torch.isfinite(x_ref))
+    use = ~bad
+    use[6] = rescue          # level 3: flagged, but its X is right
+    assert float(_rel_per_matrix(x, x_ref)[use].max()) <= RTOL
+
+
+@pytest.mark.cuda
+def test_inverse_check_sees_a_missing_rescue(cuda):
+    """The kernel without levels 2 and 3 fails the comparison with the
+    full plain version: its flags differ."""
+    a, draw, redraw = _inverse_probe(8, 64, 3, cuda)
+    probe = rbt.default_probe(64, str(cuda))
+    _, bad = inv_rbt.inverse_rbt_fused(a, draw, redraw, probe, rescue=False)
+    _, bad_ref = inv_rbt.inverse_rbt_fused_reference(a, draw, redraw, probe)
+    assert not torch.equal(bad, bad_ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,w", [(8, 9), (33, 66), (63, 126), (64, 128),
+                                 (100, 101), (167, 334), (236, 236)])
+def test_gauss_jordan_kernel_matches_plain_version(cuda, n, w):
+    g = torch.Generator(device=cuda).manual_seed(n + w)
+    a = torch.randn(6, n, w, generator=g, device=cuda)
+    a[1, :, 0] = 0.0                       # a skipped column
+    a[2, 3, 5] = float("nan")
+    a[3] = 0.0
+    tol = torch.tensor([0.0, 0.0, 0.0, 0.0, 1e-2, 3.0], device=cuda)
+    before = gj.LAUNCHES
+    r = gj.gauss_jordan_tiled(a, tol)
+    torch.cuda.synchronize()
+    assert gj.LAUNCHES == before + 1
+    p = gj.gauss_jordan_reference(a, tol)
+    assert torch.equal(r.perm, p.perm)
+    fin = torch.isfinite(r.reduced)
+    assert torch.equal(fin, torch.isfinite(p.reduced))
+    for i in range(6):
+        if fin[i].all():
+            err = (r.reduced[i] - p.reduced[i]).abs().max()
+            assert float(err) <= RTOL * float(p.reduced[i].abs().max()), i
+    torch.testing.assert_close(r.pivots, p.pivots, rtol=RTOL, atol=0,
+                               equal_nan=True)
+
+
+@pytest.mark.cuda
+def test_inverse_smem_mirrors_match_the_kernels(cuda):
+    from linalg_solver_tpu_torch.ops.kernels import _build
+
+    lib = _build.load()
+    for n in range(1, 250):
+        for w in (n, n + 1, 2 * n):
+            assert lib.gj_smem_bytes(n, w) == gj.smem_bytes(n, w)
+    for n in range(4, 200, 4):
+        assert lib.inv_rbt_smem_bytes(n) == inv_rbt.smem_bytes(n)
+    with pytest.raises(ValueError, match="shared memory"):
+        gj.gauss_jordan_tiled(torch.zeros(1, 238, 238, device=cuda))
+
+
+@pytest.mark.cuda
+def test_inverse_main_path_launches_kernel_2_once(cuda):
+    g = torch.Generator(device=cuda).manual_seed(0)
+    a = torch.randn(256, 64, 64, generator=g, device=cuda)
+    a += 32.0 * torch.eye(64, device=cuda)
+    x_clean = dispatch.inverse_batched(a)
+    a[3, :16, :16] = 0.0
+    a[7] = 0.0
+    draw = rbt.default_diags(64, rbt.MAIN_SEEDS, str(cuda))
+    redraw = rbt.default_diags(64, rbt.RESCUE_SEEDS, str(cuda))
+    a[11] = systems.two_draw_zero_pivot_system(a[11], draw, redraw)
+    counts = (inv_rbt.LAUNCHES, gj.LAUNCHES)
+    x = dispatch.inverse_batched(a)
+    torch.cuda.synchronize()
+    assert (inv_rbt.LAUNCHES, gj.LAUNCHES) == (counts[0] + 1, counts[1])
+    eye = torch.eye(64, device=cuda, dtype=torch.float64)
+    r = (a.double() @ x.double() - eye).abs().amax(dim=(1, 2))
+    keep = [i for i in range(256) if i not in (3, 7, 11)]
+    assert float(r[keep].max()) <= 5e-5
+    assert float(r[3]) <= 1e-2 and float(r[11]) <= 1e-5
+    for i in keep:
+        assert torch.equal(x[i], x_clean[i]), i
+
+
+@pytest.mark.cuda
+def test_pivoted_facade_on_the_card(cuda):
+    """N = 63 is not a multiple of 4: the inverse goes to kernel 3, as do
+    det and rank."""
+    g = torch.Generator(device=cuda).manual_seed(1)
+    a = torch.randn(16, 63, 63, generator=g, device=cuda)
+    a += 4.0 * 63**0.5 * torch.eye(63, device=cuda)
+    counts = (inv_rbt.LAUNCHES, gj.LAUNCHES)
+    x = dispatch.inverse_batched(a)
+    torch.cuda.synchronize()
+    assert (inv_rbt.LAUNCHES, gj.LAUNCHES) == (counts[0], counts[1] + 1)
+    eye = torch.eye(63, device=cuda, dtype=torch.float64)
+    assert float((a.double() @ x.double() - eye).abs().max()) <= 5e-5
+    s = torch.eye(63, device=cuda) + 0.1 * torch.randn(
+        16, 63, 63, generator=g, device=cuda) / 63**0.5
+    d = dispatch.det_batched(s)
+    torch.testing.assert_close(d.double(), torch.linalg.det(s.double()),
+                               rtol=1e-4, atol=0)
+    low = s[:, :, :5] @ s[:, :5, :]
+    assert dispatch.rank_batched(low).tolist() == [5] * 16
+
+
+@pytest.mark.cuda
+def test_inverse_and_det_gradients(cuda):
+    g = torch.Generator(device=cuda).manual_seed(2)
+    a = torch.eye(32, device=cuda) + 0.2 * torch.randn(
+        4, 32, 32, generator=g, device=cuda)
+    w = torch.randn(4, 32, 32, generator=g, device=cuda)
+    for ours, lib in ((dispatch.inverse_batched, torch.linalg.inv),
+                      (dispatch.det_batched, torch.linalg.det)):
+        grads = []
+        for fn in (ours, lib):
+            at = a.clone().requires_grad_()
+            out = fn(at)
+            (out * (w if out.dim() == 3 else w[:, 0, 0])).sum().backward()
+            grads.append(at.grad)
+        err = (grads[0] - grads[1]).abs().max() / grads[1].abs().max()
+        assert float(err) <= 1e-4

@@ -1,0 +1,175 @@
+"""The port's batched inverse, determinant and rank as a whole:
+``linalg_solver_tpu_torch.ops.dispatch`` with ``backend="auto"`` against
+the JAX package's ``ops.pallas`` facade, its kernels run in interpret
+mode (``inverse_rbt_fused_batched`` where ``inv_rbt_kernel.supported``,
+else ``gj_kernel``), on the same numpy inputs.
+
+The port's default draws (torch generators) differ from the JAX
+threefry draws, so the two inverses agree to f32 rounding of the
+inverse: 1e-4 of its largest entry, and a float64 residual
+``max|A X − I| ≤ 5e-5``.  The pivoted kernel's results (det, rank, the
+inverse at N % 4 ≠ 0) need no draw and agree to 1e-5."""
+
+import numpy as np
+import pytest
+
+import jax.numpy as jnp
+import torch
+
+from linalg_solver_tpu.ops.pallas import gj_kernel as jgj
+from linalg_solver_tpu.ops.pallas import inv_rbt_kernel as jinv
+from linalg_solver_tpu_torch.ops import dispatch
+from linalg_solver_tpu_torch.ops.kernels import gauss_jordan as gj
+from linalg_solver_tpu_torch.ops.kernels import inv_rbt
+
+
+def _batch(B, n, seed):
+    rng = np.random.RandomState(seed)
+    return (rng.randn(B, n, n) + 4.0 * np.sqrt(n) * np.eye(n)).astype(
+        np.float32)
+
+
+def _jax_facade_inverse(a):
+    if jinv.supported(a.shape[-1]):
+        return np.asarray(jinv.inverse_rbt_fused_batched(
+            jnp.asarray(a), interpret=True))
+    return np.asarray(jgj.inverse_batched(jnp.asarray(a), interpret=True))
+
+
+def _resid(a, x):
+    n = a.shape[-1]
+    r = np.einsum("bij,bjk->bik", a.astype(np.float64),
+                  x.astype(np.float64)) - np.eye(n)
+    return np.abs(r).max(axis=(1, 2))
+
+
+@pytest.mark.parametrize("n,rtol", [(64, 1e-4), (32, 1e-4), (30, 1e-5)],
+                         ids=["rbt64", "rbt32", "pivoted30"])
+def test_inverse_auto_matches_jax_facade(n, rtol):
+    a = _batch(6, n, seed=n)
+    a[2, : n // 4, : n // 4] = 0.0      # the butterfly (or pivoting) needed
+    before = (inv_rbt.LAUNCHES, gj.LAUNCHES)
+    xt = dispatch.inverse_batched(torch.from_numpy(a)).numpy()
+    assert (inv_rbt.LAUNCHES, gj.LAUNCHES) == before   # CPU: plain versions
+    xj = _jax_facade_inverse(a)
+    assert xt.shape == a.shape and xt.dtype == np.float32
+    for i in range(6):
+        err = np.abs(xt[i] - xj[i]).max()
+        assert err <= rtol * np.abs(xj[i]).max(), (i, err)
+    r = _resid(a, xt)
+    assert r[[0, 1, 3, 4, 5]].max() <= 5e-5
+    # growth under the butterfly and no refinement: the probe's own
+    # bound (the JAX tests hold such matrices to 1e-2 as well)
+    assert r[2] <= 1e-2
+
+
+def test_inverse_singular_matrix_is_contained():
+    """A singular matrix comes back as garbage; the others are exact."""
+    a = _batch(4, 16, seed=3)
+    a[1] = 0.0
+    xt = dispatch.inverse_batched(torch.from_numpy(a)).numpy()
+    keep = [0, 2, 3]
+    assert _resid(a[keep], xt[keep]).max() <= 5e-5
+
+
+@pytest.mark.parametrize("n", [16, 63])
+def test_det_auto_matches_jax_facade(n):
+    rng = np.random.RandomState(n)
+    a = (np.eye(n) + 0.1 * rng.randn(4, n, n) / np.sqrt(n)).astype(
+        np.float32)
+    a[3, [0, 1]] = a[3, [1, 0]]
+    dj = np.asarray(jgj.det_batched(jnp.asarray(a), interpret=True))
+    dt = dispatch.det_batched(torch.from_numpy(a)).numpy()
+    np.testing.assert_allclose(dt, dj, rtol=1e-5)
+    assert dt[3] < 0
+
+
+def test_rank_auto_matches_jax_facade():
+    rng = np.random.RandomState(7)
+    low = np.einsum("bik,bkj->bij", rng.randn(2, 12, 4), rng.randn(2, 4, 9))
+    a = np.concatenate([low, rng.randn(2, 12, 9)]).astype(np.float32)
+    rj = np.asarray(jgj.rank_batched(jnp.asarray(a), interpret=True))
+    rt = dispatch.rank_batched(torch.from_numpy(a))
+    assert rt.dtype == torch.int32
+    assert rt.tolist() == rj.tolist() == [4, 4, 9, 9]
+    tol = torch.full((4,), 1e3)
+    assert dispatch.rank_batched(torch.from_numpy(a), tol=tol).tolist() \
+        == [0, 0, 0, 0]
+
+
+@pytest.mark.parametrize(
+    "op,n",
+    [("inverse", 168), ("inverse", 169), ("det", 238), ("rank", 238)],
+)
+def test_auto_raises_past_the_kernels_reach(op, n):
+    """168 is the first multiple of 4 past the fused inverse's shared
+    memory, 169 the first N past the pivoted inverse's, 238 past the
+    pivoted [N, N] tile's."""
+    a = torch.zeros(1, n, n)
+    fn = {"inverse": dispatch.inverse_batched, "det": dispatch.det_batched,
+          "rank": dispatch.rank_batched}[op]
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        fn(a)
+
+
+@pytest.mark.parametrize("n", [168, 237])
+def test_auto_det_with_a_gradient_raises_where_the_inverse_stops(n):
+    """det reaches N = 237 but its backward needs the inverse, which stops
+    at 167: with a gradient it raises before the forward, not in the
+    backward; without one it runs."""
+    a = torch.eye(n)[None]
+    with pytest.raises(NotImplementedError, match="ROADMAP.*item 7"):
+        dispatch.det_batched(a.clone().requires_grad_())
+    assert dispatch.det_batched(a).tolist() == [1.0]
+
+
+@pytest.mark.parametrize("n", [32, 30], ids=["rbt", "pivoted"])
+def test_float64_input_comes_back_float64_on_each_route(n):
+    """The kernels compute in f32 on either route; the result takes the
+    input's floating dtype."""
+    a = torch.from_numpy(_batch(2, n, seed=4).astype(np.float64))
+    x = dispatch.inverse_batched(a)
+    assert x.dtype == torch.float64
+    assert _resid(a.numpy(), x.numpy()).max() <= 5e-5
+    s = torch.eye(n, dtype=torch.float64) + a / (40.0 * n)  # |det| ~ 1
+    d = dispatch.det_batched(s)
+    assert d.dtype == torch.float64
+    torch.testing.assert_close(d, torch.linalg.det(s), rtol=1e-4, atol=0)
+    assert gj.solve_batched(a, a[:, :, 0]).dtype == torch.float64
+
+
+def test_xla_backend_is_the_library():
+    a = torch.from_numpy(_batch(3, 20, seed=2))
+    torch.testing.assert_close(dispatch.inverse_batched(a, "xla"),
+                               torch.linalg.inv(a))
+    torch.testing.assert_close(dispatch.det_batched(a, "xla"),
+                               torch.linalg.det(a))
+    assert dispatch.rank_batched(a, "xla").tolist() == [20] * 3
+    with pytest.raises(ValueError, match="unknown backend"):
+        dispatch.inverse_batched(a, backend="rbt")
+
+
+@pytest.mark.parametrize("backend", ["auto", "pallas"])
+def test_inverse_gradient_matches_library_autograd(backend):
+    a = _batch(2, 16, seed=5)
+    w = torch.from_numpy(np.random.RandomState(6).randn(2, 16, 16)).float()
+    grads = []
+    for inv in (lambda t: dispatch.inverse_batched(t, backend),
+                torch.linalg.inv):
+        at = torch.from_numpy(a).requires_grad_()
+        (inv(at) * w).sum().backward()
+        grads.append(at.grad)
+    err = (grads[0] - grads[1]).abs().max() / grads[1].abs().max()
+    assert float(err) <= 1e-4
+
+
+def test_det_gradient_matches_library_autograd():
+    rng = np.random.RandomState(8)
+    a = (np.eye(12) + 0.2 * rng.randn(3, 12, 12)).astype(np.float32)
+    grads = []
+    for det in (dispatch.det_batched, torch.linalg.det):
+        at = torch.from_numpy(a).requires_grad_()
+        (det(at) * torch.tensor([1.0, -2.0, 0.5])).sum().backward()
+        grads.append(at.grad)
+    err = (grads[0] - grads[1]).abs().max() / grads[1].abs().max()
+    assert float(err) <= 1e-4
