@@ -1,5 +1,5 @@
 """Drive the PyTorch port's batched solve and batched inverse once on a
-CUDA card.
+CUDA card, through the fused kernels and through the RBT phase engine.
 
     python3 chip_smoke.py
 
@@ -30,7 +30,24 @@ uncaught exception and a non-zero exit:
    of 4), ``det_batched`` and ``rank_batched``, then hold the kernel
    against its plain version on the arrays that path gave it;
 9. time both inverse kernels, their plain versions,
-   ``inverse_batched(auto)`` and ``torch.linalg.inv``.
+   ``inverse_batched(auto)`` and ``torch.linalg.inv``;
+10. hold the phase engine's two-sided butterfly kernel against its plain
+    version, bitwise (depth 1 and 2, both directions, N = 64, 256, 896),
+    and show that the check fails for the kernel with its sides flipped;
+    hold its no-pivot panel kernel against its plain version on probe
+    panels (a zero pivot, a NaN, an Inf) with the flags equal;
+11. hold the phase solve on the card against the same engine on the CPU
+    (the plain versions) and show that the check fails for the card's
+    solve without refinement;
+12. drive the phase engine's paths: ``solve_batched(auto)`` at B=256,
+    N=256 with k=16 RHS columns (one butterfly launch, eight panel
+    launches, no fused one), ``inverse_batched(auto)`` at B=256, N=256
+    (two butterfly launches, four panel launches) and the solve at N=896,
+    k=1, past the fused kernel; hold both kernels against their plain
+    versions on the arrays the first two paths gave them; then the rescue
+    cases of both paths;
+13. time both kernels, their plain versions, the two paths and
+    ``torch.linalg.solve`` / ``torch.linalg.inv``.
 
 The line before the last is a JSON summary of the kernels; the last
 line is ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -50,6 +67,8 @@ TOL_RESID = 1e-5       # worst-system relative residual, float64
 FLAGGED = [2, 5]       # probe systems the kernel must flag (probe_batch)
 B_INV, N_INV = 1024, 64
 TOL_INV = 5e-5         # worst-matrix max|A X - I|, float64
+K_PHASE = 16           # RHS columns of the phase engine's solve path
+N_REACH = 896          # past the fused kernel's reach at k=1
 
 
 def card_line() -> str:
@@ -335,6 +354,371 @@ def time_inverse(dev, card):
     return times
 
 
+def nan_equal(x, y) -> bool:
+    """Bitwise equal, NaN where the other is NaN."""
+    return bool(((x == y) | (x.isnan() & y.isnan())).all())
+
+
+def record(module, name):
+    """Wrap ``module.name`` so that every call's arguments and result are
+    kept (the phase engine looks its kernels up at each call).  Returns
+    the list of calls and a function that takes the wrapper off."""
+    calls = []
+    orig = getattr(module, name)
+
+    def wrapped(*args):
+        out = orig(*args)
+        calls.append((args, out))
+        return out
+
+    setattr(module, name, wrapped)
+    return calls, lambda: setattr(module, name, orig)
+
+
+def hold_panels(calls, what):
+    """Kernel 5's results on ``calls`` (recorded launches) against its
+    plain version: flags and non-finite pattern equal, values within
+    TOL_KERNEL of each panel's largest entry.  Returns (max abs diff,
+    number of panels bitwise equal, number of panels)."""
+    from linalg_solver_tpu_torch.ops.kernels import lu_nopivot
+
+    worst = abs_err = 0.0
+    bitwise = 0
+    for (panel, nb), (x, ok) in calls:
+        ref, ok_ref = lu_nopivot.panel_factor_nopivot_reference(panel, nb)
+        fin = torch.isfinite(x)
+        if not (torch.equal(ok, ok_ref)
+                and torch.equal(fin, torch.isfinite(ref))):
+            raise AssertionError(f"panel kernel {what}: flags or non-finite "
+                                 f"pattern differ at [{panel.shape[1]}, {nb}]")
+        keep = fin.flatten(1).all(dim=1)
+        diff = (x - ref).abs().amax(dim=(1, 2))[keep]
+        scale = ref.abs().amax(dim=(1, 2))[keep].clamp_min(1e-30)
+        worst = max(worst, float((diff / scale).max()) if keep.any() else 0.0)
+        abs_err = max(abs_err, float(diff.max()) if keep.any() else 0.0)
+        bitwise += nan_equal(x, ref)
+    print(f"panel kernel vs plain {what}: {len(calls)} launches, "
+          f"{bitwise} bitwise equal, flags equal, max rel diff {worst:.3e} "
+          f"(tol {TOL_KERNEL})")
+    if not worst <= TOL_KERNEL:
+        raise AssertionError(f"panel kernel disagrees with plain version "
+                             f"{what}: {worst}")
+    return abs_err, bitwise, len(calls)
+
+
+def abs_diff(x, ref) -> float:
+    """Max |x - ref| where both are finite."""
+    both = torch.isfinite(x) & torch.isfinite(ref)
+    return float((x - ref)[both].abs().max()) if both.any() else 0.0
+
+
+def hold_butterflies(calls, what):
+    """Kernel 4's results on ``calls`` against its plain version, bitwise.
+    Returns the max absolute difference (0.0 when bitwise)."""
+    from linalg_solver_tpu_torch.ops.kernels import butterfly
+
+    err = 0.0
+    for args, x in calls:
+        ref = butterfly.butterfly_two_sided_reference(*args)
+        if not nan_equal(x, ref):
+            raise AssertionError(f"butterfly kernel disagrees with plain "
+                                 f"version {what}")
+        err = max(err, abs_diff(x, ref))
+    print(f"butterfly kernel vs plain {what}: {len(calls)} launches, all "
+          f"bitwise equal (max abs diff {err:.3e})")
+    return err
+
+
+def check_phase_kernels(dev):
+    """Phase 10: kernels 4 and 5 against their plain versions.  Returns
+    kernel 4's max absolute difference."""
+    from linalg_solver_tpu_torch.ops import rbt
+    from linalg_solver_tpu_torch.ops.kernels import butterfly, lu_nopivot
+
+    err = 0.0
+    for n, bsz in ((64, 8), (256, B), (896, 8)):
+        a = inverse_batch(bsz, n, 300 + n, dev)
+        a[1, 2, 3] = float("inf")
+        U, V = rbt.default_diags(n, rbt.MAIN_SEEDS, str(dev))
+        for depth in (1, 2):
+            for trans in (True, False):
+                x = butterfly.butterfly_two_sided(a, U, V, depth, trans, trans)
+                torch.cuda.synchronize()
+                ref = butterfly.butterfly_two_sided_reference(
+                    a, U, V, depth, trans, trans)
+                same = nan_equal(x, ref)
+                print(f"butterfly kernel vs plain B={bsz} N={n} depth={depth} "
+                      f"trans={trans}: bitwise equal {same}")
+                if not same:
+                    raise AssertionError("butterfly kernel disagrees with its "
+                                         "plain version")
+                err = max(err, abs_diff(x, ref))
+        if n == 256:
+            # the same check must fail for the kernel with its sides flipped
+            x0 = butterfly.butterfly_two_sided(a, U, V, 2, False, False)
+            ref = butterfly.butterfly_two_sided_reference(a, U, V, 2, True,
+                                                          True)
+            miss = float((x0 - ref)[2:].abs().max())
+            print(f"control, butterfly kernel trans=False vs plain trans=True "
+                  f"N=256: max abs diff {miss:.3e} (must exceed 1e-2)")
+            if not miss > 1e-2:
+                raise AssertionError("the butterfly check cannot see a "
+                                     "flipped side")
+
+    calls = []
+    for m, nb in ((40, 8), (256, 32), (256, 64), (896, 64)):
+        g = torch.Generator(device=dev).manual_seed(m + nb)
+        p = torch.randn(6, m, nb, generator=g, device=dev)
+        p[:, torch.arange(nb), torch.arange(nb)] += 4.0 * nb**0.5
+        p[1, :, 3] = 0.0                    # a zero pivot
+        p[2, 5, 1] = float("nan")           # a NaN that reaches a pivot
+        p[3, m - 1, 2] = float("inf")       # an Inf below the square part
+        p[4, 2, 2] = float("nan")           # a NaN pivot
+        out = lu_nopivot.panel_factor_nopivot(p, nb)
+        torch.cuda.synchronize()
+        if out[1].tolist() != [True, False, False, False, False, True]:
+            raise AssertionError(f"panel kernel flags {out[1].tolist()}")
+        calls.append(((p, nb), out))
+    hold_panels(calls, "on probe panels")
+    return err
+
+
+def phase_compare(x, bad, x_ref, bad_ref):
+    """(max relative difference over the unflagged systems, what else
+    differs or None) of two phase solves: flags equal, and the unflagged
+    systems finite in both."""
+    if not torch.equal(bad, bad_ref):
+        return 0.0, f"flags {bad.tolist()} vs {bad_ref.tolist()}"
+    use = ~bad
+    if not (bool(torch.isfinite(x[use]).all())
+            and bool(torch.isfinite(x_ref[use]).all())):
+        return 0.0, "an unflagged system is not finite"
+    diff = (x - x_ref).abs().amax(dim=(1, 2))[use]
+    rel = diff / x_ref.abs().amax(dim=(1, 2))[use].clamp_min(1e-30)
+    return float(rel.max()), None
+
+
+def check_phase_solve(dev):
+    """Phase 11: the phase solve on the card against the same engine on
+    the CPU (plain versions), f32 glue; and the control without
+    refinement."""
+    from linalg_solver_tpu_torch.ops import rbt
+
+    n = 64
+    du, dv = rbt.default_diags(n, rbt.MAIN_SEEDS, str(dev))
+    a, b = probe_batch(8, n, K_PHASE, du, dv, dev)
+    x, bad = rbt._solve_core(a, b, (du, dv), 16, 2, "float32")
+    torch.cuda.synchronize()
+    x_ref, bad_ref = rbt._solve_core(a.cpu(), b.cpu(), (du.cpu(), dv.cpu()),
+                                     16, 2, "float32")
+    rel, why = phase_compare(x.cpu(), bad.cpu(), x_ref, bad_ref)
+    flagged = bad.nonzero().flatten().tolist()
+    print(f"phase solve card vs CPU plain B=8 N={n} k={K_PHASE} nb=16: max "
+          f"rel diff {rel:.3e} (tol {TOL_KERNEL}), flagged {flagged}")
+    if why is not None or not rel <= TOL_KERNEL or flagged != FLAGGED:
+        raise AssertionError(f"phase solve disagrees with the plain path: "
+                             f"{why or rel}, flagged {flagged}")
+    x0, bad0 = rbt._solve_core(a, b, (du, dv), 16, 0, "float32")
+    rel0 = float((x0[7].cpu() - x_ref[7]).abs().max() / x_ref[7].abs().max())
+    print(f"control, phase solve ir_steps=0 vs plain ir_steps=2: small-pivot "
+          f"system 7 max rel diff {rel0:.3e} (must exceed {TOL_KERNEL}), "
+          f"flagged by the card {bool(bad0[7])}, by the plain path "
+          f"{bool(bad_ref[7])}")
+    if bool(bad_ref[7]) or not rel0 > TOL_KERNEL:
+        raise AssertionError("the phase check cannot see a solve without "
+                             "refinement")
+
+
+def phase_counts():
+    from linalg_solver_tpu_torch.ops.kernels import butterfly, gauss_jordan
+    from linalg_solver_tpu_torch.ops.kernels import inv_rbt, lu_nopivot
+    from linalg_solver_tpu_torch.ops.kernels import solve_fused
+
+    return {"fused": solve_fused.LAUNCHES, "inv_rbt": inv_rbt.LAUNCHES,
+            "gauss_jordan": gauss_jordan.LAUNCHES,
+            "butterfly": butterfly.LAUNCHES, "lu_nopivot": lu_nopivot.LAUNCHES}
+
+
+def reset_counts():
+    from linalg_solver_tpu_torch.ops.kernels import butterfly, gauss_jordan
+    from linalg_solver_tpu_torch.ops.kernels import inv_rbt, lu_nopivot
+    from linalg_solver_tpu_torch.ops.kernels import solve_fused
+
+    for mod in (solve_fused, inv_rbt, gauss_jordan, butterfly, lu_nopivot):
+        mod.LAUNCHES = 0
+
+
+def drive_phase_paths(dev):
+    """Phase 12: the phase engine's solve and inverse paths at B=N=256,
+    the reach check at N=896, the kernels against their plain versions on
+    what the paths gave them, then the rescue cases.  Returns the launch
+    counts, the max abs differences and the solve's panel launches."""
+    from linalg_solver_tpu_torch.ops import dispatch, rbt
+    from linalg_solver_tpu_torch.ops.kernels import butterfly, lu_nopivot
+    from linalg_solver_tpu_torch.utils import systems
+
+    a = inverse_batch(B, N, 7, dev)
+    g = torch.Generator(device=dev).manual_seed(8)
+    b = torch.randn(B, N, K_PHASE, generator=g, device=dev)
+    out = {}
+
+    # the solve path, k = 16
+    bf_calls, bf_off = record(butterfly, "butterfly_two_sided")
+    lu_calls, lu_off = record(lu_nopivot, "panel_factor_nopivot")
+    reset_counts()
+    x = dispatch.solve_batched(a, b, backend="auto")
+    torch.cuda.synchronize()
+    counts = phase_counts()
+    bf_off()
+    lu_off()
+    resid = float(worst_resid(a, b, x).max())
+    print(f"phase solve path solve_batched(auto) B={B} N={N} k={K_PHASE}: "
+          f"launches {counts}, worst residual {resid:.3e} (tol {TOL_RESID}), "
+          f"x {tuple(x.shape)}")
+    want = {"fused": 0, "inv_rbt": 0, "gauss_jordan": 0, "butterfly": 1,
+            "lu_nopivot": N // 32}
+    if counts != want:
+        raise AssertionError(f"expected launches {want} (no rescue)")
+    if x.shape != b.shape or not bool(torch.isfinite(x).all()):
+        raise AssertionError("phase solve has the wrong shape or non-finite "
+                             "values")
+    if not resid <= TOL_RESID:
+        raise AssertionError(f"phase solve residual {resid}")
+    out["butterfly_err"] = hold_butterflies(bf_calls, "on the solve path")
+    out["panel_err"], _, _ = hold_panels(lu_calls, "on the solve path")
+    out["solve_panels"] = [args for args, _ in lu_calls]
+    out["butterfly_launches"] = counts["butterfly"]
+    out["panel_launches"] = counts["lu_nopivot"]
+
+    # the inverse path, N = 256
+    bf_calls, bf_off = record(butterfly, "butterfly_two_sided")
+    lu_calls, lu_off = record(lu_nopivot, "panel_factor_nopivot")
+    reset_counts()
+    xi = dispatch.inverse_batched(a, backend="auto")
+    torch.cuda.synchronize()
+    counts = phase_counts()
+    bf_off()
+    lu_off()
+    r_inv = float(inverse_resid(a, xi).max())
+    print(f"phase inverse path inverse_batched(auto) B={B} N={N}: launches "
+          f"{counts}, worst max|AX - I| {r_inv:.3e} (tol {TOL_INV})")
+    want = {"fused": 0, "inv_rbt": 0, "gauss_jordan": 0, "butterfly": 2,
+            "lu_nopivot": N // 64}
+    if counts != want:
+        raise AssertionError(f"expected launches {want} (no rescue)")
+    if not (bool(torch.isfinite(xi).all()) and r_inv <= TOL_INV):
+        raise AssertionError(f"phase inverse residual {r_inv}")
+    out["butterfly_err"] = max(
+        out["butterfly_err"], hold_butterflies(bf_calls, "on the inverse path"))
+    out["panel_err"] = max(out["panel_err"],
+                           hold_panels(lu_calls, "on the inverse path")[0])
+    out["butterfly_launches"] += counts["butterfly"]
+    out["panel_launches"] += counts["lu_nopivot"]
+
+    # the reach check: N = 896 at k = 1 is past the fused kernel
+    a8 = inverse_batch(8, N_REACH, 9, dev)
+    b8 = torch.randn(8, N_REACH, generator=g, device=dev)
+    reset_counts()
+    x8 = dispatch.solve_batched(a8, b8, backend="auto")
+    torch.cuda.synchronize()
+    counts = phase_counts()
+    r8 = float(worst_resid(a8, b8, x8).max())
+    print(f"reach check solve_batched(auto) B=8 N={N_REACH} k=1: launches "
+          f"{counts}, worst residual {r8:.3e} (tol {TOL_RESID})")
+    if counts["fused"] or counts["butterfly"] != 1 or not r8 <= TOL_RESID:
+        raise AssertionError("the reach check failed")
+
+    # rescue cases of the solve path
+    draw = rbt.default_diags(N, rbt.MAIN_SEEDS, str(dev))
+    a2 = a.clone()
+    a2[5] = systems.zero_minor_system(a[5])    # full rank: solved
+    a2[9] = 0.0                                # singular: non-finite
+    a2[12] = systems.pivot_system(a[12], *draw, 0.0)   # the redraw solves it
+    reset_counts()
+    x2 = dispatch.solve_batched(a2, b, backend="auto")
+    torch.cuda.synchronize()
+    counts = phase_counts()
+    r2 = worst_resid(a2, b, x2)
+    others = [i for i in range(B) if i not in (5, 9, 12)]
+    same = all(torch.equal(x2[i], x[i]) for i in others)
+    print(f"phase solve rescue: launches {counts}, zero-minor residual "
+          f"{float(r2[5]):.3e}, redraw system residual {float(r2[12]):.3e}, "
+          f"singular system finite={bool(torch.isfinite(x2[9]).all())}, other "
+          f"systems bitwise unchanged={same}")
+    if counts["butterfly"] != 2:
+        raise AssertionError("the rescue did not rerun the phase engine once")
+    if not float(r2[[5, 12]].max()) <= TOL_RESID:
+        raise AssertionError("rescue left a solvable system unsolved")
+    if bool(torch.isfinite(x2[9]).all()) or not same:
+        raise AssertionError("singular system finite, or another changed")
+
+    # rescue cases of the inverse path
+    redraw = rbt.default_diags(N, rbt.RESCUE_SEEDS, str(dev))
+    a3 = a.clone()
+    a3[5] = systems.zero_minor_system(a[5])
+    a3[9] = systems.two_draw_zero_pivot_system(a[9], draw, redraw)
+    a3[12] = 0.0
+    reset_counts()
+    x3 = dispatch.inverse_batched(a3, backend="auto")
+    torch.cuda.synchronize()
+    counts = phase_counts()
+    r3 = inverse_resid(a3, x3)
+    same = all(torch.equal(x3[i], xi[i]) for i in others)
+    print(f"phase inverse rescue: launches {counts}, zero-minor max|AX - I| "
+          f"{float(r3[5]):.3e}, two-draw (pivoted) {float(r3[9]):.3e}, "
+          f"singular finite={bool(torch.isfinite(x3[12]).all())}, other "
+          f"matrices bitwise unchanged={same}")
+    if counts["butterfly"] != 4 or not float(r3[[5, 9]].max()) <= TOL_INV:
+        raise AssertionError("the inverse rescue failed")
+    if bool(torch.isfinite(x3[12]).all()) or not same:
+        raise AssertionError("singular matrix finite, or another changed")
+    return out
+
+
+def time_phase(dev, card, panels):
+    """Phase 13: times at B=N=256."""
+    from linalg_solver_tpu_torch.ops import dispatch, rbt
+    from linalg_solver_tpu_torch.ops.kernels import butterfly, lu_nopivot
+    from linalg_solver_tpu_torch.utils.benchmarking import cuda_time
+
+    a = inverse_batch(B, N, 7, dev)
+    b = torch.randn(B, N, K_PHASE, generator=torch.Generator(
+        device=dev).manual_seed(8), device=dev)
+    U, V = rbt.default_diags(N, rbt.MAIN_SEEDS, str(dev))
+    panels = [(p.contiguous(), nb) for p, nb in panels]
+
+    def panel_kernels():
+        for p, nb in panels:
+            lu_nopivot.panel_factor_nopivot(p, nb)
+
+    def panel_plain():
+        for p, nb in panels:
+            lu_nopivot.panel_factor_nopivot_reference(p, nb)
+
+    times = {
+        "kernel butterfly_two_sided": cuda_time(
+            butterfly.butterfly_two_sided, a, U, V, 2, warmup=3, iters=20),
+        "plain butterfly_two_sided_reference": cuda_time(
+            butterfly.butterfly_two_sided_reference, a, U, V, 2, warmup=1,
+            iters=5),
+        "kernel panel_factor_nopivot, the 8 solve panels": cuda_time(
+            panel_kernels, warmup=3, iters=20),
+        "plain panel_factor_nopivot_reference, the 8 solve panels": cuda_time(
+            panel_plain, warmup=1, iters=3),
+        f"solve_batched(auto) k={K_PHASE}": cuda_time(
+            dispatch.solve_batched, a, b, warmup=3, iters=10),
+        f"torch.linalg.solve k={K_PHASE}": cuda_time(
+            torch.linalg.solve, a, b, warmup=3, iters=10),
+        "inverse_batched(auto) N=256": cuda_time(
+            dispatch.inverse_batched, a, warmup=3, iters=10),
+        "torch.linalg.inv N=256": cuda_time(
+            torch.linalg.inv, a, warmup=3, iters=10),
+    }
+    for what, t in times.items():
+        print(f"time {what}: {t * 1e3:.4f} ms (B={B} N={N}, {card})")
+    return times
+
+
 def worst_resid(a, b, x):
     """Max over systems of max|A x - b| / max|b|, in float64."""
     b3 = b.reshape(b.shape[0], b.shape[1], -1).double()
@@ -487,6 +871,12 @@ def main() -> None:
     gj_launches, gj_err = drive_pivoted_path(dev)
     inv_times = time_inverse(dev, card)
 
+    # 10-13. the phase engine
+    bf_err = check_phase_kernels(dev)
+    check_phase_solve(dev)
+    phase = drive_phase_paths(dev)
+    ph_times = time_phase(dev, card, phase["solve_panels"])
+
     print(json.dumps({"kernels": [{
         "name": "solve_fused_rbt",
         "route": "cuda",
@@ -514,6 +904,25 @@ def main() -> None:
         "max_abs_err": max(inv_errs["gauss_jordan"], gj_err),
         "ms": inv_times["kernel gauss_jordan_tiled [A|I]"] * 1e3,
         "plain_ms": inv_times["plain gauss_jordan_reference [A|I]"] * 1e3,
+    }, {
+        "name": "butterfly_two_sided",
+        "route": "cuda",
+        "source": "linalg_solver_tpu_torch/csrc/butterfly.cu",
+        "replaces": "linalg_solver_tpu/ops/pallas/butterfly_kernel.py:91",
+        "launches": phase["butterfly_launches"],
+        "max_abs_err": max(bf_err, phase["butterfly_err"]),
+        "ms": ph_times["kernel butterfly_two_sided"] * 1e3,
+        "plain_ms": ph_times["plain butterfly_two_sided_reference"] * 1e3,
+    }, {
+        "name": "panel_factor_nopivot",
+        "route": "cuda",
+        "source": "linalg_solver_tpu_torch/csrc/lu_nopivot.cu",
+        "replaces": "linalg_solver_tpu/ops/pallas/lu_nopivot_kernel.py:41",
+        "launches": phase["panel_launches"],
+        "max_abs_err": phase["panel_err"],
+        "ms": ph_times["kernel panel_factor_nopivot, the 8 solve panels"] * 1e3,
+        "plain_ms": ph_times[
+            "plain panel_factor_nopivot_reference, the 8 solve panels"] * 1e3,
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count(),

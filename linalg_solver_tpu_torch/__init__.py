@@ -14,5 +14,9 @@ Ported so far:
 - the batched small-N inverse ``ops.dispatch.inverse_batched`` (the
   fused RBT inverse with its gate and rescue in one kernel launch, and
   the pivoted Gauss–Jordan kernel beside it), with ``det_batched`` and
-  ``rank_batched`` on the pivoted kernel.
+  ``rank_batched`` on the pivoted kernel;
+- the RBT phase engine (``ops.rbt``'s ``engine="kernel"``: the one-pass
+  two-sided butterfly kernel and the no-pivot panel LU kernel), behind
+  the solve with a wide matrix RHS or N past the fused kernel and the
+  inverse past the small-N kernels (N a multiple of 8 below 1024).
 """

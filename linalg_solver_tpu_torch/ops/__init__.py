@@ -2,9 +2,11 @@
 
 - ``dispatch`` — ``solve_batched``, ``inverse_batched``, ``det_batched``
   and ``rank_batched`` with backend routing and autograd
-- ``rbt`` — random-butterfly preconditioned pivot-free solve + rescue,
-  the seeded butterfly and probe draws
-- ``lu_blocked`` — the pivoted solve the rescue ends in
+- ``rbt`` — random-butterfly preconditioned pivot-free solve and
+  inverse + rescue: the fused engine and the phase engine, the seeded
+  butterfly and probe draws
+- ``lu_blocked`` — the pivoted solve and inverse the rescues end in, and
+  the triangular inverses of the phase engine
 - ``kernels`` — hand-written CUDA kernels beside their plain versions,
   and the facade the inverse, det and rank route to
 """

@@ -3,15 +3,16 @@
 
 Solve backends:
 
-- ``"rbt"``  — random-butterfly pivot-free solve through the fused
-  kernel, with the lane-compacted rescue (``ops.rbt.solve_rbt_batched``).
+- ``"rbt"``  — random-butterfly pivot-free solve with the lane-compacted
+  rescue (``ops.rbt.solve_rbt_batched``): the fused kernel where it
+  reaches (even N, at most ``MAX_K_RHS`` RHS columns, its shared memory
+  within a block's; ``kernels.solve_fused.fits``), else the phase engine.
 - ``"xla"``  — the library's ``torch.linalg.solve``: the named baseline
   (the JAX package's ``"xla"`` is ``jnp.linalg.solve``).
-- ``"auto"`` — ``"rbt"`` where the fused kernel reaches (even N, at most
-  ``MAX_K_RHS`` RHS columns, and its shared memory within a block's;
-  ``kernels.solve_fused.fits``), on every device alike.  No other route
-  is ported yet, so any other shape raises instead of quietly going to
-  another solver.
+- ``"auto"`` — ``"rbt"`` where the fused kernel reaches, and where the
+  phase engine does (N a multiple of 8 below 1024, the reference's
+  conditions), on every device alike.  Any other shape raises instead of
+  quietly going to another solver.
 
 Inverse, determinant and rank backends (the reference's names):
 
@@ -20,13 +21,17 @@ Inverse, determinant and rank backends (the reference's names):
   it reaches, the pivoted Gauss–Jordan kernel for the rest.
 - ``"xla"``    — the library's ``torch.linalg.inv`` / ``det`` /
   ``matrix_rank``.
-- ``"auto"``   — ``"pallas"`` where the kernels reach; past that it
-  raises until ROADMAP.md queue 1 item 7 ports the rbt phase inverse
-  and the blocked determinant.
+- ``"auto"``   — ``"pallas"`` where the kernels reach; past that the
+  inverse goes to the phase engine (``ops.rbt.inverse_rbt_batched``)
+  where N is a multiple of 8 below 1024, as the reference routes it to
+  ``"rbt"``.  Everything else raises until ROADMAP.md ports it (the
+  blocked determinant and rank, N ≥ 1024).
 
 The JAX package's TPU routing constants (``_XLA_CROSSOVER_N``,
 ``_RBT_SOLVE_MIN_N``, ``lanes_util_ok``) are TPU measurements and are
-not carried over; a route is added here when the H100 measures it.
+not carried over; a route is added here when the H100 measures it.  The
+phase engine's bounds (N % 8 == 0, N < 1024) are the reference's reach,
+not a measured crossover.
 """
 
 from __future__ import annotations
@@ -46,6 +51,17 @@ BACKENDS = ("auto", "rbt", "xla")
 FACADE_BACKENDS = ("auto", "pallas", "xla")
 
 
+#: N past which the reference leaves the phase engine for the large-N
+#: solvers (``_XLA_CROSSOVER_N``, used here as a reach, not a crossover)
+PHASE_MAX_N = 1024
+
+
+def phase_reaches(n: int) -> bool:
+    """Whether the phase engine takes N = n where the reference routes it
+    there: a panel width of 8 divides n (``_rbt_nb``) and n < 1024."""
+    return n % 8 == 0 and 8 <= n < PHASE_MAX_N
+
+
 def _resolve(backend: str, n: int, k: int) -> str:
     """The backend ``backend`` stands for at ``N = n`` with ``k`` RHS
     columns."""
@@ -53,13 +69,14 @@ def _resolve(backend: str, n: int, k: int) -> str:
         raise ValueError(f"unknown backend {backend!r}; one of {BACKENDS}")
     if backend != "auto":
         return backend
-    if fits(n, k):
+    if fits(n, k) or phase_reaches(n):
         return "rbt"
     raise NotImplementedError(
-        f"backend='auto' has no route for N={n}, k={k} yet: odd N, "
-        f"k > {MAX_K_RHS} and N past the fused kernel's shared memory go to "
-        f"the phase engine, which ROADMAP.md queue 1 item 7 ports (the rbt "
-        f"phase engine); pass backend='xla' meanwhile"
+        f"backend='auto' has no route for N={n}, k={k} yet: past the fused "
+        f"kernel (even N, k <= {MAX_K_RHS}, its shared memory) the phase "
+        f"engine takes N % 8 == 0 below {PHASE_MAX_N}; the rest goes to the "
+        f"blocked, mixed and large-N solvers that ROADMAP.md queue 1 item 7 "
+        f"ports; pass backend='xla' meanwhile"
     )
 
 
@@ -114,17 +131,30 @@ def _resolve_facade(backend: str, op: str, n: int) -> str:
         return backend
     if _kernels.supports(op, n):
         return "pallas"
+    if op == "inverse" and phase_reaches(n):
+        return "rbt"
     raise NotImplementedError(
         f"backend='auto' has no route for {op} at N={n} yet: past the "
-        f"kernels' shared memory it goes to the rbt phase inverse and the "
-        f"blocked determinant, which ROADMAP.md queue 1 item 7 ports; pass "
-        f"backend='xla' meanwhile"
+        f"kernels' shared memory the inverse takes the phase engine at "
+        f"N % 8 == 0 below {PHASE_MAX_N}; the rest goes to the blocked "
+        f"determinant, rank and the large-N solvers that ROADMAP.md queue 1 "
+        f"item 7 ports; pass backend='xla' meanwhile"
     )
 
 
+def _inverse_reaches(n: int, backend: str) -> bool:
+    """Whether ``backend`` ("auto" or "pallas") inverts at N = n on the
+    port's own route."""
+    return _kernels.supports("inverse", n) or (
+        backend == "auto" and phase_reaches(n))
+
+
 def _inverse_impl(a: torch.Tensor, backend: str) -> torch.Tensor:
-    if _resolve_facade(backend, "inverse", a.shape[-1]) == "pallas":
+    be = _resolve_facade(backend, "inverse", a.shape[-1])
+    if be == "pallas":
         return _kernels.inverse_batched(a)
+    if be == "rbt":
+        return _rbt.inverse_rbt_batched(a)
     return torch.linalg.inv(a)
 
 
@@ -157,14 +187,14 @@ def _det_impl(a: torch.Tensor, backend: str, grad: bool) -> torch.Tensor:
     n = a.shape[-1]
     if _resolve_facade(backend, "det", n) != "pallas":
         return torch.linalg.det(a)
-    if grad and not _kernels.supports("inverse", n):
-        # the backward inverts A through the same kernels: refuse now,
-        # not after the forward
+    if grad and not _inverse_reaches(n, backend):
+        # the backward inverts A through the same route: refuse now, not
+        # after the forward
         raise NotImplementedError(
             f"det at N={n} with a gradient: its backward needs the inverse, "
-            f"which the kernels reach only to a smaller N; ROADMAP.md queue "
-            f"1 item 7 ports the rbt phase inverse; pass backend='xla' "
-            f"meanwhile"
+            f"which reaches N <= 167 and multiples of 8 below "
+            f"{PHASE_MAX_N}; ROADMAP.md queue 1 item 7 ports the rest; pass "
+            f"backend='xla' meanwhile"
         )
     return _kernels.det_batched(a)
 
@@ -190,7 +220,7 @@ class _Det(torch.autograd.Function):
 
 def det_batched(a: torch.Tensor, backend: str = "auto") -> torch.Tensor:
     """Batched determinant of ``a [B, N, N]``.  Differentiable through
-    ``_Det``, on the kernels only where their inverse reaches."""
+    ``_Det``, on the kernels only where the inverse reaches."""
     return _Det.apply(a, backend)
 
 

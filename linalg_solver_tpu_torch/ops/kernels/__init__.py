@@ -4,6 +4,9 @@ version (counterpart of ``linalg_solver_tpu.ops.pallas``).
 - ``solve_fused`` — the one-launch RBT solve
 - ``inv_rbt`` — the fused RBT inverse with its in-kernel rescue
 - ``gauss_jordan`` — pivoted Gauss–Jordan: inverse, solve, det, rank
+- ``butterfly`` — the two-sided depth-≤2 butterfly in one pass (phase
+  engine)
+- ``lu_nopivot`` — panel LU without a pivot search (phase engine)
 
 The functions below are the facade ``ops.dispatch`` routes to, as the
 JAX package's ``ops.pallas`` is: ``inverse_batched`` takes the fused RBT

@@ -36,6 +36,9 @@ _SIGNATURES = {
     "gj_smem_bytes": (ctypes.c_size_t, [_I, _I]),
     "inv_rbt_f32": (_I, [_P] * 8 + [_I] * 4 + [_P]),
     "inv_rbt_smem_bytes": (ctypes.c_size_t, [_I]),
+    "butterfly_two_sided_f32": (_I, [_P] * 4 + [_I] * 5 + [_P]),
+    "lu_nopivot_f32": (_I, [_P] * 3 + [_I] * 3 + [_P]),
+    "nopivot_smem_bytes": (ctypes.c_size_t, [_I, _I]),
     "kernels_error_string": (ctypes.c_char_p, [_I]),
 }
 

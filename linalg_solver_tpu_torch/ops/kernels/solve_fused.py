@@ -221,16 +221,6 @@ def solve_fused_rbt_reference(
             zcmax = absmax(zc)
         x = x + zc
 
-    eps = torch.tensor(1e-30, dtype=torch.float32, device=a32.device)
-    bad = ok < 0.5
-    if ir_steps == 0:
-        with f32_matmuls():
-            resid = b3 - a32 @ x
-        scale = torch.maximum(bmax, amax * absmax(x))
-        bad = bad | ~(absmax(resid) <= 1e-2 * torch.maximum(scale, eps))
-    else:
-        bad = bad | ~(zcmax <= 0.3 * torch.maximum(xmax, eps))
-        if ir_steps >= 2:
-            scale = torch.maximum(bmax, amax * xmax)
-            bad = bad | ~(rmax <= 1e-4 * torch.maximum(scale, eps))
+    bad = rbt.refinement_gate(ok < 0.5, ir_steps, a32, b3, x, amax, bmax,
+                              rmax, xmax, zcmax)
     return (x if matrix_rhs else x.squeeze(-1)), bad

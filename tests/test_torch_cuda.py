@@ -11,6 +11,7 @@ import pytest
 import torch
 
 from linalg_solver_tpu_torch.ops import dispatch, rbt
+from linalg_solver_tpu_torch.ops.kernels import butterfly, lu_nopivot
 from linalg_solver_tpu_torch.ops.kernels import gauss_jordan as gj
 from linalg_solver_tpu_torch.ops.kernels import inv_rbt
 from linalg_solver_tpu_torch.ops.kernels import solve_fused as sf
@@ -24,7 +25,9 @@ from linalg_solver_tpu_torch.utils import systems
 # or within a rounding (≤ 3.7e-9 relative measured on an H100): the
 # probe's sums run in another order, and the plain version rounds its
 # fused multiply-adds twice.
-# 1e-5 relative is the bound chip_smoke.py holds all three to; the
+# The phase engine's two kernels (butterfly, no-pivot panel) run the
+# plain versions' operations in the same order and agree to the bit.
+# 1e-5 relative is the bound chip_smoke.py holds all of them to; the
 # unrefined solution of the small-pivot probe system misses it by
 # ~1000x, and the inverse without its rescue misses the flags.
 RTOL = 1e-5
@@ -337,3 +340,166 @@ def test_inverse_and_det_gradients(cuda):
             grads.append(at.grad)
         err = (grads[0] - grads[1]).abs().max() / grads[1].abs().max()
         assert float(err) <= 1e-4
+
+
+# --- the RBT phase engine: kernels 4 (butterfly) and 5 (no-pivot panel) --
+
+
+def _nan_equal(x, y):
+    """Bitwise equal, NaN where the other is NaN."""
+    return bool(((x == y) | (x.isnan() & y.isnan())).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,depth", [(64, 1), (64, 2), (98, 1), (256, 1),
+                                     (256, 2), (896, 1), (896, 2)])
+@pytest.mark.parametrize("trans", [(True, True), (False, False),
+                                   (True, False)])
+def test_butterfly_kernel_matches_plain_version_bitwise(cuda, n, depth,
+                                                        trans):
+    g = torch.Generator(device=cuda).manual_seed(n + depth)
+    a = torch.randn(3, n, n, generator=g, device=cuda)
+    a[1, 2, 3] = float("inf")
+    U, V = rbt.default_diags(n, rbt.MAIN_SEEDS, str(cuda))
+    before = butterfly.LAUNCHES
+    x = butterfly.butterfly_two_sided(a, U, V, depth, *trans)
+    torch.cuda.synchronize()
+    assert butterfly.LAUNCHES == before + 1
+    assert _nan_equal(
+        x, butterfly.butterfly_two_sided_reference(a, U, V, depth, *trans))
+
+
+@pytest.mark.cuda
+def test_butterfly_check_sees_a_flipped_side(cuda):
+    a = torch.randn(2, 64, 64, generator=torch.Generator(
+        device=cuda).manual_seed(1), device=cuda)
+    U, V = rbt.default_diags(64, rbt.MAIN_SEEDS, str(cuda))
+    ref = butterfly.butterfly_two_sided_reference(a, U, V, 2, True, True)
+    for trans in ((False, True), (True, False), (False, False)):
+        x = butterfly.butterfly_two_sided(a, U, V, 2, *trans)
+        assert float((x - ref).abs().max()) > 1e-2
+
+
+def _probe_panels(m, nb, dev):
+    """0 clean, 1 a zero pivot, 2 a NaN reaching a pivot, 3 an Inf in the
+    last row, 4 a NaN pivot, 5 clean."""
+    g = torch.Generator(device=dev).manual_seed(m + nb)
+    p = torch.randn(6, m, nb, generator=g, device=dev)
+    p[:, torch.arange(nb), torch.arange(nb)] += 4.0 * nb**0.5
+    p[1, :, 3] = 0.0
+    p[2, 5, 1] = float("nan")
+    p[3, m - 1, 2] = float("inf")
+    p[4, 2, 2] = float("nan")
+    return p
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,nb", [(8, 8), (40, 8), (64, 16), (256, 32),
+                                  (256, 64), (896, 64), (1016, 8)])
+def test_lu_nopivot_kernel_matches_plain_version(cuda, m, nb):
+    """Equal flags, equal non-finite pattern, and values equal to the bit
+    (RTOL allows the plain version's double rounding)."""
+    p = _probe_panels(m, nb, cuda)
+    before = lu_nopivot.LAUNCHES
+    x, ok = lu_nopivot.panel_factor_nopivot(p, nb)
+    torch.cuda.synchronize()
+    assert lu_nopivot.LAUNCHES == before + 1
+    x_ref, ok_ref = lu_nopivot.panel_factor_nopivot_reference(p, nb)
+    assert torch.equal(ok, ok_ref)
+    assert ok.tolist() == [True, False, False, False, False, True]
+    assert torch.equal(torch.isfinite(x), torch.isfinite(x_ref))
+    for i in (0, 1, 5):
+        err = (x[i] - x_ref[i]).abs().max() / x_ref[i].abs().max()
+        assert float(err) <= RTOL
+
+
+@pytest.mark.cuda
+def test_phase_kernels_smem_mirror_and_reach(cuda):
+    from linalg_solver_tpu_torch.ops.kernels import _build
+
+    lib = _build.load()
+    for m in (8, 33, 256, 896, 906, 907, 1016, 2048):
+        for nb in (8, 16, 32, 48, 64):
+            assert lib.nopivot_smem_bytes(m, nb) == lu_nopivot.smem_bytes(
+                m, nb)
+    with pytest.raises(ValueError, match="shared memory"):
+        lu_nopivot.panel_factor_nopivot(
+            torch.zeros(1, 907, 64, device=cuda), 64)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        # the kernel itself refuses a depth its wrapper would not pass
+        butterfly._launch(torch.zeros(1, 8, 8, device=cuda),
+                          torch.ones(3, 8, device=cuda),
+                          torch.ones(3, 8, device=cuda), 3, True, True)
+
+
+def _counts():
+    return (sf.LAUNCHES, butterfly.LAUNCHES, lu_nopivot.LAUNCHES)
+
+
+@pytest.mark.cuda
+def test_phase_solve_path_on_the_card(cuda):
+    """k = 16 > 8: one butterfly launch, N/32 panel launches, no fused
+    one; the rescue cases of the fused path hold here too."""
+    a, b = _batch(16, 256, seed=10, k=16, dev=cuda)
+    c0 = _counts()
+    x_clean = dispatch.solve_batched(a, b)
+    torch.cuda.synchronize()
+    assert tuple(x - y for x, y in zip(_counts(), c0)) == (0, 1, 8)
+    assert float(_resid(a, b, x_clean).max()) <= 1e-5
+    a[3] = systems.zero_minor_system(a[3])
+    a[7] = 0.0
+    U, V = rbt.default_diags(256, rbt.MAIN_SEEDS, str(cuda))
+    a[11] = systems.pivot_system(a[11], U, V, 0.0)
+    x = dispatch.solve_batched(a, b)
+    torch.cuda.synchronize()
+    r = _resid(a, b, x)
+    keep = [i for i in range(16) if i != 7]
+    assert float(r[keep].max()) <= 1e-5
+    assert not bool(torch.isfinite(x[7]).all())
+    for i in range(16):
+        if i not in (3, 7, 11):
+            assert torch.equal(x[i], x_clean[i]), i
+
+
+@pytest.mark.cuda
+def test_phase_solve_matches_the_plain_path(cuda):
+    """The phase engine on the card against the same engine on the CPU
+    (the plain versions) with f32 glue: equal flags, values within RTOL;
+    without refinement the small-pivot system 7 misses by far more."""
+    n, k = 64, 16
+    a, b = _batch(8, n, seed=12, k=k, dev=cuda)
+    U, V = rbt.default_diags(n, rbt.MAIN_SEEDS, str(cuda))
+    a = _probe(a, U, V)
+    cpu = (U.cpu(), V.cpu())
+    x, bad = rbt._solve_core(a, b, (U, V), 16, 2, "float32")
+    x_ref, bad_ref = rbt._solve_core(a.cpu(), b.cpu(), cpu, 16, 2, "float32")
+    assert bad.cpu().tolist() == [i in (2, 5) for i in range(8)]
+    _assert_agree(x, bad, x_ref, bad_ref)
+    x0, _ = rbt._solve_core(a, b, (U, V), 16, 0, "float32")
+    err = (x0[7].cpu() - x_ref[7]).abs().max() / x_ref[7].abs().max()
+    assert float(err) > 10 * RTOL
+
+
+@pytest.mark.cuda
+def test_phase_inverse_path_on_the_card(cuda):
+    g = torch.Generator(device=cuda).manual_seed(3)
+    n = 256
+    a = torch.randn(8, n, n, generator=g, device=cuda)
+    a += 4.0 * n**0.5 * torch.eye(n, device=cuda)
+    c0 = (inv_rbt.LAUNCHES, gj.LAUNCHES) + _counts()[1:]
+    x = dispatch.inverse_batched(a)
+    torch.cuda.synchronize()
+    c1 = (inv_rbt.LAUNCHES, gj.LAUNCHES) + _counts()[1:]
+    assert tuple(p - q for p, q in zip(c1, c0)) == (0, 0, 2, 4)
+    eye = torch.eye(n, device=cuda, dtype=torch.float64)
+    assert float((a.double() @ x.double() - eye).abs().max()) <= 5e-5
+    # det with a gradient at 168 takes the phase inverse in its backward
+    s = (torch.eye(168, device=cuda) + 0.1 * torch.randn(
+        2, 168, 168, generator=g, device=cuda) / 168**0.5)
+    grads = []
+    for det in (dispatch.det_batched, torch.linalg.det):
+        st = s.clone().requires_grad_()
+        det(st).sum().backward()
+        grads.append(st.grad)
+    err = (grads[0] - grads[1]).abs().max() / grads[1].abs().max()
+    assert float(err) <= 1e-4

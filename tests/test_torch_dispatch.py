@@ -143,16 +143,41 @@ def test_rbt_with_the_jax_draws_matches_jax(ir_steps):
 
 
 @pytest.mark.parametrize(
-    "n,k", [(63, None), (64, 9), (796, None), (576, 8)],
-    ids=["odd_n", "k_over_8", "smem_k1", "smem_k8"],
+    "n,k", [(63, None), (796, None), (1024, None), (1024, 16)],
+    ids=["odd_n", "smem_k1", "n1024", "n1024_k16"],
 )
 def test_auto_raises_outside_the_kernel_reach(n, k):
-    """The last two are the smallest even N whose shared memory exceeds a
-    block's on sm_90, at k=1 and k=8."""
+    """796 is the smallest even N past the fused kernel's shared memory at
+    k=1, and not a multiple of 8, so the phase engine does not take it
+    either; from N = 1024 on the reference leaves the phase engine."""
     b_shape = (1, n) if k is None else (1, n, k)
     a, b = torch.zeros(1, n, n), torch.zeros(b_shape)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         dispatch.solve_batched(a, b)
+
+
+@pytest.mark.parametrize("n,k", [(64, 9), (576, 8)],
+                         ids=["k_over_8", "smem_k8"])
+def test_auto_routes_past_the_fused_kernel_to_the_phase_engine(n, k):
+    """k > 8 columns, and N = 576 past the fused kernel's shared memory at
+    k = 8: exactly the phase engine's pass (clean systems, no rescue).  At
+    k = 9 the JAX package's ``backend="rbt"`` (its phase engine too, other
+    draws) agrees."""
+    a, b = _batch(2, n, seed=n + k, k=k)
+    at, bt = torch.from_numpy(a), torch.from_numpy(b)
+    assert not fits(n, k) and dispatch.phase_reaches(n)
+    xt = dispatch.solve_batched(at, bt)
+    nb = rbt.phase_nb(n, None, rbt.SOLVE_NB_SMALL if n <= 384
+                      else rbt.SOLVE_NB_LARGE)
+    phases, bad = rbt._solve_core(
+        at, bt, rbt.default_diags(n, rbt.MAIN_SEEDS, "cpu"), nb, 2,
+        "bfloat16")
+    assert not bad.any() and torch.equal(xt, phases)
+    assert _resid(a, b, xt.numpy()).max() <= 1e-5
+    if k == 9:
+        xj = np.asarray(jdispatch.solve_batched(
+            jnp.asarray(a), jnp.asarray(b), backend="rbt"))
+        _assert_close(xj, xt.numpy(), range(2))
 
 
 def test_kernel_reach_boundary():

@@ -18,7 +18,7 @@ import torch
 
 from linalg_solver_tpu.ops.pallas import gj_kernel as jgj
 from linalg_solver_tpu.ops.pallas import inv_rbt_kernel as jinv
-from linalg_solver_tpu_torch.ops import dispatch
+from linalg_solver_tpu_torch.ops import dispatch, rbt
 from linalg_solver_tpu_torch.ops.kernels import gauss_jordan as gj
 from linalg_solver_tpu_torch.ops.kernels import inv_rbt
 
@@ -99,12 +99,13 @@ def test_rank_auto_matches_jax_facade():
 
 @pytest.mark.parametrize(
     "op,n",
-    [("inverse", 168), ("inverse", 169), ("det", 238), ("rank", 238)],
+    [("inverse", 169), ("inverse", 170), ("inverse", 1024), ("det", 238),
+     ("rank", 238)],
 )
 def test_auto_raises_past_the_kernels_reach(op, n):
-    """168 is the first multiple of 4 past the fused inverse's shared
-    memory, 169 the first N past the pivoted inverse's, 238 past the
-    pivoted [N, N] tile's."""
+    """169 is the first N past the pivoted inverse's shared memory, and
+    169 and 170 are no multiples of 8, which the phase inverse needs; it
+    stops below 1024.  238 is past the pivoted [N, N] tile's memory."""
     a = torch.zeros(1, n, n)
     fn = {"inverse": dispatch.inverse_batched, "det": dispatch.det_batched,
           "rank": dispatch.rank_batched}[op]
@@ -112,15 +113,45 @@ def test_auto_raises_past_the_kernels_reach(op, n):
         fn(a)
 
 
-@pytest.mark.parametrize("n", [168, 237])
+@pytest.mark.parametrize("n", [170, 237])
 def test_auto_det_with_a_gradient_raises_where_the_inverse_stops(n):
-    """det reaches N = 237 but its backward needs the inverse, which stops
-    at 167: with a gradient it raises before the forward, not in the
-    backward; without one it runs."""
+    """det reaches N = 237 but its backward needs the inverse, which past
+    167 takes only multiples of 8: with a gradient it raises before the
+    forward, not in the backward; without one it runs."""
     a = torch.eye(n)[None]
     with pytest.raises(NotImplementedError, match="ROADMAP.*item 7"):
         dispatch.det_batched(a.clone().requires_grad_())
     assert dispatch.det_batched(a).tolist() == [1.0]
+
+
+@pytest.mark.parametrize("n", [168, 256])
+def test_auto_inverse_past_the_kernels_takes_the_phase_engine(n):
+    """168 is the first multiple of 8 past the small-N kernels: the phase
+    inverse (``rbt.inverse_rbt_batched``, panel width 8 there, 64 at
+    256), bitwise as called directly."""
+    a = torch.from_numpy(_batch(2, n, seed=n))
+    assert not gj.fits(n, 2 * n) and not inv_rbt.fits(n)
+    x = dispatch.inverse_batched(a)
+    assert torch.equal(x, rbt.inverse_rbt_batched(a))
+    assert _resid(a.numpy(), x.numpy()).max() <= 5e-5
+
+
+def test_auto_det_gradient_at_168_takes_the_phase_inverse():
+    """``backend="pallas"`` keeps to the kernels, whose inverse stops at
+    167: there a gradient still raises before the forward."""
+    n = 168
+    rng = np.random.RandomState(12)
+    a = (np.eye(n) + 0.1 * rng.randn(2, n, n) / np.sqrt(n)).astype(
+        np.float32)
+    grads = []
+    for det in (dispatch.det_batched, torch.linalg.det):
+        at = torch.from_numpy(a).requires_grad_()
+        (det(at) * torch.tensor([1.0, -0.5])).sum().backward()
+        grads.append(at.grad)
+    err = (grads[0] - grads[1]).abs().max() / grads[1].abs().max()
+    assert float(err) <= 1e-4
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        dispatch.det_batched(torch.from_numpy(a).requires_grad_(), "pallas")
 
 
 @pytest.mark.parametrize("n", [32, 30], ids=["rbt", "pivoted"])
