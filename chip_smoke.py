@@ -47,10 +47,32 @@ uncaught exception and a non-zero exit:
     versions on the arrays the first two paths gave them; then the rescue
     cases of both paths;
 13. time both kernels, their plain versions, the two paths and
-    ``torch.linalg.solve`` / ``torch.linalg.inv``.
+    ``torch.linalg.solve`` / ``torch.linalg.inv``;
+14. hold the masked partial-pivot panel kernel (kernel 6) against its
+    plain version, bitwise on all five outputs, on random panels with and
+    without pre-pivoted rows and with a zero-column and a NaN panel, and
+    show that the check fails for the kernel run without the mask;
+15. drive kernel 6's paths at B=N=256, nb=64: ``solve_batched(backend=
+    "mixed")`` (four kernel-6 launches, no other kernel, no rescue),
+    ``det_batched(auto)`` and ``lu_factor_batched(auto)``, holding the
+    kernel against its plain version on the arrays each path gave it; the
+    mixed path's rescue of a system its TF32 factors cannot refine (that
+    system alone goes to the pivoted rung); the reach check
+    ``det_batched(auto)`` at N=960 (two-level panels);
+16. drive the large-N branch, ``solve_batched(auto)`` at B=16, N=1024 and
+    B=8, N=2048 (one kernel-4 launch each, no panel kernel, no system
+    left to the pivoted rung), holding kernel 4 against its plain version
+    on the array each gave it;
+17. time kernel 6, its plain version and its library yardstick
+    (``torch.linalg.lu_factor_ex`` on each phase's unpivoted rows), the
+    three paths and the large solves against ``torch.linalg``.
 
-The line before the last is a JSON summary of the kernels; the last
-line is ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
+The line before the last is a JSON summary of the six kernels, each with
+its bound (the larger of its bytes over 3.35 TB/s and its operations
+over the 67 TFLOP/s FP32 rate, counted from this run's inputs) and the
+time of the one library call that computes the same function, where
+there is one; the last line is ``{"ok": true, "device": {...}}``.
+Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -69,6 +91,18 @@ B_INV, N_INV = 1024, 64
 TOL_INV = 5e-5         # worst-matrix max|A X - I|, float64
 K_PHASE = 16           # RHS columns of the phase engine's solve path
 N_REACH = 896          # past the fused kernel's reach at k=1
+N_PANEL_REACH = 960    # past kernel 6's reach at nb = 64 (det, two levels)
+TOL_DET = 1e-3         # max relative error of det, against float64
+HBM_RATE = 3.35e12     # bytes/s, H100 SXM (NVIDIA's data sheet)
+FP32_RATE = 67e12      # FLOP/s, FP32 outside the tensor cores (same)
+
+
+def bound(nbytes: float, flops: float):
+    """(bound_ms, bound_by): the least time the card could take, the
+    larger of the bytes over the HBM rate and the operations over the
+    FP32 rate."""
+    tb, tf = nbytes / HBM_RATE, flops / FP32_RATE
+    return max(tb, tf) * 1e3, "bytes" if tb >= tf else "operations"
 
 
 def card_line() -> str:
@@ -86,6 +120,26 @@ def bench_batch(dev):
     a = torch.randn(B, N, N, generator=g, device=dev)
     a += 4.0 * N**0.5 * torch.eye(N, device=dev)
     return a, torch.randn(B, N, generator=g, device=dev)
+
+
+def phase_batch(dev):
+    """The phase engine's solve and inverse input at B = N = 256 (the
+    inverse's matrix class, seed 7) with K_PHASE RHS columns (seed 8)."""
+    a = inverse_batch(B, N, 7, dev)
+    g = torch.Generator(device=dev).manual_seed(8)
+    return a, torch.randn(B, N, K_PHASE, generator=g, device=dev)
+
+
+def det_batch(dev):
+    """The det cell's input at B = N = 256: I + G/(2 sqrt N), whose
+    determinant stays inside f32's range (the bench class overflows it);
+    lane 3 is singular (all zero) and lane 4 has two rows swapped."""
+    g = torch.Generator(device=dev).manual_seed(11)
+    s = torch.eye(N, device=dev) + torch.randn(
+        B, N, N, generator=g, device=dev) / (2 * N**0.5)
+    s[3] = 0.0
+    s[4, [0, 7]] = s[4, [7, 0]]
+    return s
 
 
 def probe_batch(bsz, n, k, du, dv, dev):
@@ -360,14 +414,15 @@ def nan_equal(x, y) -> bool:
 
 
 def record(module, name):
-    """Wrap ``module.name`` so that every call's arguments and result are
-    kept (the phase engine looks its kernels up at each call).  Returns
-    the list of calls and a function that takes the wrapper off."""
+    """Wrap ``module.name`` so that every call's positional arguments and
+    result are kept (the paths look their kernels and rescue rungs up at
+    each call).  Returns the list of calls and a function that takes the
+    wrapper off."""
     calls = []
     orig = getattr(module, name)
 
-    def wrapped(*args):
-        out = orig(*args)
+    def wrapped(*args, **kwargs):
+        out = orig(*args, **kwargs)
         calls.append((args, out))
         return out
 
@@ -532,19 +587,21 @@ def check_phase_solve(dev):
 def phase_counts():
     from linalg_solver_tpu_torch.ops.kernels import butterfly, gauss_jordan
     from linalg_solver_tpu_torch.ops.kernels import inv_rbt, lu_nopivot
-    from linalg_solver_tpu_torch.ops.kernels import solve_fused
+    from linalg_solver_tpu_torch.ops.kernels import lu_panel, solve_fused
 
     return {"fused": solve_fused.LAUNCHES, "inv_rbt": inv_rbt.LAUNCHES,
             "gauss_jordan": gauss_jordan.LAUNCHES,
-            "butterfly": butterfly.LAUNCHES, "lu_nopivot": lu_nopivot.LAUNCHES}
+            "butterfly": butterfly.LAUNCHES, "lu_nopivot": lu_nopivot.LAUNCHES,
+            "lu_panel": lu_panel.LAUNCHES}
 
 
 def reset_counts():
     from linalg_solver_tpu_torch.ops.kernels import butterfly, gauss_jordan
     from linalg_solver_tpu_torch.ops.kernels import inv_rbt, lu_nopivot
-    from linalg_solver_tpu_torch.ops.kernels import solve_fused
+    from linalg_solver_tpu_torch.ops.kernels import lu_panel, solve_fused
 
-    for mod in (solve_fused, inv_rbt, gauss_jordan, butterfly, lu_nopivot):
+    for mod in (solve_fused, inv_rbt, gauss_jordan, butterfly, lu_nopivot,
+                lu_panel):
         mod.LAUNCHES = 0
 
 
@@ -557,9 +614,8 @@ def drive_phase_paths(dev):
     from linalg_solver_tpu_torch.ops.kernels import butterfly, lu_nopivot
     from linalg_solver_tpu_torch.utils import systems
 
-    a = inverse_batch(B, N, 7, dev)
-    g = torch.Generator(device=dev).manual_seed(8)
-    b = torch.randn(B, N, K_PHASE, generator=g, device=dev)
+    a, b = phase_batch(dev)
+    g = torch.Generator(device=dev).manual_seed(9)
     out = {}
 
     # the solve path, k = 16
@@ -576,7 +632,7 @@ def drive_phase_paths(dev):
           f"launches {counts}, worst residual {resid:.3e} (tol {TOL_RESID}), "
           f"x {tuple(x.shape)}")
     want = {"fused": 0, "inv_rbt": 0, "gauss_jordan": 0, "butterfly": 1,
-            "lu_nopivot": N // 32}
+            "lu_nopivot": N // 32, "lu_panel": 0}
     if counts != want:
         raise AssertionError(f"expected launches {want} (no rescue)")
     if x.shape != b.shape or not bool(torch.isfinite(x).all()):
@@ -603,7 +659,7 @@ def drive_phase_paths(dev):
     print(f"phase inverse path inverse_batched(auto) B={B} N={N}: launches "
           f"{counts}, worst max|AX - I| {r_inv:.3e} (tol {TOL_INV})")
     want = {"fused": 0, "inv_rbt": 0, "gauss_jordan": 0, "butterfly": 2,
-            "lu_nopivot": N // 64}
+            "lu_nopivot": N // 64, "lu_panel": 0}
     if counts != want:
         raise AssertionError(f"expected launches {want} (no rescue)")
     if not (bool(torch.isfinite(xi).all()) and r_inv <= TOL_INV):
@@ -695,6 +751,10 @@ def time_phase(dev, card, panels):
         for p, nb in panels:
             lu_nopivot.panel_factor_nopivot_reference(p, nb)
 
+    def panel_library():
+        for p, nb in panels:
+            torch.linalg.lu_factor_ex(p, pivot=False)
+
     times = {
         "kernel butterfly_two_sided": cuda_time(
             butterfly.butterfly_two_sided, a, U, V, 2, warmup=3, iters=20),
@@ -705,6 +765,8 @@ def time_phase(dev, card, panels):
             panel_kernels, warmup=3, iters=20),
         "plain panel_factor_nopivot_reference, the 8 solve panels": cuda_time(
             panel_plain, warmup=1, iters=3),
+        "library lu_factor_ex(pivot=False), the 8 solve panels": cuda_time(
+            panel_library, warmup=2, iters=10),
         f"solve_batched(auto) k={K_PHASE}": cuda_time(
             dispatch.solve_batched, a, b, warmup=3, iters=10),
         f"torch.linalg.solve k={K_PHASE}": cuda_time(
@@ -717,6 +779,351 @@ def time_phase(dev, card, panels):
     for what, t in times.items():
         print(f"time {what}: {t * 1e3:.4f} ms (B={B} N={N}, {card})")
     return times
+
+
+def hold_masked(calls, what):
+    """Kernel 6's results on ``calls`` (recorded launches) against its
+    plain version: all five outputs bitwise equal (NaN where the other
+    is NaN).  Returns the max absolute difference of the panels (0.0 when
+    bitwise)."""
+    from linalg_solver_tpu_torch.ops.kernels import lu_panel
+
+    err = 0.0
+    for args, out in calls:
+        ref = lu_panel.panel_factor_masked_reference(*args)
+        if not all(nan_equal(x, y) for x, y in zip(out, ref)):
+            raise AssertionError(f"kernel 6 disagrees with its plain version "
+                                 f"{what} at {tuple(args[0].shape)}")
+        err = max(err, abs_diff(out[0], ref[0]))
+    print(f"kernel 6 vs plain {what}: {len(calls)} launches, all five outputs "
+          f"bitwise equal (max abs diff {err:.3e})")
+    return err
+
+
+def masked_panels(bsz, n, nb, frac, dev):
+    """Gaussian panels with about ``frac`` of the rows pre-pivoted; panel
+    0 has a zero column 1 (no pivot at step 1), panel 1 a NaN."""
+    g = torch.Generator(device=dev).manual_seed(400 + n + nb)
+    p = torch.randn(bsz, n, nb, generator=g, device=dev)
+    m = (torch.rand(bsz, n, generator=g, device=dev) < frac).to(torch.int32)
+    p[0, :, 1] = 0.0
+    p[1, 5, 2] = float("nan")
+    return p, m
+
+
+def check_panel_kernel(dev):
+    """Phase 14: kernel 6 against its plain version on synthetic panels,
+    and the control without the mask.  Returns the max abs difference."""
+    from linalg_solver_tpu_torch.ops.kernels import lu_panel
+
+    calls = []
+    for bsz, n, nb, frac in ((B, N, 64, 0.0), (B, N, 64, 0.4),
+                             (B, 96, 32, 0.4)):
+        p, m = masked_panels(bsz, n, nb, frac, dev)
+        out = lu_panel.panel_factor_masked(p, m, nb)
+        torch.cuda.synchronize()
+        if out[4][:3].tolist() != [False, False, True]:
+            raise AssertionError(f"kernel 6 flags {out[4][:3].tolist()}")
+        calls.append(((p, m, nb), out))
+    err = hold_masked(calls, "on random panels (zero-column and NaN lanes "
+                      "included)")
+    (p, m, nb), _ = calls[1]
+    out = lu_panel.panel_factor_masked(p, torch.zeros_like(m), nb)
+    ref = lu_panel.panel_factor_masked_reference(p, m, nb)
+    same = [nan_equal(x, y) for x, y in zip(out, ref)]
+    print(f"control, kernel 6 without the mask vs plain with it: outputs "
+          f"equal {same} (must not all be)")
+    if all(same):
+        raise AssertionError("the kernel-6 check cannot see a dropped mask")
+    return err
+
+
+def offset_gaussian(n, g, dev):
+    """A Gaussian matrix plus 100 in every entry: condition number ~4e5,
+    and the rank-one part drowns the rest in a TF32 product, so the mixed
+    path cannot refine it (its final residual stays ~0.3 of max(|b|,
+    |A||x|) on an H100); the pivoted f32 rung solves it."""
+    return torch.randn(n, n, generator=g, device=dev) + 100.0
+
+
+def inf_norm(x):
+    """Per-matrix max row sum of |x|, in float64."""
+    return x.double().abs().sum(dim=2).amax(dim=1)
+
+
+def drive_panel_paths(dev):
+    """Phase 15: kernel 6's paths at B=N=256 with kernel 6 held against
+    its plain version on what each gave it, the mixed rescue and the
+    N=960 reach.  Returns the launches, the max abs difference and the
+    mixed path's panel calls."""
+    from linalg_solver_tpu_torch.ops import dispatch, lu_blocked
+    from linalg_solver_tpu_torch.ops.kernels import lu_panel
+
+    out = {"launches": 0, "err": 0.0}
+    a, b = bench_batch(dev)
+    only6 = {"fused": 0, "inv_rbt": 0, "gauss_jordan": 0, "butterfly": 0,
+             "lu_nopivot": 0, "lu_panel": N // 64}
+
+    # the mixed solve, k = 1; the pivoted rung must not be called
+    calls, off = record(lu_panel, "panel_factor_masked")
+    rescued, off_rescue = record(lu_blocked, "blocked_solve_batched")
+    reset_counts()
+    x = dispatch.solve_batched(a, b, backend="mixed")
+    torch.cuda.synchronize()
+    counts = phase_counts()
+    off()
+    off_rescue()
+    resid = float(worst_resid(a, b, x).max())
+    print(f"mixed path solve_batched(mixed) B={B} N={N} k=1: launches "
+          f"{counts}, systems rescued {len(rescued)}, worst residual "
+          f"{resid:.3e} (tol {TOL_RESID})")
+    if counts != only6:
+        raise AssertionError(f"expected launches {only6}")
+    if rescued:
+        raise AssertionError("the mixed path rescued a system of the bench "
+                             "batch")
+    if x.shape != b.shape or not bool(torch.isfinite(x).all()):
+        raise AssertionError("mixed solve has the wrong shape or non-finite "
+                             "values")
+    if not resid <= TOL_RESID:
+        raise AssertionError(f"mixed solve residual {resid}")
+    out["err"] = hold_masked(calls, "on the mixed solve path")
+    out["launches"] += counts["lu_panel"]
+    out["panels"] = [args for args, _ in calls]
+
+    # the determinant
+    s = det_batch(dev)
+    calls, off = record(lu_panel, "panel_factor_masked")
+    reset_counts()
+    d = dispatch.det_batched(s)
+    torch.cuda.synchronize()
+    counts = phase_counts()
+    off()
+    want = torch.linalg.det(s.double().cpu())
+    keep = [i for i in range(B) if i != 3]
+    rel = float(((d.double().cpu() - want) / want).abs()[keep].max())
+    signs = bool((torch.sign(d.cpu()[keep]) == torch.sign(want[keep])).all())
+    print(f"det path det_batched(auto) B={B} N={N}: launches {counts}, max "
+          f"rel err vs float64 {rel:.3e} (tol {TOL_DET}), signs equal "
+          f"{signs}, singular lane {float(d[3])}")
+    if counts != only6:
+        raise AssertionError(f"expected launches {only6}")
+    if not (rel <= TOL_DET and signs and float(d[3]) == 0.0):
+        raise AssertionError("det path gave a wrong result")
+    out["err"] = max(out["err"], hold_masked(calls, "on the det path"))
+    out["launches"] += counts["lu_panel"]
+    out["det_input"] = s
+
+    # the packed factorization
+    calls, off = record(lu_panel, "panel_factor_masked")
+    reset_counts()
+    res = dispatch.lu_factor_batched(a)
+    torch.cuda.synchronize()
+    counts = phase_counts()
+    off()
+    lu = res.lu.double()
+    lo = torch.tril(lu, -1) + torch.eye(N, device=dev, dtype=torch.float64)
+    pa = a.double().gather(1, res.perm.long()[:, :, None].expand(-1, -1, N))
+    rel = float((inf_norm(lo @ torch.triu(lu) - pa) / inf_norm(a)).max())
+    print(f"lu_factor path lu_factor_batched(auto) B={B} N={N}: launches "
+          f"{counts}, max |PA - LU|_inf / |A|_inf {rel:.3e} (tol 1e-5), ok "
+          f"{bool(res.ok.all())}")
+    if counts != only6 or not (rel <= 1e-5 and bool(res.ok.all())):
+        raise AssertionError("lu_factor path gave a wrong result")
+    out["err"] = max(out["err"], hold_masked(calls, "on the lu_factor path"))
+    out["launches"] += counts["lu_panel"]
+
+    # the mixed path's rescue: system 7 is one the TF32 factorization
+    # cannot refine; the pivoted f32 rung solves it
+    g = torch.Generator(device=dev).manual_seed(12)
+    a2 = a.clone()
+    a2[7] = offset_gaussian(N, g, dev)
+    rescued, off_rescue = record(lu_blocked, "blocked_solve_batched")
+    reset_counts()
+    x2 = dispatch.solve_batched(a2, b, backend="mixed")
+    torch.cuda.synchronize()
+    counts = phase_counts()
+    off_rescue()
+    x0 = lu_blocked.pallas_solve_mixed_batched(a2, b, nb=64, fallback=False)
+    rung = lu_blocked.blocked_solve_batched(a2[7:8], b[7:8], ir_steps=2)
+    r7 = (a2[7].double() @ x2[7].double() - b[7].double()).abs().max()
+    scale = max(float(b[7].abs().max()),
+                float(a2[7].abs().max() * x2[7].abs().max()))
+    others = [i for i in range(B) if i != 7]
+    same = all(torch.equal(x2[i], x[i]) for i in others)
+    taken = torch.equal(x2[7:8], rung) and not torch.equal(x2[7], x0[7])
+    print(f"mixed rescue: launches {counts}, offset-Gaussian system residual "
+          f"{float(r7) / scale:.3e} of max(|b|, |A||x|) (tol {TOL_RESID}), "
+          f"solved by the pivoted rung {taken}, systems it was given "
+          f"{[c[0][0].shape[0] for c in rescued]}, other systems bitwise "
+          f"unchanged {same}")
+    if (counts["lu_panel"] != N // 64 or not taken or not same
+            or [c[0][0].shape[0] for c in rescued] != [1]):
+        raise AssertionError("the mixed rescue failed")
+    if not float(r7) <= TOL_RESID * scale:
+        raise AssertionError("the rescue left the offset-Gaussian system "
+                             "unsolved")
+
+    # the reach check: N = 960 takes 32-wide sub-panels (checked, not timed)
+    n = N_PANEL_REACH
+    s8 = torch.eye(n, device=dev) + torch.randn(
+        8, n, n, generator=g, device=dev) / (2 * n**0.5)
+    reset_counts()
+    d8 = dispatch.det_batched(s8)
+    torch.cuda.synchronize()
+    counts = phase_counts()
+    want8 = torch.linalg.det(s8.double().cpu())
+    rel8 = float(((d8.double().cpu() - want8) / want8).abs().max())
+    print(f"reach check det_batched(auto) B=8 N={n}: kernel-6 launches "
+          f"{counts['lu_panel']} (two 32-wide sub-panels a phase), max rel "
+          f"err vs float64 {rel8:.3e} (tol {TOL_DET})")
+    if counts["lu_panel"] != 2 * n // 64 or not rel8 <= TOL_DET:
+        raise AssertionError("the N=960 reach check failed")
+    return out
+
+
+def large_batch(bsz, n, dev):
+    """The large-N cell's input: the bench matrix class at N = ``n``, a
+    vector RHS, seeded by ``n``."""
+    g = torch.Generator(device=dev).manual_seed(n)
+    a = torch.randn(bsz, n, n, generator=g, device=dev)
+    a += 4.0 * n**0.5 * torch.eye(n, device=dev)
+    return a, torch.randn(bsz, n, generator=g, device=dev)
+
+
+#: the large-N cells, (B, N)
+LARGE_CELLS = ((16, 1024), (8, 2048))
+
+
+def drive_large_paths(dev):
+    """Phase 16: the large-N solve at N = 1024 and 2048, kernel 4 held
+    against its plain version on the array the path gave it, and no system
+    left to the pivoted rung.  Returns the kernel-4 launches, the max abs
+    difference and the batches."""
+    from linalg_solver_tpu_torch.ops import dispatch, lu_large
+    from linalg_solver_tpu_torch.ops.kernels import butterfly
+
+    launches, err, batches = 0, 0.0, {}
+    for bsz, n in LARGE_CELLS:
+        a, b = large_batch(bsz, n, dev)
+        calls, off = record(butterfly, "butterfly_two_sided")
+        rescued, off_rescue = record(lu_large, "large_solve_mixed")
+        reset_counts()
+        x = dispatch.solve_batched(a, b)
+        torch.cuda.synchronize()
+        counts = phase_counts()
+        off()
+        off_rescue()
+        resid = float(worst_resid(a, b, x).max())
+        print(f"large path solve_batched(auto) B={bsz} N={n}: launches "
+              f"{counts}, systems rescued {len(rescued)}, worst residual "
+              f"{resid:.3e} (tol {TOL_RESID})")
+        want = {"fused": 0, "inv_rbt": 0, "gauss_jordan": 0, "butterfly": 1,
+                "lu_nopivot": 0, "lu_panel": 0}
+        if counts != want:
+            raise AssertionError(f"expected launches {want}")
+        if rescued:
+            raise AssertionError("the large-N solve left a system of the "
+                                 "bench class to the pivoted rung")
+        if not (bool(torch.isfinite(x).all()) and resid <= TOL_RESID):
+            raise AssertionError(f"large solve residual {resid}")
+        err = max(err, hold_butterflies(calls, f"on the large path N={n}"))
+        launches += counts["butterfly"]
+        batches[n] = (a, b)
+    return launches, err, batches
+
+
+def time_panel_paths(dev, card, panels, det_input, large):
+    """Phase 17: kernel 6 over the mixed path's four panels, its plain
+    version, its library yardstick, the three paths and the large
+    solves."""
+    from linalg_solver_tpu_torch.ops import dispatch
+    from linalg_solver_tpu_torch.ops.kernels import lu_panel
+    from linalg_solver_tpu_torch.utils.benchmarking import cuda_time
+
+    a, b = bench_batch(dev)
+    panels = [(p.contiguous(), m.contiguous(), nb) for p, m, nb in panels]
+    # the library's pivoted LU of the rows each phase has left to pivot
+    unpiv = [unpivoted_rows(p, m) for p, m, _ in panels]
+
+    def kernels():
+        for args in panels:
+            lu_panel.panel_factor_masked(*args)
+
+    def plain():
+        for args in panels:
+            lu_panel.panel_factor_masked_reference(*args)
+
+    def library():
+        for rows in unpiv:
+            torch.linalg.lu_factor_ex(rows)
+
+    times = {
+        "kernel panel_factor_masked, the 4 mixed-path panels": cuda_time(
+            kernels, warmup=3, iters=20),
+        "plain panel_factor_masked_reference, the 4 panels": cuda_time(
+            plain, warmup=1, iters=3),
+        "library lu_factor_ex on the unpivoted rows, the 4 panels": cuda_time(
+            library, warmup=3, iters=20),
+        "solve_batched(mixed) k=1": cuda_time(
+            dispatch.solve_batched, a, b, "mixed", warmup=3, iters=10),
+        "torch.linalg.solve k=1": cuda_time(
+            lambda a_, b_: torch.linalg.solve(a_, b_.unsqueeze(-1)), a, b,
+            warmup=3, iters=10),
+        "det_batched(auto)": cuda_time(
+            dispatch.det_batched, det_input, warmup=3, iters=10),
+        "torch.linalg.det": cuda_time(
+            torch.linalg.det, det_input, warmup=3, iters=10),
+        "lu_factor_batched(auto)": cuda_time(
+            dispatch.lu_factor_batched, a, warmup=3, iters=10),
+        "torch.linalg.lu_factor": cuda_time(
+            torch.linalg.lu_factor, a, warmup=3, iters=10),
+    }
+    for what, t in times.items():
+        print(f"time {what}: {t * 1e3:.4f} ms (B={B} N={N}, {card})")
+    for n, (al, bl) in large.items():
+        for what, fn in (
+                (f"solve_batched(auto) N={n}", dispatch.solve_batched),
+                (f"torch.linalg.solve N={n}",
+                 lambda a_, b_: torch.linalg.solve(a_, b_.unsqueeze(-1)))):
+            t = cuda_time(fn, al, bl, warmup=2, iters=5)
+            times[what] = t
+            print(f"time {what}: {t * 1e3:.4f} ms (B={al.shape[0]} N={n}, "
+                  f"{card})")
+    return times
+
+
+def unpivoted_rows(panel, mask):
+    """The rows of ``panel [B, N, nb]`` not marked in ``mask``, in their
+    order: ``[B, N − k, nb]`` when every panel has k rows marked."""
+    keep = int((mask[0] == 0).sum())
+    order = torch.argsort(mask, dim=1, stable=True)[:, :keep]
+    return panel.gather(1, order[:, :, None].expand(-1, -1, panel.shape[2]))
+
+
+def panel_work(panels):
+    """(bytes, operations) of kernel 6 over ``panels`` [(panel, mask, nb)]:
+    each input read and each output written once; the multipliers and
+    rank-1 updates of the rows each step leaves unpivoted."""
+    nbytes = flops = 0
+    for p, m, nb in panels:
+        bsz, n, _ = p.shape
+        nbytes += 4 * bsz * (2 * n * nb + 3 * n + nb) + bsz
+        free = int((m[0] == 0).sum())
+        flops += bsz * sum((free - c - 1) * (2 * (nb - c - 1) + 1)
+                           for c in range(nb))
+    return nbytes, flops
+
+
+def nopivot_work(panels):
+    """(bytes, operations) of kernel 5 over ``panels`` [(panel, nb)]."""
+    nbytes = flops = 0
+    for p, nb in panels:
+        bsz, m, _ = p.shape
+        nbytes += 4 * bsz * 2 * m * nb + bsz
+        flops += bsz * sum((m - c - 1) * (2 * (nb - c - 1) + 1)
+                           for c in range(nb))
+    return nbytes, flops
 
 
 def worst_resid(a, b, x):
@@ -877,7 +1284,32 @@ def main() -> None:
     phase = drive_phase_paths(dev)
     ph_times = time_phase(dev, card, phase["solve_panels"])
 
-    print(json.dumps({"kernels": [{
+    # 14-17. kernel 6 and its paths, the large-N branch
+    k6_err = check_panel_kernel(dev)
+    k6 = drive_panel_paths(dev)
+    large_launches, large_err, large = drive_large_paths(dev)
+    k6_times = time_panel_paths(dev, card, k6["panels"], k6["det_input"],
+                                large)
+
+    # bounds from this run's shapes: bytes each input read and each output
+    # written once; operations those the inputs need
+    w = 2 * N_INV
+    bounds = {
+        "solve_fused_rbt": bound(
+            4 * (B * N * N + 2 * B * N + 4 * N) + B,
+            B * (2 / 3 * N**3 + 12 * N**2 + 2 * N**2 * (1 + 2 * 2))),
+        "inverse_rbt_fused": bound(
+            4 * (2 * B_INV * N_INV**2 + 9 * N_INV) + B_INV,
+            B_INV * (2 * N_INV**3 + 24 * N_INV**2)),
+        "gauss_jordan_tiled": bound(
+            4 * (2 * B_INV * N_INV * w + 3 * B_INV * N_INV),
+            B_INV * 2 * N_INV**2 * w),
+        "butterfly_two_sided": bound(4 * (2 * B * N * N + 4 * N),
+                                     12 * B * N * N),
+        "panel_factor_nopivot": bound(*nopivot_work(phase["solve_panels"])),
+        "panel_factor_masked": bound(*panel_work(k6["panels"])),
+    }
+    rows = [{
         "name": "solve_fused_rbt",
         "route": "cuda",
         "source": "linalg_solver_tpu_torch/csrc/solve_fused.cu",
@@ -886,6 +1318,7 @@ def main() -> None:
         "max_abs_err": bench_abs_err,
         "ms": times["kernel solve_fused_rbt"] * 1e3,
         "plain_ms": times["plain solve_fused_rbt_reference"] * 1e3,
+        "library_ms": times["torch.linalg.solve"] * 1e3,
     }, {
         "name": "inverse_rbt_fused",
         "route": "cuda",
@@ -895,6 +1328,7 @@ def main() -> None:
         "max_abs_err": inv_errs["inv_rbt"],
         "ms": inv_times["kernel inverse_rbt_fused"] * 1e3,
         "plain_ms": inv_times["plain inverse_rbt_fused_reference"] * 1e3,
+        "library_ms": inv_times["torch.linalg.inv"] * 1e3,
     }, {
         "name": "gauss_jordan_tiled",
         "route": "cuda",
@@ -904,15 +1338,17 @@ def main() -> None:
         "max_abs_err": max(inv_errs["gauss_jordan"], gj_err),
         "ms": inv_times["kernel gauss_jordan_tiled [A|I]"] * 1e3,
         "plain_ms": inv_times["plain gauss_jordan_reference [A|I]"] * 1e3,
+        "library_ms": inv_times["torch.linalg.inv"] * 1e3,
     }, {
         "name": "butterfly_two_sided",
         "route": "cuda",
         "source": "linalg_solver_tpu_torch/csrc/butterfly.cu",
         "replaces": "linalg_solver_tpu/ops/pallas/butterfly_kernel.py:91",
-        "launches": phase["butterfly_launches"],
-        "max_abs_err": max(bf_err, phase["butterfly_err"]),
+        "launches": phase["butterfly_launches"] + large_launches,
+        "max_abs_err": max(bf_err, phase["butterfly_err"], large_err),
         "ms": ph_times["kernel butterfly_two_sided"] * 1e3,
         "plain_ms": ph_times["plain butterfly_two_sided_reference"] * 1e3,
+        "library_ms": None,
     }, {
         "name": "panel_factor_nopivot",
         "route": "cuda",
@@ -923,7 +1359,25 @@ def main() -> None:
         "ms": ph_times["kernel panel_factor_nopivot, the 8 solve panels"] * 1e3,
         "plain_ms": ph_times[
             "plain panel_factor_nopivot_reference, the 8 solve panels"] * 1e3,
-    }]}))
+        "library_ms": ph_times[
+            "library lu_factor_ex(pivot=False), the 8 solve panels"] * 1e3,
+    }, {
+        "name": "panel_factor_masked",
+        "route": "cuda",
+        "source": "linalg_solver_tpu_torch/csrc/lu_panel.cu",
+        "replaces": "linalg_solver_tpu/ops/pallas/lu_panel_kernel.py:49",
+        "launches": k6["launches"],
+        "max_abs_err": max(k6_err, k6["err"]),
+        "ms": k6_times[
+            "kernel panel_factor_masked, the 4 mixed-path panels"] * 1e3,
+        "plain_ms": k6_times[
+            "plain panel_factor_masked_reference, the 4 panels"] * 1e3,
+        "library_ms": k6_times[
+            "library lu_factor_ex on the unpivoted rows, the 4 panels"] * 1e3,
+    }]
+    for row in rows:
+        row["bound_ms"], row["bound_by"] = bounds[row["name"]]
+    print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count(),
     }}))

@@ -18,5 +18,12 @@ Ported so far:
 - the RBT phase engine (``ops.rbt``'s ``engine="kernel"``: the one-pass
   two-sided butterfly kernel and the no-pivot panel LU kernel), behind
   the solve with a wide matrix RHS or N past the fused kernel and the
-  inverse past the small-N kernels (N a multiple of 8 below 1024).
+  inverse past the small-N kernels (N a multiple of 8 below 1024);
+- the pivoted blocked LU on the masked partial-pivot panel kernel
+  (``ops.lu_blocked``): the ``"mixed"`` and ``"blocked_pallas"`` solve
+  backends, ``"blocked_pallas"`` inverse and determinant (the
+  determinant's route past the pivoted kernel), and
+  ``ops.dispatch.lu_factor_batched``; and the large-N RBT block
+  elimination (``ops.lu_large``, ``ops.lu_recursive``) behind the solve
+  from N = 1024.
 """

@@ -1,12 +1,18 @@
 """Numeric operations of the port (counterpart of ``linalg_solver_tpu.ops``).
 
-- ``dispatch`` — ``solve_batched``, ``inverse_batched``, ``det_batched``
-  and ``rank_batched`` with backend routing and autograd
+- ``dispatch`` — ``solve_batched``, ``inverse_batched``, ``det_batched``,
+  ``rank_batched`` and ``lu_factor_batched`` with backend routing and
+  autograd
 - ``rbt`` — random-butterfly preconditioned pivot-free solve and
   inverse + rescue: the fused engine and the phase engine, the seeded
   butterfly and probe draws
-- ``lu_blocked`` — the pivoted solve and inverse the rescues end in, and
-  the triangular inverses of the phase engine
+- ``lu_blocked`` — the pivoted phase loop on the masked panel kernel
+  (mixed and blocked solves, det, packed LU, inverse), the pivoted solve
+  and inverse the rescues end in, and the triangular inverses
+- ``lu_large`` — the large-N solves: RBT block elimination and the
+  pivoted blocked LU with library panels
+- ``lu_recursive`` — the pivot-free recursive inverse of ``lu_large``'s
+  diagonal blocks
 - ``kernels`` — hand-written CUDA kernels beside their plain versions,
   and the facade the inverse, det and rank route to
 """

@@ -1,5 +1,5 @@
-"""Backend dispatch for the batched solve, inverse, determinant and rank
-(counterpart of ``linalg_solver_tpu.ops.dispatch``).
+"""Backend dispatch for the batched solve, inverse, determinant, rank and
+LU factorization (counterpart of ``linalg_solver_tpu.ops.dispatch``).
 
 Solve backends:
 
@@ -7,11 +7,21 @@ Solve backends:
   rescue (``ops.rbt.solve_rbt_batched``): the fused kernel where it
   reaches (even N, at most ``MAX_K_RHS`` RHS columns, its shared memory
   within a block's; ``kernels.solve_fused.fits``), else the phase engine.
+- ``"mixed"`` — below N = 1024 the reduced-precision pivoted factor with
+  f32 refinement and a pivoted rescue
+  (``lu_blocked.pallas_solve_mixed_batched``, panel kernel 6, ``nb`` the
+  first of 64, 48, 32, 16, 8 dividing N); from N = 1024 with N % 128 = 0
+  and a vector RHS the RBT block elimination
+  (``lu_large.large_solve_rbt``, kernel 4, ``nb`` 256 at N ≥ 2048 when
+  it divides N, else 128).  Other shapes raise.
+- ``"blocked_pallas"`` — the pivoted phase loop on panel kernel 6
+  (``lu_blocked.pallas_solve_batched``, ``nb = min(64, N)`` dividing N).
 - ``"xla"``  — the library's ``torch.linalg.solve``: the named baseline
   (the JAX package's ``"xla"`` is ``jnp.linalg.solve``).
 - ``"auto"`` — ``"rbt"`` where the fused kernel reaches, and where the
   phase engine does (N a multiple of 8 below 1024, the reference's
-  conditions), on every device alike.  Any other shape raises instead of
+  conditions); ``"mixed"`` from N = 1024 with N % 128 = 0 and a vector
+  RHS, as the reference routes it.  Any other shape raises instead of
   quietly going to another solver.
 
 Inverse, determinant and rank backends (the reference's names):
@@ -19,19 +29,33 @@ Inverse, determinant and rank backends (the reference's names):
 - ``"pallas"`` — the facade ``ops.kernels`` over the port's hand-written
   kernels (on the TPU, the Pallas kernels): the fused RBT inverse where
   it reaches, the pivoted Gauss–Jordan kernel for the rest.
+- ``"blocked_pallas"`` — (inverse and det) the pivoted phase loop on
+  panel kernel 6 (``lu_blocked.blocked_inverse_batched`` /
+  ``pallas_det_batched``, ``nb = min(64, N)`` dividing N).
 - ``"xla"``    — the library's ``torch.linalg.inv`` / ``det`` /
   ``matrix_rank``.
 - ``"auto"``   — ``"pallas"`` where the kernels reach; past that the
   inverse goes to the phase engine (``ops.rbt.inverse_rbt_batched``)
   where N is a multiple of 8 below 1024, as the reference routes it to
-  ``"rbt"``.  Everything else raises until ROADMAP.md ports it (the
-  blocked determinant and rank, N ≥ 1024).
+  ``"rbt"``, and the determinant to ``"blocked_pallas"`` where
+  ``min(64, N)`` divides N below 1024.  Everything else raises until
+  ROADMAP.md ports it (N ≥ 1024, the blocked rank).
 
-The JAX package's TPU routing constants (``_XLA_CROSSOVER_N``,
-``_RBT_SOLVE_MIN_N``, ``lanes_util_ok``) are TPU measurements and are
-not carried over; a route is added here when the H100 measures it.  The
-phase engine's bounds (N % 8 == 0, N < 1024) are the reference's reach,
-not a measured crossover.
+``lu_factor_batched`` has ``"blocked_pallas"`` (the packed L\\U of
+``lu_blocked.blocked_lu_batched`` on panel kernel 6), and ``"auto"``
+takes it wherever ``min(64, N)`` divides N, at every N, as the
+reference does.
+
+The routes follow the reference's reach, not crossovers measured on
+the H100: the bounds used here (N % 8 == 0 and N < 1024 for the phase
+engine, N ≥ 1024 with N % 128 == 0 for the large-N solve, ``min(64, N)``
+dividing N for the blocked paths) are the reference's, and its TPU
+crossover constants (``_RBT_SOLVE_MIN_N``, ``lanes_util_ok``) are not
+carried over.  Some of these routes are slower than the library's call
+on the H100; ``"auto"`` takes them all the same, and PERF.md keeps the
+measured factors.  The large-N solve is the worst: 5–11× slower than
+``torch.linalg.solve`` at N = 1024 and 2048 on an H100, host-bound on
+its ~16,800 device operations a call.
 """
 
 from __future__ import annotations
@@ -41,14 +65,19 @@ from typing import Optional
 import torch
 
 from . import kernels as _kernels
+from . import lu_blocked as _lub
+from . import lu_large as _lul
 from . import rbt as _rbt
 from .kernels.solve_fused import MAX_K_RHS, fits
 from ..utils.precision import f32_matmuls
 
-BACKENDS = ("auto", "rbt", "xla")
+BACKENDS = ("auto", "rbt", "mixed", "blocked_pallas", "xla")
 
 #: backends of inverse_batched, det_batched and rank_batched
-FACADE_BACKENDS = ("auto", "pallas", "xla")
+FACADE_BACKENDS = ("auto", "pallas", "blocked_pallas", "xla")
+
+#: backends of lu_factor_batched
+LU_BACKENDS = ("auto", "blocked_pallas")
 
 
 #: N past which the reference leaves the phase engine for the large-N
@@ -62,7 +91,40 @@ def phase_reaches(n: int) -> bool:
     return n % 8 == 0 and 8 <= n < PHASE_MAX_N
 
 
-def _resolve(backend: str, n: int, k: int) -> str:
+def large_reaches(n: int, vector_rhs: bool) -> bool:
+    """Whether the large-N RBT solve takes N = n: n ≥ 1024, a multiple of
+    128, and a vector RHS (the reference's ``"mixed"`` branch)."""
+    return vector_rhs and n >= PHASE_MAX_N and n % 128 == 0
+
+
+def _best_nb(n: int) -> int:
+    """Panel width of the blocked paths (the reference's ``_best_nb``)."""
+    return min(64, n)
+
+
+def _blocked_ok(n: int) -> bool:
+    """The blocked paths need N divisible by their panel width."""
+    return n >= 8 and n % _best_nb(n) == 0
+
+
+def _blocked_nb(n: int, what: str) -> int:
+    if not _blocked_ok(n):
+        raise ValueError(f"backend='blocked_pallas' ({what}) needs N >= 8 "
+                         f"divisible by min(64, N); got N={n}")
+    return _best_nb(n)
+
+
+def _mixed_nb(n: int) -> int:
+    """Panel width of the mixed solve below N = 1024 (the reference's
+    ``_rbt_nb``): the first of 64, 48, 32, 16, 8 dividing N."""
+    nb = next((w for w in (64, 48, 32, 16, 8) if n % w == 0), None)
+    if nb is None:
+        raise ValueError(f"backend='mixed' needs N divisible by a panel width "
+                         f"in (64, 48, 32, 16, 8); got N={n}")
+    return nb
+
+
+def _resolve(backend: str, n: int, k: int, vector_rhs: bool) -> str:
     """The backend ``backend`` stands for at ``N = n`` with ``k`` RHS
     columns."""
     if backend not in BACKENDS:
@@ -71,21 +133,43 @@ def _resolve(backend: str, n: int, k: int) -> str:
         return backend
     if fits(n, k) or phase_reaches(n):
         return "rbt"
+    if large_reaches(n, vector_rhs):
+        return "mixed"
     raise NotImplementedError(
         f"backend='auto' has no route for N={n}, k={k} yet: past the fused "
         f"kernel (even N, k <= {MAX_K_RHS}, its shared memory) the phase "
-        f"engine takes N % 8 == 0 below {PHASE_MAX_N}; the rest goes to the "
-        f"blocked, mixed and large-N solvers that ROADMAP.md queue 1 item 7 "
-        f"ports; pass backend='xla' meanwhile"
+        f"engine takes N % 8 == 0 below {PHASE_MAX_N}, and the large-N solve "
+        f"N % 128 == 0 from {PHASE_MAX_N} with a vector RHS; the rest goes to "
+        f"the blocked and loop solvers that ROADMAP.md queue 1 item 7 ports; "
+        f"pass backend='xla' meanwhile"
     )
 
 
+def _solve_mixed(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    n = a.shape[-1]
+    if n < PHASE_MAX_N:
+        return _lub.pallas_solve_mixed_batched(a, b, nb=_mixed_nb(n))
+    if not large_reaches(n, b.dim() == a.dim() - 1):
+        raise NotImplementedError(
+            f"backend='mixed' at N={n} >= {PHASE_MAX_N} takes N % 128 == 0 "
+            f"and a vector RHS (the large-N RBT solve); ROADMAP.md queue 1 "
+            f"item 7 ports the rest; pass backend='xla' meanwhile")
+    nb = 256 if n >= 2048 and n % 256 == 0 else 128
+    return _lul.large_solve_rbt(a, b, nb=nb, ir_steps=2)
+
+
 def _solve_impl(a: torch.Tensor, b: torch.Tensor, backend: str):
-    k = 1 if b.dim() == a.dim() - 1 else b.shape[-1]
-    be = _resolve(backend, a.shape[-1], k)
+    vector_rhs = b.dim() == a.dim() - 1
+    k = 1 if vector_rhs else b.shape[-1]
+    n = a.shape[-1]
+    be = _resolve(backend, n, k, vector_rhs)
     if be == "rbt":
         return _rbt.solve_rbt_batched(a, b)
-    if b.dim() == a.dim() - 1:
+    if be == "mixed":
+        return _solve_mixed(a, b)
+    if be == "blocked_pallas":
+        return _lub.pallas_solve_batched(a, b, nb=_blocked_nb(n, "solve"))
+    if vector_rhs:
         return torch.linalg.solve(a, b.unsqueeze(-1)).squeeze(-1)
     return torch.linalg.solve(a, b)
 
@@ -127,34 +211,46 @@ def _resolve_facade(backend: str, op: str, n: int) -> str:
     if backend not in FACADE_BACKENDS:
         raise ValueError(
             f"unknown backend {backend!r}; one of {FACADE_BACKENDS}")
+    if backend == "blocked_pallas" and op == "rank":
+        raise ValueError("rank_batched has no 'blocked_pallas' backend")
     if backend != "auto":
         return backend
     if _kernels.supports(op, n):
         return "pallas"
     if op == "inverse" and phase_reaches(n):
         return "rbt"
+    if op == "det" and _blocked_ok(n) and n < PHASE_MAX_N:
+        return "blocked_pallas"
     raise NotImplementedError(
         f"backend='auto' has no route for {op} at N={n} yet: past the "
         f"kernels' shared memory the inverse takes the phase engine at "
-        f"N % 8 == 0 below {PHASE_MAX_N}; the rest goes to the blocked "
-        f"determinant, rank and the large-N solvers that ROADMAP.md queue 1 "
+        f"N % 8 == 0 and the determinant the blocked phase loop at "
+        f"N % min(64, N) == 0, both below {PHASE_MAX_N}; the rest goes to "
+        f"the blocked rank and the large-N solvers that ROADMAP.md queue 1 "
         f"item 7 ports; pass backend='xla' meanwhile"
     )
 
 
 def _inverse_reaches(n: int, backend: str) -> bool:
-    """Whether ``backend`` ("auto" or "pallas") inverts at N = n on the
-    port's own route."""
+    """Whether ``backend`` (not ``"xla"``) inverts at N = n on the port's
+    own route."""
+    if backend == "blocked_pallas":
+        return _blocked_ok(n)
     return _kernels.supports("inverse", n) or (
         backend == "auto" and phase_reaches(n))
 
 
 def _inverse_impl(a: torch.Tensor, backend: str) -> torch.Tensor:
-    be = _resolve_facade(backend, "inverse", a.shape[-1])
+    n = a.shape[-1]
+    be = _resolve_facade(backend, "inverse", n)
     if be == "pallas":
         return _kernels.inverse_batched(a)
     if be == "rbt":
         return _rbt.inverse_rbt_batched(a)
+    if be == "blocked_pallas":
+        x = _lub.blocked_inverse_batched(
+            a, nb=_blocked_nb(n, "inverse"), panel_backend="pallas")
+        return x.to(a.dtype) if a.is_floating_point() else x
     return torch.linalg.inv(a)
 
 
@@ -185,7 +281,8 @@ def inverse_batched(a: torch.Tensor, backend: str = "auto") -> torch.Tensor:
 
 def _det_impl(a: torch.Tensor, backend: str, grad: bool) -> torch.Tensor:
     n = a.shape[-1]
-    if _resolve_facade(backend, "det", n) != "pallas":
+    be = _resolve_facade(backend, "det", n)
+    if be == "xla":
         return torch.linalg.det(a)
     if grad and not _inverse_reaches(n, backend):
         # the backward inverts A through the same route: refuse now, not
@@ -196,6 +293,9 @@ def _det_impl(a: torch.Tensor, backend: str, grad: bool) -> torch.Tensor:
             f"{PHASE_MAX_N}; ROADMAP.md queue 1 item 7 ports the rest; pass "
             f"backend='xla' meanwhile"
         )
+    if be == "blocked_pallas":
+        d = _lub.pallas_det_batched(a, nb=_blocked_nb(n, "det"))
+        return d.to(a.dtype) if a.is_floating_point() else d
     return _kernels.det_batched(a)
 
 
@@ -237,3 +337,22 @@ def rank_batched(
     if tol is None:
         return torch.linalg.matrix_rank(a).to(torch.int32)
     return torch.linalg.matrix_rank(a, atol=tol, rtol=0.0).to(torch.int32)
+
+
+def lu_factor_batched(
+    a: torch.Tensor, backend: str = "auto"
+) -> _lub.BlockedLUResult:
+    """Batched LU with partial pivoting, ``P A = L U``, of ``a [B, N, N]``
+    in f32: ``lu_blocked.blocked_lu_batched`` on panel kernel 6 with
+    ``nb = min(64, N)`` (two-level panels where the kernel's shared
+    memory needs them).  Returns ``BlockedLUResult(lu, perm, sign, ok,
+    l11_inv, u11_inv)``."""
+    if backend not in LU_BACKENDS:
+        raise ValueError(f"unknown backend {backend!r}; one of {LU_BACKENDS}")
+    n = a.shape[-1]
+    if backend == "auto" and not _blocked_ok(n):
+        raise NotImplementedError(
+            f"backend='auto' has no route for lu_factor at N={n} yet: the "
+            f"blocked phase loop takes N >= 8 divisible by min(64, N); the "
+            f"loop backend for the rest is in ROADMAP.md queue 1 item 6")
+    return _lub.blocked_lu_batched(a, nb=_blocked_nb(n, "lu_factor"))

@@ -7,6 +7,8 @@ version (counterpart of ``linalg_solver_tpu.ops.pallas``).
 - ``butterfly`` — the two-sided depth-≤2 butterfly in one pass (phase
   engine)
 - ``lu_nopivot`` — panel LU without a pivot search (phase engine)
+- ``lu_panel`` — partial-pivot panel LU without row swaps, skipping rows
+  earlier panels pivoted (the pivoted phase loop of ``ops.lu_blocked``)
 
 The functions below are the facade ``ops.dispatch`` routes to, as the
 JAX package's ``ops.pallas`` is: ``inverse_batched`` takes the fused RBT

@@ -39,6 +39,8 @@ _SIGNATURES = {
     "butterfly_two_sided_f32": (_I, [_P] * 4 + [_I] * 5 + [_P]),
     "lu_nopivot_f32": (_I, [_P] * 3 + [_I] * 3 + [_P]),
     "nopivot_smem_bytes": (ctypes.c_size_t, [_I, _I]),
+    "lu_panel_f32": (_I, [_P] * 7 + [_I] * 3 + [_P]),
+    "panel_smem_bytes": (ctypes.c_size_t, [_I, _I]),
     "kernels_error_string": (ctypes.c_char_p, [_I]),
 }
 

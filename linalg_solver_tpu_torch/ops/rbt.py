@@ -33,12 +33,7 @@ import numpy as np
 import torch
 
 from ..utils.precision import f32_matmuls, factor_matmuls
-from .lu_blocked import (
-    blocked_inverse_batched,
-    blocked_solve_batched,
-    invert_unit_lower,
-    invert_upper,
-)
+from . import lu_blocked
 
 _SQRT_HALF = 0.7071067811865476
 
@@ -200,19 +195,15 @@ def _compacted_rescue(
     system is independent, so the answers do not depend on which others
     were flagged.
 
-    The decision reads one scalar to the host (``int(bad.sum())``): on
-    CUDA that waits for the kernels.  It is the one host read of a clean
-    call; moving the decision onto the card is on the roadmap."""
-    if int(bad.sum()) == 0:
-        return x
-    idx = torch.nonzero(bad).squeeze(1)
-    sub = [t.index_select(0, idx) for t in operands]
-    y, bad2 = core2(*sub)
-    idx2 = torch.nonzero(bad2).squeeze(1)
-    if idx2.numel():
-        yp = pivoted(*(t.index_select(0, idx2) for t in sub))
-        y = y.index_copy(0, idx2, yp)
-    return x.index_copy(0, idx, y)
+    Each decision reads one scalar to the host
+    (``lu_blocked.rescue_flagged``): on CUDA that waits for the kernels.
+    The first is the one host read of a clean call; moving the decision
+    onto the card is on the roadmap."""
+    def again(*sub):
+        y, bad2 = core2(*sub)
+        return lu_blocked.rescue_flagged(y, bad2, pivoted, *sub)
+
+    return lu_blocked.rescue_flagged(x, bad, again, *operands)
 
 
 # --- the phase engine --------------------------------------------------
@@ -293,7 +284,7 @@ def _nopivot_lu_phases(
         panels.append(panel_u)
         l11u11 = panel_u[:, :nb, :]
         l21 = panel_u[:, nb:, :]
-        l11i = invert_unit_lower(torch.tril(l11u11, -1) + eye_nb)
+        l11i = lu_blocked.invert_unit_lower(torch.tril(l11u11, -1) + eye_nb)
         l11s_inv.append(l11i)
         l11u11s.append(l11u11)
         if ys is not None:
@@ -306,20 +297,8 @@ def _nopivot_lu_phases(
             trail = trail[:, nb:, nb:] - l21 @ u12
         else:
             trail = trail[:, nb:, nb:]
-    u11s_inv = [invert_upper(torch.triu(x)) for x in l11u11s]
+    u11s_inv = [lu_blocked.invert_upper(torch.triu(x)) for x in l11u11s]
     return _NoPivotPhases(panels, u12s, l11s_inv, u11s_inv, ok, ys)
-
-
-def _nopivot_backward(ph: _NoPivotPhases, ys, m: int, nb: int):
-    """Block back substitution ``U x = y`` over the ``m`` phases."""
-    xs: List = [None] * m
-    for i in reversed(range(m)):
-        r = ys[i]
-        for j in range(i + 1, m):
-            w0 = (j - i - 1) * nb
-            r = r - ph.u12s[i][:, :, w0:w0 + nb] @ xs[j]
-        xs[i] = ph.u11s_inv[i] @ r
-    return torch.cat(xs, dim=1)
 
 
 def _nopivot_solve(ph: _NoPivotPhases, b3: torch.Tensor, m: int, nb: int):
@@ -333,7 +312,7 @@ def _nopivot_solve(ph: _NoPivotPhases, b3: torch.Tensor, m: int, nb: int):
         rhs = rhs[:, nb:, :]
         if rhs.shape[1]:
             rhs = rhs - ph.panels[i][:, nb:, :] @ y
-    return _nopivot_backward(ph, ys, m, nb)
+    return lu_blocked._phases_backward(ph, ys, m, nb)
 
 
 def _solve_core(
@@ -352,8 +331,8 @@ def _solve_core(
         a_p = _butterfly_two_sided_fast(a32, *diags, trans=True)
         b_p = butterfly_apply(b3, du, trans=True)
         ph = _nopivot_lu_phases(a_p, nb, rhs=b_p)
-        x = butterfly_apply(_nopivot_backward(ph, ph.ys, m, nb), dv,
-                            trans=False)
+        x = butterfly_apply(lu_blocked._phases_backward(ph, ph.ys, m, nb),
+                            dv, trans=False)
     rmax = xmax = zcmax = None
     for step in range(ir_steps):
         last = step == ir_steps - 1
@@ -391,7 +370,7 @@ def _inverse_core(
         else:
             eye = torch.eye(n, dtype=a32.dtype, device=a32.device)
             ph = _nopivot_lu_phases(a_p, nb, rhs=eye.expand(B, n, n))
-            inv_p = _nopivot_backward(ph, ph.ys, m, nb)
+            inv_p = lu_blocked._phases_backward(ph, ph.ys, m, nb)
         x = _butterfly_two_sided_fast(inv_p, diags[1], diags[0], trans=False)
     eye = torch.eye(n, dtype=a32.dtype, device=a32.device)
     rmax = None
@@ -414,7 +393,7 @@ def _pivoted_inverse(a32: torch.Tensor) -> torch.Tensor:
     n = a32.shape[-1]
     if gauss_jordan.fits(n, 2 * n):
         return gauss_jordan.inverse_batched(a32)
-    return blocked_inverse_batched(a32)
+    return lu_blocked.blocked_inverse_batched(a32)
 
 
 def inverse_rbt_batched(
@@ -494,7 +473,8 @@ def solve_rbt_batched(
     x, bad = core(a32, b3, diags)
     x = _compacted_rescue(
         lambda a_s, b_s: core(a_s, b_s, redraw),
-        lambda a_s, b_s: blocked_solve_batched(a_s, b_s, ir_steps=2),
+        lambda a_s, b_s: lu_blocked.blocked_solve_batched(a_s, b_s,
+                                                      ir_steps=2),
         x, bad, a32, b3,
     )
     return x.squeeze(-1) if vector_input else x

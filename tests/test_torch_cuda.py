@@ -11,7 +11,7 @@ import pytest
 import torch
 
 from linalg_solver_tpu_torch.ops import dispatch, rbt
-from linalg_solver_tpu_torch.ops.kernels import butterfly, lu_nopivot
+from linalg_solver_tpu_torch.ops.kernels import butterfly, lu_nopivot, lu_panel
 from linalg_solver_tpu_torch.ops.kernels import gauss_jordan as gj
 from linalg_solver_tpu_torch.ops.kernels import inv_rbt
 from linalg_solver_tpu_torch.ops.kernels import solve_fused as sf
@@ -25,8 +25,9 @@ from linalg_solver_tpu_torch.utils import systems
 # or within a rounding (≤ 3.7e-9 relative measured on an H100): the
 # probe's sums run in another order, and the plain version rounds its
 # fused multiply-adds twice.
-# The phase engine's two kernels (butterfly, no-pivot panel) run the
-# plain versions' operations in the same order and agree to the bit.
+# The phase engine's two kernels (butterfly, no-pivot panel) and the
+# masked pivoted panel kernel run the plain versions' operations in the
+# same order and agree to the bit.
 # 1e-5 relative is the bound chip_smoke.py holds all of them to; the
 # unrefined solution of the small-pivot probe system misses it by
 # ~1000x, and the inverse without its rescue misses the flags.
@@ -496,6 +497,131 @@ def test_phase_inverse_path_on_the_card(cuda):
     # det with a gradient at 168 takes the phase inverse in its backward
     s = (torch.eye(168, device=cuda) + 0.1 * torch.randn(
         2, 168, 168, generator=g, device=cuda) / 168**0.5)
+    grads = []
+    for det in (dispatch.det_batched, torch.linalg.det):
+        st = s.clone().requires_grad_()
+        det(st).sum().backward()
+        grads.append(st.grad)
+    err = (grads[0] - grads[1]).abs().max() / grads[1].abs().max()
+    assert float(err) <= 1e-4
+
+
+# --- kernel 6 (masked partial-pivot panel) and the paths that run it ----
+
+
+def _masked_panels(B, n, nb, frac, dev):
+    """Gaussian panels with about ``frac`` of the rows pre-pivoted;
+    panel 0 has a zero column 1, panel 1 a NaN at (5, 2)."""
+    g = torch.Generator(device=dev).manual_seed(n + nb)
+    p = torch.randn(B, n, nb, generator=g, device=dev)
+    m = (torch.rand(B, n, generator=g, device=dev) < frac).to(torch.int32)
+    p[0, :, 1] = 0.0
+    p[1, 5, 2] = float("nan")
+    return p, m
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,n,nb,frac", [(8, 16, 4, 0.3), (16, 96, 32, 0.4),
+                                         (32, 256, 64, 0.0),
+                                         (32, 256, 64, 0.4),
+                                         (4, 889, 64, 0.2),
+                                         (4, 960, 32, 0.3)])
+def test_lu_panel_kernel_matches_plain_version_bitwise(cuda, B, n, nb, frac):
+    """All five outputs equal to the bit (NaN where the other is NaN),
+    the zero-column and NaN panels included."""
+    p, m = _masked_panels(B, n, nb, frac, cuda)
+    before = lu_panel.LAUNCHES
+    out = lu_panel.panel_factor_masked(p, m, nb)
+    torch.cuda.synchronize()
+    assert lu_panel.LAUNCHES == before + 1
+    ref = lu_panel.panel_factor_masked_reference(p, m, nb)
+    for x, y in zip(out, ref):
+        assert x.dtype == y.dtype and _nan_equal(x, y)
+    assert out[4][:3].tolist() == [False, False, True]
+
+
+@pytest.mark.cuda
+def test_lu_panel_check_sees_a_dropped_mask(cuda):
+    p, m = _masked_panels(8, 64, 16, 0.4, cuda)
+    out = lu_panel.panel_factor_masked(p, torch.zeros_like(m), 16)
+    ref = lu_panel.panel_factor_masked_reference(p, m, 16)
+    assert not torch.equal(out[1], ref[1])
+
+
+@pytest.mark.cuda
+def test_lu_panel_smem_mirror_and_reach(cuda):
+    from linalg_solver_tpu_torch.ops.kernels import _build
+
+    lib = _build.load()
+    for n in (1, 16, 256, 889, 890, 960, 1756, 2048):
+        for nb in (2, 4, 16, 32, 64):
+            assert lib.panel_smem_bytes(n, nb) == lu_panel.smem_bytes(n, nb)
+    with pytest.raises(ValueError, match="shared memory"):
+        lu_panel.panel_factor_masked(torch.zeros(1, 890, 64, device=cuda),
+                                     torch.zeros(1, 890, device=cuda), 64)
+
+
+def _panel_count():
+    return lu_panel.LAUNCHES
+
+
+@pytest.mark.cuda
+def test_mixed_det_and_lu_factor_paths_on_the_card(cuda):
+    """B = 16, N = 256, nb = 64: four kernel-6 launches a call."""
+    a, b = _batch(16, 256, seed=30, dev=cuda)
+    c0 = _panel_count()
+    x = dispatch.solve_batched(a, b, backend="mixed")
+    torch.cuda.synchronize()
+    assert _panel_count() - c0 == 4
+    assert float(_resid(a, b, x).max()) <= 1e-5
+    g = torch.Generator(device=cuda).manual_seed(31)
+    s = torch.eye(256, device=cuda) + torch.randn(
+        16, 256, 256, generator=g, device=cuda) / 32.0
+    c0 = _panel_count()
+    d = dispatch.det_batched(s)
+    torch.cuda.synchronize()
+    assert _panel_count() - c0 == 4
+    want = torch.linalg.det(s.double().cpu())
+    assert float(((d.double().cpu() - want) / want).abs().max()) <= 1e-3
+    c0 = _panel_count()
+    res = dispatch.lu_factor_batched(a)
+    torch.cuda.synchronize()
+    assert _panel_count() - c0 == 4
+    lu = res.lu.double()
+    lo = torch.tril(lu, -1) + torch.eye(256, device=cuda, dtype=torch.float64)
+    pa = a.double().gather(1, res.perm.long()[:, :, None].expand(-1, -1, 256))
+    err = (lo @ torch.triu(lu) - pa).abs().amax()
+    assert float(err) <= 1e-5 * float(a.abs().max())
+
+
+@pytest.mark.cuda
+def test_large_solve_on_the_card(cuda):
+    """N = 1024: one butterfly launch, no panel kernel."""
+    a, b = _batch(2, 1024, seed=32, dev=cuda)
+    c0 = (butterfly.LAUNCHES, _panel_count())
+    x = dispatch.solve_batched(a, b)
+    torch.cuda.synchronize()
+    assert (butterfly.LAUNCHES - c0[0], _panel_count() - c0[1]) == (1, 0)
+    assert float(_resid(a, b, x).max()) <= 1e-5
+
+
+@pytest.mark.cuda
+def test_blocked_pallas_backends_on_the_card(cuda):
+    """The solve, inverse and det of ``backend="blocked_pallas"`` at
+    N = 128 (nb = 64: two kernel-6 launches each), and det with a
+    gradient at N = 256, whose backward takes the phase inverse."""
+    a, b = _batch(8, 128, seed=33, k=3, dev=cuda)
+    c0 = _panel_count()
+    x = dispatch.solve_batched(a, b, backend="blocked_pallas")
+    xi = dispatch.inverse_batched(a, backend="blocked_pallas")
+    torch.cuda.synchronize()
+    assert _panel_count() - c0 == 4
+    assert float(_resid(a, b, x).max()) <= 1e-5
+    eye = torch.eye(128, device=cuda, dtype=torch.float64)
+    assert float((a.double() @ xi.double() - eye).abs().max()) <= 5e-5
+    g = torch.Generator(device=cuda).manual_seed(34)
+    s = torch.eye(256, device=cuda) + torch.randn(
+        2, 256, 256, generator=g, device=cuda) / 32.0
     grads = []
     for det in (dispatch.det_batched, torch.linalg.det):
         st = s.clone().requires_grad_()

@@ -19,7 +19,7 @@ import torch
 
 from linalg_solver_tpu.ops import dispatch as jdispatch
 from linalg_solver_tpu.ops import rbt as jrbt
-from linalg_solver_tpu_torch.ops import dispatch, rbt
+from linalg_solver_tpu_torch.ops import dispatch, lu_blocked, lu_large, rbt
 from linalg_solver_tpu_torch.ops.kernels import solve_fused as sf
 from linalg_solver_tpu_torch.ops.kernels.solve_fused import fits
 from linalg_solver_tpu_torch.utils import systems
@@ -143,13 +143,14 @@ def test_rbt_with_the_jax_draws_matches_jax(ir_steps):
 
 
 @pytest.mark.parametrize(
-    "n,k", [(63, None), (796, None), (1024, None), (1024, 16)],
-    ids=["odd_n", "smem_k1", "n1024", "n1024_k16"],
+    "n,k", [(63, None), (796, None), (1088, None), (1024, 16)],
+    ids=["odd_n", "smem_k1", "n1088", "n1024_k16"],
 )
 def test_auto_raises_outside_the_kernel_reach(n, k):
     """796 is the smallest even N past the fused kernel's shared memory at
     k=1, and not a multiple of 8, so the phase engine does not take it
-    either; from N = 1024 on the reference leaves the phase engine."""
+    either; from N = 1024 on the reference leaves the phase engine, and
+    the large-N solve takes only N % 128 == 0 with a vector RHS."""
     b_shape = (1, n) if k is None else (1, n, k)
     a, b = torch.zeros(1, n, n), torch.zeros(b_shape)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -180,6 +181,66 @@ def test_auto_routes_past_the_fused_kernel_to_the_phase_engine(n, k):
         _assert_close(xj, xt.numpy(), range(2))
 
 
+def test_auto_routes_n1024_to_the_large_solve():
+    """N = 1024 with a vector RHS: the large-N RBT solve at nb = 128, as
+    the reference's ``"mixed"`` branch routes it, bitwise as called
+    directly."""
+    a, b = _batch(1, 1024, seed=17)
+    at, bt = torch.from_numpy(a), torch.from_numpy(b)
+    assert dispatch.large_reaches(1024, True)
+    x = dispatch.solve_batched(at, bt)
+    assert torch.equal(x, lu_large.large_solve_rbt(at, bt, nb=128))
+    assert _resid(a, b, x.numpy()).max() <= 1e-5
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        dispatch.solve_batched(at, bt[:, :, None].expand(1, 1024, 2),
+                               backend="mixed")
+
+
+@pytest.mark.parametrize("n,nb", [(64, 64), (96, 48), (40, 8)])
+def test_mixed_backend_is_the_mixed_phase_loop(n, nb):
+    """Below 1024, ``"mixed"`` is ``pallas_solve_mixed_batched`` with the
+    first of 64, 48, 32, 16, 8 that divides N, bitwise as called
+    directly."""
+    a, b = _batch(2, n, seed=n)
+    at, bt = torch.from_numpy(a), torch.from_numpy(b)
+    x = dispatch.solve_batched(at, bt, backend="mixed")
+    assert torch.equal(x, lu_blocked.pallas_solve_mixed_batched(at, bt,
+                                                                nb=nb))
+    assert _resid(a, b, x.numpy()).max() <= 1e-5
+    with pytest.raises(ValueError, match="panel width"):
+        dispatch.solve_batched(torch.zeros(1, 30, 30), torch.zeros(1, 30),
+                               backend="mixed")
+
+
+@pytest.mark.parametrize("k", [None, 3], ids=["vector", "matrix"])
+def test_blocked_pallas_backend_is_the_phase_loop_solve(k):
+    a, b = _batch(2, 128, seed=19, k=k)
+    at, bt = torch.from_numpy(a), torch.from_numpy(b)
+    x = dispatch.solve_batched(at, bt, backend="blocked_pallas")
+    assert torch.equal(x, lu_blocked.pallas_solve_batched(at, bt, nb=64))
+    assert _resid(a, b, x.numpy()).max() <= 1e-5
+    with pytest.raises(ValueError, match="min\\(64, N\\)"):
+        dispatch.solve_batched(torch.zeros(1, 100, 100), torch.zeros(1, 100),
+                               backend="blocked_pallas")
+
+
+@pytest.mark.parametrize("backend", ["mixed", "blocked_pallas"])
+def test_gradient_through_the_pivoted_backends(backend):
+    a, b = _batch(2, 32, seed=21)
+    w = torch.from_numpy(np.random.RandomState(22).randn(2, 32)).float()
+    grads = []
+    for solve in (
+        lambda at, bt: dispatch.solve_batched(at, bt, backend=backend),
+        lambda at, bt: torch.linalg.solve(at, bt.unsqueeze(-1)).squeeze(-1),
+    ):
+        at = torch.from_numpy(a).requires_grad_()
+        bt = torch.from_numpy(b).requires_grad_()
+        (solve(at, bt) * w).sum().backward()
+        grads.append((at.grad, bt.grad))
+    for got, want in zip(grads[0], grads[1]):
+        assert float((got - want).abs().max() / want.abs().max()) <= 1e-4
+
+
 def test_kernel_reach_boundary():
     assert fits(794, 1) and not fits(796, 1)
     assert fits(574, 8) and not fits(576, 8)
@@ -195,6 +256,8 @@ def test_xla_backend_is_the_library_solve():
     with pytest.raises(ValueError, match="unknown backend"):
         dispatch.solve_batched(
             torch.from_numpy(a), torch.from_numpy(b), backend="pallas")
+    assert dispatch.BACKENDS == ("auto", "rbt", "mixed", "blocked_pallas",
+                                 "xla")
 
 
 @pytest.mark.parametrize("k", [None, 3], ids=["vector", "matrix"])

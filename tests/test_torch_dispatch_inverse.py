@@ -18,7 +18,7 @@ import torch
 
 from linalg_solver_tpu.ops.pallas import gj_kernel as jgj
 from linalg_solver_tpu.ops.pallas import inv_rbt_kernel as jinv
-from linalg_solver_tpu_torch.ops import dispatch, rbt
+from linalg_solver_tpu_torch.ops import dispatch, lu_blocked, rbt
 from linalg_solver_tpu_torch.ops.kernels import gauss_jordan as gj
 from linalg_solver_tpu_torch.ops.kernels import inv_rbt
 
@@ -152,6 +152,103 @@ def test_auto_det_gradient_at_168_takes_the_phase_inverse():
     assert float(err) <= 1e-4
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         dispatch.det_batched(torch.from_numpy(a).requires_grad_(), "pallas")
+
+
+def _det_batch(B, n, seed):
+    """I + G/(2√n): a determinant of order one, inside f32's range."""
+    rng = np.random.RandomState(seed)
+    return (np.eye(n) + rng.randn(B, n, n) / (2 * np.sqrt(n))).astype(
+        np.float32)
+
+
+def test_auto_det_at_256_takes_the_blocked_phase_loop():
+    """256 is past the pivoted [N, N] tile (237): ``pallas_det_batched``
+    with nb = 64, bitwise as called directly; a singular matrix gives 0
+    and a row swap flips the sign."""
+    a = _det_batch(3, 256, seed=13)
+    a[1] = 0.0
+    a[2, [3, 9]] = a[2, [9, 3]]
+    at = torch.from_numpy(a)
+    d = dispatch.det_batched(at)
+    assert torch.equal(d, lu_blocked.pallas_det_batched(at, nb=64))
+    want = np.linalg.det(a.astype(np.float64))
+    assert float(d[1]) == 0.0 and np.sign(float(d[2])) == np.sign(want[2])
+    np.testing.assert_allclose(d.numpy()[[0, 2]], want[[0, 2]], rtol=1e-4)
+
+
+def test_auto_det_gradient_at_256():
+    """The backward inverts through the phase inverse (N % 8 == 0)."""
+    a = _det_batch(2, 256, seed=14)
+    grads = []
+    for det in (dispatch.det_batched, torch.linalg.det):
+        at = torch.from_numpy(a).requires_grad_()
+        (det(at) * torch.tensor([1.0, -0.5])).sum().backward()
+        grads.append(at.grad)
+    err = (grads[0] - grads[1]).abs().max() / grads[1].abs().max()
+    assert float(err) <= 1e-4
+
+
+@pytest.mark.parametrize("n", [16, 128])
+def test_blocked_pallas_inverse_and_det_backends(n):
+    """``"blocked_pallas"`` is the phase loop on panel kernel 6 with
+    nb = min(64, N), bitwise as called directly; with a gradient the
+    det's backward inverts through it too."""
+    a = _batch(2, n, seed=n + 1)
+    at = torch.from_numpy(a)
+    x = dispatch.inverse_batched(at, backend="blocked_pallas")
+    assert torch.equal(x, lu_blocked.blocked_inverse_batched(
+        at, nb=min(64, n), panel_backend="pallas"))
+    assert _resid(a, x.numpy()).max() <= 5e-5
+    s = torch.from_numpy(_det_batch(2, n, seed=n + 2))
+    d = dispatch.det_batched(s, backend="blocked_pallas")
+    assert torch.equal(d, lu_blocked.pallas_det_batched(s, nb=min(64, n)))
+    grads = []
+    for det in (lambda t: dispatch.det_batched(t, "blocked_pallas"),
+                torch.linalg.det):
+        st = s.clone().requires_grad_()
+        det(st).sum().backward()
+        grads.append(st.grad)
+    err = (grads[0] - grads[1]).abs().max() / grads[1].abs().max()
+    assert float(err) <= 1e-4
+    with pytest.raises(ValueError, match="no 'blocked_pallas'"):
+        dispatch.rank_batched(at, backend="blocked_pallas")
+
+
+@pytest.mark.parametrize("n", [64, 256])
+def test_lu_factor_auto_is_the_blocked_phase_loop(n):
+    a = _batch(2, n, seed=n + 3)
+    at = torch.from_numpy(a)
+    res = dispatch.lu_factor_batched(at)
+    want = lu_blocked.blocked_lu_batched(at, nb=64)
+    for got, ref in zip(res, want):
+        assert torch.equal(got, ref)
+    lu = res.lu.double()
+    lo = torch.tril(lu, -1) + torch.eye(n, dtype=torch.float64)
+    pa = at.double().gather(1, res.perm.long()[:, :, None].expand(-1, -1, n))
+    assert float((lo @ torch.triu(lu) - pa).abs().max()) <= 1e-5 * float(
+        at.abs().max())
+    assert res.ok.all() and set(res.sign.tolist()) <= {1.0, -1.0}
+
+
+def test_lu_factor_auto_at_1024_splits_the_panels():
+    """nb = 64 at N = 1024 is past the panel kernel's shared memory: the
+    phase loop factors each panel as two 32-wide sub-panels."""
+    n = 1024
+    assert lu_blocked.panel_split(n, 64) == 32
+    a = torch.from_numpy(_batch(1, n, seed=15))
+    res = dispatch.lu_factor_batched(a)
+    lu = res.lu.double()
+    lo = torch.tril(lu, -1) + torch.eye(n, dtype=torch.float64)
+    pa = a.double()[0][res.perm[0].long()]
+    assert float((lo[0] @ torch.triu(lu[0]) - pa).abs().max()) <= 1e-5 * \
+        float(a.abs().max())
+
+
+def test_lu_factor_raises_outside_the_blocked_reach():
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        dispatch.lu_factor_batched(torch.zeros(1, 100, 100))
+    with pytest.raises(ValueError, match="unknown backend"):
+        dispatch.lu_factor_batched(torch.zeros(1, 64, 64), backend="xla")
 
 
 @pytest.mark.parametrize("n", [32, 30], ids=["rbt", "pivoted"])
