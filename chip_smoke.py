@@ -65,7 +65,15 @@ uncaught exception and a non-zero exit:
     on the array each gave it;
 17. time kernel 6, its plain version and its library yardstick
     (``torch.linalg.lu_factor_ex`` on each phase's unpivoted rows), the
-    three paths and the large solves against ``torch.linalg``.
+    three paths and the large solves against ``torch.linalg``;
+18. drive kernel 3's path at its large shapes: ``inverse_batched(auto)``
+    at B=1024, N=127 and N=167 (``[A | I]`` of the bench class) and
+    ``det_batched(auto)`` at B=256, N=237 (``det_batch``'s class, with its
+    singular and swapped lanes), one kernel-3 launch each; hold the kernel
+    against its plain version on ``[A | I]`` and the det batch; time the
+    kernel, the two paths and ``torch.linalg.inv`` / ``det`` there; print
+    the registers, spill bytes and resident blocks an SM of every variant
+    of kernels 3 and 6 on one line.
 
 The line before the last is a JSON summary of the six kernels, each with
 its bound (the larger of its bytes over 3.35 TB/s and its operations
@@ -130,13 +138,14 @@ def phase_batch(dev):
     return a, torch.randn(B, N, K_PHASE, generator=g, device=dev)
 
 
-def det_batch(dev):
-    """The det cell's input at B = N = 256: I + G/(2 sqrt N), whose
-    determinant stays inside f32's range (the bench class overflows it);
-    lane 3 is singular (all zero) and lane 4 has two rows swapped."""
+def det_batch(dev, n=N):
+    """The det cell's input at B = 256, N = ``n`` (256 by default): I +
+    G/(2 sqrt N), whose determinant stays inside f32's range (the bench
+    class overflows it); lane 3 is singular (all zero) and lane 4 has two
+    rows swapped."""
     g = torch.Generator(device=dev).manual_seed(11)
-    s = torch.eye(N, device=dev) + torch.randn(
-        B, N, N, generator=g, device=dev) / (2 * N**0.5)
+    s = torch.eye(n, device=dev) + torch.randn(
+        B, n, n, generator=g, device=dev) / (2 * n**0.5)
     s[3] = 0.0
     s[4, [0, 7]] = s[4, [7, 0]]
     return s
@@ -802,31 +811,42 @@ def hold_masked(calls, what):
 
 def masked_panels(bsz, n, nb, frac, dev):
     """Gaussian panels with about ``frac`` of the rows pre-pivoted; panel
-    0 has a zero column 1 (no pivot at step 1), panel 1 a NaN."""
+    0 has a zero column 1 (no pivot at step 1), panel 1 a NaN, panel 3 an
+    Inf in its first pre-pivoted row (which reaches the pivot rows of its
+    column only through the one-hot reads)."""
     g = torch.Generator(device=dev).manual_seed(400 + n + nb)
     p = torch.randn(bsz, n, nb, generator=g, device=dev)
     m = (torch.rand(bsz, n, generator=g, device=dev) < frac).to(torch.int32)
     p[0, :, 1] = 0.0
     p[1, 5, 2] = float("nan")
+    pre = m[3].nonzero().flatten()
+    if len(pre):
+        p[3, int(pre[0]), nb // 2] = float("inf")
     return p, m
 
 
 def check_panel_kernel(dev):
-    """Phase 14: kernel 6 against its plain version on synthetic panels,
-    and the control without the mask.  Returns the max abs difference."""
+    """Phase 14: kernel 6 against its plain version on synthetic panels
+    that reach every variant (``lu_panel.VARIANTS``), and the control
+    without the mask.  Returns the max abs difference."""
     from linalg_solver_tpu_torch.ops.kernels import lu_panel
 
     calls = []
     for bsz, n, nb, frac in ((B, N, 64, 0.0), (B, N, 64, 0.4),
-                             (B, 96, 32, 0.4)):
+                             (B, 96, 32, 0.4), (8, N_PANEL_REACH, 32, 0.3),
+                             (8, 889, 64, 0.2)):
         p, m = masked_panels(bsz, n, nb, frac, dev)
         out = lu_panel.panel_factor_masked(p, m, nb)
         torch.cuda.synchronize()
         if out[4][:3].tolist() != [False, False, True]:
             raise AssertionError(f"kernel 6 flags {out[4][:3].tolist()}")
         calls.append(((p, m, nb), out))
-    err = hold_masked(calls, "on random panels (zero-column and NaN lanes "
-                      "included)")
+    variants = sorted({lu_panel.variant(p.shape[1], nb)
+                       for (p, _, nb), _ in calls})
+    err = hold_masked(calls, f"on random panels (zero-column, NaN and "
+                      f"pre-pivoted-Inf lanes included; variants {variants})")
+    if variants != sorted(lu_panel.VARIANTS):
+        raise AssertionError(f"phase 14 reached variants {variants} only")
     (p, m, nb), _ = calls[1]
     out = lu_panel.panel_factor_masked(p, torch.zeros_like(m), nb)
     ref = lu_panel.panel_factor_masked_reference(p, m, nb)
@@ -1093,6 +1113,99 @@ def time_panel_paths(dev, card, panels, det_input, large):
     return times
 
 
+#: kernel 3's large shapes: (op, B, N); the inverse's array is [A | I]
+PIVOTED_LARGE = (("inverse", B_INV, 127), ("inverse", B_INV, 167),
+                 ("det", B, 237))
+
+
+def pivoted_work(bsz, n, w):
+    """(bytes, operations) of kernel 3 on a ``[bsz, n, w]`` array: the
+    array and tol read, the reduced array, perm and pivots written once;
+    step j's rank-1 update of the n rows over the w - j columns not yet
+    reduced (the j reduced ones hold zeros off their pivot rows), one
+    multiply-add an entry: 2 n (w - j) operations."""
+    return (4 * (2 * bsz * n * w + 3 * bsz * n),
+            bsz * 2 * n * sum(w - j for j in range(n)))
+
+
+def drive_pivoted_large(dev, card):
+    """Phase 18: kernel 3 at its large shapes through the facade, held
+    against its plain version, and timed beside the library.  Returns the
+    launches, the max abs difference and one entry a shape."""
+    from linalg_solver_tpu_torch.ops import dispatch
+    from linalg_solver_tpu_torch.ops.kernels import gauss_jordan as gj
+    from linalg_solver_tpu_torch.utils.benchmarking import cuda_time
+
+    launches, err, shapes = 0, 0.0, []
+    for op, bsz, n in PIVOTED_LARGE:
+        if op == "inverse":
+            a = inverse_batch(bsz, n, 500 + n, dev)
+            arr = torch.cat([a, torch.eye(n, device=dev).expand_as(a)], dim=2)
+            path, library = dispatch.inverse_batched, torch.linalg.inv
+        else:
+            a = arr = det_batch(dev, n)
+            path, library = dispatch.det_batched, torch.linalg.det
+        reset_counts()
+        x = path(a)
+        torch.cuda.synchronize()
+        counts = phase_counts()
+        if op == "inverse":
+            resid = float(inverse_resid(a, x).max())
+            good = bool(torch.isfinite(x).all()) and resid <= TOL_INV
+            what = f"worst max|AX - I| {resid:.3e} (tol {TOL_INV})"
+        else:
+            want = torch.linalg.det(a.double().cpu())
+            keep = [i for i in range(bsz) if i != 3]
+            rel = float(((x.double().cpu() - want) / want).abs()[keep].max())
+            signs = bool((torch.sign(x.cpu()[keep])
+                          == torch.sign(want[keep])).all())
+            good = rel <= TOL_DET and signs and float(x[3]) == 0.0
+            what = (f"max rel err vs float64 {rel:.3e} (tol {TOL_DET}), "
+                    f"signs equal {signs}, singular lane {float(x[3])}")
+        print(f"pivoted path {op}_batched(auto) B={bsz} N={n}: launches "
+              f"{counts}, {what}")
+        want_counts = dict.fromkeys(counts, 0)
+        want_counts["gauss_jordan"] = 1
+        if counts != want_counts:
+            raise AssertionError(f"expected launches {want_counts}")
+        if not good:
+            raise AssertionError(f"pivoted {op} at N={n} gave a wrong result")
+        launches += counts["gauss_jordan"]
+        tol = torch.zeros(bsz, device=dev)
+        err = max(err, hold_pivoted(arr, tol, f"{op} path B={bsz}"))
+        t_kernel = cuda_time(gj.gauss_jordan_tiled, arr, warmup=2, iters=10)
+        t_path = cuda_time(path, a, warmup=2, iters=10)
+        t_lib = cuda_time(library, a, warmup=2, iters=10)
+        b_ms, b_by = bound(*pivoted_work(*arr.shape))
+        for name, t in (("kernel gauss_jordan_tiled", t_kernel),
+                        (f"{op}_batched(auto)", t_path),
+                        (f"torch.linalg.{'inv' if op == 'inverse' else op}",
+                         t_lib)):
+            print(f"time {name} [{arr.shape[1]}, {arr.shape[2]}]: "
+                  f"{t * 1e3:.4f} ms (B={bsz}, bound {b_ms:.4f} ms "
+                  f"{b_by}, {card})")
+        shapes.append({"shape": list(arr.shape), "ms": t_kernel * 1e3,
+                       "path_ms": t_path * 1e3, "bound_ms": b_ms,
+                       "bound_by": b_by, "library_ms": t_lib * 1e3,
+                       "variant": gj.variant(n, arr.shape[2])})
+    return launches, err, shapes
+
+
+def variant_attributes():
+    """Registers a thread, spill bytes and resident blocks an SM of every
+    variant of kernels 3 and 6, at a shape each takes."""
+    from linalg_solver_tpu_torch.ops.kernels import gauss_jordan as gj
+    from linalg_solver_tpu_torch.ops.kernels import lu_panel
+
+    return {
+        "gauss_jordan": {f"[{n}, {w}]": gj.attributes(n, w)
+                         for n, w in ((64, 128), (127, 254), (167, 334),
+                                      (237, 237))},
+        "lu_panel": {f"[{n}, {nb}]": lu_panel.attributes(n, nb)
+                     for n, nb in ((960, 32), (256, 64), (889, 64))},
+    }
+
+
 def unpivoted_rows(panel, mask):
     """The rows of ``panel [B, N, nb]`` not marked in ``mask``, in their
     order: ``[B, N − k, nb]`` when every panel has k rows marked."""
@@ -1291,6 +1404,11 @@ def main() -> None:
     k6_times = time_panel_paths(dev, card, k6["panels"], k6["det_input"],
                                 large)
 
+    # 18. kernel 3 at its large shapes; every variant's resources
+    gj_large_launches, gj_large_err, gj_shapes = drive_pivoted_large(dev, card)
+    print("kernel variants (registers, spill bytes, blocks an SM): "
+          + json.dumps(variant_attributes()))
+
     # bounds from this run's shapes: bytes each input read and each output
     # written once; operations those the inputs need
     w = 2 * N_INV
@@ -1301,9 +1419,7 @@ def main() -> None:
         "inverse_rbt_fused": bound(
             4 * (2 * B_INV * N_INV**2 + 9 * N_INV) + B_INV,
             B_INV * (2 * N_INV**3 + 24 * N_INV**2)),
-        "gauss_jordan_tiled": bound(
-            4 * (2 * B_INV * N_INV * w + 3 * B_INV * N_INV),
-            B_INV * 2 * N_INV**2 * w),
+        "gauss_jordan_tiled": bound(*pivoted_work(B_INV, N_INV, w)),
         "butterfly_two_sided": bound(4 * (2 * B * N * N + 4 * N),
                                      12 * B * N * N),
         "panel_factor_nopivot": bound(*nopivot_work(phase["solve_panels"])),
@@ -1334,11 +1450,12 @@ def main() -> None:
         "route": "cuda",
         "source": "linalg_solver_tpu_torch/csrc/gauss_jordan.cu",
         "replaces": "linalg_solver_tpu/ops/pallas/gj_kernel.py:55",
-        "launches": gj_launches,
-        "max_abs_err": max(inv_errs["gauss_jordan"], gj_err),
+        "launches": gj_launches + gj_large_launches,
+        "max_abs_err": max(inv_errs["gauss_jordan"], gj_err, gj_large_err),
         "ms": inv_times["kernel gauss_jordan_tiled [A|I]"] * 1e3,
         "plain_ms": inv_times["plain gauss_jordan_reference [A|I]"] * 1e3,
         "library_ms": inv_times["torch.linalg.inv"] * 1e3,
+        "large_shapes": gj_shapes,
     }, {
         "name": "butterfly_two_sided",
         "route": "cuda",

@@ -34,6 +34,8 @@ _SIGNATURES = {
     "solve_fused_smem_bytes": (ctypes.c_size_t, [_I, _I]),
     "gauss_jordan_f32": (_I, [_P] * 5 + [_I] * 3 + [_P]),
     "gj_smem_bytes": (ctypes.c_size_t, [_I, _I]),
+    "gj_variant": (_I, [_I, _I]),
+    "gj_attributes": (_I, [_I] * 3 + [_P]),
     "inv_rbt_f32": (_I, [_P] * 8 + [_I] * 4 + [_P]),
     "inv_rbt_smem_bytes": (ctypes.c_size_t, [_I]),
     "butterfly_two_sided_f32": (_I, [_P] * 4 + [_I] * 5 + [_P]),
@@ -41,6 +43,8 @@ _SIGNATURES = {
     "nopivot_smem_bytes": (ctypes.c_size_t, [_I, _I]),
     "lu_panel_f32": (_I, [_P] * 7 + [_I] * 3 + [_P]),
     "panel_smem_bytes": (ctypes.c_size_t, [_I, _I]),
+    "panel_variant": (_I, [_I, _I]),
+    "panel_attributes": (_I, [_I] * 3 + [_P]),
     "kernels_error_string": (ctypes.c_char_p, [_I]),
 }
 
@@ -128,6 +132,16 @@ def load() -> ctypes.CDLL:
                 fn.argtypes = argtypes
             _lib = lib
         return _lib
+
+
+def attributes(fn: str, variant: int, n: int, w: int) -> dict:
+    """Registers a thread, local (spill) bytes a thread and resident
+    blocks an SM of a kernel variant at ``[n, w]``, through the C entry
+    point ``fn`` (``gj_attributes`` or ``panel_attributes``)."""
+    out = (ctypes.c_int * 3)()
+    check(getattr(load(), fn)(variant, n, w, out), fn)
+    return {"registers": out[0], "local_bytes": out[1],
+            "blocks_per_sm": out[2]}
 
 
 def check(err: int, what: str) -> None:

@@ -3,11 +3,14 @@
 determinant and rank built on it.
 
 ``gauss_jordan_tiled`` launches ``csrc/gauss_jordan.cu`` (one thread
-block per matrix, the ``[N, W]`` array in shared memory) on a CUDA
-tensor, and runs ``gauss_jordan_reference``, the same steps in plain
-PyTorch vectorised over the batch, on a CPU tensor.  On a CUDA tensor it
-launches the kernel or raises; it never falls back.  ``LAUNCHES``
-counts kernel launches.
+block per matrix) on a CUDA tensor, and runs ``gauss_jordan_reference``,
+the same steps in plain PyTorch vectorised over the batch, on a CPU
+tensor.  On a CUDA tensor it launches the kernel or raises; it never
+falls back.  The kernel has three variants, chosen by shape alone
+(``variant``): the ``[N, W]`` array in registers at ``N ≤ 64, W ≤ 128``
+(256 threads) and at ``N ≤ 128, W ≤ 256`` (1024 threads), else in shared
+memory (1024 threads), which sets the reach (``fits``).  ``LAUNCHES``
+counts kernel launches of every variant.
 
 Step ``j`` takes as pivot the first row of largest ``|a[:, j]|`` among
 the rows not pivoted yet (a NaN counts as the largest, as in
@@ -32,7 +35,7 @@ import torch
 #: shared memory a thread block may use on sm_90 (bytes)
 _MAX_SMEM = 232448
 
-#: csrc/gauss_jordan.cu's threads per block (8 warps)
+#: the argmax slots of csrc/gj_pivot.cuh's layout (two per warp of 8)
 _NWARP = 8
 
 #: kernel launches since import (or since the caller last reset it)
@@ -58,6 +61,26 @@ def smem_bytes(n: int, w: int) -> int:
 def fits(n: int, w: int) -> bool:
     """Whether the kernel takes an ``[n, w]`` array (``w >= n``)."""
     return 1 <= n <= w and smem_bytes(n, w) <= _MAX_SMEM
+
+
+def variant(n: int, w: int) -> int:
+    """The variant that takes an ``[n, w]`` array: the mirror of
+    ``gj_variant`` in ``csrc/gauss_jordan.cu`` (1: ``n ≤ 64, w ≤ 128``;
+    2: ``n ≤ 128, w ≤ 256``; 0: the rest)."""
+    if n <= 64 and w <= 128:
+        return 1
+    if n <= 128 and w <= 256:
+        return 2
+    return 0
+
+
+def attributes(n: int, w: int) -> dict:
+    """Registers, spill bytes and resident blocks an SM of the variant
+    that takes ``[n, w]`` (on a machine with the card)."""
+    from . import _build
+
+    v = variant(n, w)
+    return {"variant": v, **_build.attributes("gj_attributes", v, n, w)}
 
 
 def _check(a: torch.Tensor, tol: Optional[torch.Tensor]):

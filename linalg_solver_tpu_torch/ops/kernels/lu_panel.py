@@ -2,11 +2,15 @@
 ``linalg_solver_tpu.ops.pallas.lu_panel_kernel``).
 
 ``panel_factor_masked`` launches ``csrc/lu_panel.cu`` (one thread block
-per panel, the whole ``[N, nb]`` panel in shared memory) on a CUDA
-tensor, and runs ``panel_factor_masked_reference``, the same steps in
-plain PyTorch vectorised over the batch, on a CPU tensor.  On a CUDA
-tensor it launches the kernel or raises; it never falls back.
-``LAUNCHES`` counts kernel launches.
+per panel) on a CUDA tensor, and runs ``panel_factor_masked_reference``,
+the same steps in plain PyTorch vectorised over the batch, on a CPU
+tensor.  On a CUDA tensor it launches the kernel or raises; it never
+falls back.  The kernel has variants chosen by shape alone
+(``variant``): the panel in registers at ``nb = 32`` up to ``N = 1024``
+and ``nb = 64`` up to ``N = 256``, a warp owning whole columns with the
+rows on its lanes and one barrier a step; else the whole panel in shared
+memory, which sets the reach (``fits``).  ``LAUNCHES`` counts kernel
+launches of every variant.
 
 Step ``c`` takes as pivot the first row of largest ``|a[:, c]|`` among
 the rows not pivoted yet (rows marked in ``pivoted`` by earlier panels
@@ -37,8 +41,12 @@ from . import gauss_jordan as gj
 #: shared memory a thread block may use on sm_90 (bytes)
 _MAX_SMEM = 232448
 
-#: csrc/lu_panel.cu's threads per block (8 warps)
+#: the shared-memory variant's threads per block (8 warps)
 _NWARP = 8
+
+#: csrc/lu_panel.cu's variants by number: (nb, most rows, which is also
+#: the threads of a block), None for the shared-memory one
+VARIANTS = {0: None, 1: (32, 1024), 2: (64, 256)}
 
 #: kernel launches since import (or since the caller last reset it)
 LAUNCHES = 0
@@ -57,6 +65,26 @@ def fits(n: int, nb: int) -> bool:
     """Whether the kernel takes an ``[n, nb]`` panel (``nb`` even, at
     most ``n``)."""
     return n >= nb >= 2 and nb % 2 == 0 and smem_bytes(n, nb) <= _MAX_SMEM
+
+
+def variant(n: int, nb: int) -> int:
+    """The variant that takes an ``[n, nb]`` panel: the mirror of
+    ``panel_variant`` in ``csrc/lu_panel.cu`` (the register variant of
+    that ``nb`` where it has a row for each of the ``n`` rows, else 0,
+    the shared-memory one)."""
+    for v, shape in VARIANTS.items():
+        if shape is not None and shape[0] == nb and n <= shape[1]:
+            return v
+    return 0
+
+
+def attributes(n: int, nb: int) -> dict:
+    """Registers, spill bytes and resident blocks an SM of the variant
+    that takes ``[n, nb]`` (on a machine with the card)."""
+    from . import _build
+
+    v = variant(n, nb)
+    return {"variant": v, **_build.attributes("panel_attributes", v, n, nb)}
 
 
 def _check(panel: torch.Tensor, pivoted: torch.Tensor, nb: int):

@@ -241,7 +241,8 @@ def test_inverse_check_sees_a_missing_rescue(cuda):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("n,w", [(8, 9), (33, 66), (63, 126), (64, 128),
-                                 (100, 101), (167, 334), (236, 236)])
+                                 (100, 101), (167, 334), (236, 236),
+                                 (127, 254), (237, 237)])
 def test_gauss_jordan_kernel_matches_plain_version(cuda, n, w):
     g = torch.Generator(device=cuda).manual_seed(n + w)
     a = torch.randn(6, n, w, generator=g, device=cuda)
@@ -275,6 +276,9 @@ def test_inverse_smem_mirrors_match_the_kernels(cuda):
             assert lib.gj_smem_bytes(n, w) == gj.smem_bytes(n, w)
     for n in range(4, 200, 4):
         assert lib.inv_rbt_smem_bytes(n) == inv_rbt.smem_bytes(n)
+    for n in range(1, 250):
+        for w in (n, n + 1, 2 * n, 128, 256, 257):
+            assert lib.gj_variant(n, w) == gj.variant(n, w)
     with pytest.raises(ValueError, match="shared memory"):
         gj.gauss_jordan_tiled(torch.zeros(1, 238, 238, device=cuda))
 
@@ -510,13 +514,21 @@ def test_phase_inverse_path_on_the_card(cuda):
 
 
 def _masked_panels(B, n, nb, frac, dev):
-    """Gaussian panels with about ``frac`` of the rows pre-pivoted;
-    panel 0 has a zero column 1, panel 1 a NaN at (5, 2)."""
+    """Gaussian panels with about ``frac`` of the rows pre-pivoted (an int
+    ``frac``: exactly that many); panel 0 has a zero column 1, panel 1 a
+    NaN at (5, 2), and panel 3 an Inf in its first pre-pivoted row."""
     g = torch.Generator(device=dev).manual_seed(n + nb)
     p = torch.randn(B, n, nb, generator=g, device=dev)
-    m = (torch.rand(B, n, generator=g, device=dev) < frac).to(torch.int32)
+    if isinstance(frac, int):
+        order = torch.rand(B, n, generator=g, device=dev).argsort(dim=1)
+        m = (order < frac).to(torch.int32)
+    else:
+        m = (torch.rand(B, n, generator=g, device=dev) < frac).to(torch.int32)
     p[0, :, 1] = 0.0
     p[1, 5, 2] = float("nan")
+    pre = m[3].nonzero().flatten()
+    if B > 3 and len(pre):
+        p[3, int(pre[0]), nb // 2] = float("inf")
     return p, m
 
 
@@ -525,10 +537,17 @@ def _masked_panels(B, n, nb, frac, dev):
                                          (32, 256, 64, 0.0),
                                          (32, 256, 64, 0.4),
                                          (4, 889, 64, 0.2),
-                                         (4, 960, 32, 0.3)])
+                                         (4, 960, 32, 0.3),
+                                         # each variant (lu_panel.VARIANTS)
+                                         (32, 256, 64, 64),
+                                         (32, 256, 64, 128),
+                                         (32, 256, 64, 192),
+                                         (8, 1024, 32, 300),
+                                         (4, 600, 64, 0.3)])
 def test_lu_panel_kernel_matches_plain_version_bitwise(cuda, B, n, nb, frac):
     """All five outputs equal to the bit (NaN where the other is NaN),
-    the zero-column and NaN panels included."""
+    the zero-column, NaN and Inf-in-a-pre-pivoted-row panels included, in
+    every variant."""
     p, m = _masked_panels(B, n, nb, frac, cuda)
     before = lu_panel.LAUNCHES
     out = lu_panel.panel_factor_masked(p, m, nb)
@@ -553,9 +572,11 @@ def test_lu_panel_smem_mirror_and_reach(cuda):
     from linalg_solver_tpu_torch.ops.kernels import _build
 
     lib = _build.load()
-    for n in (1, 16, 256, 889, 890, 960, 1756, 2048):
-        for nb in (2, 4, 16, 32, 64):
+    for n in (1, 16, 256, 257, 512, 513, 889, 890, 960, 1024, 1025, 1756,
+              2048):
+        for nb in (2, 4, 16, 32, 48, 64):
             assert lib.panel_smem_bytes(n, nb) == lu_panel.smem_bytes(n, nb)
+            assert lib.panel_variant(n, nb) == lu_panel.variant(n, nb)
     with pytest.raises(ValueError, match="shared memory"):
         lu_panel.panel_factor_masked(torch.zeros(1, 890, 64, device=cuda),
                                      torch.zeros(1, 890, device=cuda), 64)
