@@ -11,8 +11,10 @@ uncaught exception and a non-zero exit:
 2. build the CUDA kernels from ``linalg_solver_tpu_torch/csrc``;
 3. hold the solve kernel against its plain PyTorch version on the card,
    on batches with probe systems that a kernel without the butterfly or
-   without refinement gets wrong, and show that the check fails for the
-   kernel run without refinement;
+   without refinement gets wrong, at a shape of each of its variants (one
+   block a system at N = 100 and 200, a cluster of two at N = 226 and
+   256, the device-memory scratch at N = 64 and 512), and show that the
+   check fails for the kernel run without refinement;
 4. drive the solve path, ``ops.dispatch.solve_batched(backend="auto")``,
    at the bench shape (B=256 systems of 256x256 f32, vector RHS), check
    that it launched the kernel and that the result solves the systems,
@@ -27,15 +29,18 @@ uncaught exception and a non-zero exit:
    "auto")``, at the bench shape (1024 matrices of 64x64 f32): one
    launch of the fused kernel, then the rescue cases;
 8. drive the pivoted kernel's path: the inverse at N=63 (not a multiple
-   of 4), ``det_batched`` and ``rank_batched``, then hold the kernel
-   against its plain version on the arrays that path gave it;
+   of 4), ``det_batched``, ``rank_batched`` and ``solve_batched(auto)``
+   (odd N: the ``"pallas"`` solve), then hold the kernel against its
+   plain version on the arrays that path gave it;
 9. time both inverse kernels, their plain versions,
    ``inverse_batched(auto)`` and ``torch.linalg.inv``;
 10. hold the phase engine's two-sided butterfly kernel against its plain
     version, bitwise (depth 1 and 2, both directions, N = 64, 256, 896),
     and show that the check fails for the kernel with its sides flipped;
-    hold its no-pivot panel kernel against its plain version on probe
-    panels (a zero pivot, a NaN, an Inf) with the flags equal;
+    hold its no-pivot panel kernel against its plain version bitwise on
+    probe panels (a zero pivot, a NaN, an Inf) in each of its variants,
+    with the flags equal, and show that the check fails against a plain
+    version without the one-hot pivot rule;
 11. hold the phase solve on the card against the same engine on the CPU
     (the plain versions) and show that the check fails for the card's
     solve without refinement;
@@ -62,7 +67,9 @@ uncaught exception and a non-zero exit:
 16. drive the large-N branch, ``solve_batched(auto)`` at B=16, N=1024 and
     B=8, N=2048 (one kernel-4 launch each, no panel kernel, no system
     left to the pivoted rung), holding kernel 4 against its plain version
-    on the array each gave it;
+    on the array each gave it; then the routes ``auto`` gives the library
+    from N = 1024 (the solve at N = 1088, the inverse and det at 1024: no
+    kernel launch, the results ``torch.linalg``'s);
 17. time kernel 6, its plain version and its library yardstick
     (``torch.linalg.lu_factor_ex`` on each phase's unpivoted rows), the
     three paths and the large solves against ``torch.linalg``;
@@ -73,13 +80,16 @@ uncaught exception and a non-zero exit:
     against its plain version on ``[A | I]`` and the det batch; time the
     kernel, the two paths and ``torch.linalg.inv`` / ``det`` there; print
     the registers, spill bytes and resident blocks an SM of every variant
-    of kernels 3 and 6 on one line.
+    of kernels 1, 3, 5 and 6 on one line.
 
 The line before the last is a JSON summary of the six kernels, each with
 its bound (the larger of its bytes over 3.35 TB/s and its operations
 over the 67 TFLOP/s FP32 rate, counted from this run's inputs) and the
 time of the one library call that computes the same function, where
-there is one; the last line is ``{"ok": true, "device": {...}}``.
+there is one (kernel 5's ``ms`` is its device time over the solve
+path's eight panels, from ``torch.profiler``; ``host_ms`` the CUDA-event
+time of the same eight Python launches); the last line is ``{"ok":
+true, "device": {...}}``.
 Imports nothing of JAX.
 """
 
@@ -352,23 +362,28 @@ def drive_pivoted_path(dev):
     s = torch.eye(n, device=dev) + 0.1 * torch.randn(
         B_INV, n, n, generator=g, device=dev) / n**0.5
     low = s[:, :, :5] @ s[:, :5, :]
+    rhs = torch.randn(B_INV, n, generator=g, device=dev)
     inv_rbt.LAUNCHES = gj.LAUNCHES = 0
     x = dispatch.inverse_batched(a, backend="auto")
     d = dispatch.det_batched(s, backend="auto")
     rk = dispatch.rank_batched(low, backend="auto")
+    xs = dispatch.solve_batched(a, rhs, backend="auto")
     torch.cuda.synchronize()
     launches = (inv_rbt.LAUNCHES, gj.LAUNCHES)
     resid = float(inverse_resid(a, x).max())
+    s_resid = float(worst_resid(a, rhs, xs).max())
     d_ref = torch.linalg.det(s.double())
     d_rel = float(((d.double() - d_ref).abs() / d_ref.abs()).max())
     print(f"pivoted path B={B_INV} N={n}: launches fused {launches[0]} "
           f"pivoted {launches[1]}, inverse worst max|AX - I| {resid:.3e}, "
           f"det max rel err vs float64 {d_rel:.3e}, ranks "
-          f"{sorted(set(rk.tolist()))}")
-    if launches != (0, 3):
-        raise AssertionError(f"expected three pivoted launches, got "
+          f"{sorted(set(rk.tolist()))}, solve_batched(auto) worst residual "
+          f"{s_resid:.3e}")
+    if launches != (0, 4):
+        raise AssertionError(f"expected four pivoted launches, got "
                              f"{launches}")
-    if not (resid <= TOL_INV and d_rel <= 1e-4 and set(rk.tolist()) == {5}):
+    if not (resid <= TOL_INV and d_rel <= 1e-4 and set(rk.tolist()) == {5}
+            and s_resid <= TOL_RESID):
         raise AssertionError("pivoted path gave a wrong result")
 
     # the kernel against its plain version on what the path gave it
@@ -376,7 +391,9 @@ def drive_pivoted_path(dev):
     eye = torch.eye(n, device=dev).expand(B_INV, n, n)
     err = max(hold_pivoted(torch.cat([a, eye], dim=2), zero, "inverse path"),
               hold_pivoted(s, zero, "det path"),
-              hold_pivoted(low, gj.default_rank_tol(low), "rank path"))
+              hold_pivoted(low, gj.default_rank_tol(low), "rank path"),
+              hold_pivoted(torch.cat([a, rhs[:, :, None]], dim=2), zero,
+                           "solve path"))
     return launches[1], err
 
 
@@ -441,33 +458,24 @@ def record(module, name):
 
 def hold_panels(calls, what):
     """Kernel 5's results on ``calls`` (recorded launches) against its
-    plain version: flags and non-finite pattern equal, values within
-    TOL_KERNEL of each panel's largest entry.  Returns (max abs diff,
-    number of panels bitwise equal, number of panels)."""
+    plain version: flags equal and every value bitwise equal (NaN where
+    the other is NaN).  Returns (max abs diff, 0.0 when bitwise; the
+    variants the calls reached)."""
     from linalg_solver_tpu_torch.ops.kernels import lu_nopivot
 
-    worst = abs_err = 0.0
-    bitwise = 0
+    err = 0.0
     for (panel, nb), (x, ok) in calls:
         ref, ok_ref = lu_nopivot.panel_factor_nopivot_reference(panel, nb)
-        fin = torch.isfinite(x)
-        if not (torch.equal(ok, ok_ref)
-                and torch.equal(fin, torch.isfinite(ref))):
-            raise AssertionError(f"panel kernel {what}: flags or non-finite "
-                                 f"pattern differ at [{panel.shape[1]}, {nb}]")
-        keep = fin.flatten(1).all(dim=1)
-        diff = (x - ref).abs().amax(dim=(1, 2))[keep]
-        scale = ref.abs().amax(dim=(1, 2))[keep].clamp_min(1e-30)
-        worst = max(worst, float((diff / scale).max()) if keep.any() else 0.0)
-        abs_err = max(abs_err, float(diff.max()) if keep.any() else 0.0)
-        bitwise += nan_equal(x, ref)
-    print(f"panel kernel vs plain {what}: {len(calls)} launches, "
-          f"{bitwise} bitwise equal, flags equal, max rel diff {worst:.3e} "
-          f"(tol {TOL_KERNEL})")
-    if not worst <= TOL_KERNEL:
-        raise AssertionError(f"panel kernel disagrees with plain version "
-                             f"{what}: {worst}")
-    return abs_err, bitwise, len(calls)
+        if not (torch.equal(ok, ok_ref) and nan_equal(x, ref)):
+            raise AssertionError(f"panel kernel {what} disagrees with its "
+                                 f"plain version at [{panel.shape[1]}, {nb}]")
+        err = max(err, abs_diff(x, ref))
+    variants = sorted({lu_nopivot.variant(p.shape[1], nb)
+                       for (p, nb), _ in calls})
+    print(f"panel kernel vs plain {what}: {len(calls)} launches, all bitwise "
+          f"equal with equal flags (max abs diff {err:.3e}), variants "
+          f"{variants}")
+    return err, variants
 
 
 def abs_diff(x, ref) -> float:
@@ -530,7 +538,8 @@ def check_phase_kernels(dev):
                                      "flipped side")
 
     calls = []
-    for m, nb in ((40, 8), (256, 32), (256, 64), (896, 64)):
+    for m, nb in ((40, 8), (256, 32), (224, 32), (256, 64), (192, 64),
+                  (896, 64)):
         g = torch.Generator(device=dev).manual_seed(m + nb)
         p = torch.randn(6, m, nb, generator=g, device=dev)
         p[:, torch.arange(nb), torch.arange(nb)] += 4.0 * nb**0.5
@@ -543,7 +552,24 @@ def check_phase_kernels(dev):
         if out[1].tolist() != [True, False, False, False, False, True]:
             raise AssertionError(f"panel kernel flags {out[1].tolist()}")
         calls.append(((p, nb), out))
-    hold_panels(calls, "on probe panels")
+    _, variants = hold_panels(calls, "on probe panels (zero-pivot, NaN and "
+                              "Inf lanes included)")
+    if variants != sorted(lu_nopivot.VARIANTS):
+        raise AssertionError(f"phase 10 reached kernel-5 variants {variants} "
+                             f"only")
+    # the same check must fail against a plain version without the one-hot
+    # pivot rule, in each register variant
+    for (p, nb), (x, ok) in calls[1:4:2]:
+        y, ok0 = lu_nopivot.panel_factor_nopivot_reference(p, nb,
+                                                           one_hot=False)
+        same = nan_equal(x, y) and torch.equal(ok, ok0)
+        print(f"control, panel kernel vs plain without the one-hot rule "
+              f"[{p.shape[1]}, {nb}] (variant "
+              f"{lu_nopivot.variant(p.shape[1], nb)}): equal {same} (must "
+              f"not be)")
+        if same:
+            raise AssertionError("the kernel-5 check cannot see a dropped "
+                                 "one-hot rule")
     return err
 
 
@@ -650,7 +676,7 @@ def drive_phase_paths(dev):
     if not resid <= TOL_RESID:
         raise AssertionError(f"phase solve residual {resid}")
     out["butterfly_err"] = hold_butterflies(bf_calls, "on the solve path")
-    out["panel_err"], _, _ = hold_panels(lu_calls, "on the solve path")
+    out["panel_err"], _ = hold_panels(lu_calls, "on the solve path")
     out["solve_panels"] = [args for args, _ in lu_calls]
     out["butterfly_launches"] = counts["butterfly"]
     out["panel_launches"] = counts["lu_nopivot"]
@@ -744,7 +770,8 @@ def time_phase(dev, card, panels):
     """Phase 13: times at B=N=256."""
     from linalg_solver_tpu_torch.ops import dispatch, rbt
     from linalg_solver_tpu_torch.ops.kernels import butterfly, lu_nopivot
-    from linalg_solver_tpu_torch.utils.benchmarking import cuda_time
+    from linalg_solver_tpu_torch.utils.benchmarking import (cuda_time,
+                                                            device_time)
 
     a = inverse_batch(B, N, 7, dev)
     b = torch.randn(B, N, K_PHASE, generator=torch.Generator(
@@ -765,6 +792,8 @@ def time_phase(dev, card, panels):
             torch.linalg.lu_factor_ex(p, pivot=False)
 
     times = {
+        "kernel panel_factor_nopivot, the 8 solve panels, device": device_time(
+            panel_kernels, warmup=3, iters=5),
         "kernel butterfly_two_sided": cuda_time(
             butterfly.butterfly_two_sided, a, U, V, 2, warmup=3, iters=20),
         "plain butterfly_two_sided_reference": cuda_time(
@@ -1053,6 +1082,34 @@ def drive_large_paths(dev):
     return launches, err, batches
 
 
+def drive_library_routes(dev):
+    """Phase 16, end: the shapes ``auto`` gives ``torch.linalg`` from
+    N = 1024, as the reference gives them ``jnp.linalg``: the solve at
+    N = 1088 (N % 128 != 0), the inverse and the det at N = 1024.  No
+    kernel launches; the results equal the library's calls."""
+    from linalg_solver_tpu_torch.ops import dispatch
+
+    a, b = large_batch(2, 1088, dev)
+    g = torch.Generator(device=dev).manual_seed(1024)
+    s = torch.eye(1024, device=dev) + torch.randn(
+        2, 1024, 1024, generator=g, device=dev) / (2 * 1024**0.5)
+    reset_counts()
+    x = dispatch.solve_batched(a, b)
+    xi = dispatch.inverse_batched(a[:, :1024, :1024].contiguous())
+    d = dispatch.det_batched(s)
+    torch.cuda.synchronize()
+    counts = phase_counts()
+    same = (torch.equal(x, torch.linalg.solve(a, b[:, :, None])[:, :, 0])
+            and torch.equal(xi, torch.linalg.inv(a[:, :1024, :1024]))
+            and torch.equal(d, torch.linalg.det(s)))
+    resid = float(worst_resid(a, b, x).max())
+    print(f"library routes solve_batched(auto) N=1088, inverse_batched and "
+          f"det_batched(auto) N=1024 (B=2): launches {counts}, equal to "
+          f"torch.linalg {same}, solve worst residual {resid:.3e}")
+    if any(counts.values()) or not same or not resid <= TOL_RESID:
+        raise AssertionError("the library routes from N = 1024 failed")
+
+
 def time_panel_paths(dev, card, panels, det_input, large):
     """Phase 17: kernel 6 over the mixed path's four panels, its plain
     version, its library yardstick, the three paths and the large
@@ -1193,11 +1250,16 @@ def drive_pivoted_large(dev, card):
 
 def variant_attributes():
     """Registers a thread, spill bytes and resident blocks an SM of every
-    variant of kernels 3 and 6, at a shape each takes."""
+    variant of kernels 1, 3, 5 and 6, at a shape each takes."""
     from linalg_solver_tpu_torch.ops.kernels import gauss_jordan as gj
-    from linalg_solver_tpu_torch.ops.kernels import lu_panel
+    from linalg_solver_tpu_torch.ops.kernels import lu_nopivot, lu_panel
+    from linalg_solver_tpu_torch.ops.kernels import solve_fused
 
     return {
+        "solve_fused": {f"N={n} k={k}": solve_fused.attributes(n, k)
+                        for n, k in ((128, 1), (N, 1), (N, 8))},
+        "lu_nopivot": {f"[{m}, {nb}]": lu_nopivot.attributes(m, nb)
+                       for m, nb in ((N, 32), (N, 64), (N_REACH, 64))},
         "gauss_jordan": {f"[{n}, {w}]": gj.attributes(n, w)
                          for n, w in ((64, 128), (127, 254), (167, 334),
                                       (237, 237))},
@@ -1289,8 +1351,11 @@ def main() -> None:
     print(f"build: {_build.library_path().name} in "
           f"{time.perf_counter() - t0:.2f} s")
 
-    # 3. kernel against its plain version, same diagonals
-    for bsz, n, k in ((8, 64, 1), (8, 64, 8), (B, N, 1)):
+    # 3. kernel against its plain version, same diagonals, at a shape of
+    # each variant (N = 100, 200 and 226: a narrower last panel)
+    shapes = ((8, 64, 1), (8, 64, 8), (8, 100, 2), (8, 200, 1), (8, 226, 2),
+              (B, N, 1), (8, 512, 1))
+    for bsz, n, k in shapes:
         du, dv = rbt.default_diags(n, rbt.MAIN_SEEDS, str(dev))
         a, b = probe_batch(bsz, n, k, du, dv, dev)
         x, bad = sf.solve_fused_rbt(a, b, du, dv)
@@ -1298,8 +1363,9 @@ def main() -> None:
         x_ref, bad_ref = sf.solve_fused_rbt_reference(a, b, du, dv)
         rel, worst, abs_err, why = compare(x, bad, x_ref, bad_ref)
         flagged = bad.nonzero().flatten().tolist()
-        print(f"kernel vs plain B={bsz} N={n} k={k}: max rel diff {rel:.3e} "
-              f"in system {worst} (tol {TOL_KERNEL}), flagged {flagged}")
+        print(f"kernel vs plain B={bsz} N={n} k={k} (variant "
+              f"{sf.variant(n, k)}): max rel diff {rel:.3e} in system {worst} "
+              f"(tol {TOL_KERNEL}), flagged {flagged}")
         if why is not None or not rel <= TOL_KERNEL:
             raise AssertionError(f"kernel disagrees with plain version: "
                                  f"{why or rel}")
@@ -1309,6 +1375,10 @@ def main() -> None:
             control = (a, b, du, dv, x_ref, bad_ref)
         if bsz == B:
             bench_abs_err = abs_err
+    variants = sorted({sf.variant(n, k) for _, n, k in shapes})
+    if variants != [0, 1, 2]:
+        raise AssertionError(f"phase 3 reached kernel-1 variants {variants} "
+                             f"only")
 
     # the same check must fail for a kernel without refinement: the
     # values of the small-pivot system 7 are off by >= 2e-3 before it,
@@ -1401,6 +1471,7 @@ def main() -> None:
     k6_err = check_panel_kernel(dev)
     k6 = drive_panel_paths(dev)
     large_launches, large_err, large = drive_large_paths(dev)
+    drive_library_routes(dev)
     k6_times = time_panel_paths(dev, card, k6["panels"], k6["det_input"],
                                 large)
 
@@ -1473,7 +1544,10 @@ def main() -> None:
         "replaces": "linalg_solver_tpu/ops/pallas/lu_nopivot_kernel.py:41",
         "launches": phase["panel_launches"],
         "max_abs_err": phase["panel_err"],
-        "ms": ph_times["kernel panel_factor_nopivot, the 8 solve panels"] * 1e3,
+        "ms": ph_times[
+            "kernel panel_factor_nopivot, the 8 solve panels, device"] * 1e3,
+        "host_ms": ph_times[
+            "kernel panel_factor_nopivot, the 8 solve panels"] * 1e3,
         "plain_ms": ph_times[
             "plain panel_factor_nopivot_reference, the 8 solve panels"] * 1e3,
         "library_ms": ph_times[

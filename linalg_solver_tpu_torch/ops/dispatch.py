@@ -16,13 +16,20 @@ Solve backends:
   it divides N, else 128).  Other shapes raise.
 - ``"blocked_pallas"`` — the pivoted phase loop on panel kernel 6
   (``lu_blocked.pallas_solve_batched``, ``nb = min(64, N)`` dividing N).
+- ``"pallas"`` — the pivoted Gauss–Jordan kernel on ``[A | b]``
+  (``kernels.solve_batched``), vector or matrix RHS, where
+  ``gauss_jordan.fits(N, N + k)`` (N ≤ 236 at k = 1).
 - ``"xla"``  — the library's ``torch.linalg.solve``: the named baseline
   (the JAX package's ``"xla"`` is ``jnp.linalg.solve``).
 - ``"auto"`` — ``"rbt"`` where the fused kernel reaches, and where the
   phase engine does (N a multiple of 8 below 1024, the reference's
   conditions); ``"mixed"`` from N = 1024 with N % 128 = 0 and a vector
-  RHS, as the reference routes it.  Any other shape raises instead of
-  quietly going to another solver.
+  RHS, as the reference routes it; ``"xla"`` from N = 1024 with
+  N % 128 ≠ 0, as the reference routes it; ``"pallas"`` where none of
+  those takes the shape and kernel 3 does (odd N ≤ 235 at k = 1, and
+  k > 8 at an N the phase engine refuses).  Any other shape raises
+  instead of quietly going to another solver: it needs the reference's
+  ``blocked`` and ``loop`` backends (ROADMAP.md queue 1 items 4–5).
 
 Inverse, determinant and rank backends (the reference's names):
 
@@ -38,8 +45,10 @@ Inverse, determinant and rank backends (the reference's names):
   inverse goes to the phase engine (``ops.rbt.inverse_rbt_batched``)
   where N is a multiple of 8 below 1024, as the reference routes it to
   ``"rbt"``, and the determinant to ``"blocked_pallas"`` where
-  ``min(64, N)`` divides N below 1024.  Everything else raises until
-  ROADMAP.md ports it (N ≥ 1024, the blocked rank).
+  ``min(64, N)`` divides N below 1024; from N = 1024 the inverse and
+  the determinant go to ``"xla"``, as the reference routes them.
+  Everything else raises until ROADMAP.md queue 1 items 4–5 port the
+  reference's ``blocked``, ``loop`` and ``rref_blocked`` modules.
 
 ``lu_factor_batched`` has ``"blocked_pallas"`` (the packed L\\U of
 ``lu_blocked.blocked_lu_batched`` on panel kernel 6), and ``"auto"``
@@ -71,7 +80,7 @@ from . import rbt as _rbt
 from .kernels.solve_fused import MAX_K_RHS, fits
 from ..utils.precision import f32_matmuls
 
-BACKENDS = ("auto", "rbt", "mixed", "blocked_pallas", "xla")
+BACKENDS = ("auto", "rbt", "mixed", "blocked_pallas", "pallas", "xla")
 
 #: backends of inverse_batched, det_batched and rank_batched
 FACADE_BACKENDS = ("auto", "pallas", "blocked_pallas", "xla")
@@ -135,13 +144,18 @@ def _resolve(backend: str, n: int, k: int, vector_rhs: bool) -> str:
         return "rbt"
     if large_reaches(n, vector_rhs):
         return "mixed"
+    if n >= PHASE_MAX_N and n % 128:
+        return "xla"
+    if _kernels.solve_fits(n, k):
+        return "pallas"
     raise NotImplementedError(
         f"backend='auto' has no route for N={n}, k={k} yet: past the fused "
-        f"kernel (even N, k <= {MAX_K_RHS}, its shared memory) the phase "
-        f"engine takes N % 8 == 0 below {PHASE_MAX_N}, and the large-N solve "
-        f"N % 128 == 0 from {PHASE_MAX_N} with a vector RHS; the rest goes to "
-        f"the blocked and loop solvers that ROADMAP.md queue 1 item 7 ports; "
-        f"pass backend='xla' meanwhile"
+        f"kernel (even N, k <= {MAX_K_RHS}, its shared memory), the phase "
+        f"engine (N % 8 == 0 below {PHASE_MAX_N}) and the pivoted kernel "
+        f"(N <= 236 at k = 1) the reference takes the blocked and loop "
+        f"solvers, which ROADMAP.md queue 1 items 4-5 port, and from "
+        f"N = {PHASE_MAX_N} with N % 128 == 0 the large-N solve takes only "
+        f"a vector RHS; pass backend='xla' meanwhile"
     )
 
 
@@ -152,8 +166,9 @@ def _solve_mixed(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     if not large_reaches(n, b.dim() == a.dim() - 1):
         raise NotImplementedError(
             f"backend='mixed' at N={n} >= {PHASE_MAX_N} takes N % 128 == 0 "
-            f"and a vector RHS (the large-N RBT solve); ROADMAP.md queue 1 "
-            f"item 7 ports the rest; pass backend='xla' meanwhile")
+            f"and a vector RHS: the large-N RBT solve, which takes only a "
+            f"vector b in the reference too (ROADMAP.md queue 3); pass "
+            f"backend='xla' for the rest")
     nb = 256 if n >= 2048 and n % 256 == 0 else 128
     return _lul.large_solve_rbt(a, b, nb=nb, ir_steps=2)
 
@@ -169,6 +184,8 @@ def _solve_impl(a: torch.Tensor, b: torch.Tensor, backend: str):
         return _solve_mixed(a, b)
     if be == "blocked_pallas":
         return _lub.pallas_solve_batched(a, b, nb=_blocked_nb(n, "solve"))
+    if be == "pallas":
+        return _kernels.solve_batched(a, b)
     if vector_rhs:
         return torch.linalg.solve(a, b.unsqueeze(-1)).squeeze(-1)
     return torch.linalg.solve(a, b)
@@ -221,13 +238,17 @@ def _resolve_facade(backend: str, op: str, n: int) -> str:
         return "rbt"
     if op == "det" and _blocked_ok(n) and n < PHASE_MAX_N:
         return "blocked_pallas"
+    if op in ("inverse", "det") and n >= PHASE_MAX_N:
+        return "xla"
     raise NotImplementedError(
         f"backend='auto' has no route for {op} at N={n} yet: past the "
         f"kernels' shared memory the inverse takes the phase engine at "
         f"N % 8 == 0 and the determinant the blocked phase loop at "
-        f"N % min(64, N) == 0, both below {PHASE_MAX_N}; the rest goes to "
-        f"the blocked rank and the large-N solvers that ROADMAP.md queue 1 "
-        f"item 7 ports; pass backend='xla' meanwhile"
+        f"N % min(64, N) == 0, both below {PHASE_MAX_N}; the reference "
+        f"takes the rest below {PHASE_MAX_N}, and the rank past the "
+        f"kernel, through its blocked, loop and rref_blocked modules, "
+        f"which ROADMAP.md queue 1 items 4-5 port; pass backend='xla' "
+        f"meanwhile"
     )
 
 
@@ -290,8 +311,8 @@ def _det_impl(a: torch.Tensor, backend: str, grad: bool) -> torch.Tensor:
         raise NotImplementedError(
             f"det at N={n} with a gradient: its backward needs the inverse, "
             f"which reaches N <= 167 and multiples of 8 below "
-            f"{PHASE_MAX_N}; ROADMAP.md queue 1 item 7 ports the rest; pass "
-            f"backend='xla' meanwhile"
+            f"{PHASE_MAX_N}; the blocked and loop inverses of ROADMAP.md "
+            f"queue 1 items 4-5 take the rest; pass backend='xla' meanwhile"
         )
     if be == "blocked_pallas":
         d = _lub.pallas_det_batched(a, nb=_blocked_nb(n, "det"))
@@ -354,5 +375,5 @@ def lu_factor_batched(
         raise NotImplementedError(
             f"backend='auto' has no route for lu_factor at N={n} yet: the "
             f"blocked phase loop takes N >= 8 divisible by min(64, N); the "
-            f"loop backend for the rest is in ROADMAP.md queue 1 item 6")
+            f"loop backend for the rest is in ROADMAP.md queue 1 item 4")
     return _lub.blocked_lu_batched(a, nb=_blocked_nb(n, "lu_factor"))

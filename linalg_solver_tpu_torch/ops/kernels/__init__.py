@@ -44,6 +44,12 @@ def supports(op: str, n: int) -> bool:
     return gauss_jordan.fits(n, _WIDTH[op](n))
 
 
+def solve_fits(n: int, k: int = 1) -> bool:
+    """Whether the pivoted kernel takes the solve of ``N = n`` with ``k``
+    RHS columns (its ``[A | b]`` array is ``[n, n + k]``)."""
+    return gauss_jordan.fits(n, n + k)
+
+
 def _require(op: str, n: int) -> None:
     if not supports(op, n):
         raise ValueError(
@@ -62,7 +68,14 @@ def inverse_batched(a: torch.Tensor) -> torch.Tensor:
 
 
 def solve_batched(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    _require("solve", a.shape[-1])
+    """Batched solve by the pivoted kernel on ``[A | b]``, ``b`` ``[B, N]``
+    or ``[B, N, k]``, where ``solve_fits``."""
+    n = a.shape[-1]
+    k = 1 if b.dim() == a.dim() - 1 else b.shape[-1]
+    if not solve_fits(n, k):
+        raise ValueError(
+            f"solve at N={n} with k={k} RHS columns: [A | b] is past the "
+            f"pivoted kernel's shared memory (see gauss_jordan.fits)")
     return gauss_jordan.solve_batched(a, b)
 
 

@@ -32,6 +32,8 @@ _I = ctypes.c_int
 _SIGNATURES = {
     "solve_fused_rbt_f32": (_I, [_P] * 7 + [_I] * 5 + [_P]),
     "solve_fused_smem_bytes": (ctypes.c_size_t, [_I, _I]),
+    "solve_variant": (_I, [_I, _I]),
+    "solve_attributes": (_I, [_I] * 3 + [_P]),
     "gauss_jordan_f32": (_I, [_P] * 5 + [_I] * 3 + [_P]),
     "gj_smem_bytes": (ctypes.c_size_t, [_I, _I]),
     "gj_variant": (_I, [_I, _I]),
@@ -41,6 +43,8 @@ _SIGNATURES = {
     "butterfly_two_sided_f32": (_I, [_P] * 4 + [_I] * 5 + [_P]),
     "lu_nopivot_f32": (_I, [_P] * 3 + [_I] * 3 + [_P]),
     "nopivot_smem_bytes": (ctypes.c_size_t, [_I, _I]),
+    "nopivot_variant": (_I, [_I, _I]),
+    "nopivot_attributes": (_I, [_I] * 3 + [_P]),
     "lu_panel_f32": (_I, [_P] * 7 + [_I] * 3 + [_P]),
     "panel_smem_bytes": (ctypes.c_size_t, [_I, _I]),
     "panel_variant": (_I, [_I, _I]),
@@ -137,7 +141,8 @@ def load() -> ctypes.CDLL:
 def attributes(fn: str, variant: int, n: int, w: int) -> dict:
     """Registers a thread, local (spill) bytes a thread and resident
     blocks an SM of a kernel variant at ``[n, w]``, through the C entry
-    point ``fn`` (``gj_attributes`` or ``panel_attributes``)."""
+    point ``fn`` (``gj_attributes``, ``panel_attributes``,
+    ``nopivot_attributes`` or ``solve_attributes``)."""
     out = (ctypes.c_int * 3)()
     check(getattr(load(), fn)(variant, n, w, out), fn)
     return {"registers": out[0], "local_bytes": out[1],

@@ -2,11 +2,16 @@
 ``linalg_solver_tpu.ops.pallas.lu_nopivot_kernel``).
 
 ``panel_factor_nopivot`` launches ``csrc/lu_nopivot.cu`` (one thread
-block per panel, the whole ``[M, nb]`` panel in shared memory) on a CUDA
-tensor, and runs ``panel_factor_nopivot_reference``, the same steps in
-plain PyTorch vectorised over the batch, on a CPU tensor.  On a CUDA
-tensor it launches the kernel or raises; it never falls back.
-``LAUNCHES`` counts kernel launches.
+block per panel) on a CUDA tensor, and runs
+``panel_factor_nopivot_reference``, the same steps in plain PyTorch
+vectorised over the batch, on a CPU tensor.  On a CUDA tensor it
+launches the kernel or raises; it never falls back.  The kernel has
+variants chosen by shape alone (``variant``): the panel in registers at
+``nb = 32`` and ``nb = 64`` up to ``M = 256``, a warp owning whole
+columns with the rows on its lanes and one barrier a step; else the
+whole panel in shared memory,
+which sets the reach (``fits``).  ``LAUNCHES`` counts kernel launches of
+every variant.
 
 Step ``c`` takes row ``c`` as the pivot and applies the TPU kernel's
 zero-pivot rule formula for formula: the pivot read as a one-hot sum
@@ -34,6 +39,10 @@ from . import gauss_jordan as gj
 #: shared memory a thread block may use on sm_90 (bytes)
 _MAX_SMEM = 232448
 
+#: csrc/lu_nopivot.cu's variants by number: (nb, most rows), None for the
+#: shared-memory one
+VARIANTS = {0: None, 1: (32, 256), 2: (64, 256)}
+
 #: kernel launches since import (or since the caller last reset it)
 LAUNCHES = 0
 
@@ -48,6 +57,27 @@ def smem_bytes(m: int, nb: int) -> int:
 def fits(m: int, nb: int) -> bool:
     """Whether the kernel takes an ``[m, nb]`` panel (``m >= nb``)."""
     return 1 <= nb <= m and smem_bytes(m, nb) <= _MAX_SMEM
+
+
+def variant(m: int, nb: int) -> int:
+    """The variant that takes an ``[m, nb]`` panel: the mirror of
+    ``nopivot_variant`` in ``csrc/lu_nopivot.cu`` (the register variant of
+    that ``nb`` where it has a row for each of the ``m`` rows, else 0, the
+    shared-memory one)."""
+    for v, shape in VARIANTS.items():
+        if shape is not None and shape[0] == nb and m <= shape[1]:
+            return v
+    return 0
+
+
+def attributes(m: int, nb: int) -> dict:
+    """Registers, spill bytes and resident blocks an SM of the variant
+    that takes ``[m, nb]`` (on a machine with the card)."""
+    from . import _build
+
+    v = variant(m, nb)
+    return {"variant": v,
+            **_build.attributes("nopivot_attributes", v, m, nb)}
 
 
 def _check(panel: torch.Tensor, nb: int) -> torch.Tensor:
@@ -103,17 +133,24 @@ def _launch(p32: torch.Tensor, nb: int):
 
 
 def panel_factor_nopivot_reference(
-    panel: torch.Tensor, nb: int
+    panel: torch.Tensor, nb: int, one_hot: bool = True
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain-PyTorch version of the kernel, vectorised over the batch:
-    the same contract as ``panel_factor_nopivot`` on any device."""
+    the same contract as ``panel_factor_nopivot`` on any device.
+    ``one_hot=False`` reads the pivot directly instead of as the one-hot
+    sum (NaN when another entry of its column is not finite): a version
+    without the TPU kernel's rule, for checks that must tell the two
+    apart."""
     p = _check(panel, nb).clone()
     B, m, _ = p.shape
     rows = torch.arange(m, device=p.device)
     ok = torch.ones(B, dtype=torch.bool, device=p.device)
     for c in range(nb):
         col = p[:, :, c].clone()
-        pv = (col * (rows == c).to(torch.float32)).sum(dim=1)
+        if one_hot:
+            pv = (col * (rows == c).to(torch.float32)).sum(dim=1)
+        else:
+            pv = col[:, c]
         has = (pv.abs() > 0).to(torch.float32)
         inv = 1.0 / (pv + (1.0 - has))
         below = (rows > c).to(torch.float32)

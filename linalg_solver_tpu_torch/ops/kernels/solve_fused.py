@@ -1,11 +1,18 @@
 """The one-launch RBT solve (counterpart of
 ``linalg_solver_tpu.ops.pallas.solve_fused_kernel``).
 
-``solve_fused_rbt`` launches ``csrc/solve_fused.cu`` (one thread block
-per system) on a CUDA tensor, and runs ``solve_fused_rbt_reference``,
-the same math in plain PyTorch vectorised over the batch, on a CPU
-tensor.  On a CUDA tensor it launches the kernel or raises; it never
-falls back.  ``LAUNCHES`` counts kernel launches.
+``solve_fused_rbt`` launches ``csrc/solve_fused.cu`` on a CUDA tensor,
+and runs ``solve_fused_rbt_reference``, the same math in plain PyTorch
+vectorised over the batch, on a CPU tensor.  On a CUDA tensor it
+launches the kernel or raises; it never falls back.  The kernel has
+variants chosen by shape alone (``variant``): for 96 ≤ N ≤ 256, A' stays
+on the chip from load to solution, in one thread block a system where
+its columns and vectors fit the block's shared memory (1), else, for
+k ≤ 4, in a cluster of two blocks a system that read each other's shared
+memory (2); elsewhere one block a system with A' in a device-memory
+scratch (0), which sets the reach (``fits``).  Each on-chip variant
+takes the shapes where it beat variant 0 on an H100.  ``LAUNCHES`` counts kernel launches of every
+variant.
 
 The per-system flags ``bad`` have the TPU kernel's semantics: a system
 is flagged when a pivot of the butterflied matrix is zero (or NaN), when
@@ -33,6 +40,8 @@ _MAX_SMEM = 232448
 LAUNCHES = 0
 
 _NB, _NWARP = 32, 8   # csrc/solve_fused.cu's panel width and warps
+#: its on-chip variants' warps, N range and the cluster's most RHS columns
+_OC_NWARP, _OC_MIN_N, _OC_MAX_N, _OC_CLUSTER_MAX_K = 16, 96, 256, 4
 
 
 def smem_bytes(n: int, k: int) -> int:
@@ -45,6 +54,42 @@ def smem_bytes(n: int, k: int) -> int:
 def fits(n: int, k: int) -> bool:
     """Whether the kernel takes N=n with k RHS columns on sm_90."""
     return n % 2 == 0 and 1 <= k <= MAX_K_RHS and smem_bytes(n, k) <= _MAX_SMEM
+
+
+def onchip_smem_bytes(n: int, k: int, blocks: int) -> int:
+    """Shared memory a block of the on-chip variant with ``blocks`` blocks
+    a system takes, in bytes: the mirror of ``onchip_smem_floats`` in
+    ``csrc/solve_fused.cu`` (the block's whole panels of A' with column
+    stride n + 1, a copy of a peer's panel, the diagonals, four k·n
+    vectors, ipiv, the slots)."""
+    ld = n + 1
+    panels = -(-n // _NB)
+    cols = _NB * -(-panels // blocks)
+    return 4 * (cols * ld + (_NB * ld if blocks > 1 else 0)
+                + 4 * n + 4 * k * n + n + _OC_NWARP + 4)
+
+
+def variant(n: int, k: int) -> int:
+    """The variant that takes (n, k): the mirror of ``solve_variant`` in
+    ``csrc/solve_fused.cu`` (1: one block a system where that layout fits
+    a block's shared memory, 2: two for k <= 4, both for even
+    96 <= N <= 256; else 0)."""
+    if n % 2 or not _OC_MIN_N <= n <= _OC_MAX_N or not 1 <= k <= MAX_K_RHS:
+        return 0
+    if onchip_smem_bytes(n, k, 1) <= _MAX_SMEM:
+        return 1
+    if k <= _OC_CLUSTER_MAX_K and onchip_smem_bytes(n, k, 2) <= _MAX_SMEM:
+        return 2
+    return 0
+
+
+def attributes(n: int, k: int) -> dict:
+    """Registers, spill bytes and resident blocks an SM of the variant
+    that takes (n, k) (on a machine with the card)."""
+    from . import _build
+
+    v = variant(n, k)
+    return {"variant": v, **_build.attributes("solve_attributes", v, n, k)}
 
 
 def _prepare(a: torch.Tensor, b: torch.Tensor):
@@ -129,13 +174,15 @@ def _launch(a32, b3, diags_u, diags_v, ir_steps):
     bad = torch.empty(B, dtype=torch.bool, device=dev)
     if B == 0:
         return x, bad
-    work = torch.empty_like(a32)  # column-major working copy of U^T A V
+    # variant 0's column-major working copy of U^T A V; the on-chip
+    # variants keep it in shared memory
+    work = torch.empty_like(a32) if lib.solve_variant(N, k) == 0 else None
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.solve_fused_rbt_f32(
             a32.data_ptr(), b3.data_ptr(), du.data_ptr(), dv.data_ptr(),
-            work.data_ptr(), x.data_ptr(), bad.data_ptr(),
-            B, N, k, rbt.shrink_depth(N), ir_steps, stream,
+            None if work is None else work.data_ptr(), x.data_ptr(),
+            bad.data_ptr(), B, N, k, rbt.shrink_depth(N), ir_steps, stream,
         )
     _build.check(err, "solve_fused_rbt launch")
     LAUNCHES += 1

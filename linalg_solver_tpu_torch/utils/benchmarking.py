@@ -4,8 +4,11 @@
 PyTorch returns from a CUDA call before the device has finished, so a
 host clock without a synchronise measures the enqueue.  ``cuda_time``
 brackets each run with a pair of CUDA events on the current stream,
-synchronises once after all runs, and reports the median.  There is no
-CPU fallback: timing a CPU run under a device name would be wrong.
+synchronises once after all runs, and reports the median.  Where a call
+is several short launches, the host's launch gaps fill that bracket;
+``device_time`` sums what the profiler saw the device run instead.
+There is no CPU fallback: timing a CPU run under a device name would be
+wrong.
 """
 
 from __future__ import annotations
@@ -36,3 +39,28 @@ def cuda_time(fn: Callable, *args, warmup: int = 3, iters: int = 10) -> float:
         end.record()
     torch.cuda.synchronize()
     return statistics.median(s.elapsed_time(e) for s, e in events) / 1e3
+
+
+def device_time(fn: Callable, *args, warmup: int = 3, iters: int = 5) -> float:
+    """Seconds of device time per call of ``fn(*args)``: the sum of the
+    device entries (kernels, copies, sets) ``torch.profiler`` records over
+    ``iters`` calls after ``warmup`` untimed ones, over ``iters``."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("device_time needs a CUDA device")
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn(*args)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn(*args)
+        torch.cuda.synchronize()
+    total = 0.0
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA or e.key.startswith("Activity"):
+            continue
+        t = getattr(e, "self_device_time_total", None)
+        total += e.self_cuda_time_total if t is None else t
+    return total / 1e6 / iters

@@ -18,9 +18,10 @@ from linalg_solver_tpu_torch.ops.kernels import solve_fused as sf
 from linalg_solver_tpu_torch.utils import systems
 
 # The solve kernel's panel-blocked LU and FMA contraction round
-# differently from the plain version's rank-1 updates; both refine to
-# the solution of a well-conditioned system, so they agree to a few f32
-# roundings of it (≤ 5e-7 measured on an H100).  The inverse kernels run
+# differently from the plain version's rank-1 updates, and its on-chip
+# variants solve through the diagonal blocks' inverses; all refine to the
+# solution of a well-conditioned system, so they agree to a few f32
+# roundings of it (≤ 7.8e-7 measured on an H100).  The inverse kernels run
 # the plain versions' operations in the same order and agree to the bit
 # or within a rounding (≤ 3.7e-9 relative measured on an H100): the
 # probe's sums run in another order, and the plain version rounds its
@@ -88,7 +89,8 @@ def _resid(a, b, x):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize(
-    "N,k", [(64, 1), (64, 8), (100, 2), (98, 1), (256, 1)]
+    "N,k", [(64, 1), (64, 8), (100, 2), (98, 1), (256, 1), (256, 8),
+            (226, 2), (512, 1)]
 )
 def test_kernel_matches_plain_version(cuda, N, k):
     """The probe systems ride along (``_probe``); 2 and 5 are flagged."""
@@ -136,9 +138,25 @@ def test_smem_mirror_matches_the_kernel(cuda):
     from linalg_solver_tpu_torch.ops.kernels import _build
 
     lib = _build.load()
-    for n in (2, 16, 64, 98, 100, 256, 574, 576, 794, 796, 1024):
+    for n in (2, 16, 64, 98, 100, 224, 226, 256, 258, 574, 576, 794, 796,
+              1024):
         for k in (1, 2, 8):
             assert lib.solve_fused_smem_bytes(n, k) == sf.smem_bytes(n, k)
+            assert lib.solve_variant(n, k) == sf.variant(n, k)
+
+
+@pytest.mark.cuda
+def test_kernel_variants_run_where_they_are_chosen(cuda):
+    """The shapes of the test above reach every variant: 1 (one block a
+    system: N = 98, 100), 2 (a cluster of two: N = 226, 256 at k <= 4) and
+    0 (the device-memory scratch: N = 64, 512, and 256 at k = 8); each
+    reports its resources."""
+    shapes = [(64, 1), (64, 8), (100, 2), (98, 1), (256, 1), (256, 8),
+              (226, 2), (512, 1)]
+    assert {sf.variant(n, k) for n, k in shapes} == {0, 1, 2}
+    for n, k in ((100, 2), (256, 1), (512, 1)):
+        attr = sf.attributes(n, k)
+        assert attr["registers"] > 0 and attr["blocks_per_sm"] >= 1
 
 
 @pytest.mark.cuda
@@ -400,10 +418,12 @@ def _probe_panels(m, nb, dev):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("m,nb", [(8, 8), (40, 8), (64, 16), (256, 32),
-                                  (256, 64), (896, 64), (1016, 8)])
+                                  (224, 32), (32, 32), (256, 64), (64, 64),
+                                  (896, 64), (1016, 8)])
 def test_lu_nopivot_kernel_matches_plain_version(cuda, m, nb):
-    """Equal flags, equal non-finite pattern, and values equal to the bit
-    (RTOL allows the plain version's double rounding)."""
+    """Equal flags and values equal to the bit, NaN where the plain
+    version's is NaN, in every variant (register variants 1 and 2 at
+    nb = 32 and 64 up to m = 256, the shared-memory one elsewhere)."""
     p = _probe_panels(m, nb, cuda)
     before = lu_nopivot.LAUNCHES
     x, ok = lu_nopivot.panel_factor_nopivot(p, nb)
@@ -412,10 +432,20 @@ def test_lu_nopivot_kernel_matches_plain_version(cuda, m, nb):
     x_ref, ok_ref = lu_nopivot.panel_factor_nopivot_reference(p, nb)
     assert torch.equal(ok, ok_ref)
     assert ok.tolist() == [True, False, False, False, False, True]
-    assert torch.equal(torch.isfinite(x), torch.isfinite(x_ref))
-    for i in (0, 1, 5):
-        err = (x[i] - x_ref[i]).abs().max() / x_ref[i].abs().max()
-        assert float(err) <= RTOL
+    assert _nan_equal(x, x_ref)
+
+
+@pytest.mark.cuda
+def test_lu_nopivot_check_sees_a_dropped_one_hot_rule(cuda):
+    """The bitwise check above fails against a plain version that reads
+    its pivots directly (no one-hot rule), in each register variant: the
+    probe panels' non-finite entries below a pivot decide it."""
+    for m, nb in ((256, 32), (256, 64)):
+        p = _probe_panels(m, nb, cuda)
+        x, ok = lu_nopivot.panel_factor_nopivot(p, nb)
+        y, ok0 = lu_nopivot.panel_factor_nopivot_reference(p, nb,
+                                                           one_hot=False)
+        assert not (_nan_equal(x, y) and torch.equal(ok, ok0))
 
 
 @pytest.mark.cuda
@@ -423,10 +453,14 @@ def test_phase_kernels_smem_mirror_and_reach(cuda):
     from linalg_solver_tpu_torch.ops.kernels import _build
 
     lib = _build.load()
-    for m in (8, 33, 256, 896, 906, 907, 1016, 2048):
+    for m in (8, 33, 224, 256, 257, 896, 906, 907, 1016, 2048):
         for nb in (8, 16, 32, 48, 64):
             assert lib.nopivot_smem_bytes(m, nb) == lu_nopivot.smem_bytes(
                 m, nb)
+            assert lib.nopivot_variant(m, nb) == lu_nopivot.variant(m, nb)
+    for m, nb in ((256, 32), (256, 64), (896, 64)):
+        attr = lu_nopivot.attributes(m, nb)
+        assert attr["registers"] > 0 and attr["blocks_per_sm"] >= 1
     with pytest.raises(ValueError, match="shared memory"):
         lu_nopivot.panel_factor_nopivot(
             torch.zeros(1, 907, 64, device=cuda), 64)
@@ -650,3 +684,31 @@ def test_blocked_pallas_backends_on_the_card(cuda):
         grads.append(st.grad)
     err = (grads[0] - grads[1]).abs().max() / grads[1].abs().max()
     assert float(err) <= 1e-4
+
+
+@pytest.mark.cuda
+def test_auto_routes_the_reference_serves_on_the_card(cuda):
+    """Odd N takes kernel 3 on ``[A | b]`` (one launch, as
+    ``ops.kernels.solve_batched``); from N = 1024 the solve at
+    N % 128 != 0, the inverse and the det take ``torch.linalg``, with no
+    kernel launch."""
+    from linalg_solver_tpu_torch.ops import kernels
+
+    a, b = _batch(16, 63, seed=35, dev=cuda)
+    c0 = (gj.LAUNCHES, sf.LAUNCHES)
+    x = dispatch.solve_batched(a, b)
+    torch.cuda.synchronize()
+    assert (gj.LAUNCHES - c0[0], sf.LAUNCHES - c0[1]) == (1, 0)
+    assert torch.equal(x, kernels.solve_batched(a, b))
+    assert float(_resid(a, b, x).max()) <= 1e-5
+    a, b = _batch(1, 1088, seed=36, dev=cuda)
+    counts = (gj.LAUNCHES, sf.LAUNCHES, butterfly.LAUNCHES,
+              lu_panel.LAUNCHES)
+    x = dispatch.solve_batched(a, b)
+    assert torch.equal(x, torch.linalg.solve(a, b[:, :, None])[:, :, 0])
+    a = a[:, :1024, :1024].contiguous()
+    assert torch.equal(dispatch.inverse_batched(a), torch.linalg.inv(a))
+    assert torch.equal(dispatch.det_batched(a), torch.linalg.det(a))
+    torch.cuda.synchronize()
+    assert (gj.LAUNCHES, sf.LAUNCHES, butterfly.LAUNCHES,
+            lu_panel.LAUNCHES) == counts

@@ -19,7 +19,9 @@ import torch
 
 from linalg_solver_tpu.ops import dispatch as jdispatch
 from linalg_solver_tpu.ops import rbt as jrbt
-from linalg_solver_tpu_torch.ops import dispatch, lu_blocked, lu_large, rbt
+from linalg_solver_tpu.ops.pallas import gj_kernel as jgj
+from linalg_solver_tpu_torch.ops import dispatch, kernels, lu_blocked
+from linalg_solver_tpu_torch.ops import lu_large, rbt
 from linalg_solver_tpu_torch.ops.kernels import solve_fused as sf
 from linalg_solver_tpu_torch.ops.kernels.solve_fused import fits
 from linalg_solver_tpu_torch.utils import systems
@@ -143,18 +145,73 @@ def test_rbt_with_the_jax_draws_matches_jax(ir_steps):
 
 
 @pytest.mark.parametrize(
-    "n,k", [(63, None), (796, None), (1088, None), (1024, 16)],
-    ids=["odd_n", "smem_k1", "n1088", "n1024_k16"],
+    "n,k", [(796, None), (1024, 16)], ids=["smem_k1", "n1024_k16"],
 )
 def test_auto_raises_outside_the_kernel_reach(n, k):
     """796 is the smallest even N past the fused kernel's shared memory at
     k=1, and not a multiple of 8, so the phase engine does not take it
-    either; from N = 1024 on the reference leaves the phase engine, and
-    the large-N solve takes only N % 128 == 0 with a vector RHS."""
+    either, nor kernel 3 (N <= 236); the reference takes it through its
+    ``mixed``/``blocked`` solvers, not ported yet.  From N = 1024 with
+    N % 128 == 0 the large-N solve takes only a vector RHS, in the
+    reference too."""
     b_shape = (1, n) if k is None else (1, n, k)
     a, b = torch.zeros(1, n, n), torch.zeros(b_shape)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         dispatch.solve_batched(a, b)
+
+
+@pytest.mark.parametrize("n,k", [(63, None), (7, None), (63, 3)],
+                         ids=["n63", "n7", "n63_k3"])
+def test_auto_routes_odd_n_to_the_pivoted_kernel(n, k):
+    """Odd N: past the fused kernel and the phase engine, ``auto`` takes
+    kernel 3 on ``[A | b]`` (the ``"pallas"`` backend), as the reference
+    routes N = 63 and N = 7; bitwise as ``ops.kernels.solve_batched``,
+    and within 1e-5 of the JAX package's ``ops.pallas.solve_batched``
+    (its Gauss–Jordan kernel in interpret mode: the same pivots, the
+    plain version's float64 products differ from XLA's fused ones by a
+    rounding)."""
+    a, b = _batch(3, n, seed=n + 50, k=k)
+    at, bt = torch.from_numpy(a), torch.from_numpy(b)
+    assert dispatch._resolve("auto", n, k or 1, k is None) == "pallas"
+    x = dispatch.solve_batched(at, bt)
+    assert torch.equal(x, kernels.solve_batched(at, bt))
+    assert torch.equal(x, dispatch.solve_batched(at, bt, backend="pallas"))
+    xj = np.asarray(jgj.solve_batched(jnp.asarray(a), jnp.asarray(b),
+                                      interpret=True))
+    _assert_close(xj, x.numpy(), range(3), rtol=1e-5)
+    assert _resid(a, b, x.numpy()).max() <= 1e-5
+
+
+def test_pallas_solve_reach_and_the_even_n_it_takes():
+    """``"pallas"`` takes ``[A | b]`` while it fits kernel 3 (N <= 236 at
+    k = 1); ``auto`` gives it the even N that the fused kernel (k > 8) and
+    the phase engine (N % 8 != 0) refuse, and leaves every route that
+    existed where it was."""
+    assert kernels.solve_fits(236, 1) and not kernels.solve_fits(237, 1)
+    assert dispatch._resolve("auto", 10, 9, False) == "pallas"
+    assert dispatch._resolve("auto", 64, 1, True) == "rbt"
+    assert dispatch._resolve("auto", 62, 8, False) == "rbt"
+    assert dispatch._resolve("auto", 64, 9, False) == "rbt"
+    with pytest.raises(ValueError, match="pivoted kernel"):
+        dispatch.solve_batched(torch.zeros(1, 236, 236),
+                               torch.zeros(1, 236, 4), backend="pallas")
+
+
+def test_auto_routes_n1088_to_the_library_solve():
+    """From N = 1024 with N % 128 != 0 the reference routes ``auto`` to
+    ``"xla"`` (``jnp.linalg.solve``); the port to ``torch.linalg.solve``,
+    bitwise as called directly, within 1e-4 of ``jnp.linalg.solve`` (two
+    partial-pivot LUs in f32, summed in other orders)."""
+    n = 1088
+    a, b = _batch(1, n, seed=19)
+    at, bt = torch.from_numpy(a), torch.from_numpy(b)
+    assert dispatch._resolve("auto", n, 1, True) == "xla"
+    x = dispatch.solve_batched(at, bt)
+    assert torch.equal(x, torch.linalg.solve(at, bt[:, :, None])[:, :, 0])
+    xj = np.asarray(jnp.linalg.solve(jnp.asarray(a),
+                                     jnp.asarray(b)[:, :, None]))[:, :, 0]
+    _assert_close(xj, x.numpy(), range(1), rtol=1e-4)
+    assert _resid(a, b, x.numpy()).max() <= 1e-5
 
 
 @pytest.mark.parametrize("n,k", [(64, 9), (576, 8)],
@@ -255,9 +312,9 @@ def test_xla_backend_is_the_library_solve():
     assert _resid(a, b, x.numpy()).max() <= 1e-5
     with pytest.raises(ValueError, match="unknown backend"):
         dispatch.solve_batched(
-            torch.from_numpy(a), torch.from_numpy(b), backend="pallas")
+            torch.from_numpy(a), torch.from_numpy(b), backend="loop")
     assert dispatch.BACKENDS == ("auto", "rbt", "mixed", "blocked_pallas",
-                                 "xla")
+                                 "pallas", "xla")
 
 
 @pytest.mark.parametrize("k", [None, 3], ids=["vector", "matrix"])

@@ -99,18 +99,46 @@ def test_rank_auto_matches_jax_facade():
 
 @pytest.mark.parametrize(
     "op,n",
-    [("inverse", 169), ("inverse", 170), ("inverse", 1024), ("det", 238),
-     ("rank", 238)],
+    [("inverse", 169), ("inverse", 170), ("det", 238), ("rank", 238)],
 )
 def test_auto_raises_past_the_kernels_reach(op, n):
     """169 is the first N past the pivoted inverse's shared memory, and
-    169 and 170 are no multiples of 8, which the phase inverse needs; it
-    stops below 1024.  238 is past the pivoted [N, N] tile's memory."""
+    169 and 170 are no multiples of 8, which the phase inverse needs.
+    238 is past the pivoted [N, N] tile's memory, and no multiple of 64
+    for the blocked det."""
     a = torch.zeros(1, n, n)
     fn = {"inverse": dispatch.inverse_batched, "det": dispatch.det_batched,
           "rank": dispatch.rank_batched}[op]
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         fn(a)
+
+
+@pytest.mark.parametrize("op", ["inverse", "det"])
+def test_auto_inverse_and_det_at_1024_take_the_library(op):
+    """From N = 1024 the reference routes the inverse and the det to
+    ``"xla"`` (``jnp.linalg``); the port to ``torch.linalg``, bitwise as
+    called directly, and within 1e-4 (inverse, of its largest entry) or
+    1e-3 (det, a product of 1024 pivots) of ``jnp.linalg``.  The det's
+    input is I + G/(2 sqrt N), whose determinant stays inside f32's
+    range."""
+    n = 1024
+    if op == "inverse":
+        a = _batch(1, n, seed=16)
+        fn, lib, jfn = dispatch.inverse_batched, torch.linalg.inv, \
+            jnp.linalg.inv
+    else:
+        a = _det_batch(1, n, seed=16)
+        fn, lib, jfn = dispatch.det_batched, torch.linalg.det, jnp.linalg.det
+    at = torch.from_numpy(a)
+    assert dispatch._resolve_facade("auto", op, n) == "xla"
+    got = fn(at)
+    assert torch.equal(got, lib(at))
+    want = np.asarray(jfn(jnp.asarray(a)))
+    if op == "inverse":
+        assert np.abs(got.numpy() - want).max() <= 1e-4 * np.abs(want).max()
+        assert _resid(a, got.numpy()).max() <= 5e-5
+    else:
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-3)
 
 
 @pytest.mark.parametrize("n", [170, 237])
@@ -119,7 +147,7 @@ def test_auto_det_with_a_gradient_raises_where_the_inverse_stops(n):
     167 takes only multiples of 8: with a gradient it raises before the
     forward, not in the backward; without one it runs."""
     a = torch.eye(n)[None]
-    with pytest.raises(NotImplementedError, match="ROADMAP.*item 7"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.*items 4-5"):
         dispatch.det_batched(a.clone().requires_grad_())
     assert dispatch.det_batched(a).tolist() == [1.0]
 

@@ -1,8 +1,8 @@
-"""Time the port's two pivoted kernels, kernel 2 and the 256-wide
-pivoted paths on a CUDA card, for comparing two versions of the package.
+"""Time the port's kernels 1, 2, 3, 5 and 6 and the 256-wide paths on a
+CUDA card, for comparing two versions of the package.
 
     python3 tools/time_pivoted.py [--label NAME] [--out FILE.json]
-                                  [--dump FILE.pt]
+                                  [--dump FILE.pt] [--grid]
     python3 tools/time_pivoted.py --compare A.pt B.pt
 
 Run on a machine with an NVIDIA H100 (or another sm_90a card) and nvcc,
@@ -24,17 +24,32 @@ are loaded from the ``chip_smoke.py`` beside this script's ``tools/``
   ``solve_batched(backend="mixed")`` gives it at B=N=256, made
   contiguous as ``chip_smoke.py`` times them;
 - kernel 2 (``inverse_rbt_fused``) at B=1024, N=64;
-- the call time of the three 256-wide pivoted paths:
-  ``solve_batched(mixed)``, ``det_batched(auto)`` on ``det_batch`` and
-  ``lu_factor_batched(auto)``.
+- kernel 1 (``solve_fused_rbt``) on ``bench_batch`` (B=N=256, k=1, the
+  main path's one launch) and on the same class at B=256, N=128, k=1;
+- kernel 5 (``panel_factor_nopivot``) over the eight panels that
+  ``solve_batched(auto)`` gives it at k=16 and the four that
+  ``inverse_batched(auto)`` gives it at N=256 (``phase_batch``), both as
+  CUDA-event time of the Python launches and as device time
+  (``torch.profiler``, ``device_time`` of this checkout's
+  ``utils/benchmarking.py``): the launches are short enough that the
+  host's gaps fill the first;
+- the call time of the 256-wide paths: ``solve_batched(mixed)``,
+  ``det_batched(auto)`` on ``det_batch``, ``lu_factor_batched(auto)``,
+  and solve-256, solve-256-k16 and inverse-256 (``auto``).
+
+``--grid`` times only kernel 1, at B=256 on the bench class for
+N = 64, 96, ..., 256 and k = 1, 2, 4, 8: the shapes that chose its
+variants' routes (``solve_fused.variant``).
 
 Uses only the wrappers' public calls, so it times any version of the
 package that has them.  Prints one JSON object with the card's name and
 power limit, and writes it to ``--out`` when given.  ``--dump`` saves
 every output of the timed kernel calls; ``--compare`` reports whether
 two such dumps (two versions of the package, same inputs) are equal to
-the bit, NaN where the other is NaN.  Needs a card (but ``--compare``).
-Imports nothing of JAX.
+the bit, NaN where the other is NaN, and for kernel 1 (whose variants
+round differently) the flags' equality and the solutions' largest
+relative difference.  Needs a card (but ``--compare``).  Imports nothing
+of JAX.
 """
 
 from __future__ import annotations
@@ -51,11 +66,11 @@ if not os.environ.get("PYTHONPATH"):
     sys.path.insert(0, os.getcwd())
 
 
-def _chip_smoke():
-    """``chip_smoke.py`` of this script's checkout, as a module."""
+def _load(rel: str, name: str):
+    """A file of this script's checkout, as a module."""
     path = os.path.join(os.path.dirname(os.path.dirname(
-        os.path.abspath(__file__))), "chip_smoke.py")
-    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+        os.path.abspath(__file__))), rel)
+    spec = importlib.util.spec_from_file_location(name, path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
@@ -67,6 +82,7 @@ def main() -> None:
     ap.add_argument("--out")
     ap.add_argument("--dump")
     ap.add_argument("--compare", nargs=2)
+    ap.add_argument("--grid", action="store_true")
     args = ap.parse_args()
     if args.compare:
         compare(*args.compare)
@@ -74,35 +90,48 @@ def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("time_pivoted.py: no CUDA device")
     dev = torch.device("cuda")
-    cs = _chip_smoke()
+    cs = _load("chip_smoke.py", "chip_smoke")
+    device_time = _load("linalg_solver_tpu_torch/utils/benchmarking.py",
+                        "benchmarking").device_time
 
     from linalg_solver_tpu_torch.ops import dispatch, rbt
     from linalg_solver_tpu_torch.ops.kernels import gauss_jordan as gj
-    from linalg_solver_tpu_torch.ops.kernels import inv_rbt, lu_panel
+    from linalg_solver_tpu_torch.ops.kernels import inv_rbt, lu_nopivot
+    from linalg_solver_tpu_torch.ops.kernels import lu_panel, solve_fused
     from linalg_solver_tpu_torch.utils.benchmarking import cuda_time
 
     outputs = {}
 
-    def t(fn, *a, kernel=True):
+    def t(name, fn, *a, kernel=True):
         if kernel:
-            outputs[len(outputs)] = [x.cpu() for x in _tensors(fn(*a))]
-        return cuda_time(fn, *a, warmup=3, iters=20) * 1e3
+            outputs[name] = [x.cpu() for x in _tensors(fn(*a))]
+        ms[name] = cuda_time(fn, *a, warmup=3, iters=20) * 1e3
 
     res = {"label": args.label, "card": cs.card_line(),
            "package": os.path.dirname(os.path.dirname(gj.__file__)),
            "ms": {}}
     ms = res["ms"]
+    if args.grid:
+        for n in range(64, 257, 32):
+            a = cs.inverse_batch(cs.B, n, 600 + n, dev)
+            d = rbt.default_diags(n, rbt.MAIN_SEEDS, str(dev))
+            for k in (1, 2, 4, 8):
+                b = torch.randn(cs.B, n, k, generator=torch.Generator(
+                    device=dev).manual_seed(n + k), device=dev)
+                t(f"kernel 1 [{cs.B}, {n}, k={k}]",
+                  solve_fused.solve_fused_rbt, a, b, *d, kernel=False)
+        _emit(res, args.out)
+        return
     for n in (64, 127, 167):
         a = cs.inverse_batch(cs.B_INV, n, 500 + n, dev)
         aug = torch.cat([a, torch.eye(n, device=dev).expand_as(a)], dim=2)
-        ms[f"kernel 3 [{cs.B_INV}, {n}, {2 * n}]"] = t(gj.gauss_jordan_tiled,
-                                                       aug)
-        ms[f"torch.linalg.inv [{cs.B_INV}, {n}, {n}]"] = t(
-            torch.linalg.inv, a, kernel=False)
+        t(f"kernel 3 [{cs.B_INV}, {n}, {2 * n}]", gj.gauss_jordan_tiled, aug)
+        t(f"torch.linalg.inv [{cs.B_INV}, {n}, {n}]", torch.linalg.inv, a,
+          kernel=False)
     s = cs.det_batch(dev, 237)
-    ms[f"kernel 3 [{cs.B}, 237, 237]"] = t(gj.gauss_jordan_tiled, s)
-    ms[f"torch.linalg.det [{cs.B}, 237, 237]"] = t(torch.linalg.det, s,
-                                                   kernel=False)
+    t(f"kernel 3 [{cs.B}, 237, 237]", gj.gauss_jordan_tiled, s)
+    t(f"torch.linalg.det [{cs.B}, 237, 237]", torch.linalg.det, s,
+      kernel=False)
 
     a, b = cs.bench_batch(dev)
     calls, off = cs.record(lu_panel, "panel_factor_masked")
@@ -115,29 +144,66 @@ def main() -> None:
     def kernel6():
         return [lu_panel.panel_factor_masked(*args) for args in panels]
 
-    ms[f"kernel 6, the mixed path's {len(panels)} panels"] = t(kernel6)
+    t(f"kernel 6, the mixed path's {len(panels)} panels", kernel6)
 
     ai = cs.inverse_batch(cs.B_INV, cs.N_INV, 0, dev)
     diags = (rbt.default_diags(cs.N_INV, rbt.MAIN_SEEDS, str(dev)),
              rbt.default_diags(cs.N_INV, rbt.RESCUE_SEEDS, str(dev)),
              rbt.default_probe(cs.N_INV, str(dev)))
-    ms[f"kernel 2 [{cs.B_INV}, {cs.N_INV}, {cs.N_INV}]"] = t(
-        inv_rbt.inverse_rbt_fused, ai, *diags)
+    t(f"kernel 2 [{cs.B_INV}, {cs.N_INV}, {cs.N_INV}]",
+      inv_rbt.inverse_rbt_fused, ai, *diags)
+
+    # kernel 1: the main path's launch, and one block a system at N = 128
+    du, dv = rbt.default_diags(cs.N, rbt.MAIN_SEEDS, str(dev))
+    t(f"kernel 1 [{cs.B}, {cs.N}, k=1]", solve_fused.solve_fused_rbt, a, b,
+      du, dv)
+    a128 = cs.inverse_batch(cs.B, 128, 128, dev)
+    b128 = torch.randn(cs.B, 128, generator=torch.Generator(
+        device=dev).manual_seed(129), device=dev)
+    t(f"kernel 1 [{cs.B}, 128, k=1]", solve_fused.solve_fused_rbt, a128,
+      b128, *rbt.default_diags(128, rbt.MAIN_SEEDS, str(dev)))
+
+    # kernel 5 on the panels the phase paths give it
+    ap, bp = cs.phase_batch(dev)
+    for what, fn, xs in (
+            ("solve-256-k16", dispatch.solve_batched, (ap, bp)),
+            ("inverse-256", dispatch.inverse_batched, (ap,))):
+        calls, off = cs.record(lu_nopivot, "panel_factor_nopivot")
+        fn(*xs)
+        off()
+        k5 = [(p.contiguous(), nb) for (p, nb), _ in calls]
+
+        def kernel5(k5=k5):
+            return [lu_nopivot.panel_factor_nopivot(p, nb) for p, nb in k5]
+
+        name = f"kernel 5, {what}'s {len(k5)} panels"
+        t(name, kernel5)
+        ms[name + ", device"] = device_time(kernel5) * 1e3
 
     sd = cs.det_batch(dev)
     for name, fn, xs in (
             ("solve_batched(mixed)",
              lambda x, y: dispatch.solve_batched(x, y, "mixed"), (a, b)),
             ("det_batched(auto)", dispatch.det_batched, (sd,)),
-            ("lu_factor_batched(auto)", dispatch.lu_factor_batched, (a,))):
-        ms[f"path {name} B={cs.B} N={cs.N}"] = t(fn, *xs, kernel=False)
-    line = json.dumps(res)
-    print(line)
-    if args.out:
-        with open(args.out, "w") as f:
-            f.write(line + "\n")
+            ("lu_factor_batched(auto)", dispatch.lu_factor_batched, (a,)),
+            ("solve-256 solve_batched(auto)", dispatch.solve_batched, (a, b)),
+            ("solve-256-k16 solve_batched(auto)", dispatch.solve_batched,
+             (ap, bp)),
+            ("inverse-256 inverse_batched(auto)", dispatch.inverse_batched,
+             (ap,))):
+        t(f"path {name} B={cs.B} N={cs.N}", fn, *xs, kernel=False)
+    _emit(res, args.out)
     if args.dump:
         torch.save(outputs, args.dump)
+
+
+def _emit(res: dict, out) -> None:
+    """Print the result line, and write it to ``out`` when given."""
+    line = json.dumps(res)
+    print(line)
+    if out:
+        with open(out, "w") as f:
+            f.write(line + "\n")
 
 
 def _tensors(out):
@@ -147,20 +213,33 @@ def _tensors(out):
     return [x for item in out for x in _tensors(item)]
 
 
+def _bitwise(x: torch.Tensor, y: torch.Tensor) -> bool:
+    if x.shape != y.shape:
+        return False
+    if x.is_floating_point():
+        return bool(((x == y) | (x.isnan() & y.isnan())).all())
+    return torch.equal(x, y)
+
+
 def compare(a: str, b: str) -> None:
-    """Print whether two dumps are equal to the bit (NaN-equal)."""
+    """Print whether two dumps are equal to the bit (NaN-equal), and for
+    kernel 1 whether the flags are equal and the solutions' largest
+    relative difference over the finite entries."""
     da, db = torch.load(a), torch.load(b)
-    same = {}
+    same, kernel1 = {}, {}
     for call in da:
-        same[call] = all(
-            x.shape == y.shape and bool(((x == y) | (x.isnan() & y.isnan()))
-                                        .all()
-                                        if x.is_floating_point()
-                                        else torch.equal(x, y))
-            for x, y in zip(da[call], db[call]))
+        if call.startswith("kernel 1"):
+            (x, bad), (y, bad_y) = da[call], db[call]
+            both = torch.isfinite(x) & torch.isfinite(y)
+            rel = float((x - y)[both].abs().max() / y[both].abs().max())
+            kernel1[call] = {"flags_equal": torch.equal(bad, bad_y),
+                             "max_rel_diff": rel}
+        else:
+            same[call] = all(_bitwise(x, y)
+                             for x, y in zip(da[call], db[call]))
     print(json.dumps({"compare": [a, b], "calls": len(same),
                       "bitwise_equal": all(same.values()),
-                      "per_call": same}))
+                      "per_call": same, "kernel 1": kernel1}))
 
 
 if __name__ == "__main__":
