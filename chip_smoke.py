@@ -21,19 +21,24 @@ uncaught exception and a non-zero exit:
    then the rescue cases;
 5. time the kernel, its plain version, ``solve_batched(auto)`` and
    ``torch.linalg.solve`` with CUDA events;
-6. hold the fused inverse kernel and the pivoted Gauss-Jordan kernel
-   against their plain versions on probe batches (one matrix on every
-   rung of the inverse's rescue ladder) and at the bench shape, and
-   show that the check fails for the inverse kernel without its rescue;
+6. hold the fused inverse kernel (kernel 2) and the pivoted
+   Gauss-Jordan kernel against their plain versions on probe batches
+   (one matrix on every rung of the inverse's rescue ladder) and at the
+   bench shape, kernel 2 at a shape of each of its variants (N = 32, 64,
+   128, 172) and at N = 172 and 180, where its level 3 works in a
+   device-memory scratch, and show that the check fails for the inverse
+   kernel without its rescue;
 7. drive the inverse path, ``ops.dispatch.inverse_batched(backend=
    "auto")``, at the bench shape (1024 matrices of 64x64 f32): one
-   launch of the fused kernel, then the rescue cases;
+   launch of the fused kernel, then the rescue cases, then N = 180 (the
+   reference's reach, one launch);
 8. drive the pivoted kernel's path: the inverse at N=63 (not a multiple
    of 4), ``det_batched``, ``rank_batched`` and ``solve_batched(auto)``
    (odd N: the ``"pallas"`` solve), then hold the kernel against its
    plain version on the arrays that path gave it;
-9. time both inverse kernels, their plain versions,
-   ``inverse_batched(auto)`` and ``torch.linalg.inv``;
+9. time both inverse kernels (kernel 2 also as profiler device time),
+   their plain versions, ``inverse_batched(auto)`` and
+   ``torch.linalg.inv``;
 10. hold the phase engine's two-sided butterfly kernel against its plain
     version, bitwise (depth 1 and 2, both directions, N = 64, 256, 896),
     and show that the check fails for the kernel with its sides flipped;
@@ -51,8 +56,9 @@ uncaught exception and a non-zero exit:
     k=1, past the fused kernel; hold both kernels against their plain
     versions on the arrays the first two paths gave them; then the rescue
     cases of both paths;
-13. time both kernels, their plain versions, the two paths and
-    ``torch.linalg.solve`` / ``torch.linalg.inv``;
+13. time both kernels (kernel 4 also as profiler device time), their
+    plain versions, the two paths and ``torch.linalg.solve`` /
+    ``torch.linalg.inv``;
 14. hold the masked partial-pivot panel kernel (kernel 6) against its
     plain version, bitwise on all five outputs, on random panels with and
     without pre-pivoted rows and with a zero-column and a NaN panel, and
@@ -78,18 +84,22 @@ uncaught exception and a non-zero exit:
     ``det_batched(auto)`` at B=256, N=237 (``det_batch``'s class, with its
     singular and swapped lanes), one kernel-3 launch each; hold the kernel
     against its plain version on ``[A | I]`` and the det batch; time the
-    kernel, the two paths and ``torch.linalg.inv`` / ``det`` there; print
-    the registers, spill bytes and resident blocks an SM of every variant
-    of kernels 1, 3, 5 and 6 on one line.
+    kernel, the two paths and ``torch.linalg.inv`` / ``det`` there;
+    drive kernel 2's path at B=1024, N=128, 164, 172 and 180 (one launch
+    each), hold the kernel against its plain version there and time it
+    beside ``torch.linalg.inv``; print the registers, spill bytes and
+    resident blocks an SM of every variant of kernels 1, 2, 3, 5 and 6 on
+    one line.
 
 The line before the last is a JSON summary of the six kernels, each with
 its bound (the larger of its bytes over 3.35 TB/s and its operations
 over the 67 TFLOP/s FP32 rate, counted from this run's inputs) and the
 time of the one library call that computes the same function, where
-there is one (kernel 5's ``ms`` is its device time over the solve
-path's eight panels, from ``torch.profiler``; ``host_ms`` the CUDA-event
-time of the same eight Python launches); the last line is ``{"ok":
-true, "device": {...}}``.
+there is one (the ``ms`` of kernels 2, 4 and 5 is device time from
+``torch.profiler``, kernel 5's over the solve path's eight panels;
+``host_ms`` the CUDA-event time of the same Python calls; kernels 2 and
+3 list their large shapes); the last line is ``{"ok": true, "device":
+{...}}``.
 Imports nothing of JAX.
 """
 
@@ -107,6 +117,11 @@ TOL_RESID = 1e-5       # worst-system relative residual, float64
 FLAGGED = [2, 5]       # probe systems the kernel must flag (probe_batch)
 B_INV, N_INV = 1024, 64
 TOL_INV = 5e-5         # worst-matrix max|A X - I|, float64
+INV_REACH = 180        # kernel 2's last N (the reference's cap)
+#: kernel 2 against its plain version: a shape of each variant (N = 32,
+#: 64, 128, 172), the reach (level 3 in device memory at 172 and 180)
+INV_SHAPES = ((8, 32), (8, 64), (8, 128), (8, 172), (8, INV_REACH),
+              (B_INV, N_INV))
 K_PHASE = 16           # RHS columns of the phase engine's solve path
 N_REACH = 896          # past the fused kernel's reach at k=1
 N_PANEL_REACH = 960    # past kernel 6's reach at nb = 64 (det, two levels)
@@ -247,8 +262,10 @@ def check_inverse_kernels(dev):
     from linalg_solver_tpu_torch.ops.kernels import inv_rbt
     from linalg_solver_tpu_torch.utils import systems
 
-    errs = {}
-    for bsz, n in ((8, 32), (8, 64), (B_INV, N_INV)):
+    from linalg_solver_tpu_torch.ops.kernels import gauss_jordan as gj
+
+    errs = {"inv_rbt": 0.0}
+    for bsz, n in INV_SHAPES:
         draw = rbt.default_diags(n, rbt.MAIN_SEEDS, str(dev))
         redraw = rbt.default_diags(n, rbt.RESCUE_SEEDS, str(dev))
         probe = rbt.default_probe(n, str(dev))
@@ -260,15 +277,16 @@ def check_inverse_kernels(dev):
             a, draw, redraw, probe)
         rel, abs_err, why = compare_inverse(x, bad, x_ref, bad_ref, 6)
         flagged = bad.nonzero().flatten().tolist()
-        print(f"inverse kernel vs plain B={bsz} N={n}: max rel diff "
-              f"{rel:.3e} (tol {TOL_KERNEL}), flagged {flagged}")
+        print(f"inverse kernel vs plain B={bsz} N={n} (variant "
+              f"{inv_rbt.variant(n)}): max rel diff {rel:.3e} (tol "
+              f"{TOL_KERNEL}), flagged {flagged} (6: level 3)")
         if why is not None or not rel <= TOL_KERNEL:
             raise AssertionError(f"inverse kernel disagrees with plain "
                                  f"version: {why or rel}")
         if flagged != systems.INVERSE_FLAGGED:
             raise AssertionError(f"flagged {flagged}, expected "
                                  f"{systems.INVERSE_FLAGGED}")
-        errs["inv_rbt"] = abs_err
+        errs["inv_rbt"] = max(errs["inv_rbt"], abs_err)
         if n == 64 and bsz == 8:
             # the same check must fail for the kernel without levels 2-3
             x0, bad0 = inv_rbt.inverse_rbt_fused(
@@ -281,14 +299,22 @@ def check_inverse_kernels(dev):
                 raise AssertionError("the inverse check cannot see a "
                                      "kernel without its rescue")
 
+        if n > N_INV:
+            continue
         # the pivoted kernel on [A | I] of the same batch, with per-matrix
         # thresholds, and on the square batch (the det / rank width)
         eye = torch.eye(n, device=dev).expand(bsz, n, n)
         tol = torch.zeros(bsz, device=dev)
         tol[3] = 1e-2
         errs["gauss_jordan"] = max(
+            errs.get("gauss_jordan", 0.0),
             hold_pivoted(torch.cat([a, eye], dim=2), tol, f"B={bsz}"),
             hold_pivoted(a, tol, f"B={bsz}"))
+    variants = sorted({inv_rbt.variant(n) for _, n in INV_SHAPES})
+    if variants != sorted(inv_rbt.VARIANTS):
+        raise AssertionError(f"phase 6 reached kernel-2 variants {variants} "
+                             f"only")
+    assert not gj.fits(180, 360)  # 172 and 180 are kernel 2's alone
     return errs
 
 
@@ -345,7 +371,24 @@ def drive_inverse_path(dev):
         raise AssertionError("flags of the rescue case are wrong")
     if not same:
         raise AssertionError("the rescue changed a matrix it was not given")
-    return launches[0]
+
+    # the reach: N = 180, past an [n, 2n] tile's shared memory
+    n = INV_REACH
+    a3 = inverse_batch(B_INV, n, 3, dev)
+    inv_rbt.LAUNCHES = gj.LAUNCHES = 0
+    x4 = dispatch.inverse_batched(a3, backend="auto")
+    torch.cuda.synchronize()
+    launches3 = (inv_rbt.LAUNCHES, gj.LAUNCHES)
+    r3 = float(inverse_resid(a3, x4).max())
+    print(f"inverse path inverse_batched(auto) B={B_INV} N={n}: launches "
+          f"fused {launches3[0]} pivoted {launches3[1]}, worst max|AX - I| "
+          f"{r3:.3e} (tol {TOL_INV})")
+    if launches3 != (1, 0):
+        raise AssertionError(f"expected one fused launch at N={n}, got "
+                             f"{launches3}")
+    if not (bool(torch.isfinite(x4).all()) and r3 <= TOL_INV):
+        raise AssertionError(f"inverse at N={n} gave a wrong result")
+    return launches[0] + launches3[0]
 
 
 def drive_pivoted_path(dev):
@@ -402,7 +445,8 @@ def time_inverse(dev, card):
     from linalg_solver_tpu_torch.ops import dispatch, rbt
     from linalg_solver_tpu_torch.ops.kernels import gauss_jordan as gj
     from linalg_solver_tpu_torch.ops.kernels import inv_rbt
-    from linalg_solver_tpu_torch.utils.benchmarking import cuda_time
+    from linalg_solver_tpu_torch.utils.benchmarking import (cuda_time,
+                                                            device_time)
 
     a = inverse_batch(B_INV, N_INV, 0, dev)
     args = (a, rbt.default_diags(N_INV, rbt.MAIN_SEEDS, str(dev)),
@@ -411,6 +455,8 @@ def time_inverse(dev, card):
     aug = torch.cat([a, torch.eye(N_INV, device=dev).expand_as(a)], dim=2)
 
     times = {
+        "kernel inverse_rbt_fused, device": device_time(
+            inv_rbt.inverse_rbt_fused, *args, warmup=3, iters=5),
         "kernel inverse_rbt_fused": cuda_time(
             inv_rbt.inverse_rbt_fused, *args, warmup=3, iters=20),
         "plain inverse_rbt_fused_reference": cuda_time(
@@ -794,6 +840,8 @@ def time_phase(dev, card, panels):
     times = {
         "kernel panel_factor_nopivot, the 8 solve panels, device": device_time(
             panel_kernels, warmup=3, iters=5),
+        "kernel butterfly_two_sided, device": device_time(
+            butterfly.butterfly_two_sided, a, U, V, 2, warmup=3, iters=5),
         "kernel butterfly_two_sided": cuda_time(
             butterfly.butterfly_two_sided, a, U, V, 2, warmup=3, iters=20),
         "plain butterfly_two_sided_reference": cuda_time(
@@ -1248,14 +1296,93 @@ def drive_pivoted_large(dev, card):
     return launches, err, shapes
 
 
+#: kernel 2's large shapes: (B, N)
+INVERSE_LARGE = ((B_INV, 128), (B_INV, 164), (B_INV, 172), (B_INV, INV_REACH))
+
+
+def inverse_work(bsz, n):
+    """(bytes, operations) of kernel 2 on ``[bsz, n, n]``: A read, X
+    written, the four diagonal pairs and the probe read, the flags written
+    once; the elimination's n steps of n^2 multiply-adds (2 n^3
+    operations) and the butterflies' 24 n^2 (3 an entry a level, two
+    levels, two sides, on A and on X)."""
+    return (4 * (2 * bsz * n * n + 9 * n) + bsz,
+            bsz * (2 * n**3 + 24 * n**2))
+
+
+def drive_inverse_large(dev, card):
+    """Phase 18, kernel 2: ``inverse_batched(auto)`` at its large shapes,
+    one launch each, the kernel held against its plain version and timed
+    (device time and CUDA events) beside the path and
+    ``torch.linalg.inv``.  Returns the launches, the max abs difference
+    and one entry a shape."""
+    from linalg_solver_tpu_torch.ops import dispatch, rbt
+    from linalg_solver_tpu_torch.ops.kernels import inv_rbt
+    from linalg_solver_tpu_torch.utils.benchmarking import (cuda_time,
+                                                            device_time)
+
+    launches, err, shapes = 0, 0.0, []
+    for bsz, n in INVERSE_LARGE:
+        a = inverse_batch(bsz, n, 700 + n, dev)
+        reset_counts()
+        x = dispatch.inverse_batched(a)
+        torch.cuda.synchronize()
+        counts = phase_counts()
+        resid = float(inverse_resid(a, x).max())
+        print(f"inverse path inverse_batched(auto) B={bsz} N={n}: launches "
+              f"{counts}, worst max|AX - I| {resid:.3e} (tol {TOL_INV})")
+        want = dict.fromkeys(counts, 0)
+        want["inv_rbt"] = 1
+        if counts != want:
+            raise AssertionError(f"expected launches {want}")
+        if not (bool(torch.isfinite(x).all()) and resid <= TOL_INV):
+            raise AssertionError(f"inverse at N={n} gave a wrong result")
+        launches += counts["inv_rbt"]
+        args = (a, rbt.default_diags(n, rbt.MAIN_SEEDS, str(dev)),
+                rbt.default_diags(n, rbt.RESCUE_SEEDS, str(dev)),
+                rbt.default_probe(n, str(dev)))
+        xk, bad = inv_rbt.inverse_rbt_fused(*args)
+        torch.cuda.synchronize()
+        x_ref, bad_ref = inv_rbt.inverse_rbt_fused_reference(*args)
+        rel, abs_err, why = compare_inverse(xk, bad, x_ref, bad_ref, [])
+        print(f"inverse kernel vs plain B={bsz} N={n}: max rel diff "
+              f"{rel:.3e} (tol {TOL_KERNEL}), flagged "
+              f"{bad.nonzero().flatten().tolist()}")
+        if why is not None or not rel <= TOL_KERNEL or bool(bad.any()):
+            raise AssertionError(f"inverse kernel disagrees with plain "
+                                 f"version at N={n}: {why or rel}")
+        err = max(err, abs_err)
+        t_dev = device_time(inv_rbt.inverse_rbt_fused, *args, warmup=2,
+                            iters=5)
+        t_host = cuda_time(inv_rbt.inverse_rbt_fused, *args, warmup=2,
+                           iters=10)
+        t_path = cuda_time(dispatch.inverse_batched, a, warmup=2, iters=10)
+        t_lib = cuda_time(torch.linalg.inv, a, warmup=2, iters=10)
+        b_ms, b_by = bound(*inverse_work(bsz, n))
+        for name, t in (("kernel inverse_rbt_fused, device", t_dev),
+                        ("kernel inverse_rbt_fused", t_host),
+                        ("inverse_batched(auto)", t_path),
+                        ("torch.linalg.inv", t_lib)):
+            print(f"time {name} N={n}: {t * 1e3:.4f} ms (B={bsz}, bound "
+                  f"{b_ms:.4f} ms {b_by}, {card})")
+        shapes.append({"shape": [bsz, n, n], "ms": t_dev * 1e3,
+                       "host_ms": t_host * 1e3, "path_ms": t_path * 1e3,
+                       "bound_ms": b_ms, "bound_by": b_by,
+                       "library_ms": t_lib * 1e3,
+                       "variant": inv_rbt.variant(n)})
+    return launches, err, shapes
+
+
 def variant_attributes():
     """Registers a thread, spill bytes and resident blocks an SM of every
-    variant of kernels 1, 3, 5 and 6, at a shape each takes."""
+    variant of kernels 1, 2, 3, 5 and 6, at a shape each takes."""
     from linalg_solver_tpu_torch.ops.kernels import gauss_jordan as gj
-    from linalg_solver_tpu_torch.ops.kernels import lu_nopivot, lu_panel
-    from linalg_solver_tpu_torch.ops.kernels import solve_fused
+    from linalg_solver_tpu_torch.ops.kernels import inv_rbt, lu_nopivot
+    from linalg_solver_tpu_torch.ops.kernels import lu_panel, solve_fused
 
     return {
+        "inv_rbt": {f"N={n}": inv_rbt.attributes(n)
+                    for n in (32, N_INV, 128, INV_REACH)},
         "solve_fused": {f"N={n} k={k}": solve_fused.attributes(n, k)
                         for n, k in ((128, 1), (N, 1), (N, 8))},
         "lu_nopivot": {f"[{m}, {nb}]": lu_nopivot.attributes(m, nb)
@@ -1475,8 +1602,10 @@ def main() -> None:
     k6_times = time_panel_paths(dev, card, k6["panels"], k6["det_input"],
                                 large)
 
-    # 18. kernel 3 at its large shapes; every variant's resources
+    # 18. kernels 3 and 2 at their large shapes; every variant's resources
     gj_large_launches, gj_large_err, gj_shapes = drive_pivoted_large(dev, card)
+    inv_large_launches, inv_large_err, inv_shapes = drive_inverse_large(
+        dev, card)
     print("kernel variants (registers, spill bytes, blocks an SM): "
           + json.dumps(variant_attributes()))
 
@@ -1487,9 +1616,7 @@ def main() -> None:
         "solve_fused_rbt": bound(
             4 * (B * N * N + 2 * B * N + 4 * N) + B,
             B * (2 / 3 * N**3 + 12 * N**2 + 2 * N**2 * (1 + 2 * 2))),
-        "inverse_rbt_fused": bound(
-            4 * (2 * B_INV * N_INV**2 + 9 * N_INV) + B_INV,
-            B_INV * (2 * N_INV**3 + 24 * N_INV**2)),
+        "inverse_rbt_fused": bound(*inverse_work(B_INV, N_INV)),
         "gauss_jordan_tiled": bound(*pivoted_work(B_INV, N_INV, w)),
         "butterfly_two_sided": bound(4 * (2 * B * N * N + 4 * N),
                                      12 * B * N * N),
@@ -1511,11 +1638,13 @@ def main() -> None:
         "route": "cuda",
         "source": "linalg_solver_tpu_torch/csrc/inv_rbt.cu",
         "replaces": "linalg_solver_tpu/ops/pallas/inv_rbt_kernel.py:125",
-        "launches": inv_launches,
-        "max_abs_err": inv_errs["inv_rbt"],
-        "ms": inv_times["kernel inverse_rbt_fused"] * 1e3,
+        "launches": inv_launches + inv_large_launches,
+        "max_abs_err": max(inv_errs["inv_rbt"], inv_large_err),
+        "ms": inv_times["kernel inverse_rbt_fused, device"] * 1e3,
+        "host_ms": inv_times["kernel inverse_rbt_fused"] * 1e3,
         "plain_ms": inv_times["plain inverse_rbt_fused_reference"] * 1e3,
         "library_ms": inv_times["torch.linalg.inv"] * 1e3,
+        "large_shapes": inv_shapes,
     }, {
         "name": "gauss_jordan_tiled",
         "route": "cuda",
@@ -1534,7 +1663,8 @@ def main() -> None:
         "replaces": "linalg_solver_tpu/ops/pallas/butterfly_kernel.py:91",
         "launches": phase["butterfly_launches"] + large_launches,
         "max_abs_err": max(bf_err, phase["butterfly_err"], large_err),
-        "ms": ph_times["kernel butterfly_two_sided"] * 1e3,
+        "ms": ph_times["kernel butterfly_two_sided, device"] * 1e3,
+        "host_ms": ph_times["kernel butterfly_two_sided"] * 1e3,
         "plain_ms": ph_times["plain butterfly_two_sided_reference"] * 1e3,
         "library_ms": None,
     }, {

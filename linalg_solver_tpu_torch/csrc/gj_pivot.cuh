@@ -90,29 +90,34 @@ __device__ __forceinline__ bool argmax_before(float v, int i, float bv,
   return v > bv || (v == bv && i < bi);
 }
 
-// The pivoted steps j = 0..n-1 on the tile, with threshold `tol`.  The
-// tile must be loaded and visible to the block (a __syncthreads() after
-// the load).  On return the tile is reduced and perm/pivs hold the pivot
-// order and values, all visible to the block.
+// The pivoted steps j = 0..n-1 on the tile, with threshold `tol`, by a
+// block of NT threads (redv and redi hold NT / 32 slots each).  The tile
+// must be loaded and visible to the block (a __syncthreads() after the
+// load); it may lie in shared or in device memory.  On return the tile is
+// reduced and perm/pivs hold the pivot order and values, all visible to
+// the block.  The result does not depend on NT: the argmax is a total
+// order, each update one fmaf and the counts integers.
+template <int NT = GJ_NT>
 __device__ void gj_pivot_steps(const GJTile& s, int n, int w, float tol) {
+  constexpr int NWARP = NT / 32;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int ld = s.ld;
   float* T = s.T;
   int* nf_cur = s.nfc;
   int* nf_next = s.nfc + w;
-  for (int c = tid; c < w; c += GJ_NT) {
+  for (int c = tid; c < w; c += NT) {
     int k = 0;
     for (int r = 0; r < n; ++r) k += nonfinite(T[r * ld + c]);
     nf_cur[c] = k;
   }
-  for (int r = tid; r < n; r += GJ_NT) s.pivoted[r] = 0;
+  for (int r = tid; r < n; r += NT) s.pivoted[r] = 0;
   __syncthreads();
 
-  const int dr = GJ_NT / w, dc = GJ_NT % w;  // update walk over [n, w]
+  const int dr = NT / w, dc = NT % w;  // update walk over [n, w]
   for (int j = 0; j < n; ++j) {
     float bv = -INFINITY;
     int bi = n;
-    for (int r = tid; r < n; r += GJ_NT) {
+    for (int r = tid; r < n; r += NT) {
       const float v = s.pivoted[r] ? -INFINITY : fabsf(T[r * ld + j]);
       if (argmax_before(v, r, bv, bi)) {
         bv = v;
@@ -134,7 +139,7 @@ __device__ void gj_pivot_steps(const GJTile& s, int n, int w, float tol) {
     __syncthreads();
     bv = s.redv[0];
     bi = s.redi[0];
-    for (int q = 1; q < GJ_NWARP; ++q) {
+    for (int q = 1; q < NWARP; ++q) {
       if (argmax_before(s.redv[q], s.redi[q], bv, bi)) {
         bv = s.redv[q];
         bi = s.redi[q];
@@ -147,11 +152,11 @@ __device__ void gj_pivot_steps(const GJTile& s, int n, int w, float tol) {
     const bool has = fabsf(piv) > tol;
     const float inv = 1.f / (has ? piv : 1.f);
     const float act = has ? 1.f : 0.f;
-    for (int r = tid; r < n; r += GJ_NT) {
+    for (int r = tid; r < n; r += NT) {
       const float cf = r == p ? 1.f - inv : T[r * ld + j] * inv;
       s.coeff[r] = cf * act;
     }
-    for (int c = tid; c < w; c += GJ_NT) {
+    for (int c = tid; c < w; c += NT) {
       const float x = T[p * ld + c];
       s.prow[c] = nf_cur[c] - nonfinite(x) > 0 ? NAN : x;
       nf_next[c] = 0;

@@ -35,7 +35,9 @@ Inverse, determinant and rank backends (the reference's names):
 
 - ``"pallas"`` — the facade ``ops.kernels`` over the port's hand-written
   kernels (on the TPU, the Pallas kernels): the fused RBT inverse where
-  it reaches, the pivoted Gauss–Jordan kernel for the rest.
+  it reaches (N % 4 = 0 to 180, the reference's reach), the pivoted
+  Gauss–Jordan kernel for the rest (the inverse to N = 167, det and rank
+  to 237).
 - ``"blocked_pallas"`` — (inverse and det) the pivoted phase loop on
   panel kernel 6 (``lu_blocked.blocked_inverse_batched`` /
   ``pallas_det_batched``, ``nb = min(64, N)`` dividing N).
@@ -242,7 +244,7 @@ def _resolve_facade(backend: str, op: str, n: int) -> str:
         return "xla"
     raise NotImplementedError(
         f"backend='auto' has no route for {op} at N={n} yet: past the "
-        f"kernels' shared memory the inverse takes the phase engine at "
+        f"kernels' reach the inverse takes the phase engine at "
         f"N % 8 == 0 and the determinant the blocked phase loop at "
         f"N % min(64, N) == 0, both below {PHASE_MAX_N}; the reference "
         f"takes the rest below {PHASE_MAX_N}, and the rank past the "
@@ -310,7 +312,7 @@ def _det_impl(a: torch.Tensor, backend: str, grad: bool) -> torch.Tensor:
         # after the forward
         raise NotImplementedError(
             f"det at N={n} with a gradient: its backward needs the inverse, "
-            f"which reaches N <= 167 and multiples of 8 below "
+            f"which reaches N <= 167, multiples of 4 to 180 and of 8 below "
             f"{PHASE_MAX_N}; the blocked and loop inverses of ROADMAP.md "
             f"queue 1 items 4-5 take the rest; pass backend='xla' meanwhile"
         )

@@ -12,9 +12,10 @@ version (counterpart of ``linalg_solver_tpu.ops.pallas``).
 
 The functions below are the facade ``ops.dispatch`` routes to, as the
 JAX package's ``ops.pallas`` is: ``inverse_batched`` takes the fused RBT
-inverse where it reaches and the pivoted kernel elsewhere; solve, det
-and rank run on the pivoted kernel.  Past the kernels' shared memory
-they raise.
+inverse where it reaches (N % 4 = 0 to 180, the reference's
+``inv_rbt_kernel.supported``) and the pivoted kernel elsewhere (to
+N = 167); solve, det and rank run on the pivoted kernel (to N = 236 and
+237).  Past the kernels' reach they raise.
 """
 
 from __future__ import annotations
@@ -53,7 +54,7 @@ def solve_fits(n: int, k: int = 1) -> bool:
 def _require(op: str, n: int) -> None:
     if not supports(op, n):
         raise ValueError(
-            f"{op} at N={n}: past the kernels' shared memory (see "
+            f"{op} at N={n}: past the kernels' reach (see "
             f"gauss_jordan.fits and inv_rbt.fits)")
 
 

@@ -38,8 +38,11 @@ _SIGNATURES = {
     "gj_smem_bytes": (ctypes.c_size_t, [_I, _I]),
     "gj_variant": (_I, [_I, _I]),
     "gj_attributes": (_I, [_I] * 3 + [_P]),
-    "inv_rbt_f32": (_I, [_P] * 8 + [_I] * 4 + [_P]),
+    "inv_rbt_f32": (_I, [_P] * 9 + [_I] * 4 + [_P]),
     "inv_rbt_smem_bytes": (ctypes.c_size_t, [_I]),
+    "inv_variant": (_I, [_I]),
+    "inv_variant_smem": (ctypes.c_size_t, [_I, _I]),
+    "inv_attributes": (_I, [_I] * 3 + [_P]),
     "butterfly_two_sided_f32": (_I, [_P] * 4 + [_I] * 5 + [_P]),
     "lu_nopivot_f32": (_I, [_P] * 3 + [_I] * 3 + [_P]),
     "nopivot_smem_bytes": (ctypes.c_size_t, [_I, _I]),
@@ -142,7 +145,8 @@ def attributes(fn: str, variant: int, n: int, w: int) -> dict:
     """Registers a thread, local (spill) bytes a thread and resident
     blocks an SM of a kernel variant at ``[n, w]``, through the C entry
     point ``fn`` (``gj_attributes``, ``panel_attributes``,
-    ``nopivot_attributes`` or ``solve_attributes``)."""
+    ``nopivot_attributes``, ``solve_attributes`` or ``inv_attributes``,
+    which ignores ``w``)."""
     out = (ctypes.c_int * 3)()
     check(getattr(load(), fn)(variant, n, w, out), fn)
     return {"registers": out[0], "local_bytes": out[1],

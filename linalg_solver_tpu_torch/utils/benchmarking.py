@@ -41,10 +41,16 @@ def cuda_time(fn: Callable, *args, warmup: int = 3, iters: int = 10) -> float:
     return statistics.median(s.elapsed_time(e) for s, e in events) / 1e3
 
 
-def device_time(fn: Callable, *args, warmup: int = 3, iters: int = 5) -> float:
+def device_time(fn: Callable, *args, warmup: int = 3, iters: int = 5,
+                match: str = "") -> float:
     """Seconds of device time per call of ``fn(*args)``: the sum of the
     device entries (kernels, copies, sets) ``torch.profiler`` records over
-    ``iters`` calls after ``warmup`` untimed ones, over ``iters``."""
+    ``iters`` calls after ``warmup`` untimed ones, over ``iters``; with
+    ``match``, only the entries whose name contains it.  A name seen
+    about k times a call counts its mean entry k times, so that a record
+    the profiler drops does not bias the sum (late in ``chip_smoke.py``
+    the plain sum over five kernel-2 launches read 4/5 of their
+    CUDA-event time)."""
     if not torch.cuda.is_available():
         raise RuntimeError("device_time needs a CUDA device")
     from torch.autograd import DeviceType
@@ -61,6 +67,10 @@ def device_time(fn: Callable, *args, warmup: int = 3, iters: int = 5) -> float:
     for e in prof.key_averages():
         if e.device_type != DeviceType.CUDA or e.key.startswith("Activity"):
             continue
+        if match not in e.key:
+            continue
         t = getattr(e, "self_device_time_total", None)
-        total += e.self_cuda_time_total if t is None else t
-    return total / 1e6 / iters
+        t = e.self_cuda_time_total if t is None else t
+        per_call = round(e.count / iters)
+        total += t * per_call / e.count if per_call else t / iters
+    return total / 1e6

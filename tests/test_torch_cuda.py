@@ -226,7 +226,7 @@ def _rel_per_matrix(x, x_ref):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,n", [(8, 32), (8, 64), (8, 128), (8, 164),
-                                 (1024, 64)])
+                                 (1024, 64), (8, 172), (8, 180)])
 @pytest.mark.parametrize("rescue", [True, False])
 def test_inverse_kernel_matches_plain_version(cuda, B, n, rescue):
     a, draw, redraw = _inverse_probe(B, n, n + B, cuda)
@@ -244,6 +244,29 @@ def test_inverse_kernel_matches_plain_version(cuda, B, n, rescue):
     use = ~bad
     use[6] = rescue          # level 3: flagged, but its X is right
     assert float(_rel_per_matrix(x, x_ref)[use].max()) <= RTOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("v,n", [(1, 8), (1, 32), (2, 60), (2, 64),
+                                 (3, 100), (3, 128), (4, 64), (4, 132),
+                                 (4, 180)])
+def test_inverse_kernel_variants_match_plain_version(cuda, v, n):
+    """Each variant, chosen by name, on the probe batch (level 3 on
+    matrix 6), against the plain version; with its resources."""
+    a, draw, redraw = _inverse_probe(8, n, 7 * n + v, cuda)
+    probe = rbt.default_probe(n, str(cuda))
+    x, bad = inv_rbt.inverse_rbt_fused(a, draw, redraw, probe, v=v)
+    torch.cuda.synchronize()
+    x_ref, bad_ref = inv_rbt.inverse_rbt_fused_reference(
+        a, draw, redraw, probe)
+    assert bad.nonzero().flatten().tolist() == systems.INVERSE_FLAGGED
+    assert torch.equal(bad, bad_ref)
+    assert torch.equal(torch.isfinite(x), torch.isfinite(x_ref))
+    use = ~bad
+    use[6] = True
+    assert float(_rel_per_matrix(x, x_ref)[use].max()) <= RTOL
+    attr = inv_rbt.attributes(n, v)
+    assert attr["registers"] > 0 and attr["blocks_per_sm"] >= 1
 
 
 @pytest.mark.cuda
@@ -294,6 +317,9 @@ def test_inverse_smem_mirrors_match_the_kernels(cuda):
             assert lib.gj_smem_bytes(n, w) == gj.smem_bytes(n, w)
     for n in range(4, 200, 4):
         assert lib.inv_rbt_smem_bytes(n) == inv_rbt.smem_bytes(n)
+        assert lib.inv_variant(n) == inv_rbt.variant(n)
+        for v in inv_rbt.VARIANTS:
+            assert lib.inv_variant_smem(v, n) == inv_rbt.smem_bytes(n, v)
     for n in range(1, 250):
         for w in (n, n + 1, 2 * n, 128, 256, 257):
             assert lib.gj_variant(n, w) == gj.variant(n, w)
@@ -323,6 +349,22 @@ def test_inverse_main_path_launches_kernel_2_once(cuda):
     assert float(r[3]) <= 1e-2 and float(r[11]) <= 1e-5
     for i in keep:
         assert torch.equal(x[i], x_clean[i]), i
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [172, 180])
+def test_inverse_auto_to_180_launches_kernel_2_once(cuda, n):
+    """Past an [n, 2n] tile's shared memory, as the reference does: one
+    kernel-2 launch, a float64 residual of 5e-5."""
+    g = torch.Generator(device=cuda).manual_seed(n)
+    a = torch.randn(16, n, n, generator=g, device=cuda)
+    a += 4.0 * n**0.5 * torch.eye(n, device=cuda)
+    counts = (inv_rbt.LAUNCHES, gj.LAUNCHES)
+    x = dispatch.inverse_batched(a)
+    torch.cuda.synchronize()
+    assert (inv_rbt.LAUNCHES, gj.LAUNCHES) == (counts[0] + 1, counts[1])
+    eye = torch.eye(n, device=cuda, dtype=torch.float64)
+    assert float((a.double() @ x.double() - eye).abs().max()) <= 5e-5
 
 
 @pytest.mark.cuda

@@ -144,19 +144,21 @@ def test_auto_inverse_and_det_at_1024_take_the_library(op):
 @pytest.mark.parametrize("n", [170, 237])
 def test_auto_det_with_a_gradient_raises_where_the_inverse_stops(n):
     """det reaches N = 237 but its backward needs the inverse, which past
-    167 takes only multiples of 8: with a gradient it raises before the
-    forward, not in the backward; without one it runs."""
+    167 takes only multiples of 4 to 180 and of 8 beyond: with a gradient
+    it raises before the forward, not in the backward; without one it
+    runs."""
     a = torch.eye(n)[None]
     with pytest.raises(NotImplementedError, match="ROADMAP.*items 4-5"):
         dispatch.det_batched(a.clone().requires_grad_())
     assert dispatch.det_batched(a).tolist() == [1.0]
 
 
-@pytest.mark.parametrize("n", [168, 256])
+@pytest.mark.parametrize("n", [184, 256])
 def test_auto_inverse_past_the_kernels_takes_the_phase_engine(n):
-    """168 is the first multiple of 8 past the small-N kernels: the phase
-    inverse (``rbt.inverse_rbt_batched``, panel width 8 there, 64 at
-    256), bitwise as called directly."""
+    """184 is the first multiple of 8 past the small-N kernels (kernel 2
+    stops at 180, the reference's reach): the phase inverse
+    (``rbt.inverse_rbt_batched``, panel width 8 there, 64 at 256),
+    bitwise as called directly."""
     a = torch.from_numpy(_batch(2, n, seed=n))
     assert not gj.fits(n, 2 * n) and not inv_rbt.fits(n)
     x = dispatch.inverse_batched(a)
@@ -165,9 +167,11 @@ def test_auto_inverse_past_the_kernels_takes_the_phase_engine(n):
 
 
 def test_auto_det_gradient_at_168_takes_the_phase_inverse():
-    """``backend="pallas"`` keeps to the kernels, whose inverse stops at
-    167: there a gradient still raises before the forward."""
-    n = 168
+    """At the first multiple of 8 past the kernels' inverse (N = 184 since
+    kernel 2 reaches 180; 168 before) the det's backward takes the phase
+    inverse.  ``backend="pallas"`` keeps to the kernels: there a gradient
+    still raises before the forward."""
+    n = 184
     rng = np.random.RandomState(12)
     a = (np.eye(n) + 0.1 * rng.randn(2, n, n) / np.sqrt(n)).astype(
         np.float32)
@@ -180,6 +184,44 @@ def test_auto_det_gradient_at_168_takes_the_phase_inverse():
     assert float(err) <= 1e-4
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         dispatch.det_batched(torch.from_numpy(a).requires_grad_(), "pallas")
+
+
+@pytest.mark.parametrize("n", [168, 172, 176, 180])
+def test_auto_inverse_to_180_takes_kernel_2(n):
+    """From N = 168 to 180 at N % 4 = 0 ``auto`` takes kernel 2, as the
+    reference's takes ``inv_rbt_kernel``: bitwise its wrapper's result,
+    within the draws' 1e-4 of the JAX kernel (interpret mode), and a
+    float64 residual of 5e-5."""
+    a = _batch(2, n, seed=n)
+    at = torch.from_numpy(a)
+    assert dispatch._resolve_facade("auto", "inverse", n) == "pallas"
+    assert inv_rbt.fits(n) and not gj.fits(n, 2 * n)
+    x = dispatch.inverse_batched(at)
+    assert torch.equal(x, inv_rbt.inverse_rbt_fused_batched(at))
+    xj = _jax_facade_inverse(a)
+    for i in range(2):
+        err = np.abs(x[i].numpy() - xj[i]).max()
+        assert err <= 1e-4 * np.abs(xj[i]).max(), (i, err)
+    assert _resid(a, x.numpy()).max() <= 5e-5
+
+
+@pytest.mark.parametrize("n", [168, 172, 176, 180])
+def test_auto_det_gradient_to_180_inverts_through_kernel_2(n):
+    """The det's backward inverts A through kernel 2 up to N = 180, where
+    it raised at 172 and 180 before; ``"pallas"`` takes it too."""
+    rng = np.random.RandomState(n + 1)
+    a = (np.eye(n) + 0.1 * rng.randn(2, n, n) / np.sqrt(n)).astype(
+        np.float32)
+    grads = []
+    for det in (dispatch.det_batched,
+                lambda t: dispatch.det_batched(t, "pallas"),
+                torch.linalg.det):
+        at = torch.from_numpy(a).requires_grad_()
+        (det(at) * torch.tensor([1.0, -0.5])).sum().backward()
+        grads.append(at.grad)
+    for got in grads[:2]:
+        err = (got - grads[2]).abs().max() / grads[2].abs().max()
+        assert float(err) <= 1e-4
 
 
 def _det_batch(B, n, seed):

@@ -1,10 +1,11 @@
 """The reach and variant choice of the pivot-free kernels (the fused RBT
-solve, ``ops/kernels/solve_fused``, and the no-pivot panel LU,
-``ops/kernels/lu_nopivot``), on the CPU.
+solve, ``ops/kernels/solve_fused``, the no-pivot panel LU,
+``ops/kernels/lu_nopivot``, and the fused RBT inverse,
+``ops/kernels/inv_rbt``), on the CPU.
 
-Both wrappers choose a kernel variant by shape alone, and their
+The wrappers choose a kernel variant by shape alone, and their
 ``smem_bytes`` / ``fits`` / ``variant`` mirror C formulas in
-``csrc/solve_fused.cu`` and ``csrc/lu_nopivot.cu``.  The formulas are
+``csrc/solve_fused.cu``, ``csrc/lu_nopivot.cu`` and ``csrc/inv_rbt.cu``.  The formulas are
 written out here once more, so that a change on either side shows: the
 reach (``fits``) is the device-memory variant's and the shared-memory
 panel's, as before the register and on-chip variants, and the routes
@@ -17,7 +18,7 @@ import pytest
 import torch
 
 from linalg_solver_tpu_torch.ops import dispatch
-from linalg_solver_tpu_torch.ops.kernels import lu_nopivot
+from linalg_solver_tpu_torch.ops.kernels import inv_rbt, lu_nopivot
 from linalg_solver_tpu_torch.ops.kernels import solve_fused as sf
 
 MAX_SMEM = 232448  # bytes of shared memory a block may take on sm_90
@@ -147,3 +148,64 @@ def test_the_one_hot_rule_shows_on_non_finite_panels():
     assert ok0.tolist() == [True, True, True]
     assert torch.equal(x[0], y[0])
     assert x[1].isnan().sum() > y[1].isnan().sum()
+
+
+# csrc/inv_rbt.cu INV_VARIANTS: (warps, rows a lane, slots a warp)
+INV_VARIANTS = {1: (4, 1, 8), 2: (8, 2, 8), 3: (16, 4, 8), 4: (16, 6, 12)}
+
+
+def inv_smem_floats(n, nw):
+    """csrc/inv_rbt.cu `inv_smem_floats`: the tile with column stride
+    n | 1 (or level 3's 10 n + 2 nw slots if more), two coefficient
+    buffers and four diagonal pairs [2][n], the probe and X v, nw
+    block-max slots and the zero-pivot flag."""
+    return max(n * (n | 1), 10 * n + 2 * nw) + 12 * n + nw + 1
+
+
+def inv_takes(v, n):
+    nw, rows, slots = INV_VARIANTS[v]
+    return n <= 32 * rows and n <= nw * slots
+
+
+def inv_variant(n):
+    """csrc/inv_rbt.cu `inv_variant`: the smallest tile that holds n."""
+    if n <= 32:
+        return 1
+    if n <= 64:
+        return 2
+    if n <= 128:
+        return 3
+    return 4
+
+
+@pytest.mark.parametrize("n", range(4, 181, 4))
+def test_inv_rbt_mirrors_match_the_c_formulas(n):
+    assert inv_rbt.fits(n)
+    assert inv_rbt.variant(n) == inv_variant(n)
+    assert inv_rbt.smem_bytes(n) == 4 * inv_smem_floats(
+        n, INV_VARIANTS[inv_variant(n)][0])
+    assert inv_rbt.takes(inv_rbt.variant(n), n)
+    for v, (nw, _, _) in INV_VARIANTS.items():
+        assert inv_rbt.takes(v, n) == inv_takes(v, n)
+        assert inv_rbt.smem_bytes(n, v) == 4 * inv_smem_floats(n, nw)
+        assert 4 * inv_smem_floats(n, nw) <= MAX_SMEM
+
+
+@pytest.mark.parametrize("n,variant", [
+    (16, 1), (32, 1), (36, 2), (64, 2), (68, 3), (128, 3), (132, 4),
+    (164, 4), (172, 4), (180, 4)])
+def test_inv_rbt_variant_of_the_paths_shapes(n, variant):
+    """inverse-64 (metric 2), kernel 2's large shapes and the reach."""
+    assert inv_rbt.variant(n) == variant
+
+
+def test_inv_rbt_launch_refuses_what_the_kernel_does_not_take():
+    """The checks before any build: N past the reach, a variant that does
+    not take N."""
+    a = torch.zeros(1, 184, 184)
+    d = torch.zeros(2, 184)
+    with pytest.raises(ValueError, match="from 4 to 180"):
+        inv_rbt._launch(a, (d, d), (d, d), torch.zeros(184), True, None)
+    a, d = torch.zeros(1, 96, 96), torch.zeros(2, 96)
+    with pytest.raises(ValueError, match="variant 2 does not take N=96"):
+        inv_rbt._launch(a, (d, d), (d, d), torch.zeros(96), True, 2)

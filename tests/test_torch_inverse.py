@@ -93,8 +93,16 @@ def _resid(a, x):
     return np.abs(r).max(axis=(1, 2))
 
 
-@pytest.mark.parametrize("n", [16, 32, 64])
+@pytest.mark.parametrize("n", [16, 32, 64, 172, 180])
 def test_probe_batch_matches_jax(n):
+    """172 and 180 are past the shared-memory budget of an [n, 2n] tile:
+    the reach the in-place elimination and level 3's device-memory
+    scratch give the kernel.  There the redraw's unrefined inverses (4,
+    5) carry up to 2.7e-4 of error against float64 in both packages, and
+    the packages' few roundings apart grow with it (matrix 5 at N = 172:
+    1.95e-5 of its largest entry apart, 2.74e-4 each from the float64
+    inverse): from N = 168 those two are held to a tenth of the JAX
+    kernel's own float64 error where that is the larger bound."""
     draws = _jax_draws(n)
     a = _probe_batch(n, *draws[:2])
     xj, bj = _jax(a)
@@ -102,7 +110,14 @@ def test_probe_batch_matches_jax(n):
     assert xt.dtype == np.float32 and xt.shape == a.shape
     np.testing.assert_array_equal(bt, bj)
     assert np.flatnonzero(bt).tolist() == FINAL_BAD
-    _assert_close(xj, xt, [0, 3, 4, 5, 6, 7])
+    if n < 168:
+        _assert_close(xj, xt, [0, 3, 4, 5, 6, 7])
+    else:
+        _assert_close(xj, xt, [0, 3, 6, 7])
+        for i in (4, 5):
+            own = np.abs(xj[i] - np.linalg.inv(a[i].astype(np.float64)))
+            bound = max(RTOL * np.abs(xj[i]).max(), 0.1 * own.max())
+            assert np.abs(xt[i] - xj[i]).max() <= bound, i
     assert np.isfinite(xt[1]).all() and np.isfinite(xj[1]).all()
     assert not np.isfinite(xt[2]).all() and not np.isfinite(xj[2]).all()
     assert _resid(a[[0, 3, 6, 7]], xt[[0, 3, 6, 7]]).max() <= 5e-5
@@ -181,10 +196,41 @@ def test_default_draws_and_probe():
 
 def test_reach_and_rejections():
     assert inv_rbt.fits(4) and inv_rbt.fits(128) and inv_rbt.fits(164)
-    assert not inv_rbt.fits(168) and not inv_rbt.fits(66)
-    assert inv_rbt.smem_bytes(64) == 4 * (2 * 64 * 64 + 21 * 64 + 16)
+    assert inv_rbt.fits(168) and inv_rbt.fits(180)
+    assert not inv_rbt.fits(184) and not inv_rbt.fits(170)
+    assert not inv_rbt.fits(66)
+    # variant 3 (8 warps): the 64 x 65 tile, 12 n floats of buffers, the
+    # block-max slots and the flag
+    assert inv_rbt.smem_bytes(64) == 4 * (64 * 65 + 12 * 64 + 8 + 1)
     with pytest.raises(ValueError, match="gate_mode"):
         inv_rbt.inverse_rbt_fused_batched(torch.zeros(1, 8, 8),
                                           gate_mode="exact")
     with pytest.raises(ValueError, match="even N"):
         inv_rbt.inverse_rbt_fused_batched(torch.zeros(1, 7, 7))
+
+
+def test_reach_is_the_references():
+    assert [n for n in range(1, 401) if inv_rbt.fits(n)] == \
+        [n for n in range(1, 401) if jinv.supported(n)]
+
+
+@pytest.mark.parametrize("n", [8, 36])
+def test_in_place_elimination_is_the_span_form_bitwise(n):
+    """Slot c holds A'-column c until step c, then I-column n + c: the
+    same bits as the TPU kernel's [n, 2n] span, a NaN, an Inf, a zero
+    pivot and a zero matrix included."""
+    rng = np.random.RandomState(n)
+    w = torch.from_numpy((rng.randn(6, n, n) + 2.0 * np.eye(n)).astype(
+        np.float32))
+    w[1, 2, 3] = float("nan")
+    w[2, 0, 5] = float("inf")
+    w[3, 0, 0] = 0.0
+    w[4] = 0.0
+    w[5, : n // 2, : n // 2] = 0.0
+    x, ok = inv_rbt._eliminate(w)
+    y, ok_span = inv_rbt._eliminate_span(w)
+    assert torch.equal(ok, ok_span)
+    assert ok.tolist() == [1.0, 0.0, 0.0, 0.0, 0.0, 0.0]
+    assert bool(((x == y) | (x.isnan() & y.isnan())).all())
+    assert torch.equal(x.isnan(), y.isnan())
+    assert bool(x[1].isnan().any()) and bool(x[0].isfinite().all())

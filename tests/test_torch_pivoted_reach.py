@@ -7,8 +7,8 @@ Both wrappers choose a kernel variant by shape alone, and their
 ``csrc/gauss_jordan.cu``, ``csrc/gj_pivot.cuh`` and ``csrc/lu_panel.cu``.
 The formulas are written out here once more, so that a change on either
 side shows; the routes that follow from the reach (the inverse to
-N = 167, det and rank to N = 237, the phase loop's 64-wide panels) are
-checked as numbers.
+N = 167, and with kernel 2 at N % 4 = 0 to 180, det and rank to N = 237,
+the phase loop's 64-wide panels) are checked as numbers.
 """
 
 import pytest
@@ -95,13 +95,16 @@ def test_lu_panel_variant_of_the_paths_shapes(shape, variant):
 
 
 def test_pivoted_facade_reach():
-    """The inverse to N = 167, det and rank to 237, solve to 236: the same
-    N as before the register variants, and not one more."""
+    """The inverse to N = 167 (kernel 3), and on to 180 at N % 4 = 0
+    (kernel 2, the reference's reach); det and rank to 237, solve to
+    236: the same N as before the register variants, and not one more."""
     assert all(kernels.supports("inverse", n) for n in range(1, 168))
+    assert all(kernels.supports("inverse", n) for n in range(168, 181, 4))
     assert all(kernels.supports("det", n) for n in range(1, 238))
     assert all(kernels.supports("rank", n) for n in range(1, 238))
     assert all(kernels.supports("solve", n) for n in range(1, 237))
-    assert not kernels.supports("inverse", 168)
+    assert not any(kernels.supports("inverse", n)
+                   for n in (169, 170, 171, 181, 184))
     assert not kernels.supports("det", 238)
     assert not kernels.supports("rank", 238)
     assert not kernels.supports("solve", 237)

@@ -1,8 +1,8 @@
-"""Time the port's kernels 1, 2, 3, 5 and 6 and the 256-wide paths on a
-CUDA card, for comparing two versions of the package.
+"""Time the port's kernels 1-6 and the 256-wide paths on a CUDA card,
+for comparing two versions of the package.
 
     python3 tools/time_pivoted.py [--label NAME] [--out FILE.json]
-                                  [--dump FILE.pt] [--grid]
+                                  [--dump FILE.pt] [--grid | --grid-inv]
     python3 tools/time_pivoted.py --compare A.pt B.pt
 
 Run on a machine with an NVIDIA H100 (or another sm_90a card) and nvcc,
@@ -23,7 +23,16 @@ are loaded from the ``chip_smoke.py`` beside this script's ``tools/``
 - kernel 6 (``panel_factor_masked``) over the four panels that
   ``solve_batched(backend="mixed")`` gives it at B=N=256, made
   contiguous as ``chip_smoke.py`` times them;
-- kernel 2 (``inverse_rbt_fused``) at B=1024, N=64;
+- kernel 2 (``inverse_rbt_fused``) at B=1024 on the bench class, N=64,
+  128 and 164, and 172 and 180 where the package's ``inv_rbt.fits``
+  takes them, as CUDA-event and as device time, beside
+  ``torch.linalg.inv``; and ``inverse_batched(auto)`` at B=1024, N=64
+  (metric 2);
+- kernel 4 (``butterfly_two_sided``, depth 2, both sides transposed) at
+  [256, 256, 256] (``phase_batch``'s A), as device time and CUDA-event
+  time, each with L2 warm (back-to-back calls) and flushed (a 256 MB
+  buffer written before each call; only the kernel's own device entries
+  counted), ten runs of each, median and range;
 - kernel 1 (``solve_fused_rbt``) on ``bench_batch`` (B=N=256, k=1, the
   main path's one launch) and on the same class at B=256, N=128, k=1;
 - kernel 5 (``panel_factor_nopivot``) over the eight panels that
@@ -39,16 +48,20 @@ are loaded from the ``chip_smoke.py`` beside this script's ``tools/``
 
 ``--grid`` times only kernel 1, at B=256 on the bench class for
 N = 64, 96, ..., 256 and k = 1, 2, 4, 8: the shapes that chose its
-variants' routes (``solve_fused.variant``).
+variants' routes (``solve_fused.variant``).  ``--grid-inv`` times only
+kernel 2, device time at B=1024 on the bench class for N = 16, 20, ...,
+180 in every variant that takes N (``inv_rbt.VARIANTS``, chosen with
+``inverse_rbt_fused(..., v=)``): the shapes that chose its routes
+(``inv_rbt.variant``).
 
 Uses only the wrappers' public calls, so it times any version of the
 package that has them.  Prints one JSON object with the card's name and
 power limit, and writes it to ``--out`` when given.  ``--dump`` saves
 every output of the timed kernel calls; ``--compare`` reports whether
 two such dumps (two versions of the package, same inputs) are equal to
-the bit, NaN where the other is NaN, and for kernel 1 (whose variants
-round differently) the flags' equality and the solutions' largest
-relative difference.  Needs a card (but ``--compare``).  Imports nothing
+the bit, NaN where the other is NaN, on the calls both made, and for
+kernel 1 (whose variants round differently) the flags' equality and
+the solutions' largest relative difference.  Needs a card (but ``--compare``).  Imports nothing
 of JAX.
 """
 
@@ -58,6 +71,7 @@ import argparse
 import importlib.util
 import json
 import os
+import statistics
 import sys
 
 import torch
@@ -83,6 +97,7 @@ def main() -> None:
     ap.add_argument("--dump")
     ap.add_argument("--compare", nargs=2)
     ap.add_argument("--grid", action="store_true")
+    ap.add_argument("--grid-inv", action="store_true")
     args = ap.parse_args()
     if args.compare:
         compare(*args.compare)
@@ -96,8 +111,9 @@ def main() -> None:
 
     from linalg_solver_tpu_torch.ops import dispatch, rbt
     from linalg_solver_tpu_torch.ops.kernels import gauss_jordan as gj
-    from linalg_solver_tpu_torch.ops.kernels import inv_rbt, lu_nopivot
-    from linalg_solver_tpu_torch.ops.kernels import lu_panel, solve_fused
+    from linalg_solver_tpu_torch.ops.kernels import butterfly, inv_rbt
+    from linalg_solver_tpu_torch.ops.kernels import lu_nopivot, lu_panel
+    from linalg_solver_tpu_torch.ops.kernels import solve_fused
     from linalg_solver_tpu_torch.utils.benchmarking import cuda_time
 
     outputs = {}
@@ -120,6 +136,20 @@ def main() -> None:
                     device=dev).manual_seed(n + k), device=dev)
                 t(f"kernel 1 [{cs.B}, {n}, k={k}]",
                   solve_fused.solve_fused_rbt, a, b, *d, kernel=False)
+        _emit(res, args.out)
+        return
+    if args.grid_inv:
+        for n in range(16, 181, 4):
+            a = cs.inverse_batch(cs.B_INV, n, 800 + n, dev)
+            d = (rbt.default_diags(n, rbt.MAIN_SEEDS, str(dev)),
+                 rbt.default_diags(n, rbt.RESCUE_SEEDS, str(dev)),
+                 rbt.default_probe(n, str(dev)))
+            for v in inv_rbt.VARIANTS:
+                if inv_rbt.takes(v, n):
+                    ms[f"kernel 2 [{cs.B_INV}, {n}, {n}] variant {v}, "
+                       f"device"] = device_time(
+                        lambda *x, v=v: inv_rbt.inverse_rbt_fused(*x, v=v),
+                        a, *d) * 1e3
         _emit(res, args.out)
         return
     for n in (64, 127, 167):
@@ -146,12 +176,50 @@ def main() -> None:
 
     t(f"kernel 6, the mixed path's {len(panels)} panels", kernel6)
 
-    ai = cs.inverse_batch(cs.B_INV, cs.N_INV, 0, dev)
-    diags = (rbt.default_diags(cs.N_INV, rbt.MAIN_SEEDS, str(dev)),
-             rbt.default_diags(cs.N_INV, rbt.RESCUE_SEEDS, str(dev)),
-             rbt.default_probe(cs.N_INV, str(dev)))
-    t(f"kernel 2 [{cs.B_INV}, {cs.N_INV}, {cs.N_INV}]",
-      inv_rbt.inverse_rbt_fused, ai, *diags)
+    # kernel 2 at metric 2's shape and past it, as far as `fits` goes
+    for n in (64, 128, 164, 172, 180):
+        if not inv_rbt.fits(n):
+            continue
+        ai = cs.inverse_batch(cs.B_INV, n, 0, dev)
+        diags = (rbt.default_diags(n, rbt.MAIN_SEEDS, str(dev)),
+                 rbt.default_diags(n, rbt.RESCUE_SEEDS, str(dev)),
+                 rbt.default_probe(n, str(dev)))
+        name = f"kernel 2 [{cs.B_INV}, {n}, {n}]"
+        t(name, inv_rbt.inverse_rbt_fused, ai, *diags)
+        ms[name + ", device"] = device_time(
+            inv_rbt.inverse_rbt_fused, ai, *diags) * 1e3
+        t(f"torch.linalg.inv [{cs.B_INV}, {n}, {n}]", torch.linalg.inv, ai,
+          kernel=False)
+        if n == cs.N_INV:
+            t(f"path inverse_batched(auto) B={cs.B_INV} N={n}",
+              dispatch.inverse_batched, ai, kernel=False)
+
+    # kernel 4 at [256, 256, 256], L2 warm and flushed
+    ap4, _ = cs.phase_batch(dev)
+    U, V = rbt.default_diags(cs.N, rbt.MAIN_SEEDS, str(dev))
+    flush = torch.empty(64 * 2**20, device=dev)  # 256 MB, past the L2
+
+    def kernel4():
+        return butterfly.butterfly_two_sided(ap4, U, V, 2)
+
+    def kernel4_cold():
+        flush.fill_(1.0)
+        return kernel4()
+
+    outputs["kernel 4 [256, 256, 256]"] = [kernel4().cpu()]
+    runs = {"device, L2 warm": [], "device, L2 flushed": [],
+            "CUDA events, L2 warm": [], "CUDA events, L2 flushed": []}
+    for _ in range(10):
+        runs["device, L2 warm"].append(device_time(kernel4) * 1e3)
+        runs["device, L2 flushed"].append(device_time(
+            kernel4_cold, match="bf2_kernel") * 1e3)
+        runs["CUDA events, L2 warm"].append(
+            cuda_time(kernel4, warmup=3, iters=20) * 1e3)
+        runs["CUDA events, L2 flushed"].append(_cold_events(
+            kernel4, flush) * 1e3)
+    for what, xs in runs.items():
+        res.setdefault("kernel 4 [256, 256, 256]", {})[what] = {
+            "median": statistics.median(xs), "min": min(xs), "max": max(xs)}
 
     # kernel 1: the main path's launch, and one block a system at N = 128
     du, dv = rbt.default_diags(cs.N, rbt.MAIN_SEEDS, str(dev))
@@ -197,6 +265,24 @@ def main() -> None:
         torch.save(outputs, args.dump)
 
 
+def _cold_events(fn, flush, iters: int = 20) -> float:
+    """Median seconds of ``fn()`` under CUDA events, with ``flush``
+    written before each call (outside the events)."""
+    for _ in range(3):
+        fn()
+    pairs = []
+    for _ in range(iters):
+        flush.fill_(1.0)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        pairs.append((start, end))
+    torch.cuda.synchronize()
+    return statistics.median(s.elapsed_time(e) for s, e in pairs) / 1e3
+
+
 def _emit(res: dict, out) -> None:
     """Print the result line, and write it to ``out`` when given."""
     line = json.dumps(res)
@@ -228,6 +314,8 @@ def compare(a: str, b: str) -> None:
     da, db = torch.load(a), torch.load(b)
     same, kernel1 = {}, {}
     for call in da:
+        if call not in db:
+            continue
         if call.startswith("kernel 1"):
             (x, bad), (y, bad_y) = da[call], db[call]
             both = torch.isfinite(x) & torch.isfinite(y)
