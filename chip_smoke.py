@@ -1,5 +1,7 @@
 """Drive the PyTorch port's batched solve and batched inverse once on a
-CUDA card, through the fused kernels and through the RBT phase engine.
+CUDA card, through the fused kernels and through the RBT phase engine,
+then its pivoted, rank-revealing paths (affine solve, nullspace, rank),
+the loop backend and ``BatchedSolver``'s serving flow.
 
     python3 chip_smoke.py
 
@@ -84,12 +86,37 @@ uncaught exception and a non-zero exit:
     ``det_batched(auto)`` at B=256, N=237 (``det_batch``'s class, with its
     singular and swapped lanes), one kernel-3 launch each; hold the kernel
     against its plain version on ``[A | I]`` and the det batch; time the
-    kernel, the two paths and ``torch.linalg.inv`` / ``det`` there;
-    drive kernel 2's path at B=1024, N=128, 164, 172 and 180 (one launch
-    each), hold the kernel against its plain version there and time it
-    beside ``torch.linalg.inv``; print the registers, spill bytes and
+    kernel, its plain version, the two paths and ``torch.linalg.inv`` /
+    ``det`` there; drive kernel 2's path at B=1024, N=128, 164, 172 and
+    180 (one launch each), hold the kernel against its plain version
+    there and time both beside ``torch.linalg.inv``; print the
+    registers, spill bytes and
     resident blocks an SM of every variant of kernels 1, 2, 3, 5 and 6 on
-    one line.
+    one line;
+19. hold kernel 3's device-memory variant (3, the reference's big reach)
+    against its plain version, bitwise on perm, reduced array and pivots,
+    at B=8 and [256, 257], [423, 424], [424, 424], on full-rank,
+    rank-deficient, square-padded rectangular and inconsistent lanes, and
+    show that the check fails for the kernel run with tol = 0;
+20. drive the paths that take it: ``affine_solve_batched(auto)`` and
+    ``nullspace_batched(auto)`` at B=N=256 and ``rank_batched(auto)`` at
+    B=256, N=424 (one variant-3 launch each, the kernel held bitwise
+    against its plain version on the array the path gave it); past it the
+    blocked RREF, the rank at B=32, N=512 and the affine solve at s=448
+    (no launch); then ``auto``'s former refusals, now the loop: the solve
+    at B=256, N=237 and B=16, N=796, the inverse at B=256, N=170, the det
+    at B=256, N=240 and its gradient at N=170, ``lu_factor`` at B=256,
+    N=100;
+21. a serving run as ``examples/serving_pipeline.py`` serves: five
+    requests of 256 integer systems of 64x64 with three singular ones
+    planted, through ``BatchedSolver.solve_checked``; exactly the planted
+    systems fail the check, and their retry through
+    ``BatchedSolver.affine_solve`` tells the consistent one from the
+    others;
+22. time variant 3 (kernel, plain version, paths) beside
+    ``torch.linalg.matrix_rank`` for the rank (the affine solve has no
+    single library call), each loop path beside its ``torch.linalg``
+    call, and the blocked rank beside ``matrix_rank``.
 
 The line before the last is a JSON summary of the six kernels, each with
 its bound (the larger of its bytes over 3.35 TB/s and its operations
@@ -98,7 +125,8 @@ time of the one library call that computes the same function, where
 there is one (the ``ms`` of kernels 2, 4 and 5 is device time from
 ``torch.profiler``, kernel 5's over the solve path's eight panels;
 ``host_ms`` the CUDA-event time of the same Python calls; kernels 2 and
-3 list their large shapes); the last line is ``{"ok": true, "device":
+3 list their large shapes, kernel 3's variant-3 shapes with their plain
+and path times); the last line is ``{"ok": true, "device":
 {...}}``.
 Imports nothing of JAX.
 """
@@ -1279,10 +1307,13 @@ def drive_pivoted_large(dev, card):
         tol = torch.zeros(bsz, device=dev)
         err = max(err, hold_pivoted(arr, tol, f"{op} path B={bsz}"))
         t_kernel = cuda_time(gj.gauss_jordan_tiled, arr, warmup=2, iters=10)
+        t_plain = cuda_time(gj.gauss_jordan_reference, arr, warmup=0,
+                            iters=1)
         t_path = cuda_time(path, a, warmup=2, iters=10)
         t_lib = cuda_time(library, a, warmup=2, iters=10)
         b_ms, b_by = bound(*pivoted_work(*arr.shape))
         for name, t in (("kernel gauss_jordan_tiled", t_kernel),
+                        ("plain gauss_jordan_reference", t_plain),
                         (f"{op}_batched(auto)", t_path),
                         (f"torch.linalg.{'inv' if op == 'inverse' else op}",
                          t_lib)):
@@ -1290,6 +1321,7 @@ def drive_pivoted_large(dev, card):
                   f"{t * 1e3:.4f} ms (B={bsz}, bound {b_ms:.4f} ms "
                   f"{b_by}, {card})")
         shapes.append({"shape": list(arr.shape), "ms": t_kernel * 1e3,
+                       "plain_ms": t_plain * 1e3,
                        "path_ms": t_path * 1e3, "bound_ms": b_ms,
                        "bound_by": b_by, "library_ms": t_lib * 1e3,
                        "variant": gj.variant(n, arr.shape[2])})
@@ -1356,17 +1388,21 @@ def drive_inverse_large(dev, card):
                             iters=5)
         t_host = cuda_time(inv_rbt.inverse_rbt_fused, *args, warmup=2,
                            iters=10)
+        t_plain = cuda_time(inv_rbt.inverse_rbt_fused_reference, *args,
+                            warmup=0, iters=1)
         t_path = cuda_time(dispatch.inverse_batched, a, warmup=2, iters=10)
         t_lib = cuda_time(torch.linalg.inv, a, warmup=2, iters=10)
         b_ms, b_by = bound(*inverse_work(bsz, n))
         for name, t in (("kernel inverse_rbt_fused, device", t_dev),
                         ("kernel inverse_rbt_fused", t_host),
+                        ("plain inverse_rbt_fused_reference", t_plain),
                         ("inverse_batched(auto)", t_path),
                         ("torch.linalg.inv", t_lib)):
             print(f"time {name} N={n}: {t * 1e3:.4f} ms (B={bsz}, bound "
                   f"{b_ms:.4f} ms {b_by}, {card})")
         shapes.append({"shape": [bsz, n, n], "ms": t_dev * 1e3,
-                       "host_ms": t_host * 1e3, "path_ms": t_path * 1e3,
+                       "host_ms": t_host * 1e3, "plain_ms": t_plain * 1e3,
+                       "path_ms": t_path * 1e3,
                        "bound_ms": b_ms, "bound_by": b_by,
                        "library_ms": t_lib * 1e3,
                        "variant": inv_rbt.variant(n)})
@@ -1375,7 +1411,8 @@ def drive_inverse_large(dev, card):
 
 def variant_attributes():
     """Registers a thread, spill bytes and resident blocks an SM of every
-    variant of kernels 1, 2, 3, 5 and 6, at a shape each takes."""
+    variant of kernels 1, 2, 3 (variant 3 at the affine [256, 257] and the
+    rank's [424, 424]), 5 and 6, at a shape each takes."""
     from linalg_solver_tpu_torch.ops.kernels import gauss_jordan as gj
     from linalg_solver_tpu_torch.ops.kernels import inv_rbt, lu_nopivot
     from linalg_solver_tpu_torch.ops.kernels import lu_panel, solve_fused
@@ -1389,7 +1426,7 @@ def variant_attributes():
                        for m, nb in ((N, 32), (N, 64), (N_REACH, 64))},
         "gauss_jordan": {f"[{n}, {w}]": gj.attributes(n, w)
                          for n, w in ((64, 128), (127, 254), (167, 334),
-                                      (237, 237))},
+                                      (237, 237), (256, 257), (424, 424))},
         "lu_panel": {f"[{n}, {nb}]": lu_panel.attributes(n, nb)
                      for n, nb in ((960, 32), (256, 64), (889, 64))},
     }
@@ -1454,6 +1491,495 @@ def compare(x, bad, x_ref, bad_ref):
     rel = diff / scale.clamp_min(1e-30)
     worst = int(rel.argmax())
     return float(rel[worst]), worst, float(diff.max()), None
+
+
+#: kernel 3's device-memory variant (3) against its plain version: B = 8
+#: at the affine solve's [256, 257] and [423, 424] and the rank's
+#: [424, 424], the reference's big reach
+V3_SHAPES = ((256, 257), (423, 424), (424, 424))
+#: lanes of ``variant3_batch`` whose dependent rows were rounded in f32:
+#: a threshold of 0 takes their rounding residues as pivots
+V3_DEFICIENT = [2, 3, 6]
+N_RANK_BIG = 424       # the rank's last N on kernel 3 (variant 3), B = 256
+N_RANK_BLOCKED = 512   # past it: the blocked RREF, B = 32
+S_AFFINE_BLOCKED = 448  # the affine solve past kernel 3: blocked, B = 32
+#: ||A G||_F <= TOL_GEN ||A||_F ||G||_F for the generators G (a generator
+#: is defined up to its scale: e_j minus the pivot columns' multiples,
+#: ||G|| in the hundreds where a repeated row leaves the last column free)
+TOL_GEN = 1e-5
+#: the serving run: requests of B x SERVE_N integer systems; lane ->
+#: whether its planted singular system is consistent
+SERVE_REQUESTS, SERVE_N = 5, 64
+SERVE_PLANTED = {3: False, 77: True, 200: False}
+#: a random integer system past this float64 condition number may fail
+#: the 1e-3 residual check in f32 (kappa eps > 0.01) and be retried too
+SERVE_ILL = 1e5
+#: the former refusals of ``auto``, now its loop: (op, B, N)
+LOOP_CELLS = (("solve", B, 237), ("solve", 16, 796), ("inverse", B, 170),
+              ("det", B, 240), ("lu_factor", B, 100))
+N_DET_GRAD = 170       # det on kernel 3 with the loop inverse's backward
+
+
+def variant3_batch(n, w, dev):
+    """B = 8 ``[n, w]`` arrays for variant 3 (w = n: the rank's, w = n + 1:
+    the affine solve's ``[A | b]``) and the paths' default thresholds:
+    lanes 0, 1 and 7 Gaussian; 2 a row that is a combination of two
+    others (rounded in f32); 3 a zero row, a repeated row and a rounded
+    combination; 4 a rectangular ``[n - 37, n - 20]`` system square-padded
+    with zeros; 5 inconsistent (a repeated row of A beside another b) or,
+    at w = n, a repeated column; 6 rank 40 (a product, rounded)."""
+    from linalg_solver_tpu_torch.ops.kernels import gauss_jordan as gj
+
+    g = torch.Generator(device=dev).manual_seed(n + w)
+    a = torch.randn(8, n, w, generator=g, device=dev)
+    a[2, 5] = 0.3 * a[2, 1] + 0.7 * a[2, 2]
+    a[3, 9] = 0.0
+    a[3, 13] = a[3, 4]
+    a[3, 11] = 0.5 * a[3, 4] - 1.5 * a[3, 0]
+    a[4, n - 37:] = 0.0
+    a[4, :, n - 20:n] = 0.0
+    if w > n:
+        a[5, 7] = a[5, 3]
+        a[5, 7, n] += 1.0
+    else:
+        a[5, :, 6] = a[5, :, 1]
+    a[6, :, :n] = torch.randn(n, 40, generator=g, device=dev) @ torch.randn(
+        40, n, generator=g, device=dev)
+    if w > n:   # solve.augment_square_padded's default
+        tol = 100 * (n + 1) * torch.finfo(torch.float32).eps * a.abs().amax(
+            dim=(1, 2))
+    else:
+        tol = gj.default_rank_tol(a)
+    return a, tol
+
+
+def hold_gj_bitwise(arr, tol, what):
+    """Kernel 3 against its plain version on ``arr`` with ``tol``: perm,
+    reduced array and pivots equal, bit for bit (NaN where the other is
+    NaN).  Returns the kernel's result."""
+    from linalg_solver_tpu_torch.ops.kernels import gauss_jordan as gj
+
+    r = gj.gauss_jordan_tiled(arr, tol)
+    torch.cuda.synchronize()
+    p = gj.gauss_jordan_reference(arr, tol)
+    same = (torch.equal(r.perm, p.perm) and nan_equal(r.reduced, p.reduced)
+            and nan_equal(r.pivots, p.pivots))
+    print(f"pivoted kernel vs plain {what} [{arr.shape[1]}, {arr.shape[2]}] "
+          f"B={arr.shape[0]} (variant {gj.variant(*arr.shape[1:])}): perm, "
+          f"reduced and pivots bitwise equal {same}, pivots a matrix "
+          f"{(r.pivots != 0).sum(dim=1).tolist()[:8]}")
+    if not same:
+        raise AssertionError(f"pivoted kernel disagrees with its plain "
+                             f"version {what}")
+    return r, p
+
+
+def check_variant3(dev):
+    """Phase 19: variant 3 against its plain version at its three shapes,
+    bitwise; the control: the kernel with tol = 0 against the plain
+    version with the real tol must differ in the pivots of the
+    rank-deficient lanes."""
+    from linalg_solver_tpu_torch.ops.kernels import gauss_jordan as gj
+
+    for n, w in V3_SHAPES:
+        if gj.variant(n, w) != 3:
+            raise AssertionError(f"[{n}, {w}] is not variant 3's")
+        a, tol = variant3_batch(n, w, dev)
+        _, p = hold_gj_bitwise(a, tol, "variant 3")
+        r0 = gj.gauss_jordan_tiled(a, torch.zeros_like(tol))
+        torch.cuda.synchronize()
+        differ = [i for i in range(8) if not nan_equal(r0.pivots[i],
+                                                       p.pivots[i])]
+        print(f"control, variant 3 with tol = 0 vs plain with the real tol "
+              f"[{n}, {w}]: pivots differ in lanes {differ} (must include "
+              f"{V3_DEFICIENT})")
+        if not set(V3_DEFICIENT) <= set(differ):
+            raise AssertionError("the variant-3 check cannot see a kernel "
+                                 "that ignores its threshold")
+
+
+def affine_batch(bsz, n, seed, dev):
+    """``[A | b]`` systems of the bench class (Gaussian + 4 sqrt(n) I) for
+    the affine paths, by lane mod 4: 0 full rank; 1 a repeated column, b
+    in the range; 2 a repeated row, b off the range (inconsistent); 3 row
+    and column 9 zero, b zero there (the rest keeps its diagonal, so the
+    system stays as well conditioned as the class).  Returns (a, b,
+    whether each system is consistent)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    a = torch.randn(bsz, n, n, generator=g, device=dev)
+    a += 4.0 * n**0.5 * torch.eye(n, device=dev)
+    b = torch.randn(bsz, n, generator=g, device=dev)
+    a[1::4, :, 7] = a[1::4, :, 3]
+    b[1::4] = (a[1::4] @ torch.randn(n, 1, generator=g, device=dev))[..., 0]
+    a[2::4, 7] = a[2::4, 3]
+    b[2::4, 7] = b[2::4, 3] + 1.0
+    a[3::4, :, 9] = 0.0
+    a[3::4, 9] = 0.0
+    b[3::4, 9] = 0.0
+    consistent = torch.arange(bsz, device=dev) % 4 != 2
+    return a, b, consistent
+
+
+def rank_batch(bsz, n, seed, dev):
+    """``[n, n]`` matrices of the bench class and constructed rank
+    n - k - d: k = lane mod 5 zero rows and d = (lane // 5) mod 3 repeated
+    rows, exactly (so float64 sees the same rank).  Returns (a, the
+    ranks)."""
+    a = inverse_batch(bsz, n, seed, dev)
+    ranks = []
+    for i in range(bsz):
+        k, d = i % 5, (i // 5) % 3
+        a[i, 10:10 + k] = 0.0
+        a[i, 20:20 + d] = a[i, 40:40 + d]
+        ranks.append(n - k - d)
+    return a, ranks
+
+
+#: lanes whose float64 rank numpy computes (every construction of
+#: ``rank_batch`` and ``affine_batch`` occurs among them)
+RANK64_LANES = 16
+
+
+def numpy_rank64(a):
+    """numpy's float64 rank of the first RANK64_LANES matrices of ``a``."""
+    import numpy as np
+
+    return np.linalg.matrix_rank(
+        a[:RANK64_LANES].double().cpu().numpy()).tolist()
+
+
+def check_affine(res, a, b, consistent, what):
+    """The limits of an affine path: the particular solution of each
+    consistent system ||A x - b|| <= TOL_RESID ||b||, the generators
+    ||A G||_F <= TOL_GEN ||A||_F max(1, ||G||_F), dim as built and equal
+    to N - numpy's float64 rank (first RANK64_LANES systems),
+    is_consistent as built."""
+    a64 = a.double()
+    r = (a64 @ res.particular.double()[..., None])[..., 0] - b.double()
+    rel = (r.norm(dim=1) / b.double().norm(dim=1).clamp_min(1e-30))
+    rel = rel[consistent]
+    g64 = res.generators.double()
+    gen = (a64 @ g64).flatten(1).norm(dim=1) / (
+        a64.flatten(1).norm(dim=1) * g64.flatten(1).norm(dim=1).clamp_min(1))
+    n = a.shape[-1]
+    built = torch.where(torch.arange(a.shape[0], device=a.device) % 4 == 0,
+                        0, 1)
+    dims_ok = (torch.equal(res.dim.long(), built)
+               and res.dim.tolist()[:RANK64_LANES]
+               == [n - r for r in numpy_rank64(a)])
+    cons_ok = torch.equal(res.is_consistent, consistent)
+    print(f"{what}: worst ||Ax - b||/||b|| {float(rel.max()):.3e} (tol "
+          f"{TOL_RESID}), worst ||AG||/(||A|| ||G||) {float(gen.max()):.3e} (tol "
+          f"{TOL_GEN}), dims {sorted(set(res.dim.tolist()))} as built and "
+          f"equal to N - float64 rank {dims_ok}, is_consistent as built {cons_ok}")
+    if not (float(rel.max()) <= TOL_RESID and float(gen.max()) <= TOL_GEN
+            and dims_ok and cons_ok):
+        raise AssertionError(f"{what} gave a wrong solution set")
+
+
+def drive_big_reach_paths(dev):
+    """Phase 20: the affine solve and the nullspace at B = N = 256 and the
+    rank at B = 256, N = 424 (one variant-3 launch each, the kernel held
+    bitwise against its plain version on the array the path gave it); the
+    rank at B = 32, N = 512 and the affine solve at s = 448 on the
+    blocked RREF (no kernel launch).  Returns the launches and the arrays
+    the paths gave the kernel."""
+    from linalg_solver_tpu_torch.ops import dispatch
+    from linalg_solver_tpu_torch.ops.kernels import gauss_jordan as gj
+
+    out = {"launches": 0, "arrays": {}}
+    only3 = dict.fromkeys(phase_counts(), 0)
+    only3["gauss_jordan"] = 1
+    a, b, consistent = affine_batch(B, N, 31, dev)
+    for what, run in (
+            ("affine", lambda: dispatch.affine_solve_batched(a, b)),
+            ("nullspace", lambda: dispatch.nullspace_batched(a))):
+        calls, off = record(gj, "gauss_jordan_tiled")
+        reset_counts()
+        res = run()
+        torch.cuda.synchronize()
+        counts = phase_counts()
+        off()
+        print(f"{what} path {what}_batched(auto) B={B} N={N}: launches "
+              f"{counts}")
+        if counts != only3 or len(calls) != 1:
+            raise AssertionError(f"expected launches {only3}")
+        want = consistent if what == "affine" else torch.ones_like(
+            consistent)
+        check_affine(res, a, b if what == "affine" else torch.zeros_like(b),
+                     want, f"{what} path")
+        (arr, tol), _ = calls[0]
+        hold_gj_bitwise(arr, tol, f"on the {what} path")
+        out["launches"] += counts["gauss_jordan"]
+        out["arrays"][what] = (arr, tol)
+
+    r, ranks = rank_batch(B, N_RANK_BIG, 41, dev)
+    calls, off = record(gj, "gauss_jordan_tiled")
+    reset_counts()
+    got = dispatch.rank_batched(r)
+    torch.cuda.synchronize()
+    counts = phase_counts()
+    off()
+    rank64 = numpy_rank64(r)
+    good = got.tolist() == ranks and rank64 == ranks[:RANK64_LANES]
+    print(f"rank path rank_batched(auto) B={B} N={N_RANK_BIG}: launches "
+          f"{counts}, equal to the constructed ranks and numpy's float64 "
+          f"ones {good}")
+    if counts != only3 or not good:
+        raise AssertionError("the rank at N = 424 is wrong")
+    (arr, tol), _ = calls[0]
+    hold_gj_bitwise(arr, tol, "on the rank path")
+    out["launches"] += counts["gauss_jordan"]
+    out["arrays"]["rank"] = (arr, tol)
+
+    none = dict.fromkeys(phase_counts(), 0)
+    r, ranks = rank_batch(32, N_RANK_BLOCKED, 43, dev)
+    reset_counts()
+    got = dispatch.rank_batched(r)
+    torch.cuda.synchronize()
+    counts = phase_counts()
+    rank64 = numpy_rank64(r)
+    good = got.tolist() == ranks and rank64 == ranks[:RANK64_LANES]
+    print(f"rank path rank_batched(auto) B=32 N={N_RANK_BLOCKED} (blocked "
+          f"RREF): launches {counts}, equal to the constructed ranks and "
+          f"numpy's float64 ones {good}")
+    if counts != none or not good:
+        raise AssertionError("the blocked rank at N = 512 is wrong")
+    out["arrays"]["rank_blocked"] = r
+
+    ab, bb, cb = affine_batch(32, S_AFFINE_BLOCKED, 47, dev)
+    reset_counts()
+    res = dispatch.affine_solve_batched(ab, bb)
+    torch.cuda.synchronize()
+    counts = phase_counts()
+    print(f"affine path affine_solve_batched(auto) B=32 "
+          f"s={S_AFFINE_BLOCKED} (blocked RREF): launches {counts}")
+    if counts != none:
+        raise AssertionError("the blocked affine solve launched a kernel")
+    check_affine(res, ab, bb, cb, "blocked affine path")
+    out["arrays"]["affine_blocked"] = (ab, bb)
+    return out
+
+
+def loop_input(op, bsz, n, dev):
+    """The loop cells' inputs: the bench class for the solve (with b),
+    the inverse and the LU; ``det_batch``'s class for the det."""
+    if op == "det":
+        return (det_batch(dev, n),)
+    a = inverse_batch(bsz, n, 600 + n, dev)
+    if op == "solve":
+        g = torch.Generator(device=dev).manual_seed(n)
+        return a, torch.randn(bsz, n, generator=g, device=dev)
+    return (a,)
+
+
+def drive_loop_paths(dev):
+    """Phase 20, the former refusals of ``auto``, now the reference's
+    ``"loop"``: the solve at N = 237 and 796, the inverse at 170, the
+    det at 240 and its gradient at 170 (det on kernel 3, the backward's
+    inverse on the loop), ``lu_factor`` at 100; no kernel launch but the
+    gradient's det.  Returns the inputs and the kernel-3 launches."""
+    from linalg_solver_tpu_torch.ops import dispatch
+
+    none = dict.fromkeys(phase_counts(), 0)
+    inputs = {}
+    for op, bsz, n in LOOP_CELLS:
+        args = loop_input(op, bsz, n, dev)
+        fn = {"solve": dispatch.solve_batched,
+              "inverse": dispatch.inverse_batched,
+              "det": dispatch.det_batched,
+              "lu_factor": dispatch.lu_factor_batched}[op]
+        reset_counts()
+        t0 = time.perf_counter()
+        out = fn(*args)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = phase_counts()
+        a = args[0]
+        if op == "solve":
+            err = float(worst_resid(a, args[1], out).max())
+            good = bool(torch.isfinite(out).all()) and err <= TOL_RESID
+            what = f"worst residual {err:.3e} (tol {TOL_RESID})"
+        elif op == "inverse":
+            err = float(inverse_resid(a, out).max())
+            good = bool(torch.isfinite(out).all()) and err <= TOL_INV
+            what = f"worst max|AX - I| {err:.3e} (tol {TOL_INV})"
+        elif op == "det":
+            want = torch.linalg.det(a.double().cpu())
+            keep = [i for i in range(bsz) if i != 3]
+            err = float(((out.double().cpu() - want) / want).abs()[keep]
+                        .max())
+            good = err <= TOL_DET and float(out[3]) == 0.0
+            what = (f"max rel err vs float64 {err:.3e} (tol {TOL_DET}), "
+                    f"singular lane {float(out[3])}")
+        else:
+            lu = out.lu.double()
+            lo = torch.tril(lu, -1) + torch.eye(n, device=dev,
+                                                dtype=torch.float64)
+            pa = torch.take_along_dim(a.double(), out.perm.long()[:, :, None],
+                                      dim=1)
+            err = float((inf_norm(lo @ torch.triu(lu) - pa)
+                         / inf_norm(a)).max())
+            good = err <= TOL_RESID and bool(out.ok.all())
+            what = f"worst ||PA - LU||/||A|| (inf) {err:.3e} (tol {TOL_RESID})"
+        print(f"loop path {op}_batched(auto) B={bsz} N={n}: launches "
+              f"{counts}, {what}, {secs:.2f} s")
+        if counts != none:
+            raise AssertionError(f"the loop {op} launched a kernel")
+        if not good:
+            raise AssertionError(f"the loop {op} at N={n} gave a wrong "
+                                 f"result")
+        inputs[(op, n)] = args
+
+    n = N_DET_GRAD
+    g = torch.Generator(device=dev).manual_seed(n)
+    s = torch.eye(n, device=dev) + torch.randn(
+        B, n, n, generator=g, device=dev) / (2 * n**0.5)
+    w = torch.randn(B, generator=g, device=dev)
+    st = s.clone().requires_grad_()
+    reset_counts()
+    (dispatch.det_batched(st) * w).sum().backward()
+    torch.cuda.synchronize()
+    counts = phase_counts()
+    s64 = s.double().requires_grad_()
+    (torch.linalg.det(s64) * w.double()).sum().backward()
+    err = float(((st.grad.double() - s64.grad).abs().amax(dim=(1, 2))
+                 / s64.grad.abs().amax(dim=(1, 2))).max())
+    print(f"det gradient det_batched(auto) B={B} N={n}: launches {counts} "
+          f"(det on kernel 3, the backward's inverse on the loop), max rel "
+          f"err vs float64 autograd {err:.3e} (tol 1e-4)")
+    want = dict(none, gauss_jordan=1)
+    if counts != want or not err <= 1e-4:
+        raise AssertionError("the det gradient at N = 170 is wrong")
+    return inputs, counts["gauss_jordan"]
+
+
+def serving_run(dev):
+    """Phase 21, as ``examples/serving_pipeline.py`` serves: five requests
+    of B x SERVE_N integer systems in [-5, 5) from a numpy seed, with
+    SERVE_PLANTED's singular systems planted, through
+    ``BatchedSolver.solve_checked``; the failed systems retried through
+    ``BatchedSolver.affine_solve``.  Every planted system must fail the
+    check and get the right ``is_consistent``; no other system may fail
+    unless its float64 condition number exceeds SERVE_ILL (listed).
+    Returns the kernel-3 launches."""
+    import numpy as np
+
+    from linalg_solver_tpu_torch.models.solver import BatchedSolver
+
+    solver = BatchedSolver()
+    rng = np.random.RandomState(2026)
+    planted = sorted(SERVE_PLANTED)
+    served = failed = launches = 0
+    worst = 0.0
+    ill = []
+    counts_all = dict.fromkeys(phase_counts(), 0)
+    for step in range(SERVE_REQUESTS):
+        a = rng.randint(-5, 5, size=(B, SERVE_N, SERVE_N)).astype(np.float32)
+        b = rng.randint(-5, 5, size=(B, SERVE_N)).astype(np.float32)
+        a[3, 7] = a[3, 3]
+        b[3, 7] = b[3, 3] + 1.0       # a repeated row, b off the range
+        a[77], b[77] = 0.0, 0.0       # every x solves it
+        a[200, 9] = 0.0
+        b[200, 9] = 1.0               # a zero row, b not zero there
+        at, bt = torch.from_numpy(a).to(dev), torch.from_numpy(b).to(dev)
+        reset_counts()
+        x, rel, ok = solver.solve_checked(at, bt)
+        bad = ~ok
+        lanes = bad.nonzero().flatten().tolist()
+        sub = solver.affine_solve(at[bad], bt[bad]) if lanes else None
+        if lanes:
+            x[bad] = sub.particular
+        torch.cuda.synchronize()
+        counts = phase_counts()
+        for k, v in counts.items():
+            counts_all[k] += v
+        served += B
+        failed += len(lanes)
+        worst = max(worst, float(rel[ok].max()))
+        cons = dict(zip(lanes, sub.is_consistent.tolist() if lanes else []))
+        kappa = np.linalg.cond(a.astype(np.float64))
+        others = [i for i in lanes if i not in SERVE_PLANTED]
+        ill += [(step, i, float(kappa[i])) for i in others]
+        if (any(cons.get(i) is not c for i, c in SERVE_PLANTED.items())
+                or any(kappa[i] <= SERVE_ILL for i in others)):
+            raise AssertionError(
+                f"request {step}: retried {lanes} with is_consistent "
+                f"{list(cons.values())}; planted {SERVE_PLANTED}, condition "
+                f"numbers of the others {[float(kappa[i]) for i in others]}")
+        launches += counts["gauss_jordan"]
+    print(f"serving run: {SERVE_REQUESTS} requests of B={B} N={SERVE_N}, "
+          f"served {served}, failed the check and retried {failed}: the "
+          f"planted {planted} each time with is_consistent right, and the "
+          f"ill-conditioned (request, lane, float64 condition number) "
+          f"{ill}; worst residual of the served {worst:.3e} (rel_tol 1e-3), "
+          f"launches {counts_all}")
+    return launches
+
+
+def time_new_paths(dev, card, big, loops):
+    """Phase 22: variant 3 at the affine [256, 257] and the rank's
+    [424, 424] (its plain version, its paths, ``torch.linalg.matrix_rank``
+    for the rank; the affine solve has no single library call), each
+    loop path beside its library call, and the blocked rank beside
+    ``matrix_rank``.  Returns variant 3's entries for the JSON line."""
+    from linalg_solver_tpu_torch.ops import dispatch
+    from linalg_solver_tpu_torch.ops.kernels import gauss_jordan as gj
+    from linalg_solver_tpu_torch.utils.benchmarking import cuda_time
+
+    shapes = []
+    for what in ("affine", "rank"):
+        arr, tol = big["arrays"][what]
+        if what == "affine":
+            a = arr[:, :, :N]
+            b = arr[:, :, N]
+            path = cuda_time(dispatch.affine_solve_batched, a, b, warmup=1,
+                             iters=5)
+            lib = None
+        else:
+            path = cuda_time(dispatch.rank_batched, arr, warmup=1, iters=5)
+            lib = cuda_time(torch.linalg.matrix_rank, arr, warmup=1, iters=5)
+        t_k = cuda_time(gj.gauss_jordan_tiled, arr, tol, warmup=1, iters=5)
+        t_p = cuda_time(gj.gauss_jordan_reference, arr, tol, warmup=0,
+                        iters=1)
+        b_ms, b_by = bound(*pivoted_work(*arr.shape))
+        lib_s = "none" if lib is None else f"{lib * 1e3:.4f} ms"
+        print(f"time variant 3 [{arr.shape[1]}, {arr.shape[2]}] B="
+              f"{arr.shape[0]} ({what}): kernel {t_k * 1e3:.4f} ms, plain "
+              f"{t_p * 1e3:.4f} ms, {what} path {path * 1e3:.4f} ms, library "
+              f"{lib_s}, bound {b_ms:.4f} ms {b_by} ({card})")
+        shapes.append({"shape": list(arr.shape), "op": what,
+                       "ms": t_k * 1e3, "plain_ms": t_p * 1e3,
+                       "path_ms": path * 1e3, "bound_ms": b_ms,
+                       "bound_by": b_by,
+                       "library_ms": None if lib is None else lib * 1e3,
+                       "variant": gj.variant(*arr.shape[1:])})
+
+    libs = {"solve": lambda a_, b_: torch.linalg.solve(a_, b_.unsqueeze(-1)),
+            "inverse": torch.linalg.inv, "det": torch.linalg.det,
+            "lu_factor": torch.linalg.lu_factor_ex}
+    paths = {"solve": dispatch.solve_batched,
+             "inverse": dispatch.inverse_batched,
+             "det": dispatch.det_batched,
+             "lu_factor": dispatch.lu_factor_batched}
+    for (op, n), args in loops.items():
+        t_path = cuda_time(paths[op], *args, warmup=1, iters=3)
+        t_lib = cuda_time(libs[op], *args, warmup=2, iters=10)
+        print(f"time loop {op}_batched(auto) B={args[0].shape[0]} N={n}: "
+              f"{t_path * 1e3:.4f} ms, library {t_lib * 1e3:.4f} ms "
+              f"({card})")
+    r = big["arrays"]["rank_blocked"]
+    t_path = cuda_time(dispatch.rank_batched, r, warmup=1, iters=3)
+    t_lib = cuda_time(torch.linalg.matrix_rank, r, warmup=1, iters=3)
+    ab, bb = big["arrays"]["affine_blocked"]
+    t_aff = cuda_time(dispatch.affine_solve_batched, ab, bb, warmup=1,
+                      iters=3)
+    print(f"time blocked RREF rank_batched(auto) B=32 N={N_RANK_BLOCKED}: "
+          f"{t_path * 1e3:.4f} ms, torch.linalg.matrix_rank "
+          f"{t_lib * 1e3:.4f} ms; affine_solve_batched(auto) B=32 "
+          f"s={S_AFFINE_BLOCKED}: {t_aff * 1e3:.4f} ms, library none "
+          f"({card})")
+    return shapes
 
 
 def main() -> None:
@@ -1609,6 +2135,14 @@ def main() -> None:
     print("kernel variants (registers, spill bytes, blocks an SM): "
           + json.dumps(variant_attributes()))
 
+    # 19-22. kernel 3's big reach (variant 3) and the paths that take it,
+    # the blocked RREF, the loop, the serving run, their times
+    check_variant3(dev)
+    big = drive_big_reach_paths(dev)
+    loops, grad_launches = drive_loop_paths(dev)
+    serve_launches = serving_run(dev)
+    v3_shapes = time_new_paths(dev, card, big, loops)
+
     # bounds from this run's shapes: bytes each input read and each output
     # written once; operations those the inputs need
     w = 2 * N_INV
@@ -1650,12 +2184,13 @@ def main() -> None:
         "route": "cuda",
         "source": "linalg_solver_tpu_torch/csrc/gauss_jordan.cu",
         "replaces": "linalg_solver_tpu/ops/pallas/gj_kernel.py:55",
-        "launches": gj_launches + gj_large_launches,
+        "launches": (gj_launches + gj_large_launches + big["launches"]
+                     + grad_launches + serve_launches),
         "max_abs_err": max(inv_errs["gauss_jordan"], gj_err, gj_large_err),
         "ms": inv_times["kernel gauss_jordan_tiled [A|I]"] * 1e3,
         "plain_ms": inv_times["plain gauss_jordan_reference [A|I]"] * 1e3,
         "library_ms": inv_times["torch.linalg.inv"] * 1e3,
-        "large_shapes": gj_shapes,
+        "large_shapes": gj_shapes + v3_shapes,
     }, {
         "name": "butterfly_two_sided",
         "route": "cuda",

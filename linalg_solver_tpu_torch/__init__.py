@@ -25,5 +25,11 @@ Ported so far:
   determinant's route past the pivoted kernel), and
   ``ops.dispatch.lu_factor_batched``; and the large-N RBT block
   elimination (``ops.lu_large``, ``ops.lu_recursive``) behind the solve
-  from N = 1024.
+  from N = 1024;
+- the pivoted, rank-revealing half: the reference's loops (``ops.rref``,
+  ``ops.lu``, ``ops.solve``: the ``"loop"`` backend and oracle), the
+  blocked RREF (``ops.rref_blocked``), ``ops.dispatch
+  .affine_solve_batched`` / ``nullspace_batched`` and the rank on the
+  pivoted kernel to its big reach, and ``models.solver.BatchedSolver``
+  on one GPU.
 """

@@ -54,6 +54,17 @@
 // and budget (the inverse to n = 167, det and rank to n = 237), so the
 // routes that follow from `fits` are those of the shared-memory routine;
 // variant 0 leaves the layout's argmax slots and coefficients unused.
+// Past it, variant 3 takes the tiles of the reference's big VMEM budget
+// (gj_kernel.py:49-52, VMEM_TILE_BUDGET_BIG over 128 lanes of 4 bytes:
+// n * ceil8(w) <= 180,224 elements, rank [n, n] to n = 424 and the
+// affine [s, s + 1] to s = 423), which only the callers without a blocked
+// alternative take.  It keeps the tile in device memory: one block of
+// 1024 threads a matrix copies its matrix into `out` and runs
+// gj_pivot.cuh's steps there (as kernel 2's level 3 does in its
+// scratch), with the small per-step arrays in shared memory.  Each step
+// streams the whole n w tile through the L2 (720 KB a matrix at n = 424,
+// more than the 50 MB L2 holds for one block an SM), so it is bound by
+// that traffic; it is written to be right first.
 // Not ported: the padding of w to a multiple of 8, the identity filler to
 // 128 lanes and the [n, w, batch] transpose, which exist only for the
 // TPU's tiles and lanes.
@@ -372,10 +383,52 @@ gj_smem_kernel(const float* __restrict__ a, const float* __restrict__ tol,
   }
 }
 
+// Variant 3: the tile in device memory, in place in `out` (row stride
+// w), under gj_pivot.cuh's routine with 1024 threads; its small arrays
+// (prow [w], nfc [2][w], coeff, pivoted, perm and pivs [n], the argmax
+// slots [2][32]) in shared memory.
+constexpr int DM_NT = 1024;
+
+__host__ __device__ inline size_t gj_device_smem_floats(int n, int w) {
+  return 3 * (size_t)w + 4 * (size_t)n + 2 * (DM_NT / 32);
+}
+
+__global__ void __launch_bounds__(DM_NT, 1)
+gj_device_kernel(const float* __restrict__ a, const float* __restrict__ tol,
+                 float* __restrict__ out, int* __restrict__ perm,
+                 float* __restrict__ pivs, int n, int w) {
+  extern __shared__ float smem[];
+  const size_t m = blockIdx.x, nw = (size_t)n * w;
+  GJTile g;
+  g.ld = w;
+  g.T = out + m * nw;
+  g.prow = smem;
+  g.nfc = reinterpret_cast<int*>(g.prow + w);
+  g.coeff = reinterpret_cast<float*>(g.nfc + 2 * w);
+  g.pivoted = reinterpret_cast<int*>(g.coeff + n);
+  g.perm = g.pivoted + n;
+  g.pivs = reinterpret_cast<float*>(g.perm + n);
+  g.redv = g.pivs + n;
+  g.redi = reinterpret_cast<int*>(g.redv + DM_NT / 32);
+  for (size_t idx = threadIdx.x; idx < nw; idx += DM_NT)
+    g.T[idx] = a[m * nw + idx];
+  __syncthreads();
+  gj_pivot_steps<DM_NT>(g, n, w, tol[m]);
+  for (int j = threadIdx.x; j < n; j += DM_NT) {
+    perm[m * n + j] = g.perm[j];
+    pivs[m * n + j] = g.pivs[j];
+  }
+}
+
 // The register variants' shapes, (NW, R, C) and blocks an SM asked of
 // the compiler (64 registers a thread in both).
 constexpr int V1_NW = 8, V1_R = 2, V1_C = 16, V1_B = 4;  // n <= 64, w <= 128
 constexpr int V2_NW = 32, V2_R = 4, V2_C = 8, V2_B = 1;  // n <= 128, w <= 256
+
+// Shared memory a block may take on sm_90, and the big reach in elements
+// of an [n, ceil8(w)] tile (88 MiB / (128 lanes * 4 bytes)).
+constexpr size_t GJ_MAX_SMEM = 232448;
+constexpr size_t GJ_BIG_ELEMS = 180224;
 
 }  // namespace
 
@@ -388,30 +441,40 @@ size_t gj_smem_bytes(int n, int w) {
 }
 
 // The variant that takes an [n, w] array: 1 and 2 keep it in registers,
-// 0 in shared memory.
+// 0 in shared memory (where gj_smem_bytes fits a block), 3 in device
+// memory (past that, within the big reach); -1 where none does.
 int gj_variant(int n, int w) {
   if (n <= 32 * V1_R && w <= V1_NW * V1_C) return 1;
   if (n <= 32 * V2_R && w <= V2_NW * V2_C) return 2;
-  return 0;
+  if (n < 1 || n > w) return -1;
+  if (gj_smem_bytes(n, w) <= GJ_MAX_SMEM) return 0;
+  if ((size_t)n * ((w + 7) / 8 * 8) <= GJ_BIG_ELEMS) return 3;
+  return -1;
 }
 
 static const void* gj_function(int variant) {
   switch (variant) {
     case 1: return (const void*)gj_regs_kernel<V1_NW, V1_R, V1_C, V1_B>;
     case 2: return (const void*)gj_regs_kernel<V2_NW, V2_R, V2_C, V2_B>;
+    case 3: return (const void*)gj_device_kernel;
     default: return (const void*)gj_smem_kernel;
   }
 }
 
 static int gj_threads(int variant) {
-  return variant == 1 ? V1_NW * 32 : variant == 2 ? V2_NW * 32 : SM_NW * 32;
+  return variant == 1   ? V1_NW * 32
+         : variant == 2 ? V2_NW * 32
+         : variant == 3 ? DM_NT
+                        : SM_NW * 32;
 }
 
 // Dynamic shared memory of `variant` at [n, w], in bytes: variant 0 the
-// reach's budget, variants 1 and 2 the staging tile [n, w | 1].
+// reach's budget, variants 1 and 2 the staging tile [n, w | 1], variant 3
+// its small arrays.
 static size_t gj_variant_smem(int variant, int n, int w) {
-  return variant == 0 ? gj_smem_bytes(n, w)
-                      : (size_t)n * gj_ld(w) * sizeof(float);
+  if (variant == 0) return gj_smem_bytes(n, w);
+  if (variant == 3) return gj_device_smem_floats(n, w) * sizeof(float);
+  return (size_t)n * gj_ld(w) * sizeof(float);
 }
 
 // Set the shared-memory limit of `variant` for [n, w]; 0 on success.
@@ -440,12 +503,14 @@ int gj_attributes(int variant, int n, int w, int* out) {
 
 // Launches the variant gj_variant(n, w) on `stream`; returns the
 // cudaError_t of the launch (0 on success).  Device pointers to
-// contiguous data: a and out [batch, n, w] f32, tol [batch] f32, perm
-// [batch, n] int32, pivs [batch, n] f32.  Variant 0 needs n <= 256.
+// contiguous data: a and out [batch, n, w] f32 (distinct), tol [batch]
+// f32, perm [batch, n] int32, pivs [batch, n] f32.  Variant 0 needs
+// n <= 256.
 int gauss_jordan_f32(const void* a, const void* tol, void* out, void* perm,
                      void* pivs, int batch, int n, int w, void* stream) {
   const int variant = gj_variant(n, w);
-  if (variant == 0 && n > 32 * SM_RMAX) return (int)cudaErrorInvalidValue;
+  if (variant < 0 || (variant == 0 && n > 32 * SM_RMAX))
+    return (int)cudaErrorInvalidValue;
   const cudaError_t err = gj_prepare(variant, n, w);
   if (err != cudaSuccess) return (int)err;
   const cudaStream_t st = (cudaStream_t)stream;
@@ -462,6 +527,10 @@ int gauss_jordan_f32(const void* a, const void* tol, void* out, void* perm,
       gj_regs_kernel<V2_NW, V2_R, V2_C, V2_B>
           <<<batch, V2_NW * 32, smem, st>>>(A, tl, (float*)out, (int*)perm,
                                             (float*)pivs, n, w);
+      break;
+    case 3:
+      gj_device_kernel<<<batch, DM_NT, smem, st>>>(
+          A, tl, (float*)out, (int*)perm, (float*)pivs, n, w);
       break;
     default:
       gj_smem_kernel<<<batch, SM_NW * 32, smem, st>>>(

@@ -1,6 +1,7 @@
-// Pivoted Gauss-Jordan steps on a tile in shared memory, shared by
-// gauss_jordan.cu (the whole kernel) and inv_rbt.cu (its level-3
-// rescue).
+// Pivoted Gauss-Jordan steps on a tile in shared or device memory,
+// shared by gauss_jordan.cu (its variant 3, the tile in device memory,
+// and the layout its shared-memory reach is measured in) and inv_rbt.cu
+// (its level-3 rescue, in a device-memory scratch).
 //
 // Ports the step of the Pallas TPU kernel `_gj_kernel`
 // (linalg_solver_tpu/ops/pallas/gj_kernel.py:79-115), which

@@ -1,8 +1,13 @@
 """Numeric operations of the port (counterpart of ``linalg_solver_tpu.ops``).
 
 - ``dispatch`` — ``solve_batched``, ``inverse_batched``, ``det_batched``,
-  ``rank_batched`` and ``lu_factor_batched`` with backend routing and
-  autograd
+  ``rank_batched``, ``lu_factor_batched``, ``affine_solve_batched`` and
+  ``nullspace_batched`` with backend routing and autograd
+- ``rref``, ``lu``, ``solve`` — the Gauss–Jordan and LU loops (the
+  ``"loop"`` backend), affine solution sets, nullspaces, inverses, ranks
+  and determinants, and the affine solve on the pivoted kernel
+- ``rref_blocked`` — blocked rank-revealing Gauss–Jordan past the
+  kernel's reach
 - ``rbt`` — random-butterfly preconditioned pivot-free solve and
   inverse + rescue: the fused engine and the phase engine, the seeded
   butterfly and probe draws

@@ -1,5 +1,6 @@
-"""Backend dispatch for the batched solve, inverse, determinant, rank and
-LU factorization (counterpart of ``linalg_solver_tpu.ops.dispatch``).
+"""Backend dispatch for the batched solve, inverse, determinant, rank,
+LU factorization, affine solve and nullspace (counterpart of
+``linalg_solver_tpu.ops.dispatch``).
 
 Solve backends:
 
@@ -16,57 +17,78 @@ Solve backends:
   it divides N, else 128).  Other shapes raise.
 - ``"blocked_pallas"`` — the pivoted phase loop on panel kernel 6
   (``lu_blocked.pallas_solve_batched``, ``nb = min(64, N)`` dividing N).
+- ``"blocked"`` — the reference's XLA-panel blocked LU with one
+  refinement round (``lu_blocked.blocked_solve_batched``: the library's
+  pivoted LU), ``min(64, N)`` dividing N.
 - ``"pallas"`` — the pivoted Gauss–Jordan kernel on ``[A | b]``
   (``kernels.solve_batched``), vector or matrix RHS, where
   ``gauss_jordan.fits(N, N + k)`` (N ≤ 236 at k = 1).
+- ``"loop"`` — the LU loop with partial pivoting (``ops.lu``), every
+  shape: the correctness oracle.
 - ``"xla"``  — the library's ``torch.linalg.solve``: the named baseline
   (the JAX package's ``"xla"`` is ``jnp.linalg.solve``).
+- ``"dd"`` — not ported (ROADMAP.md queue 1 item 6): it raises.
 - ``"auto"`` — ``"rbt"`` where the fused kernel reaches, and where the
   phase engine does (N a multiple of 8 below 1024, the reference's
   conditions); ``"mixed"`` from N = 1024 with N % 128 = 0 and a vector
   RHS, as the reference routes it; ``"xla"`` from N = 1024 with
   N % 128 ≠ 0, as the reference routes it; ``"pallas"`` where none of
   those takes the shape and kernel 3 does (odd N ≤ 235 at k = 1, and
-  k > 8 at an N the phase engine refuses).  Any other shape raises
-  instead of quietly going to another solver: it needs the reference's
-  ``blocked`` and ``loop`` backends (ROADMAP.md queue 1 items 4–5).
+  k > 8 at an N the phase engine refuses); ``"loop"`` for the rest
+  below 1024, as the reference ends.  A matrix RHS from N = 1024 with
+  N % 128 = 0 raises: the reference's large-N solve refuses it too.
 
 Inverse, determinant and rank backends (the reference's names):
 
 - ``"pallas"`` — the facade ``ops.kernels`` over the port's hand-written
   kernels (on the TPU, the Pallas kernels): the fused RBT inverse where
   it reaches (N % 4 = 0 to 180, the reference's reach), the pivoted
-  Gauss–Jordan kernel for the rest (the inverse to N = 167, det and rank
-  to 237).
+  Gauss–Jordan kernel for the rest (the inverse to N = 167, det to 237,
+  the rank to 424).
 - ``"blocked_pallas"`` — (inverse and det) the pivoted phase loop on
   panel kernel 6 (``lu_blocked.blocked_inverse_batched`` /
   ``pallas_det_batched``, ``nb = min(64, N)`` dividing N).
+- ``"blocked"`` — the det on the library-backed blocked LU
+  (``lu_blocked.blocked_det_batched``); the rank on the blocked RREF
+  (``rref_blocked.rank_blocked_batched``) from max(M, N) = 256, else the
+  loop; the inverse, as in the reference, the loop's.
+- ``"loop"`` — Gauss–Jordan on ``[A | I]`` with ``tol = 1e-30`` (the
+  inverse, ``ops.solve``), the LU loop (det), Gauss–Jordan pivot
+  counting (rank).
 - ``"xla"``    — the library's ``torch.linalg.inv`` / ``det`` /
   ``matrix_rank``.
+- ``"dd"`` — (inverse) not ported (ROADMAP.md queue 1 item 6).
 - ``"auto"``   — ``"pallas"`` where the kernels reach; past that the
   inverse goes to the phase engine (``ops.rbt.inverse_rbt_batched``)
   where N is a multiple of 8 below 1024, as the reference routes it to
   ``"rbt"``, and the determinant to ``"blocked_pallas"`` where
   ``min(64, N)`` divides N below 1024; from N = 1024 the inverse and
-  the determinant go to ``"xla"``, as the reference routes them.
-  Everything else raises until ROADMAP.md queue 1 items 4–5 port the
-  reference's ``blocked``, ``loop`` and ``rref_blocked`` modules.
+  the determinant go to ``"xla"``, as the reference routes them; the
+  rest below 1024 to ``"loop"``.  The rank: kernel 3 to max(M, N) =
+  424, the blocked RREF past that.
 
 ``lu_factor_batched`` has ``"blocked_pallas"`` (the packed L\\U of
-``lu_blocked.blocked_lu_batched`` on panel kernel 6), and ``"auto"``
-takes it wherever ``min(64, N)`` divides N, at every N, as the
+``lu_blocked.blocked_lu_batched`` on panel kernel 6), ``"blocked"`` (the
+same result type from the library's LU) and ``"loop"`` (``ops.lu``'s
+``LUResult``); ``"auto"`` takes ``"blocked_pallas"`` wherever
+``min(64, N)`` divides N, at every N, and the loop elsewhere, as the
 reference does.
+
+``affine_solve_batched`` and ``nullspace_batched`` return padded affine
+solution sets (``ops.solve.BatchedAffineSubspace``): kernel 3 where the
+square-padded ``[s, s + 1]`` is in its big reach (s ≤ 423; backends
+``"auto"`` and ``"pallas"``), the blocked RREF from max(M, N) = 256
+(``"auto"`` and ``"blocked"``), else the loop with partial pivoting.
 
 The routes follow the reference's reach, not crossovers measured on
 the H100: the bounds used here (N % 8 == 0 and N < 1024 for the phase
 engine, N ≥ 1024 with N % 128 == 0 for the large-N solve, ``min(64, N)``
-dividing N for the blocked paths) are the reference's, and its TPU
-crossover constants (``_RBT_SOLVE_MIN_N``, ``lanes_util_ok``) are not
-carried over.  Some of these routes are slower than the library's call
-on the H100; ``"auto"`` takes them all the same, and PERF.md keeps the
-measured factors.  The large-N solve is the worst: 5–11× slower than
-``torch.linalg.solve`` at N = 1024 and 2048 on an H100, host-bound on
-its ~16,800 device operations a call.
+dividing N for the blocked paths, the big VMEM budget for the rank and
+the affine solve) are the reference's, and its TPU crossover constants
+(``_RBT_SOLVE_MIN_N``, ``lanes_util_ok``) are not carried over.  Some
+of these routes are slower than the library's call on the H100;
+``"auto"`` takes them all the same, and PERF.md keeps the measured
+factors.
 """
 
 from __future__ import annotations
@@ -76,24 +98,50 @@ from typing import Optional
 import torch
 
 from . import kernels as _kernels
+from . import lu as _lu
 from . import lu_blocked as _lub
 from . import lu_large as _lul
 from . import rbt as _rbt
-from .kernels.solve_fused import MAX_K_RHS, fits
+from . import rref_blocked as _rrb
+from . import solve as _solve
+from .kernels.gauss_jordan import _like
+from .kernels.solve_fused import fits
 from ..utils.precision import f32_matmuls
 
-BACKENDS = ("auto", "rbt", "mixed", "blocked_pallas", "pallas", "xla")
+BACKENDS = ("auto", "rbt", "mixed", "blocked_pallas", "blocked", "pallas",
+            "loop", "xla", "dd")
 
-#: backends of inverse_batched, det_batched and rank_batched
-FACADE_BACKENDS = ("auto", "pallas", "blocked_pallas", "xla")
+#: backends of inverse_batched and det_batched ("dd": the inverse only)
+FACADE_BACKENDS = ("auto", "pallas", "blocked_pallas", "blocked", "loop",
+                   "xla", "dd")
 
-#: backends of lu_factor_batched
-LU_BACKENDS = ("auto", "blocked_pallas")
+#: backends of rank_batched
+RANK_BACKENDS = ("auto", "pallas", "blocked", "loop", "xla")
 
+#: backends of lu_factor_batched ("pallas" raises: the facade has no LU)
+LU_BACKENDS = ("auto", "blocked_pallas", "blocked", "loop", "pallas")
+
+#: backends of affine_solve_batched and nullspace_batched
+AFFINE_BACKENDS = ("auto", "pallas", "blocked", "loop")
 
 #: N past which the reference leaves the phase engine for the large-N
 #: solvers (``_XLA_CROSSOVER_N``, used here as a reach, not a crossover)
 PHASE_MAX_N = 1024
+
+#: max(M, N) from which the reference's rank and affine solve take the
+#: blocked RREF when the kernel does not reach (``dispatch.py:362,392``)
+BLOCKED_RREF_MIN_N = 256
+
+#: the Gauss–Jordan inverse's pivot threshold on the loop route
+#: (``dispatch.py:338``)
+LOOP_INVERSE_TOL = 1e-30
+
+
+def _no_dd(what: str):
+    return NotImplementedError(
+        f"backend='dd' ({what}): the reference's f64-class solve and inverse "
+        f"(ops/dd.py) are not ported; ROADMAP.md queue 1 item 6 ports them "
+        f"as native float64")
 
 
 def phase_reaches(n: int) -> bool:
@@ -118,9 +166,9 @@ def _blocked_ok(n: int) -> bool:
     return n >= 8 and n % _best_nb(n) == 0
 
 
-def _blocked_nb(n: int, what: str) -> int:
+def _blocked_nb(n: int, what: str, backend: str = "blocked_pallas") -> int:
     if not _blocked_ok(n):
-        raise ValueError(f"backend='blocked_pallas' ({what}) needs N >= 8 "
+        raise ValueError(f"backend={backend!r} ({what}) needs N >= 8 "
                          f"divisible by min(64, N); got N={n}")
     return _best_nb(n)
 
@@ -133,6 +181,14 @@ def _mixed_nb(n: int) -> int:
         raise ValueError(f"backend='mixed' needs N divisible by a panel width "
                          f"in (64, 48, 32, 16, 8); got N={n}")
     return nb
+
+
+def _large_matrix_rhs(n: int) -> NotImplementedError:
+    return NotImplementedError(
+        f"N={n} >= {PHASE_MAX_N} with N % 128 == 0 takes the large-N RBT "
+        f"solve, which takes only a vector RHS, in the reference too "
+        f"(ROADMAP.md queue 3); pass backend='xla' or 'loop' for a matrix "
+        f"RHS")
 
 
 def _resolve(backend: str, n: int, k: int, vector_rhs: bool) -> str:
@@ -148,17 +204,11 @@ def _resolve(backend: str, n: int, k: int, vector_rhs: bool) -> str:
         return "mixed"
     if n >= PHASE_MAX_N and n % 128:
         return "xla"
+    if n >= PHASE_MAX_N:
+        raise _large_matrix_rhs(n)
     if _kernels.solve_fits(n, k):
         return "pallas"
-    raise NotImplementedError(
-        f"backend='auto' has no route for N={n}, k={k} yet: past the fused "
-        f"kernel (even N, k <= {MAX_K_RHS}, its shared memory), the phase "
-        f"engine (N % 8 == 0 below {PHASE_MAX_N}) and the pivoted kernel "
-        f"(N <= 236 at k = 1) the reference takes the blocked and loop "
-        f"solvers, which ROADMAP.md queue 1 items 4-5 port, and from "
-        f"N = {PHASE_MAX_N} with N % 128 == 0 the large-N solve takes only "
-        f"a vector RHS; pass backend='xla' meanwhile"
-    )
+    return "loop"
 
 
 def _solve_mixed(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -166,11 +216,7 @@ def _solve_mixed(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     if n < PHASE_MAX_N:
         return _lub.pallas_solve_mixed_batched(a, b, nb=_mixed_nb(n))
     if not large_reaches(n, b.dim() == a.dim() - 1):
-        raise NotImplementedError(
-            f"backend='mixed' at N={n} >= {PHASE_MAX_N} takes N % 128 == 0 "
-            f"and a vector RHS: the large-N RBT solve, which takes only a "
-            f"vector b in the reference too (ROADMAP.md queue 3); pass "
-            f"backend='xla' for the rest")
+        raise _large_matrix_rhs(n)
     nb = 256 if n >= 2048 and n % 256 == 0 else 128
     return _lul.large_solve_rbt(a, b, nb=nb, ir_steps=2)
 
@@ -180,14 +226,21 @@ def _solve_impl(a: torch.Tensor, b: torch.Tensor, backend: str):
     k = 1 if vector_rhs else b.shape[-1]
     n = a.shape[-1]
     be = _resolve(backend, n, k, vector_rhs)
+    if be == "dd":
+        raise _no_dd("solve")
     if be == "rbt":
         return _rbt.solve_rbt_batched(a, b)
     if be == "mixed":
         return _solve_mixed(a, b)
     if be == "blocked_pallas":
         return _lub.pallas_solve_batched(a, b, nb=_blocked_nb(n, "solve"))
+    if be == "blocked":
+        return _lub.blocked_solve_batched(
+            a, b, nb=_blocked_nb(n, "solve", be))
     if be == "pallas":
         return _kernels.solve_batched(a, b)
+    if be == "loop":
+        return _lu.solve_lu_batched(a, b)
     if vector_rhs:
         return torch.linalg.solve(a, b.unsqueeze(-1)).squeeze(-1)
     return torch.linalg.solve(a, b)
@@ -226,12 +279,12 @@ def solve_batched(
 
 
 def _resolve_facade(backend: str, op: str, n: int) -> str:
-    """The backend ``backend`` stands for for ``op`` at ``N = n``."""
-    if backend not in FACADE_BACKENDS:
+    """The backend ``backend`` stands for for ``op`` (``"inverse"`` or
+    ``"det"``) at ``N = n``."""
+    if backend not in FACADE_BACKENDS or (backend == "dd" and op == "det"):
         raise ValueError(
-            f"unknown backend {backend!r}; one of {FACADE_BACKENDS}")
-    if backend == "blocked_pallas" and op == "rank":
-        raise ValueError("rank_batched has no 'blocked_pallas' backend")
+            f"unknown backend {backend!r} for {op}; one of {FACADE_BACKENDS}"
+            f" ('dd': the inverse only)")
     if backend != "auto":
         return backend
     if _kernels.supports(op, n):
@@ -240,32 +293,26 @@ def _resolve_facade(backend: str, op: str, n: int) -> str:
         return "rbt"
     if op == "det" and _blocked_ok(n) and n < PHASE_MAX_N:
         return "blocked_pallas"
-    if op in ("inverse", "det") and n >= PHASE_MAX_N:
+    if n >= PHASE_MAX_N:
         return "xla"
-    raise NotImplementedError(
-        f"backend='auto' has no route for {op} at N={n} yet: past the "
-        f"kernels' reach the inverse takes the phase engine at "
-        f"N % 8 == 0 and the determinant the blocked phase loop at "
-        f"N % min(64, N) == 0, both below {PHASE_MAX_N}; the reference "
-        f"takes the rest below {PHASE_MAX_N}, and the rank past the "
-        f"kernel, through its blocked, loop and rref_blocked modules, "
-        f"which ROADMAP.md queue 1 items 4-5 port; pass backend='xla' "
-        f"meanwhile"
-    )
+    return "loop"
 
 
 def _inverse_reaches(n: int, backend: str) -> bool:
-    """Whether ``backend`` (not ``"xla"``) inverts at N = n on the port's
-    own route."""
+    """Whether ``backend`` inverts at N = n (the det's backward takes the
+    inverse through the same backend)."""
     if backend == "blocked_pallas":
         return _blocked_ok(n)
-    return _kernels.supports("inverse", n) or (
-        backend == "auto" and phase_reaches(n))
+    if backend == "pallas":
+        return _kernels.supports("inverse", n)
+    return True
 
 
 def _inverse_impl(a: torch.Tensor, backend: str) -> torch.Tensor:
     n = a.shape[-1]
     be = _resolve_facade(backend, "inverse", n)
+    if be == "dd":
+        raise _no_dd("inverse")
     if be == "pallas":
         return _kernels.inverse_batched(a)
     if be == "rbt":
@@ -273,7 +320,11 @@ def _inverse_impl(a: torch.Tensor, backend: str) -> torch.Tensor:
     if be == "blocked_pallas":
         x = _lub.blocked_inverse_batched(
             a, nb=_blocked_nb(n, "inverse"), panel_backend="pallas")
-        return x.to(a.dtype) if a.is_floating_point() else x
+        return _like(x, a)
+    if be in ("loop", "blocked"):
+        # the reference's "blocked" inverse is its loop's too
+        return _like(_solve.inverse_batched(a, tol=LOOP_INVERSE_TOL).inverse,
+                     a)
     return torch.linalg.inv(a)
 
 
@@ -308,17 +359,20 @@ def _det_impl(a: torch.Tensor, backend: str, grad: bool) -> torch.Tensor:
     if be == "xla":
         return torch.linalg.det(a)
     if grad and not _inverse_reaches(n, backend):
-        # the backward inverts A through the same route: refuse now, not
+        # the backward inverts A through the same backend: refuse now, not
         # after the forward
-        raise NotImplementedError(
-            f"det at N={n} with a gradient: its backward needs the inverse, "
-            f"which reaches N <= 167, multiples of 4 to 180 and of 8 below "
-            f"{PHASE_MAX_N}; the blocked and loop inverses of ROADMAP.md "
-            f"queue 1 items 4-5 take the rest; pass backend='xla' meanwhile"
-        )
+        raise ValueError(
+            f"det at N={n} with a gradient on backend={backend!r}: its "
+            f"backward needs that backend's inverse, which reaches N <= 167 "
+            f"and multiples of 4 to 180 ('pallas') or N divisible by "
+            f"min(64, N) ('blocked_pallas'); backend='auto' or 'loop' "
+            f"inverts every N")
     if be == "blocked_pallas":
-        d = _lub.pallas_det_batched(a, nb=_blocked_nb(n, "det"))
-        return d.to(a.dtype) if a.is_floating_point() else d
+        return _like(_lub.pallas_det_batched(a, nb=_blocked_nb(n, "det")), a)
+    if be == "blocked":
+        return _like(_lub.blocked_det_batched(a), a)
+    if be == "loop":
+        return _like(_lu.det_lu_batched(a), a)
     return _kernels.det_batched(a)
 
 
@@ -343,7 +397,8 @@ class _Det(torch.autograd.Function):
 
 def det_batched(a: torch.Tensor, backend: str = "auto") -> torch.Tensor:
     """Batched determinant of ``a [B, N, N]``.  Differentiable through
-    ``_Det``, on the kernels only where the inverse reaches."""
+    ``_Det``; on ``"pallas"`` and ``"blocked_pallas"`` only where their
+    inverse reaches."""
     return _Det.apply(a, backend)
 
 
@@ -352,30 +407,83 @@ def rank_batched(
     tol: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Batched numerical rank of ``a [B, M, N]`` (int32).  ``tol`` is a
-    per-matrix threshold ``[B]``; by default the kernel's
-    ``max(M, N)·100·eps·max|A|`` (``"pallas"``) or the library's own
-    (``"xla"``)."""
-    if _resolve_facade(backend, "rank", max(a.shape[-2:])) == "pallas":
+    per-matrix threshold ``[B]``; by default ``max(M, N)·100·eps·max|A|``
+    (``gauss_jordan.default_rank_tol``), the library's own on ``"xla"``.
+    ``"auto"``: kernel 3 to max(M, N) = 424, the blocked RREF past it."""
+    if backend == "blocked_pallas":
+        raise ValueError("rank_batched has no 'blocked_pallas' backend: LU "
+                         "pivots do not reveal rank")
+    if backend not in RANK_BACKENDS:
+        raise ValueError(
+            f"unknown backend {backend!r} for rank; one of {RANK_BACKENDS}")
+    s = max(a.shape[-2:])
+    if backend == "pallas" or (backend == "auto"
+                               and _kernels.supports("rank", s)):
         return _kernels.rank_batched(a, tol=tol)
-    if tol is None:
-        return torch.linalg.matrix_rank(a).to(torch.int32)
-    return torch.linalg.matrix_rank(a, atol=tol, rtol=0.0).to(torch.int32)
+    if backend == "xla":
+        if tol is None:
+            return torch.linalg.matrix_rank(a).to(torch.int32)
+        return torch.linalg.matrix_rank(a, atol=tol, rtol=0.0).to(
+            torch.int32)
+    if backend in ("auto", "blocked") and s >= BLOCKED_RREF_MIN_N:
+        return _rrb.rank_blocked_batched(a, tol=tol)
+    return _solve.rank_batched(a, tol=tol)
 
 
-def lu_factor_batched(
-    a: torch.Tensor, backend: str = "auto"
-) -> _lub.BlockedLUResult:
+def lu_factor_batched(a: torch.Tensor, backend: str = "auto"):
     """Batched LU with partial pivoting, ``P A = L U``, of ``a [B, N, N]``
-    in f32: ``lu_blocked.blocked_lu_batched`` on panel kernel 6 with
+    in f32.  ``"blocked_pallas"`` (``"auto"`` wherever ``min(64, N)``
+    divides N): ``lu_blocked.blocked_lu_batched`` on panel kernel 6 with
     ``nb = min(64, N)`` (two-level panels where the kernel's shared
-    memory needs them).  Returns ``BlockedLUResult(lu, perm, sign, ok,
-    l11_inv, u11_inv)``."""
+    memory needs them); ``"blocked"``: the same on the library's LU; both
+    return ``BlockedLUResult(lu, perm, sign, ok, l11_inv, u11_inv)``.
+    ``"loop"`` (``"auto"`` elsewhere): ``ops.lu.lu_factor_batched``'s
+    ``LUResult(lu, perm, sign, ok)``, as the reference returns it."""
     if backend not in LU_BACKENDS:
         raise ValueError(f"unknown backend {backend!r}; one of {LU_BACKENDS}")
-    n = a.shape[-1]
-    if backend == "auto" and not _blocked_ok(n):
+    if backend == "pallas":
         raise NotImplementedError(
-            f"backend='auto' has no route for lu_factor at N={n} yet: the "
-            f"blocked phase loop takes N >= 8 divisible by min(64, N); the "
-            f"loop backend for the rest is in ROADMAP.md queue 1 item 4")
+            "lu_factor has no 'pallas' op: the kernel facade (ops.kernels, "
+            "the reference's ops.pallas) factors nothing; take "
+            "'blocked_pallas', which runs panel kernel 6")
+    n = a.shape[-1]
+    if backend == "loop" or (backend == "auto" and not _blocked_ok(n)):
+        return _lu.lu_factor_batched(a)
+    if backend == "blocked":
+        return _lub.blocked_lu_batched(
+            a, nb=_blocked_nb(n, "lu_factor", backend), panel_backend="xla")
     return _lub.blocked_lu_batched(a, nb=_blocked_nb(n, "lu_factor"))
+
+
+def affine_solve_batched(
+    a: torch.Tensor, b: torch.Tensor, backend: str = "auto",
+    tol: Optional[torch.Tensor] = None,
+) -> _solve.BatchedAffineSubspace:
+    """Solution sets of possibly singular or rectangular systems ``a [B,
+    M, N] x = b [B, M]``, padded (``ops.solve.BatchedAffineSubspace``).
+    Kernel 3 where the square-padded ``[s, s + 1]`` is in its big reach
+    (``"auto"``, ``"pallas"``), the blocked RREF from max(M, N) = 256
+    (``"auto"``, ``"blocked"``), else the loop with partial pivoting;
+    all three give the same (unique) reduced row echelon form.  ``tol``:
+    one threshold or one per matrix ``[B]``; by default
+    ``100·max(M, N+1)·eps·max|[A|b]|`` per system."""
+    if backend not in AFFINE_BACKENDS:
+        raise ValueError(f"unknown backend {backend!r} for the affine "
+                         f"solve; one of {AFFINE_BACKENDS}")
+    m, n = a.shape[-2], a.shape[-1]
+    if backend in ("auto", "pallas") and _solve.solve_affine_gj_supported(
+            m, n):
+        return _solve.solve_affine_gj_batched(a, b, tol=tol)
+    if backend in ("auto", "blocked") and max(m, n) >= BLOCKED_RREF_MIN_N:
+        return _rrb.solve_affine_blocked_batched(a, b, tol=tol)
+    return _solve.solve_batched(a, b, tol=tol, pivot_rule="partial")
+
+
+def nullspace_batched(
+    a: torch.Tensor, backend: str = "auto",
+    tol: Optional[torch.Tensor] = None,
+) -> _solve.BatchedAffineSubspace:
+    """Nullspaces of ``a [B, M, N]`` as affine subspaces through the
+    origin (``affine_solve_batched`` with b = 0)."""
+    b = torch.zeros(a.shape[0], a.shape[-2], dtype=a.dtype, device=a.device)
+    return affine_solve_batched(a, b, backend=backend, tol=tol)

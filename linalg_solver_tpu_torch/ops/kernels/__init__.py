@@ -14,8 +14,11 @@ The functions below are the facade ``ops.dispatch`` routes to, as the
 JAX package's ``ops.pallas`` is: ``inverse_batched`` takes the fused RBT
 inverse where it reaches (N % 4 = 0 to 180, the reference's
 ``inv_rbt_kernel.supported``) and the pivoted kernel elsewhere (to
-N = 167); solve, det and rank run on the pivoted kernel (to N = 236 and
-237).  Past the kernels' reach they raise.
+N = 167); solve and det run on the pivoted kernel in a block's shared
+memory (to N = 236 and 237), and the rank on it to N = 424, past 237 in
+device memory (the reference gives the rank its big VMEM budget, having
+no blocked rank-revealing alternative below 256).  Past the kernels'
+reach they raise.
 """
 
 from __future__ import annotations
@@ -37,11 +40,14 @@ _WIDTH = {
 
 def supports(op: str, n: int) -> bool:
     """Whether a kernel takes ``op`` on ``N = n`` (for ``rank``, ``n``
-    is the larger side of the matrix)."""
+    is the larger side of the matrix, and the reach is
+    ``gauss_jordan.fits_big``'s)."""
     if op not in _WIDTH:
         return False
     if op == "inverse" and inv_rbt.fits(n):
         return True
+    if op == "rank":
+        return gauss_jordan.fits_big(n, n)
     return gauss_jordan.fits(n, _WIDTH[op](n))
 
 

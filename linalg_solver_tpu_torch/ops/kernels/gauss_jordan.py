@@ -6,11 +6,15 @@ determinant and rank built on it.
 block per matrix) on a CUDA tensor, and runs ``gauss_jordan_reference``,
 the same steps in plain PyTorch vectorised over the batch, on a CPU
 tensor.  On a CUDA tensor it launches the kernel or raises; it never
-falls back.  The kernel has three variants, chosen by shape alone
+falls back.  The kernel has four variants, chosen by shape alone
 (``variant``): the ``[N, W]`` array in registers at ``N ≤ 64, W ≤ 128``
 (256 threads) and at ``N ≤ 128, W ≤ 256`` (1024 threads), else in shared
-memory (1024 threads), which sets the reach (``fits``).  ``LAUNCHES``
-counts kernel launches of every variant.
+memory (1024 threads) where a block's shared memory holds it (``fits``,
+the reach of the inverse, solve and det routes), else in device memory
+(1024 threads) within the reference's big VMEM budget (``fits_big``:
+``[N, N]`` to 424, ``[N, N + 1]`` to 423), which only the rank and the
+affine solve take, as in the reference.  ``LAUNCHES`` counts kernel
+launches of every variant.
 
 Step ``j`` takes as pivot the first row of largest ``|a[:, j]|`` among
 the rows not pivoted yet (a NaN counts as the largest, as in
@@ -38,6 +42,11 @@ _MAX_SMEM = 232448
 #: the argmax slots of csrc/gj_pivot.cuh's layout (two per warp of 8)
 _NWARP = 8
 
+#: the reference's big VMEM budget (``gj_kernel.VMEM_TILE_BUDGET_BIG``,
+#: 88 MiB) over its 128 lanes of 4 bytes: elements of an
+#: ``[n, ⌈w/8⌉·8]`` tile
+_BIG_ELEMS = 88 * 2**20 // (128 * 4)
+
 #: kernel launches since import (or since the caller last reset it)
 LAUNCHES = 0
 
@@ -59,19 +68,32 @@ def smem_bytes(n: int, w: int) -> int:
 
 
 def fits(n: int, w: int) -> bool:
-    """Whether the kernel takes an ``[n, w]`` array (``w >= n``)."""
+    """Whether a block's shared memory holds the kernel's ``[n, w]``
+    array (``w >= n``): the reach of the inverse, solve and det routes."""
     return 1 <= n <= w and smem_bytes(n, w) <= _MAX_SMEM
+
+
+def fits_big(n: int, w: int) -> bool:
+    """Whether ``[n, w]`` is within the reference's big budget, the reach
+    of the rank and the affine solve: ``n ≤ w`` and ``n·⌈w/8⌉·8 ≤
+    180,224`` (``gj_kernel.supported(n, w, VMEM_TILE_BUDGET_BIG)``)."""
+    return 1 <= n <= w and n * ((w + 7) // 8 * 8) <= _BIG_ELEMS
 
 
 def variant(n: int, w: int) -> int:
     """The variant that takes an ``[n, w]`` array: the mirror of
     ``gj_variant`` in ``csrc/gauss_jordan.cu`` (1: ``n ≤ 64, w ≤ 128``;
-    2: ``n ≤ 128, w ≤ 256``; 0: the rest)."""
+    2: ``n ≤ 128, w ≤ 256``; 0: the rest that ``fits``; 3: the rest that
+    ``fits_big``; -1: none)."""
     if n <= 64 and w <= 128:
         return 1
     if n <= 128 and w <= 256:
         return 2
-    return 0
+    if fits(n, w):
+        return 0
+    if fits_big(n, w):
+        return 3
+    return -1
 
 
 def attributes(n: int, w: int) -> dict:
@@ -118,12 +140,11 @@ def _launch(a32: torch.Tensor, tol: torch.Tensor) -> GJResult:
 
     B, n, w = a32.shape
     lib = _build.load()
-    smem = lib.gj_smem_bytes(n, w)
-    if smem > _MAX_SMEM:
+    if lib.gj_variant(n, w) < 0:
         raise ValueError(
-            f"[{n}, {w}] needs {smem} bytes of shared memory per block; "
-            f"the kernel has {_MAX_SMEM}"
-        )
+            f"[{n}, {w}] is past the kernel's reach: {lib.gj_smem_bytes(n, w)}"
+            f" bytes of shared memory per block (it has {_MAX_SMEM}) and "
+            f"past the big reach (fits_big)")
     a32 = a32.contiguous()
     tol = tol.contiguous()
     dev = a32.device
@@ -155,12 +176,24 @@ def _first_argmax(masked: torch.Tensor) -> torch.Tensor:
 
 
 def fms(x: torch.Tensor, c: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
-    """``x − c·p`` of f32 tensors as one fused multiply-add (the kernels'
-    ``fmaf``; XLA on the CPU fuses the JAX kernels' ``x - c * p`` the
-    same way).  The product of two f32 is exact in float64; rounding the
-    float64 difference to f32 rounds twice, which differs from one fused
-    rounding only in rare halfway cases, by one unit in the last place."""
-    return (x.double() - c.double() * p.double()).to(torch.float32)
+    """``x − c·p`` of f32 tensors as one fused multiply-add, rounded once
+    (the kernels' ``fmaf``; XLA on the CPU fuses the JAX kernels'
+    ``x - c * p`` the same way).  The product of two f32 is exact in
+    float64.  Rounding the float64 difference to f32 would round twice,
+    which errs by one unit in the last place where the first rounding
+    lands on an f32 halfway point; so the difference is rounded to odd
+    in float64 (its exact error from TwoSum decides the last bit), and
+    rounding that to f32 is the correctly rounded result (Boldo and
+    Melquiond, 2008: 53 ≥ 24 + 2 bits)."""
+    xd = x.double()
+    q = -(c.double() * p.double())
+    s = xd + q
+    bq = s - xd
+    err = (xd - (s - bq)) + (q - bq)
+    even = (s.view(torch.int64) & 1) == 0
+    fix = even & (err != 0) & torch.isfinite(s)
+    toward = torch.where(err > 0, torch.inf, -torch.inf).to(s.dtype)
+    return torch.where(fix, torch.nextafter(s, toward), s).to(torch.float32)
 
 
 def gauss_jordan_reference(
@@ -283,5 +316,5 @@ def rank_batched(
         a32 = padded
     if tol is None:
         tol = default_rank_tol(a32)
-    res = gauss_jordan_tiled(a32, tol=tol)
+    res = gauss_jordan_tiled(a32, tol)
     return (res.pivots.abs() > 0).sum(dim=-1).to(torch.int32)

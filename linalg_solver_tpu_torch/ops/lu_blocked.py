@@ -18,11 +18,15 @@ Ported:
   ``blocked_inverse_batched(panel_backend="pallas")``.  A panel past the
   kernel's shared memory is factored in two levels (``nbi``-wide
   sub-panels, the reference's own split), never by another solver.
-- ``blocked_solve_batched`` and ``blocked_inverse_batched`` with the
-  default ``panel_backend="xla"``, the last rungs of the rescues.  The
-  JAX versions are plain XLA code (a blocked partial-pivoting LU), not
-  Pallas kernels, so here they are the library's pivoted LU (plus f32
-  refinement for the solve).
+- the reference's ``panel_backend="xla"`` names: ``blocked_solve_batched``
+  and ``blocked_inverse_batched`` (the last rungs of the rescues),
+  ``blocked_lu_batched(panel_backend="xla")`` and
+  ``blocked_det_batched`` (the ``"blocked"`` backend of
+  ``ops.dispatch``).  The JAX versions are plain XLA code (a blocked
+  partial-pivoting LU), not Pallas kernels, so here they are the
+  library's pivoted LU (plus f32 refinement for the solve); the packed
+  factors carry the diagonal-block inverses, so ``blocked_lu_solve``
+  serves them unchanged.
 - ``invert_unit_lower`` and ``invert_upper``: the same divide-and-conquer
   and Neumann-product math as the reference, in batched products.
 
@@ -59,12 +63,13 @@ class BlockedLUResult(NamedTuple):
 
 
 def blocked_solve_batched(
-    a: torch.Tensor, b: torch.Tensor, ir_steps: int = 2
+    a: torch.Tensor, b: torch.Tensor, nb: int = 128, ir_steps: int = 1
 ) -> torch.Tensor:
     """Factor (partial pivoting) and solve ``a @ x = b`` for ``a [B, N, N]``
     and ``b [B, N]`` or ``[B, N, K]``, then ``ir_steps`` rounds of f32
     refinement against ``a``.  A singular system comes back non-finite;
-    nothing raises."""
+    nothing raises.  ``nb`` is the reference's panel width, taken for its
+    signature: the library's LU blocks by itself."""
     vector_input = b.dim() == a.dim() - 1
     a32 = a.to(torch.float32)
     b3 = (b.unsqueeze(-1) if vector_input else b).to(torch.float32)
@@ -374,15 +379,58 @@ def _pallas_lu(a: torch.Tensor, nb: int, nbi: Optional[int] = None
         torch.stack(ph.l11s_inv, dim=1), torch.stack(ph.u11s_inv, dim=1))
 
 
+def _library_lu(a: torch.Tensor, nb: int) -> BlockedLUResult:
+    """The library's pivoted LU as a ``BlockedLUResult``: ``perm`` from
+    its row swaps, ``ok`` where every pivot is nonzero (and not NaN, as
+    the reference's ``|pivot| > 0`` test), the inverses of the nb×nb
+    diagonal blocks from ``invert_unit_lower`` / ``invert_upper``."""
+    n = a.shape[-1]
+    lu, piv, _ = torch.linalg.lu_factor_ex(a.to(torch.float32))
+    p_mat, _, _ = torch.lu_unpack(lu, piv, unpack_data=False)
+    perm = p_mat.argmax(dim=-2).to(torch.int32)   # A = P L U: PᵀA = LU
+    diag = torch.diagonal(lu, dim1=-2, dim2=-1)
+    m = n // nb
+    blocks = torch.stack([lu[:, i * nb:(i + 1) * nb, i * nb:(i + 1) * nb]
+                          for i in range(m)], dim=1)
+    eye = torch.eye(nb, dtype=lu.dtype, device=lu.device)
+    return BlockedLUResult(
+        lu, perm, _perm_parity(perm).to(lu.dtype), (diag.abs() > 0).all(-1),
+        invert_unit_lower(torch.tril(blocks, -1) + eye),
+        invert_upper(torch.triu(blocks)))
+
+
 @f32_matmuls()
-def blocked_lu_batched(a: torch.Tensor, nb: int = 128) -> BlockedLUResult:
+def blocked_lu_batched(a: torch.Tensor, nb: int = 128,
+                       panel_backend: str = "pallas") -> BlockedLUResult:
     """Blocked batched LU ``P A = L U`` of every matrix of ``a [B, N, N]``
-    (f32, N divisible by ``min(nb, N)``) on the panel kernel, with the
-    diagonal-block inverses that ``blocked_lu_solve`` uses: the
-    reference's ``panel_backend="pallas"``.  Its XLA panel loops are the
-    library's pivoted LU in this package (``blocked_solve_batched``,
-    ``blocked_inverse_batched``)."""
-    return _pallas_lu(a, _panel_width(a.shape[-1], nb))
+    (f32, N divisible by ``min(nb, N)``), with the diagonal-block
+    inverses that ``blocked_lu_solve`` uses.  ``panel_backend="pallas"``
+    (the port's default, which the ``blocked_pallas`` paths take): the
+    phase loop on the panel kernel; ``"xla"`` (the reference's default,
+    the ``"blocked"`` backend): the library's pivoted LU, as the
+    reference's XLA panel loops are plain XLA code."""
+    nb = _panel_width(a.shape[-1], nb)
+    if panel_backend == "pallas":
+        return _pallas_lu(a, nb)
+    if panel_backend == "xla":
+        return _library_lu(a, nb)
+    raise ValueError(f"panel_backend {panel_backend!r}; one of "
+                     f"('xla', 'pallas')")
+
+
+def blocked_det_batched(a: torch.Tensor, nb: int = 128) -> torch.Tensor:
+    """Determinants from the library's LU (the reference's XLA-panel
+    ``blocked_det_batched``): sign × product of U's diagonal, 0 where a
+    pivot is zero.  ``nb`` falls back to N where ``min(nb, N)`` does not
+    divide it, as in the reference; the panel kernel's determinant is
+    ``pallas_det_batched``."""
+    n = a.shape[-1]
+    nb = min(nb, n)
+    if n % nb:
+        nb = n
+    res = blocked_lu_batched(a, nb=nb, panel_backend="xla")
+    d = res.sign * torch.diagonal(res.lu, dim1=-2, dim2=-1).prod(dim=-1)
+    return torch.where(res.ok, d, torch.zeros_like(d))
 
 
 @f32_matmuls()
@@ -392,7 +440,8 @@ def blocked_lu_solve(res: BlockedLUResult, b: torch.Tensor) -> torch.Tensor:
     the cached inverses (their width is the panel width), the
     off-diagonal blocks as batched products.  The reference's
     triangular-solve branch serves its XLA panel backends, which do not
-    cache the inverses; the port has no such producer yet."""
+    cache the inverses; here every producer caches them, the library's
+    LU (``panel_backend="xla"``) too."""
     lu, perm = res.lu, res.perm
     n = lu.shape[-1]
     nb = res.l11_inv.shape[-1]

@@ -308,6 +308,59 @@ def test_gauss_jordan_kernel_matches_plain_version(cuda, n, w):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("n,w", [(256, 257), (424, 424)])
+def test_gauss_jordan_device_memory_variant_is_bitwise(cuda, n, w):
+    """Variant 3 (the tile in device memory, the big reach): perm, the
+    reduced array and the pivots equal to the plain version's, bit for
+    bit, on full-rank, rank-deficient (a repeated and a zero row, a zero
+    column) lanes, with and without a threshold."""
+    assert gj.variant(n, w) == 3
+    g = torch.Generator(device=cuda).manual_seed(n + w)
+    a = torch.randn(8, n, w, generator=g, device=cuda)
+    a[1, 5] = a[1, 2]
+    a[2, :, 3] = 0.0
+    a[3, 9] = 0.0
+    tol = torch.full((8,), 1e-4, device=cuda)
+    tol[4] = 0.0
+    before = gj.LAUNCHES
+    r = gj.gauss_jordan_tiled(a, tol)
+    torch.cuda.synchronize()
+    assert gj.LAUNCHES == before + 1
+    p = gj.gauss_jordan_reference(a, tol)
+    assert torch.equal(r.perm, p.perm)
+    assert _nan_equal(r.reduced, p.reduced) and _nan_equal(r.pivots, p.pivots)
+    assert (r.pivots != 0).sum(dim=1).tolist()[:4] == [n, n - 1, n - 1, n - 1]
+
+
+@pytest.mark.cuda
+def test_affine_and_rank_paths_launch_variant_3_once(cuda):
+    """``affine_solve_batched(auto)`` at N = 256 and ``rank_batched(auto)``
+    at N = 300: one launch of kernel 3 each (variant 3), consistent
+    lanes solved, ranks those constructed."""
+    from linalg_solver_tpu_torch.ops import solve
+
+    g = torch.Generator(device=cuda).manual_seed(3)
+    a = torch.randn(4, 256, 256, generator=g, device=cuda)
+    a[1, :, 7] = a[1, :, 3]
+    b = torch.randn(4, 256, generator=g, device=cuda)
+    b[1] = a[1] @ torch.randn(256, generator=g, device=cuda)
+    before = gj.LAUNCHES
+    res = dispatch.affine_solve_batched(a, b)
+    torch.cuda.synchronize()
+    assert gj.LAUNCHES == before + 1
+    assert res.dim.tolist() == [0, 1, 0, 0] and res.is_consistent.all()
+    r = (a.double() @ res.particular.double()[..., None])[..., 0] - b
+    assert float(r.abs().max() / b.abs().max()) <= 1e-4
+    want = solve.solve_affine_gj_batched(a.cpu(), b.cpu())
+    assert torch.equal(res.dim.cpu(), want.dim)
+    low = torch.randn(4, 300, 40, generator=g, device=cuda) @ torch.randn(
+        4, 40, 300, generator=g, device=cuda)
+    before = gj.LAUNCHES
+    assert dispatch.rank_batched(low).tolist() == [40] * 4
+    assert gj.LAUNCHES == before + 1
+
+
+@pytest.mark.cuda
 def test_inverse_smem_mirrors_match_the_kernels(cuda):
     from linalg_solver_tpu_torch.ops.kernels import _build
 
@@ -320,11 +373,14 @@ def test_inverse_smem_mirrors_match_the_kernels(cuda):
         assert lib.inv_variant(n) == inv_rbt.variant(n)
         for v in inv_rbt.VARIANTS:
             assert lib.inv_variant_smem(v, n) == inv_rbt.smem_bytes(n, v)
-    for n in range(1, 250):
+    for n in range(1, 431):
         for w in (n, n + 1, 2 * n, 128, 256, 257):
             assert lib.gj_variant(n, w) == gj.variant(n, w)
+    # past the shared-memory reach variant 3 takes [238, 238]; past the
+    # big reach too, the kernel refuses
+    assert gj.variant(238, 238) == 3
     with pytest.raises(ValueError, match="shared memory"):
-        gj.gauss_jordan_tiled(torch.zeros(1, 238, 238, device=cuda))
+        gj.gauss_jordan_tiled(torch.zeros(1, 425, 425, device=cuda))
 
 
 @pytest.mark.cuda

@@ -150,14 +150,24 @@ def test_rbt_with_the_jax_draws_matches_jax(ir_steps):
 def test_auto_raises_outside_the_kernel_reach(n, k):
     """796 is the smallest even N past the fused kernel's shared memory at
     k=1, and not a multiple of 8, so the phase engine does not take it
-    either, nor kernel 3 (N <= 236); the reference takes it through its
-    ``mixed``/``blocked`` solvers, not ported yet.  From N = 1024 with
-    N % 128 == 0 the large-N solve takes only a vector RHS, in the
-    reference too."""
-    b_shape = (1, n) if k is None else (1, n, k)
-    a, b = torch.zeros(1, n, n), torch.zeros(b_shape)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        dispatch.solve_batched(a, b)
+    either, nor kernel 3 (N <= 236): ``auto`` ends in the LU loop, as the
+    reference's does (``"loop"``), within 1e-5 of the JAX package's loop
+    (the same factorization; the substitutions sum in another order).
+    From N = 1024 with N % 128 == 0 the large-N solve takes only a vector
+    RHS, in the reference too: that still raises."""
+    if k is not None:
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            dispatch.solve_batched(torch.zeros(1, n, n),
+                                   torch.zeros(1, n, k))
+        return
+    a, b = _batch(1, n, seed=n)
+    at, bt = torch.from_numpy(a), torch.from_numpy(b)
+    assert dispatch._resolve("auto", n, 1, True) == "loop"
+    x = dispatch.solve_batched(at, bt)
+    xj = np.asarray(jdispatch.solve_batched(jnp.asarray(a), jnp.asarray(b),
+                                            backend="loop"))
+    _assert_close(xj, x.numpy(), range(1), rtol=1e-5)
+    assert _resid(a, b, x.numpy()).max() <= 1e-5
 
 
 @pytest.mark.parametrize("n,k", [(63, None), (7, None), (63, 3)],
@@ -312,9 +322,9 @@ def test_xla_backend_is_the_library_solve():
     assert _resid(a, b, x.numpy()).max() <= 1e-5
     with pytest.raises(ValueError, match="unknown backend"):
         dispatch.solve_batched(
-            torch.from_numpy(a), torch.from_numpy(b), backend="loop")
+            torch.from_numpy(a), torch.from_numpy(b), backend="lapack")
     assert dispatch.BACKENDS == ("auto", "rbt", "mixed", "blocked_pallas",
-                                 "pallas", "xla")
+                                 "blocked", "pallas", "loop", "xla", "dd")
 
 
 @pytest.mark.parametrize("k", [None, 3], ids=["vector", "matrix"])
@@ -336,3 +346,33 @@ def test_gradient_matches_library_autograd(k):
     for got, want in zip(grads[0], grads[1]):
         err = (got - want).abs().max() / want.abs().max()
         assert float(err) <= 1e-4
+
+
+def _earlier_solve_route(n, k, vector_rhs):
+    """``auto``'s solve routes before the loop backend existed, or None
+    where it raised."""
+    if fits(n, k) or dispatch.phase_reaches(n):
+        return "rbt"
+    if dispatch.large_reaches(n, vector_rhs):
+        return "mixed"
+    if n >= 1024 and n % 128:
+        return "xla"
+    if kernels.solve_fits(n, k):
+        return "pallas"
+    return None
+
+
+def test_auto_keeps_every_earlier_route():
+    """Every (N, k) that ``auto`` routed before keeps its route; what
+    raised below N = 1024 now takes the loop, as in the reference; a
+    matrix RHS from N = 1024 with N % 128 == 0 still raises."""
+    for n in range(1, 1300):
+        for k in (1, 2, 8, 9, 16):
+            vector_rhs = k == 1
+            before = _earlier_solve_route(n, k, vector_rhs)
+            if before is None and n >= 1024:
+                with pytest.raises(NotImplementedError):
+                    dispatch._resolve("auto", n, k, vector_rhs)
+                continue
+            got = dispatch._resolve("auto", n, k, vector_rhs)
+            assert got == (before or "loop"), (n, k)

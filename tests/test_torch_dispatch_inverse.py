@@ -13,12 +13,14 @@ inverse at N % 4 ≠ 0) need no draw and agree to 1e-5."""
 import numpy as np
 import pytest
 
+import jax
 import jax.numpy as jnp
 import torch
 
+from linalg_solver_tpu.ops import dispatch as jdispatch
 from linalg_solver_tpu.ops.pallas import gj_kernel as jgj
 from linalg_solver_tpu.ops.pallas import inv_rbt_kernel as jinv
-from linalg_solver_tpu_torch.ops import dispatch, lu_blocked, rbt
+from linalg_solver_tpu_torch.ops import dispatch, kernels, lu_blocked, rbt
 from linalg_solver_tpu_torch.ops.kernels import gauss_jordan as gj
 from linalg_solver_tpu_torch.ops.kernels import inv_rbt
 
@@ -102,15 +104,41 @@ def test_rank_auto_matches_jax_facade():
     [("inverse", 169), ("inverse", 170), ("det", 238), ("rank", 238)],
 )
 def test_auto_raises_past_the_kernels_reach(op, n):
-    """169 is the first N past the pivoted inverse's shared memory, and
-    169 and 170 are no multiples of 8, which the phase inverse needs.
-    238 is past the pivoted [N, N] tile's memory, and no multiple of 64
-    for the blocked det."""
-    a = torch.zeros(1, n, n)
+    """Past the kernels' shared memory ``auto`` now ends as the
+    reference's does.  169 is the first N past the pivoted inverse's
+    shared memory, and 169 and 170 are no multiples of 8 (the phase
+    inverse) or 4 (kernel 2): the Gauss–Jordan loop with ``tol = 1e-30``
+    (``"loop"``).  238 is past the pivoted [N, N] tile's shared memory
+    and no multiple of 64 (the blocked det): the LU loop.  The rank at
+    238 takes kernel 3 in its big reach (here its plain version).  Each
+    against the JAX package's ``"loop"`` backend at B = 1: values within
+    1e-5 (1e-4 for the inverse, whose entries carry the f32 rounding of
+    A⁻¹'s condition), the rank exactly."""
+    a = _batch(1, n, seed=n) if op == "inverse" else _det_batch(1, n, seed=n)
+    if op == "rank":
+        a[0, 5] = 2 * a[0, 1]
+        a[0, 9] = 0.0
+    at, aj = torch.from_numpy(a), jnp.asarray(a)
     fn = {"inverse": dispatch.inverse_batched, "det": dispatch.det_batched,
           "rank": dispatch.rank_batched}[op]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        fn(a)
+    jfn = {"inverse": jdispatch.inverse_batched,
+           "det": jdispatch.det_batched,
+           "rank": jdispatch.rank_batched}[op]
+    if op == "rank":
+        assert kernels.supports("rank", n)
+    else:
+        assert dispatch._resolve_facade("auto", op, n) == "loop"
+    got = fn(at)
+    if op == "rank":
+        assert torch.equal(got, kernels.rank_batched(at))
+    want = np.asarray(jfn(aj, backend="loop"))
+    if op == "rank":
+        assert got.tolist() == want.tolist() == [n - 2]
+    elif op == "det":
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-5)
+    else:
+        assert np.abs(got.numpy() - want).max() <= 1e-4 * np.abs(want).max()
+        assert _resid(a, got.numpy()).max() <= 5e-5
 
 
 @pytest.mark.parametrize("op", ["inverse", "det"])
@@ -143,14 +171,24 @@ def test_auto_inverse_and_det_at_1024_take_the_library(op):
 
 @pytest.mark.parametrize("n", [170, 237])
 def test_auto_det_with_a_gradient_raises_where_the_inverse_stops(n):
-    """det reaches N = 237 but its backward needs the inverse, which past
-    167 takes only multiples of 4 to 180 and of 8 beyond: with a gradient
-    it raises before the forward, not in the backward; without one it
-    runs."""
-    a = torch.eye(n)[None]
-    with pytest.raises(NotImplementedError, match="ROADMAP.*items 4-5"):
-        dispatch.det_batched(a.clone().requires_grad_())
-    assert dispatch.det_batched(a).tolist() == [1.0]
+    """det reaches N = 237 on kernel 3, but its backward needs the
+    inverse, which past 167 takes only multiples of 4 to 180 and of 8
+    beyond: there the backward now takes the Gauss–Jordan loop, as the
+    reference's does, and no longer raises.  The gradient (Jacobi's
+    formula) agrees with the JAX package's ``"loop"`` backend within
+    1e-4 of its largest entry (the forward sums the log of 170 or 237
+    pivots in another order)."""
+    rng = np.random.RandomState(n)
+    a = (np.eye(n) + 0.1 * rng.randn(1, n, n) / np.sqrt(n)).astype(
+        np.float32)
+    assert dispatch._resolve_facade("auto", "det", n) == "pallas"
+    assert dispatch._resolve_facade("auto", "inverse", n) == "loop"
+    at = torch.from_numpy(a).requires_grad_()
+    dispatch.det_batched(at).sum().backward()
+    gj_ = np.asarray(jax.grad(lambda x: jdispatch.det_batched(
+        x, backend="loop").sum())(jnp.asarray(a)))
+    assert np.abs(at.grad.numpy() - gj_).max() <= 1e-4 * np.abs(gj_).max()
+    assert dispatch.det_batched(torch.eye(n)[None]).tolist() == [1.0]
 
 
 @pytest.mark.parametrize("n", [184, 256])
@@ -182,7 +220,7 @@ def test_auto_det_gradient_at_168_takes_the_phase_inverse():
         grads.append(at.grad)
     err = (grads[0] - grads[1]).abs().max() / grads[1].abs().max()
     assert float(err) <= 1e-4
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="gradient"):
         dispatch.det_batched(torch.from_numpy(a).requires_grad_(), "pallas")
 
 
@@ -315,10 +353,25 @@ def test_lu_factor_auto_at_1024_splits_the_panels():
 
 
 def test_lu_factor_raises_outside_the_blocked_reach():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        dispatch.lu_factor_batched(torch.zeros(1, 100, 100))
+    """N = 100 is no multiple of min(64, N): ``auto`` takes the LU loop
+    (``ops.lu``'s ``LUResult``), as the reference's does, against the
+    JAX package's ``"loop"`` at B = 1: perm, sign and ok exactly, the
+    packed factors within 1e-5.  ``"xla"`` is no backend of the LU, and
+    the facade factors nothing."""
+    n = 100
+    a = _batch(1, n, seed=n)
+    res = dispatch.lu_factor_batched(torch.from_numpy(a))
+    want = jdispatch.lu_factor_batched(jnp.asarray(a), backend="loop")
+    assert type(res).__name__ == "LUResult"
+    for f in ("perm", "sign", "ok"):
+        np.testing.assert_array_equal(getattr(res, f).numpy(),
+                                      np.asarray(getattr(want, f)))
+    lu_j = np.asarray(want.lu)
+    assert np.abs(res.lu.numpy() - lu_j).max() <= 1e-5 * np.abs(lu_j).max()
     with pytest.raises(ValueError, match="unknown backend"):
         dispatch.lu_factor_batched(torch.zeros(1, 64, 64), backend="xla")
+    with pytest.raises(NotImplementedError, match="no 'pallas' op"):
+        dispatch.lu_factor_batched(torch.zeros(1, 64, 64), backend="pallas")
 
 
 @pytest.mark.parametrize("n", [32, 30], ids=["rbt", "pivoted"])
@@ -371,3 +424,85 @@ def test_det_gradient_matches_library_autograd():
         grads.append(at.grad)
     err = (grads[0] - grads[1]).abs().max() / grads[1].abs().max()
     assert float(err) <= 1e-4
+
+
+def _earlier_facade_route(op, n):
+    """``auto``'s inverse and det routes before the loop backend existed,
+    or None where they raised."""
+    width = {"inverse": 2 * n, "det": n}[op]
+    if (op == "inverse" and inv_rbt.fits(n)) or gj.fits(n, width):
+        return "pallas"
+    if op == "inverse" and dispatch.phase_reaches(n):
+        return "rbt"
+    if op == "det" and n >= 8 and n % min(64, n) == 0 and n < 1024:
+        return "blocked_pallas"
+    if n >= 1024:
+        return "xla"
+    return None
+
+
+@pytest.mark.parametrize("op", ["inverse", "det"])
+def test_auto_keeps_every_earlier_route(op):
+    """Every N that ``auto`` routed before keeps its route; what raised
+    now takes the loop, as in the reference.  The rank keeps kernel 3 to
+    237 and takes it on to 424 (its big reach)."""
+    for n in range(1, 1300):
+        before = _earlier_facade_route(op, n)
+        assert dispatch._resolve_facade("auto", op, n) == (before or "loop")
+    assert all(kernels.supports("rank", n) for n in range(1, 425))
+
+
+@pytest.mark.parametrize("n,backend,route", [
+    (238, "auto", "kernel"), (424, "auto", "kernel"),
+    (425, "auto", "blocked"), (512, "auto", "blocked"),
+    (300, "blocked", "blocked"), (100, "blocked", "loop"),
+    (100, "loop", "loop")])
+def test_rank_dispatch_routes(monkeypatch, n, backend, route):
+    """``rank_batched``: kernel 3 to max(M, N) = 424 (variant 3 past 237),
+    the blocked RREF past it from 256, else the loop."""
+    from linalg_solver_tpu_torch.ops import rref_blocked, solve
+
+    calls = []
+    for mod, name, tag in ((kernels, "rank_batched", "kernel"),
+                           (rref_blocked, "rank_blocked_batched", "blocked"),
+                           (solve, "rank_batched", "loop")):
+        monkeypatch.setattr(mod, name, lambda *a, _t=tag, **k:
+                            calls.append(_t))
+    dispatch.rank_batched(torch.zeros(1, n, n - 1), backend=backend)
+    assert calls == [route]
+
+
+def test_blocked_and_loop_backends_match_jax():
+    """The reference's ``"blocked"`` (XLA panels: here the library's LU
+    with its diagonal-block inverses) and ``"loop"`` backends at N = 16,
+    against the JAX package's same backends; ``"dd"`` raises and names
+    its queue item."""
+    n = 16
+    a = _batch(2, n, seed=5)
+    at, aj = torch.from_numpy(a), jnp.asarray(a)
+    b = np.random.RandomState(6).randn(2, n).astype(np.float32)
+    bt, bj = torch.from_numpy(b), jnp.asarray(b)
+    for be in ("blocked", "loop"):
+        x = dispatch.solve_batched(at, bt, backend=be).numpy()
+        xj = np.asarray(jdispatch.solve_batched(aj, bj, backend=be))
+        assert np.abs(x - xj).max() <= 1e-5 * np.abs(xj).max(), be
+        d = dispatch.det_batched(at, backend=be).numpy()
+        np.testing.assert_allclose(
+            d, np.asarray(jdispatch.det_batched(aj, backend=be)), rtol=1e-5)
+        xi = dispatch.inverse_batched(at, backend=be)
+        assert torch.equal(xi, dispatch.inverse_batched(at, backend="loop"))
+        assert _resid(a, xi.numpy()).max() <= 5e-5
+    res = dispatch.lu_factor_batched(at, backend="blocked")
+    rj = jdispatch.lu_factor_batched(aj, backend="blocked")
+    for f in ("perm", "sign", "ok"):
+        np.testing.assert_array_equal(getattr(res, f).numpy(),
+                                      np.asarray(getattr(rj, f)))
+    assert np.abs(res.lu.numpy() - np.asarray(rj.lu)).max() <= 1e-5 * \
+        np.abs(np.asarray(rj.lu)).max()
+    x = lu_blocked.blocked_lu_solve(res, bt)
+    assert np.abs(x.numpy() - np.asarray(jdispatch.solve_batched(
+        aj, bj, backend="loop"))).max() <= 1e-4 * np.abs(x.numpy()).max()
+    for fn in (dispatch.solve_batched, dispatch.inverse_batched):
+        args = (at, bt) if fn is dispatch.solve_batched else (at,)
+        with pytest.raises(NotImplementedError, match="queue 1 item 6"):
+            fn(*args, backend="dd")

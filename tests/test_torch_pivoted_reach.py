@@ -8,11 +8,14 @@ Both wrappers choose a kernel variant by shape alone, and their
 The formulas are written out here once more, so that a change on either
 side shows; the routes that follow from the reach (the inverse to
 N = 167, and with kernel 2 at N % 4 = 0 to 180, det and rank to N = 237,
-the phase loop's 64-wide panels) are checked as numbers.
+the phase loop's 64-wide panels) are checked as numbers, and the big
+reach of the rank and the affine solve against the reference's own
+``gj_kernel.supported`` with its big VMEM budget.
 """
 
 import pytest
 
+from linalg_solver_tpu.ops.pallas import gj_kernel as jgj
 from linalg_solver_tpu_torch.ops import lu_blocked
 from linalg_solver_tpu_torch.ops import kernels
 from linalg_solver_tpu_torch.ops.kernels import gauss_jordan as gj
@@ -29,12 +32,20 @@ def gj_smem_floats(n, w):
 
 def gj_variant(n, w):
     """csrc/gauss_jordan.cu `gj_variant`: rows lane + 32 i (i < R),
-    columns warp + NW k (k < C), (NW, R, C) = (8, 2, 16) and (32, 4, 8)."""
+    columns warp + NW k (k < C), (NW, R, C) = (8, 2, 16) and (32, 4, 8);
+    then shared memory (0) where the tile fits a block, device memory (3)
+    within the big reach n * ceil8(w) <= 180,224, else none (-1)."""
     if n <= 32 * 2 and w <= 8 * 16:
         return 1
     if n <= 32 * 4 and w <= 32 * 8:
         return 2
-    return 0
+    if not 1 <= n <= w:
+        return -1
+    if 4 * gj_smem_floats(n, w) <= MAX_SMEM:
+        return 0
+    if n * ((w + 7) // 8 * 8) <= 180224:
+        return 3
+    return -1
 
 
 def panel_smem_floats(n, nb):
@@ -96,17 +107,18 @@ def test_lu_panel_variant_of_the_paths_shapes(shape, variant):
 
 def test_pivoted_facade_reach():
     """The inverse to N = 167 (kernel 3), and on to 180 at N % 4 = 0
-    (kernel 2, the reference's reach); det and rank to 237, solve to
-    236: the same N as before the register variants, and not one more."""
+    (kernel 2, the reference's reach); det to 237, solve to 236: the same
+    N as before the register variants, and not one more.  The rank to
+    424, the reference's big budget (variant 3 past 237)."""
     assert all(kernels.supports("inverse", n) for n in range(1, 168))
     assert all(kernels.supports("inverse", n) for n in range(168, 181, 4))
     assert all(kernels.supports("det", n) for n in range(1, 238))
-    assert all(kernels.supports("rank", n) for n in range(1, 238))
+    assert all(kernels.supports("rank", n) for n in range(1, 425))
     assert all(kernels.supports("solve", n) for n in range(1, 237))
     assert not any(kernels.supports("inverse", n)
                    for n in (169, 170, 171, 181, 184))
     assert not kernels.supports("det", 238)
-    assert not kernels.supports("rank", 238)
+    assert not kernels.supports("rank", 425)
     assert not kernels.supports("solve", 237)
 
 
@@ -124,3 +136,26 @@ def test_reach_960_takes_the_register_variant():
     nbi = lu_blocked.panel_split(960, 64)
     assert nbi == 32
     assert lu_panel.variant(960, nbi) == 1
+
+
+@pytest.mark.parametrize("lo", range(200, 431, 50))
+def test_fits_big_mirrors_the_reference_big_budget(lo):
+    """``fits_big`` against the reference's ``gj_kernel.supported(n, w,
+    VMEM_TILE_BUDGET_BIG)`` for n = 200 … 430 at the rank's [n, n] and
+    the affine solve's [n, n + 1]; ``variant`` is 3 exactly where
+    ``fits`` fails and ``fits_big`` holds."""
+    for n in range(lo, min(lo + 50, 431)):
+        for w in (n, n + 1):
+            want = jgj.supported(n, w, budget=jgj.VMEM_TILE_BUDGET_BIG)
+            assert gj.fits_big(n, w) == want, (n, w)
+            v3 = not gj.fits(n, w) and gj.fits_big(n, w)
+            assert (gj.variant(n, w) == 3) == v3, (n, w)
+            assert gj.variant(n, w) == gj_variant(n, w), (n, w)
+
+
+def test_big_reach_ends_where_the_reference_does():
+    assert gj.fits_big(424, 424) and not gj.fits_big(425, 425)
+    assert gj.fits_big(423, 424) and not gj.fits_big(424, 425)
+    assert gj.variant(237, 237) == 0 and gj.variant(238, 238) == 3
+    assert gj.variant(236, 237) == 0 and gj.variant(237, 238) == 3
+    assert gj.variant(256, 257) == 3 and gj.variant(425, 425) == -1
