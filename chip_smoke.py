@@ -1,7 +1,8 @@
 """Drive the PyTorch port's batched solve and batched inverse once on a
 CUDA card, through the fused kernels and through the RBT phase engine,
 then its pivoted, rank-revealing paths (affine solve, nullspace, rank),
-the loop backend and ``BatchedSolver``'s serving flow.
+the loop backend, ``BatchedSolver``'s serving flow and the device eigen
+stack (Jordan analysis and the spectral pipeline).
 
     python3 chip_smoke.py
 
@@ -116,7 +117,37 @@ uncaught exception and a non-zero exit:
 22. time variant 3 (kernel, plain version, paths) beside
     ``torch.linalg.matrix_rank`` for the rank (the affine solve has no
     single library call), each loop path beside its ``torch.linalg``
-    call, and the blocked rank beside ``matrix_rank``.
+    call, and the blocked rank beside ``matrix_rank``;
+23. config 5 (``examples/bench_spectral.py``'s size): ``jordan_analysis``
+    at B=32, n=256 on a seeded orthogonal similarity of the Jordan form
+    with blocks (2, 3) x 20, (2, 2) x 20, (5, 2) x 40, (1, 1) x 76 at
+    eigenvalues (2, 5, 1), k_max=4: ``"svd"`` gives the exact Weyr
+    characteristic, multiplicities and block counts on every lane,
+    ``"gj"`` on every lane but the two where the reference's
+    Gauss-Jordan misses one null direction, and there what the reference
+    reports (``JORDAN_GJ_MISSES``);
+    ``"gj"`` launches kernel 3's variant 3 four times on
+    ``[96, 256, 257]``, each launch held bitwise against its plain
+    version; ``"svd"`` launches none;
+24. config 4: a seeded orthogonal similarity of diag(1 x 86, 2 x 85,
+    5 x 85) at B=32; ``spectral_pipeline(method="auto")`` takes the
+    eigh route; the spectral core on eigh's eigenvalues (tol 1e-2) at
+    ``max_distinct`` 3 and None launches kernel 3 twice on
+    ``[96, 256, 257]`` / 16 times on ``[1024, 256, 257]`` and the phase
+    inverse's two kernel-4 and four kernel-5 launches a pass (a second
+    pass, the redraw, where its gate flags a lane); every lane
+    diagonalizable with alg = geom = the cluster sizes and
+    ``max|diag(D) - lambda| <= 1e-2``; a launch of each held bitwise;
+25. the defective control: the spectral core on phase 23's batch with
+    its exact eigenvalues flags no lane diagonalizable, geom < alg at 2
+    and 5; ``spectral_pipeline(method="qr")`` at B=32, n=32 on a
+    config-4 batch (kernel 3 twice, kernel 2 once), every lane
+    diagonalizable;
+26. time the eigen paths (CUDA events, median of 3, kernel 3's share of
+    each as profiler device time), ``torch.linalg.eig`` on the config-4
+    batch as a reference point, and kernel 3 alone at
+    ``[96, 256, 257]`` and ``[1024, 256, 257]`` beside its plain
+    version and bound.
 
 The line before the last is a JSON summary of the six kernels, each with
 its bound (the larger of its bytes over 3.35 TB/s and its operations
@@ -513,17 +544,19 @@ def nan_equal(x, y) -> bool:
     return bool(((x == y) | (x.isnan() & y.isnan())).all())
 
 
-def record(module, name):
+def record(module, name, keep=None):
     """Wrap ``module.name`` so that every call's positional arguments and
     result are kept (the paths look their kernels and rescue rungs up at
-    each call).  Returns the list of calls and a function that takes the
+    each call); with ``keep``, only the first ``keep`` calls' (later ones
+    add None).  Returns the list of calls and a function that takes the
     wrapper off."""
     calls = []
     orig = getattr(module, name)
 
     def wrapped(*args, **kwargs):
         out = orig(*args, **kwargs)
-        calls.append((args, out))
+        calls.append((args, out) if keep is None or len(calls) < keep
+                     else None)
         return out
 
     setattr(module, name, wrapped)
@@ -1982,6 +2015,340 @@ def time_new_paths(dev, card, big, loops):
     return shapes
 
 
+# --- the device eigen stack (BASELINE configs 4 and 5) ------------------
+
+#: examples/bench_spectral.py's size for configs 4 and 5
+B_SPEC, N_SPEC = 32, 256
+#: config 5: Jordan blocks (eigenvalue, size), orthogonal transform
+JORDAN_BLOCKS = (((2.0, 3),) * 20 + ((2.0, 2),) * 20 + ((5.0, 2),) * 40
+                 + ((1.0, 1),) * 76)
+JORDAN_EIGS = (2.0, 5.0, 1.0)
+K_MAX = 4
+#: lanes of ``jordan_input`` where ``method="gj"`` misses the built
+#: structure, and the Weyr characteristic it reports there: the JAX
+#: package's ``jordan_analysis(method="gj")`` reports the same on this
+#: batch (the card's draw, saved and run through the reference on a
+#: CPU).  Gauss-Jordan with partial pivoting is not rank-revealing there:
+#: at step 3 the deflated matrix has a clean gap (100 singular values
+#: <= 2e-5, the next 0.73-1.0) but a pivot above the threshold
+#: (3e-3 max|M|) in its null part; the SVD method finds the structure
+JORDAN_GJ_MISSES = {28: [[40, 40, 19, 0], [40, 40, 0, 0], [76, 0, 0, 0]],
+                    30: [[40, 39, 20, 0], [40, 40, 0, 0], [76, 0, 0, 0]]}
+#: config 4: three distinct eigenvalues, orthogonal transform (symmetric)
+SPEC_EIGS = (1.0,) * 86 + (2.0,) * 85 + (5.0,) * 85
+TOL_SPEC = 1e-2        # clustering radius; max|diag(D) - lambda| limit
+#: the QR route's config-4 batch: B_SPEC matrices of N_QR x N_QR
+N_QR = 32
+SPEC_EIGS_QR = (1.0,) * 11 + (2.0,) * 11 + (5.0,) * 10
+
+
+def jordan_structure(blocks, eigs, k_max):
+    """(Weyr [E, k_max], alg [E], geom [E]) of a Jordan form: w_k is the
+    number of blocks of size >= k."""
+    sizes = [[s for lam, s in blocks if lam == e] for e in eigs]
+    weyr = [[sum(s >= k for s in ss) for k in range(1, k_max + 1)]
+            for ss in sizes]
+    return weyr, [sum(ss) for ss in sizes], [len(ss) for ss in sizes]
+
+
+def slot_eigenvalues(eigs):
+    """The true eigenvalue of each slot of a report (descending)."""
+    return sorted(eigs, reverse=True)
+
+
+def jordan_input(dev):
+    """Config 5's batch: ``P^T J P`` with P orthogonal, seeded."""
+    from linalg_solver_tpu_torch.ops.generate import jordan_batch
+
+    g = torch.Generator(device=dev).manual_seed(1)
+    return jordan_batch(g, B_SPEC, JORDAN_BLOCKS, transform="orthogonal",
+                        device=dev)
+
+
+def spectral_input(dev, eigs=SPEC_EIGS, seed=0):
+    """Config 4's batch: ``P^T diag(eigs) P`` with P orthogonal, seeded."""
+    from linalg_solver_tpu_torch.ops.generate import diagonalizable_batch
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return diagonalizable_batch(g, B_SPEC, eigs, transform="orthogonal",
+                                device=dev)
+
+
+def weyr_report(weyr):
+    """(alg, geom, block counts) of a Weyr characteristic ``[E, k]``."""
+    blocks = [[x - y for x, y in zip(w, w[1:] + [0])] for w in weyr]
+    return [sum(w) for w in weyr], [w[0] for w in weyr], blocks
+
+
+def drive_jordan(dev):
+    """Phase 23, config 5 (jordan-256): ``jordan_analysis`` at B = 32,
+    n = 256 with both rank methods: ``"svd"`` the exact Weyr
+    characteristic, multiplicities and block counts on every lane,
+    ``"gj"`` the same but on the lanes of ``JORDAN_GJ_MISSES``, where it
+    reports what the reference reports; ``"gj"`` launches kernel 3's
+    variant 3 four times on ``[96, 256, 257]`` (``"svd"`` none), each
+    launch held bitwise against its plain version.  Returns the input,
+    the kernel-3 launches and the arrays of the launches."""
+    from linalg_solver_tpu_torch.models.jordan import jordan_analysis
+    from linalg_solver_tpu_torch.ops.kernels import gauss_jordan as gj
+
+    a = jordan_input(dev)
+    weyr, _, _ = jordan_structure(JORDAN_BLOCKS, JORDAN_EIGS, K_MAX)
+    E = len(JORDAN_EIGS)
+    out = {"a": a, "launches": 0}
+    for method in ("gj", "svd"):
+        calls, off = record(gj, "gauss_jordan_tiled")
+        reset_counts()
+        t0 = time.perf_counter()
+        rep = jordan_analysis(a, JORDAN_EIGS, k_max=K_MAX, method=method)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = phase_counts()
+        off()
+        misses = JORDAN_GJ_MISSES if method == "gj" else {}
+        bad, off_structure = [], {}
+        for i in range(B_SPEC):
+            w = misses.get(i, weyr)
+            got = (rep.weyr[i].tolist(), rep.alg_mult[i].tolist(),
+                   rep.geom_mult[i].tolist(), rep.block_counts[i].tolist())
+            if got != (w, *weyr_report(w)):
+                bad.append(i)
+            if got[0] != weyr:
+                off_structure[i] = got[0]
+        print(f"jordan path jordan_analysis(method={method!r}) B={B_SPEC} "
+              f"n={N_SPEC} at {JORDAN_EIGS}: launches {counts}, Weyr "
+              f"{rep.weyr[0].tolist()}, alg {rep.alg_mult[0].tolist()}, geom "
+              f"{rep.geom_mult[0].tolist()} on lane 0; exact on "
+              f"{B_SPEC - len(off_structure)}/{B_SPEC} lanes, off the "
+              f"structure {off_structure} (the reference's misses: "
+              f"{misses or 'none'}), {secs:.2f} s")
+        if bad:
+            raise AssertionError(f"jordan_analysis({method}) reports an "
+                                 f"unexpected structure on lanes {bad}")
+        want_counts = dict.fromkeys(counts, 0)
+        if method == "gj":
+            want_counts["gauss_jordan"] = K_MAX
+        if counts != want_counts:
+            raise AssertionError(f"expected launches {want_counts}")
+        if method == "gj":
+            shapes = {tuple(args[0].shape) for args, _ in calls}
+            if shapes != {(B_SPEC * E, N_SPEC, N_SPEC + 1)}:
+                raise AssertionError(f"kernel 3 shapes {shapes}")
+            for k, ((arr, tol), _) in enumerate(calls):
+                hold_gj_bitwise(arr, tol, f"on the Jordan gj path, step "
+                                          f"{k + 1}")
+            out["arrays"] = [args for args, _ in calls]
+            out["launches"] += counts["gauss_jordan"]
+    return out
+
+
+def check_spectral_report(rep, eigs, what):
+    """Config 4's limits: every lane diagonalizable, alg = geom = the
+    cluster sizes slot by slot, ``max|diag(D) - lambda| <= TOL_SPEC``."""
+    lam = torch.tensor(slot_eigenvalues(eigs), device=rep.D.device)
+    sizes = torch.tensor([eigs.count(v) for v in slot_eigenvalues(eigs)],
+                         device=rep.D.device, dtype=torch.int32)
+    err = float((rep.D.diagonal(dim1=1, dim2=2) - lam).abs().max())
+    diag_ok = bool(rep.diagonalizable.all())
+    mult_ok = (bool((rep.alg_mult == sizes).all())
+               and bool((rep.geom_mult == sizes).all()))
+    print(f"{what}: diagonalizable on {int(rep.diagonalizable.sum())}/"
+          f"{rep.D.shape[0]} lanes, alg = geom = cluster sizes "
+          f"{sorted(set(sizes.tolist()))} on every slot {mult_ok}, "
+          f"max|diag(D) - lambda| {err:.3e} (tol {TOL_SPEC})")
+    if not (diag_ok and mult_ok and err <= TOL_SPEC):
+        raise AssertionError(f"{what} is wrong")
+
+
+def drive_spectral(dev):
+    """Phase 24, config 4 (spectral-eigh-256, spectral-core-256):
+    ``spectral_pipeline(method="auto")`` on the symmetric batch takes the
+    eigh route (no kernel launch); the spectral core on eigh's
+    eigenvalues at ``max_distinct`` 3 and None: kernel 3 twice on
+    ``[96, 256, 257]`` and 16 times on ``[1024, 256, 257]``, and P^-1 on
+    the phase inverse (two kernel-4 and four kernel-5 launches a pass,
+    a second pass where its gate flags a lane); a launch of each held
+    bitwise.  Returns the input, eigenvalues, the launches
+    and the arrays."""
+    from linalg_solver_tpu_torch.models import spectral
+    from linalg_solver_tpu_torch.ops import rbt
+    from linalg_solver_tpu_torch.ops.kernels import gauss_jordan as gj
+    from linalg_solver_tpu_torch.ops.symmetric import eigh_batched
+
+    a = spectral_input(dev)
+    eigh_calls, off = record(spectral, "_report_from_eigh")
+    reset_counts()
+    rep = spectral.spectral_pipeline(a, tol=TOL_SPEC, method="auto")
+    torch.cuda.synchronize()
+    counts = phase_counts()
+    off()
+    print(f"spectral path spectral_pipeline(method='auto') B={B_SPEC} "
+          f"n={N_SPEC}: eigh route taken {len(eigh_calls)} time(s), "
+          f"launches {counts}")
+    if len(eigh_calls) != 1 or any(counts.values()):
+        raise AssertionError("method='auto' did not take the eigh route")
+    check_spectral_report(rep, SPEC_EIGS, "eigh pipeline")
+
+    ev = eigh_batched(a).w
+    zeros = torch.zeros_like(ev)
+    out = {"a": a, "ev": ev, "launches": {}, "arrays": {}}
+    for md in (3, None):
+        # the reference's chunks of 2^26 // (K n^2) matrices, two passes
+        # a chunk: 2 launches on [96, 256, 257] at K = 3, 16 on
+        # [1024, 256, 257] at K = n
+        K = md or N_SPEC
+        chunk = min(B_SPEC, max(1, 2**26 // (K * N_SPEC**2)))
+        want_gj, rows = 2 * -(-B_SPEC // chunk), chunk * K
+        calls, off = record(gj, "gauss_jordan_tiled", keep=1)
+        passes, off_passes = record(rbt, "_inverse_core")
+        reset_counts()
+        t0 = time.perf_counter()
+        rep = spectral._spectral_core(a, ev, zeros, TOL_SPEC,
+                                      max_distinct=md)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = phase_counts()
+        off()
+        off_passes()
+        arr, tol = calls[0][0]
+        shape = [rows, N_SPEC, N_SPEC + 1]
+        flagged = [int(bad.sum()) for _, (_, bad) in passes]
+        del passes[:]
+        print(f"spectral core max_distinct={md} B={B_SPEC} n={N_SPEC}: "
+              f"launches {counts}, kernel 3 on {list(arr.shape)}, P^-1 "
+              f"in {len(flagged)} phase-inverse pass(es) flagging "
+              f"{flagged} lanes (the last pass's to the pivoted rung), "
+              f"{secs:.2f} s")
+        # P^-1 on the phase inverse: two kernel-4 and four kernel-5
+        # launches a pass; a second pass (the redraw) where the gate
+        # flags a lane, as the no-pivot LU of a butterflied orthogonal
+        # matrix can grow past its f32 triangular inverses (the
+        # reference's gate flags such matrices too)
+        want = dict.fromkeys(counts, 0)
+        want.update(gauss_jordan=want_gj, butterfly=2 * len(flagged),
+                    lu_nopivot=4 * len(flagged))
+        if (counts != want or list(arr.shape) != shape
+                or len(flagged) not in (1, 2)):
+            raise AssertionError(f"expected launches {want} on {shape}")
+        check_spectral_report(rep, SPEC_EIGS, f"spectral core "
+                                              f"max_distinct={md}")
+        del calls
+        hold_gj_bitwise(arr, tol, f"on the spectral core, max_distinct={md}")
+        out["launches"][md] = counts
+        out["arrays"][md] = (arr, tol)
+    return out
+
+
+def drive_defective(dev, jordan):
+    """Phase 25, the defective control (spectral-defective-256): the
+    spectral core on config 5's batch with its exact eigenvalues flags no
+    lane diagonalizable and finds geom < alg at 2 and 5; then the QR
+    route at B = 32, n = 32 on a config-4 batch (kernel 3 twice on
+    ``[1024, 32, 33]``, P^-1 on kernel 2).  Returns the launches."""
+    from linalg_solver_tpu_torch.models import spectral
+
+    a = jordan["a"]
+    slots = slot_eigenvalues([e for e, s in JORDAN_BLOCKS for _ in range(s)])
+    lam = torch.tensor(slots, device=dev).expand(B_SPEC, -1).contiguous()
+    _, alg, geom = jordan_structure(JORDAN_BLOCKS, JORDAN_EIGS, K_MAX)
+    reset_counts()
+    rep = spectral._spectral_core(a, lam, torch.zeros_like(lam), TOL_SPEC,
+                                  max_distinct=3)
+    torch.cuda.synchronize()
+    counts = phase_counts()
+    firsts = [slots.index(e) for e in JORDAN_EIGS]
+    geo = rep.geom_mult[:, firsts]
+    al = rep.alg_mult[:, firsts]
+    print(f"defective control _spectral_core(max_distinct=3) B={B_SPEC} "
+          f"n={N_SPEC}: launches {counts}, diagonalizable on "
+          f"{int(rep.diagonalizable.sum())} lanes (want 0), alg at "
+          f"{JORDAN_EIGS} {al[0].tolist()} (built {alg}), geom "
+          f"{sorted(set(map(tuple, geo.tolist())))} (built {geom})")
+    if (bool(rep.diagonalizable.any()) or al.tolist() != [alg] * B_SPEC
+            or not bool((geo[:, :2] < al[:, :2]).all())):
+        raise AssertionError("the defective control is wrong")
+    launches = counts
+
+    aq = spectral_input(dev, SPEC_EIGS_QR, seed=2)
+    reset_counts()
+    t0 = time.perf_counter()
+    rep = spectral.spectral_pipeline(aq, tol=TOL_SPEC, method="qr")
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = phase_counts()
+    print(f"qr path spectral_pipeline(method='qr') B={B_SPEC} n={N_QR}: "
+          f"launches {counts}, {secs:.2f} s")
+    want = dict.fromkeys(counts, 0)
+    want.update(gauss_jordan=2, inv_rbt=1)
+    if counts != want:
+        raise AssertionError(f"expected launches {want}")
+    check_spectral_report(rep, SPEC_EIGS_QR, "qr pipeline")
+    return {k: launches[k] + counts[k] for k in counts}
+
+
+def time_eigen_paths(dev, card, jordan, spec):
+    """Phase 26: the eigen stack's paths (CUDA events, median of 3) —
+    ``jordan_analysis`` with both methods, the spectral core at both
+    ``max_distinct``, the eigh pipeline, and ``torch.linalg.eig`` on the
+    config-4 batch as a reference point; kernel 3 inside each path as
+    profiler device time; kernel 3's launch at ``[96, 256, 257]`` and
+    ``[1024, 256, 257]`` alone (CUDA events), its plain version (one
+    run) and its bound.  Returns kernel 3's entries for the JSON line."""
+    from linalg_solver_tpu_torch.models import spectral
+    from linalg_solver_tpu_torch.models.jordan import jordan_analysis
+    from linalg_solver_tpu_torch.ops.kernels import gauss_jordan as gj
+    from linalg_solver_tpu_torch.utils.benchmarking import cuda_time
+    from linalg_solver_tpu_torch.utils.benchmarking import device_time
+
+    a5, a4, ev = jordan["a"], spec["a"], spec["ev"]
+    zeros = torch.zeros_like(ev)
+    paths = {
+        "jordan_analysis(gj)": (lambda: jordan_analysis(
+            a5, JORDAN_EIGS, k_max=K_MAX, method="gj"), True),
+        "jordan_analysis(svd)": (lambda: jordan_analysis(
+            a5, JORDAN_EIGS, k_max=K_MAX, method="svd"), False),
+        "spectral core max_distinct=3": (lambda: spectral._spectral_core(
+            a4, ev, zeros, TOL_SPEC, max_distinct=3), True),
+        "spectral core max_distinct=None": (lambda: spectral._spectral_core(
+            a4, ev, zeros, TOL_SPEC, max_distinct=None), True),
+        "spectral_pipeline(eigh)": (lambda: spectral.spectral_pipeline(
+            a4, tol=TOL_SPEC, method="eigh"), False),
+        "torch.linalg.eig (reference point)": (
+            lambda: torch.linalg.eig(a4), False),
+    }
+    times = {}
+    for what, (fn, has_gj) in paths.items():
+        t = cuda_time(fn, warmup=1, iters=3)
+        k3 = (device_time(fn, warmup=0, iters=1, match="gj_device_kernel")
+              if has_gj else None)
+        times[what] = (t, k3)
+        k3_s = "" if k3 is None else f", kernel 3 device time {k3 * 1e3:.4f} ms"
+        print(f"time {what} B={B_SPEC} n={N_SPEC}: {t * 1e3:.4f} ms{k3_s} "
+              f"({card})")
+
+    shapes = []
+    for (arr, tol), path in ((jordan["arrays"][0], "jordan_analysis(gj)"),
+                             (spec["arrays"][None],
+                              "spectral core max_distinct=None")):
+        t_k = cuda_time(gj.gauss_jordan_tiled, arr, tol, warmup=1, iters=3)
+        t_p = cuda_time(gj.gauss_jordan_reference, arr, tol, warmup=0,
+                        iters=1)
+        b_ms, b_by = bound(*pivoted_work(*arr.shape))
+        print(f"time variant 3 [{arr.shape[1]}, {arr.shape[2]}] B="
+              f"{arr.shape[0]} ({path}): kernel {t_k * 1e3:.4f} ms, plain "
+              f"{t_p * 1e3:.4f} ms, path "
+              f"{times[path][0] * 1e3:.4f} ms, library none, bound "
+              f"{b_ms:.4f} ms {b_by} ({card})")
+        shapes.append({"shape": list(arr.shape), "op": path,
+                       "ms": t_k * 1e3, "plain_ms": t_p * 1e3,
+                       "path_ms": times[path][0] * 1e3,
+                       "path_kernel_device_ms": times[path][1] * 1e3,
+                       "bound_ms": b_ms, "bound_by": b_by,
+                       "library_ms": None,
+                       "variant": gj.variant(*arr.shape[1:])})
+    return shapes
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py: no CUDA device; there is no CPU path")
@@ -2143,6 +2510,16 @@ def main() -> None:
     serve_launches = serving_run(dev)
     v3_shapes = time_new_paths(dev, card, big, loops)
 
+    # 23-26. the device eigen stack (BASELINE configs 4 and 5) at
+    # examples/bench_spectral.py's size, the defective control, times
+    jordan = drive_jordan(dev)
+    spec = drive_spectral(dev)
+    eig_counts = drive_defective(dev, jordan)
+    eig_shapes = time_eigen_paths(dev, card, jordan, spec)
+    for c in spec["launches"].values():
+        eig_counts = {k: eig_counts[k] + c[k] for k in c}
+    eig_counts["gauss_jordan"] += jordan["launches"]
+
     # bounds from this run's shapes: bytes each input read and each output
     # written once; operations those the inputs need
     w = 2 * N_INV
@@ -2172,7 +2549,8 @@ def main() -> None:
         "route": "cuda",
         "source": "linalg_solver_tpu_torch/csrc/inv_rbt.cu",
         "replaces": "linalg_solver_tpu/ops/pallas/inv_rbt_kernel.py:125",
-        "launches": inv_launches + inv_large_launches,
+        "launches": (inv_launches + inv_large_launches
+                     + eig_counts["inv_rbt"]),
         "max_abs_err": max(inv_errs["inv_rbt"], inv_large_err),
         "ms": inv_times["kernel inverse_rbt_fused, device"] * 1e3,
         "host_ms": inv_times["kernel inverse_rbt_fused"] * 1e3,
@@ -2185,18 +2563,20 @@ def main() -> None:
         "source": "linalg_solver_tpu_torch/csrc/gauss_jordan.cu",
         "replaces": "linalg_solver_tpu/ops/pallas/gj_kernel.py:55",
         "launches": (gj_launches + gj_large_launches + big["launches"]
-                     + grad_launches + serve_launches),
+                     + grad_launches + serve_launches
+                     + eig_counts["gauss_jordan"]),
         "max_abs_err": max(inv_errs["gauss_jordan"], gj_err, gj_large_err),
         "ms": inv_times["kernel gauss_jordan_tiled [A|I]"] * 1e3,
         "plain_ms": inv_times["plain gauss_jordan_reference [A|I]"] * 1e3,
         "library_ms": inv_times["torch.linalg.inv"] * 1e3,
-        "large_shapes": gj_shapes + v3_shapes,
+        "large_shapes": gj_shapes + v3_shapes + eig_shapes,
     }, {
         "name": "butterfly_two_sided",
         "route": "cuda",
         "source": "linalg_solver_tpu_torch/csrc/butterfly.cu",
         "replaces": "linalg_solver_tpu/ops/pallas/butterfly_kernel.py:91",
-        "launches": phase["butterfly_launches"] + large_launches,
+        "launches": (phase["butterfly_launches"] + large_launches
+                     + eig_counts["butterfly"]),
         "max_abs_err": max(bf_err, phase["butterfly_err"], large_err),
         "ms": ph_times["kernel butterfly_two_sided, device"] * 1e3,
         "host_ms": ph_times["kernel butterfly_two_sided"] * 1e3,
@@ -2207,7 +2587,7 @@ def main() -> None:
         "route": "cuda",
         "source": "linalg_solver_tpu_torch/csrc/lu_nopivot.cu",
         "replaces": "linalg_solver_tpu/ops/pallas/lu_nopivot_kernel.py:41",
-        "launches": phase["panel_launches"],
+        "launches": phase["panel_launches"] + eig_counts["lu_nopivot"],
         "max_abs_err": phase["panel_err"],
         "ms": ph_times[
             "kernel panel_factor_nopivot, the 8 solve panels, device"] * 1e3,

@@ -31,5 +31,9 @@ Ported so far:
   blocked RREF (``ops.rref_blocked``), ``ops.dispatch
   .affine_solve_batched`` / ``nullspace_batched`` and the rank on the
   pivoted kernel to its big reach, and ``models.solver.BatchedSolver``
-  on one GPU.
+  on one GPU;
+- the device eigen stack: ``ops.eigen``, ``ops.orth``, ``ops.symmetric``,
+  ``ops.generate``, ``models.jordan.jordan_analysis`` and
+  ``models.spectral.spectral_pipeline`` (the symmetric and QR routes;
+  the Schur routes raise until ``ops/schur.py`` is ported).
 """

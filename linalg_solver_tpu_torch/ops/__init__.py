@@ -20,4 +20,23 @@
   diagonal blocks
 - ``kernels`` — hand-written CUDA kernels beside their plain versions,
   and the facade the inverse, det and rank route to
+- ``eigen`` — characteristic polynomial (Faddeev–LeVerrier), QR-iteration
+  eigenvalues, eigenspaces, multiplicities, diagonalization, and the
+  batched spectral decomposition on kernel 3
+- ``symmetric`` — the symmetric eigensolver with a backward that is
+  finite on repeated eigenvalues, and the symmetry probe
+- ``orth`` — batched masked CholeskyQR orthonormalization
+- ``generate`` — structured random batches on the device
 """
+
+from .symmetric import (
+    EighResult,
+    eigh_batched,
+    is_symmetric_batched,
+    symmetry_defect_batched,
+)
+
+__all__ = [
+    "EighResult", "eigh_batched", "is_symmetric_batched",
+    "symmetry_defect_batched",
+]

@@ -810,3 +810,26 @@ def test_auto_routes_the_reference_serves_on_the_card(cuda):
     torch.cuda.synchronize()
     assert (gj.LAUNCHES, sf.LAUNCHES, butterfly.LAUNCHES,
             lu_panel.LAUNCHES) == counts
+
+
+@pytest.mark.cuda
+def test_jordan_analysis_gj_on_the_card_matches_the_cpu(cuda):
+    """``jordan_analysis(method="gj")`` at n = 256 (kernel 3's variant 3,
+    one launch a deflation step) gives the Weyr characteristic the CPU
+    port (its plain version) gives, and the built one."""
+    from linalg_solver_tpu_torch.models.jordan import jordan_analysis
+    from linalg_solver_tpu_torch.ops.generate import jordan_batch
+
+    blocks = ((2.0, 3),) * 20 + ((2.0, 2),) * 20 + ((5.0, 2),) * 40 + (
+        (1.0, 1),) * 76
+    a = jordan_batch(torch.Generator(device=cuda).manual_seed(1), 2, blocks,
+                     transform="orthogonal", device=cuda)
+    before = gj.LAUNCHES
+    rep = jordan_analysis(a, (2.0, 5.0, 1.0), k_max=4, method="gj")
+    torch.cuda.synchronize()
+    assert gj.LAUNCHES - before == 4
+    cpu = jordan_analysis(a.cpu(), (2.0, 5.0, 1.0), k_max=4, method="gj")
+    for got, want in zip(rep, cpu):
+        assert torch.equal(got.cpu(), want)
+    assert rep.weyr[0].tolist() == [[40, 40, 20, 0], [40, 40, 0, 0],
+                                    [76, 0, 0, 0]]

@@ -1,0 +1,175 @@
+"""The port's Jordan analysis and spectral pipeline
+(``linalg_solver_tpu_torch.models.jordan`` / ``.spectral``) against the
+JAX package's ``models.jordan`` / ``.spectral``, on the JAX generators'
+batches as numpy.
+
+Exact: Weyr characteristics, multiplicities, block counts, nullities,
+``diagonalizable``.  Values: eigenvalues within 1e-5 of max|A| (eigh)
+and 1e-4 (the QR route); ``P``, ``P⁻¹``, ``D`` within 1e-4 of their
+largest entry, where the eigh route's sign freedom makes the test
+compare spans (``P D Pᵀ`` and per-column ``|⟨p, q⟩|``) instead of
+vectors; null bases from the SVD as projectors (singular vectors differ
+in sign between the two libraries).  The refusals of the Schur methods
+and of the mesh are checked by message."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from linalg_solver_tpu.models import jordan as jjor
+from linalg_solver_tpu.models import spectral as jspec
+from linalg_solver_tpu.ops import generate as jgen
+from linalg_solver_tpu_torch.models import jordan as tjor
+from linalg_solver_tpu_torch.models import spectral as tspec
+
+RTOL = 1e-4
+#: a small config 5: blocks at 2 (sizes 3, 2, 1), at 5 (2, 2), at 1 (1)
+BLOCKS = ((2.0, 3), (2.0, 2), (2.0, 1), (5.0, 2), (5.0, 2), (1.0, 1))
+EIGS = (2.0, 5.0, 1.0)
+
+
+def _close(got, want, rtol=RTOL):
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    assert got.shape == want.shape
+    assert np.abs(got - want).max() <= rtol * max(np.abs(want).max(), 1.0)
+
+
+def _exact(got, want):
+    np.testing.assert_array_equal(np.asarray(got), np.asarray(want))
+
+
+@pytest.fixture(scope="module")
+def jordan_batch():
+    return np.array(jgen.jordan_batch(jax.random.PRNGKey(7), 3, BLOCKS,
+                                      transform="orthogonal"))
+
+
+@pytest.mark.parametrize("method", ["gj", "svd"])
+def test_jordan_analysis_matches_jax(jordan_batch, method):
+    a = jordan_batch
+    rj = jjor.jordan_analysis(jnp.asarray(a), jnp.asarray(EIGS), k_max=4,
+                              method=method)
+    rt = tjor.jordan_analysis(torch.from_numpy(a), EIGS, k_max=4,
+                              method=method)
+    for f in rj._fields:
+        _exact(getattr(rt, f), getattr(rj, f))
+    assert rt.weyr[0].tolist() == [[3, 2, 1, 0], [2, 2, 0, 0], [1, 0, 0, 0]]
+    assert rt.alg_mult.tolist() == [[6, 4, 1]] * 3
+    assert rt.block_counts[0, 0].tolist() == [1, 1, 1, 0]
+
+
+def test_jordan_analysis_per_lane_eigenvalues(jordan_batch):
+    """``eigenvalues [B, E]``: a lane asked about an eigenvalue it does
+    not have reports zero there."""
+    a = jordan_batch
+    lam = np.array([[2.0, 5.0], [5.0, 1.0], [3.0, 2.0]], np.float32)
+    rj = jjor.jordan_analysis(jnp.asarray(a), jnp.asarray(lam), k_max=3)
+    rt = tjor.jordan_analysis(torch.from_numpy(a), torch.from_numpy(lam),
+                              k_max=3)
+    for f in rj._fields:
+        _exact(getattr(rt, f), getattr(rj, f))
+    assert rt.alg_mult.tolist() == [[6, 4], [4, 1], [0, 6]]
+
+
+def test_jordan_null_bases_match_jax(jordan_batch):
+    """One deflation step's null bases: the gj path's orthonormalized
+    generators value for value; the SVD's as projectors ``Q Qᵀ`` (the
+    singular vectors' signs are the library's)."""
+    a = jordan_batch
+    M = a - 2.0 * np.eye(a.shape[-1], dtype=np.float32)
+    tol = 100 * a.shape[-1] * np.finfo(np.float32).eps * np.abs(M).max(
+        axis=(1, 2))
+    tol = tol.astype(np.float32)
+    for jf, tf in ((jjor._nullspace_gj, tjor._nullspace_gj),
+                   (jjor._nullspace_svd, tjor._nullspace_svd)):
+        qj, dj = jf(jnp.asarray(M), jnp.asarray(tol))
+        qt, dt = tf(torch.from_numpy(M), torch.from_numpy(tol))
+        _exact(dt, dj)
+        assert dt.tolist() == [3, 3, 3]
+        if jf is jjor._nullspace_gj:
+            _close(qt.numpy(), qj)
+        qj = np.asarray(qj, np.float64)
+        qt = qt.numpy().astype(np.float64)
+        _close(qt @ qt.transpose(0, 2, 1), qj @ qj.transpose(0, 2, 1))
+
+
+def test_jordan_analysis_rejects_an_unknown_method(jordan_batch):
+    with pytest.raises(ValueError, match="rank method"):
+        tjor.jordan_analysis(torch.from_numpy(jordan_batch), EIGS,
+                             method="lu")
+
+
+@pytest.fixture(scope="module")
+def symmetric_batch():
+    """Config 4 in small: an orthogonal similarity of diag(1 x 3, 2 x 3,
+    5 x 2), as the reference generates it."""
+    eigs = [1.0] * 3 + [2.0] * 3 + [5.0] * 2
+    return np.array(jgen.diagonalizable_batch(
+        jax.random.PRNGKey(0), 3, eigs, transform="orthogonal")), eigs
+
+
+@pytest.mark.parametrize("method", ["eigh", "auto"])
+def test_eigh_pipeline_matches_jax(symmetric_batch, method):
+    a, eigs = symmetric_batch
+    rj = jspec.spectral_pipeline(jnp.asarray(a), tol=1e-2, method=method)
+    rt = tspec.spectral_pipeline(torch.from_numpy(a), tol=1e-2,
+                                 method=method)
+    for f in ("alg_mult", "geom_mult", "diagonalizable"):
+        _exact(getattr(rt, f), getattr(rj, f))
+    scale = np.abs(a).max()
+    assert np.abs(rt.eig_real.numpy() - np.asarray(rj.eig_real)).max() <= \
+        1e-5 * scale
+    assert rt.alg_mult[0].tolist() == [2, 2, 3, 3, 3, 3, 3, 3]
+    # spans: the reconstruction and, where an eigenvalue repeats, the
+    # eigenspace's projector
+    P, Pj = rt.P.numpy().astype(np.float64), np.asarray(rj.P, np.float64)
+    _close(P @ rt.D.numpy() @ rt.P_inv.numpy(), a)
+    _close(rt.P_inv.numpy(), P.transpose(0, 2, 1))
+    for lo, hi in ((0, 2), (2, 5), (5, 8)):
+        _close(P[:, :, lo:hi] @ P[:, :, lo:hi].transpose(0, 2, 1),
+               Pj[:, :, lo:hi] @ Pj[:, :, lo:hi].transpose(0, 2, 1))
+    _close(rt.D.numpy(), rj.D)
+
+
+def test_spectral_core_and_qr_pipeline_match_jax(symmetric_batch):
+    """The spectral core on given eigenvalues (kernel 3's plain version
+    against the reference's loop), and the QR route end to end."""
+    a, eigs = symmetric_batch
+    ev = np.tile(np.sort(np.array(eigs, np.float32)), (3, 1))
+    zeros = np.zeros_like(ev)
+    rj = jspec._spectral_core(jnp.asarray(a), jnp.asarray(ev),
+                              jnp.asarray(zeros), 1e-2)
+    rt = tspec._spectral_core(torch.from_numpy(a), torch.from_numpy(ev),
+                              torch.from_numpy(zeros), 1e-2)
+    for f in ("alg_mult", "geom_mult", "diagonalizable", "eig_real"):
+        _exact(getattr(rt, f), getattr(rj, f))
+    for f in ("P", "P_inv", "D"):
+        _close(getattr(rt, f).numpy(), getattr(rj, f))
+    rj = jspec.spectral_pipeline(jnp.asarray(a), iters=60, tol=1e-2,
+                                 method="qr")
+    rt = tspec.spectral_pipeline(torch.from_numpy(a), iters=60, tol=1e-2,
+                                 method="qr")
+    for f in ("alg_mult", "geom_mult", "diagonalizable"):
+        _exact(getattr(rt, f), getattr(rj, f))
+    assert rt.diagonalizable.tolist() == [True] * 3
+    _close(rt.eig_real.numpy(), rj.eig_real)
+    _close(rt.D.numpy(), rj.D, rtol=1e-3)
+
+
+@pytest.mark.parametrize("method", ["schur", "eig", "auto"])
+def test_schur_methods_raise_naming_what_is_missing(jordan_batch, method):
+    """The reference's default and its eigenvector method need
+    ``ops/schur.py``, and so does ``auto`` on a non-symmetric batch: the
+    port refuses them and sends nothing to another eigensolver."""
+    with pytest.raises(NotImplementedError, match=r"ops/schur\.py"):
+        tspec.spectral_pipeline(torch.from_numpy(jordan_batch),
+                                method=method)
+
+
+def test_sharded_pipeline_raises_naming_its_item():
+    with pytest.raises(NotImplementedError, match="queue 1 item 13"):
+        tspec.spectral_pipeline_sharded(torch.zeros(2, 4, 4), mesh=None)
+    with pytest.raises(ValueError, match="unknown method"):
+        tspec.spectral_pipeline(torch.zeros(2, 4, 4), method="lapack")
