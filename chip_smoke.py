@@ -1,8 +1,9 @@
 """Drive the PyTorch port's batched solve and batched inverse once on a
 CUDA card, through the fused kernels and through the RBT phase engine,
 then its pivoted, rank-revealing paths (affine solve, nullspace, rank),
-the loop backend, ``BatchedSolver``'s serving flow and the device eigen
-stack (Jordan analysis and the spectral pipeline).
+the loop backend, ``BatchedSolver``'s serving flow, the device eigen
+stack (Jordan analysis and the spectral pipeline) and the real Schur
+solver with the spectral pipeline's Schur routes.
 
     python3 chip_smoke.py
 
@@ -147,9 +148,33 @@ uncaught exception and a non-zero exit:
     each as profiler device time), ``torch.linalg.eig`` on the config-4
     batch as a reference point, and kernel 3 alone at
     ``[96, 256, 257]`` and ``[1024, 256, 257]`` beside its plain
+    version and bound;
+27. the real Schur solver (``ops.schur``) at the same size,
+    schur-gauss-256: ``eigvals_schur`` on 32 seeded Gaussian 256x256
+    matrices, every lane converged and clean, the eigenvalues within
+    2e-3 of numpy's float64 ones, the sweep count printed; the bulge
+    chase kernel (``csrc/schur_chase.cu``, one launch a Francis sweep:
+    64 AED inner sweeps and one main sweep an outer sweep, replayed from
+    a CUDA graph) held bitwise against its plain version on every launch
+    of the first outer sweep;
+28. spectral-schur-256: config 4's batch through
+    ``spectral_pipeline(method="schur")`` at ``max_distinct`` 3 and None,
+    every lane diagonalizable with alg = geom = the cluster sizes, kernel
+    3 and the phase inverse launched as in phase 24, a kernel-3 launch
+    held bitwise;
+29. spectral-auto-jordan-256: config 5's batch through ``method="auto"``
+    takes the Schur route, and no lane is reported diagonalizable;
+30. spectral-eig-256: ``method="eig"`` on ``P diag(lambda) P^-1`` (256
+    distinct reals, built in float64 from a seed): every lane
+    diagonalizable, alg = 1, ``max|diag(D) - lambda| <= 1e-3``, P^-1 on
+    the phase inverse (kernels 4 and 5 held bitwise), the chase kernel
+    held with Q;
+31. time one outer sweep eagerly and as a CUDA-graph replay, the four
+    cells (median of 3) beside ``torch.linalg.eigvals`` / ``eig``, and
+    the chase kernel alone at the main sweep's shape beside its plain
     version and bound.
 
-The line before the last is a JSON summary of the six kernels, each with
+The line before the last is a JSON summary of the seven kernels, each with
 its bound (the larger of its bytes over 3.35 TB/s and its operations
 over the 67 TFLOP/s FP32 rate, counted from this run's inputs) and the
 time of the one library call that computes the same function, where
@@ -157,8 +182,9 @@ there is one (the ``ms`` of kernels 2, 4 and 5 is device time from
 ``torch.profiler``, kernel 5's over the solve path's eight panels;
 ``host_ms`` the CUDA-event time of the same Python calls; kernels 2 and
 3 list their large shapes, kernel 3's variant-3 shapes with their plain
-and path times); the last line is ``{"ok": true, "device":
-{...}}``.
+and path times; the chase kernel, which replaces an XLA scan and no
+Pallas kernel, its main sweep's shapes and the eager and graph sweep
+times); the last line is ``{"ok": true, "device": {...}}``.
 Imports nothing of JAX.
 """
 
@@ -727,6 +753,8 @@ def check_phase_solve(dev):
 
 
 def phase_counts():
+    """Launches of kernels 1-6 since ``reset_counts`` (the chase kernel's
+    are ``schur_chase.LAUNCHES``, read by the Schur phases)."""
     from linalg_solver_tpu_torch.ops.kernels import butterfly, gauss_jordan
     from linalg_solver_tpu_torch.ops.kernels import inv_rbt, lu_nopivot
     from linalg_solver_tpu_torch.ops.kernels import lu_panel, solve_fused
@@ -740,10 +768,11 @@ def phase_counts():
 def reset_counts():
     from linalg_solver_tpu_torch.ops.kernels import butterfly, gauss_jordan
     from linalg_solver_tpu_torch.ops.kernels import inv_rbt, lu_nopivot
-    from linalg_solver_tpu_torch.ops.kernels import lu_panel, solve_fused
+    from linalg_solver_tpu_torch.ops.kernels import lu_panel, schur_chase
+    from linalg_solver_tpu_torch.ops.kernels import solve_fused
 
     for mod in (solve_fused, inv_rbt, gauss_jordan, butterfly, lu_nopivot,
-                lu_panel):
+                lu_panel, schur_chase):
         mod.LAUNCHES = 0
 
 
@@ -2349,6 +2378,364 @@ def time_eigen_paths(dev, card, jordan, spec):
     return shapes
 
 
+# --- the real Schur solver (ops/schur.py) and its routes -----------------
+
+#: schur-gauss-256: max distance of a lane's eigenvalues from numpy's
+#: float64 ones (greedy nearest matching)
+TOL_SCHUR_EIG = 2e-3
+#: spectral-eig-256: max|diag(D) - lambda|
+TOL_EIG_CELL = 1e-3
+
+
+def gaussian_input(dev):
+    """schur-gauss-256's batch: 32 seeded Gaussian 256x256 f32 matrices."""
+    g = torch.Generator(device=dev).manual_seed(3)
+    return torch.randn(B_SPEC, N_SPEC, N_SPEC, generator=g, device=dev)
+
+
+def eig_input(dev):
+    """spectral-eig-256's batch: ``A = P diag(lam) P^-1`` built in float64
+    on the host from a seed, lam = 1 + 4i/255 (256 distinct reals), P =
+    I + G/(4 sqrt n); rounded to f32 on the card.  Returns (A, lam in
+    the report's descending slot order)."""
+    import numpy as np
+
+    rng = np.random.RandomState(5)
+    n = N_SPEC
+    lam = 1.0 + 4.0 * np.arange(n) / (n - 1)
+    P = np.eye(n) + rng.randn(B_SPEC, n, n) / (4 * n**0.5)
+    a = np.einsum("bij,j,bjk->bik", P, lam, np.linalg.inv(P))
+    return torch.from_numpy(a.astype(np.float32)).to(dev), lam[::-1].copy()
+
+
+def eig_deviation(re, im, a):
+    """Per lane, the largest distance of the eigenvalues ``re + i im``
+    from numpy's float64 ``eigvals`` of ``a`` under a greedy nearest
+    matching (host, float64)."""
+    import numpy as np
+
+    want = np.linalg.eigvals(a.double().cpu().numpy())
+    got = (re.double() + 1j * im.double()).cpu().numpy()
+    out = []
+    for g_l, w_l in zip(got, want):
+        left = np.array(w_l)
+        worst = 0.0
+        for z in g_l[np.argsort(g_l.real)]:
+            j = int(np.argmin(np.abs(left - z)))
+            worst = max(worst, abs(left[j] - z))
+            left = np.delete(left, j)
+        out.append(worst)
+    return out
+
+
+def chase_work(H, Q, tables):
+    """(bytes, operations) of one chase-kernel launch: H (and Q) read and
+    written once, the tables read once; a live bulge-step (an entry of
+    the ``act`` table: each (bulge, position) is visited once a sweep)
+    costs 11 operations a column of its row update, 11 a row of its
+    column updates of H and Q, and ~30 for its reflector."""
+    B, npad, _ = H.shape
+    nq = 0 if Q is None else Q.shape[1]
+    R = tables[0].shape[1]
+    live = int(tables[0].sum())
+    nbytes = (H.element_size() * (2 * B * npad * npad + 2 * B * nq * npad
+                                  + 2 * B * R * npad) + 4 * B * R * npad)
+    return nbytes, live * (11 * npad + 11 * (npad + nq) + 30)
+
+
+def hold_chase(a, with_q, what):
+    """The chase kernel against its plain version, bitwise, on every
+    launch of one outer sweep of ``ops.schur`` from ``a``'s initial state
+    (the AED windows' chases and the main multishift chase: the arrays
+    the path gives the kernel in its first sweep).  Returns (max abs
+    diff, the main chase's arguments)."""
+    from linalg_solver_tpu_torch.ops import schur
+    from linalg_solver_tpu_torch.ops.kernels import schur_chase as sc
+
+    B_, n = a.shape[0], a.shape[1]
+    npairs = schur._auto_npairs(n)
+    aed_w = schur._auto_aed_w(n, npairs)
+    H, Q, hi, st, an, _ = schur._schur_init(a, with_q=with_q)
+    state = (H, Q, hi, st, an, torch.zeros_like(hi, dtype=torch.bool),
+             torch.zeros((), dtype=torch.long, device=a.device))
+    calls = []
+    orig = sc.francis_chase
+
+    def rec(H, Q, tables, nc):
+        args = (H.clone(), None if Q is None else Q.clone(),
+                [t.clone() for t in tables], nc)
+        out = orig(H, Q, tables, nc)
+        calls.append((args, out))
+        return out
+
+    sc.francis_chase = rec
+    try:
+        with schur.f32_matmuls():
+            schur._schur_sweep(state, npairs, aed_w)
+    finally:
+        sc.francis_chase = orig
+    torch.cuda.synchronize()
+    err = 0.0
+    for (H, Q, tables, nc), (Ho, Qo) in calls:
+        Hr, Qr = sc.francis_chase_reference(H, Q, tables, nc)
+        same = nan_equal(Ho, Hr) and (Q is None or nan_equal(Qo, Qr))
+        if not same:
+            raise AssertionError(f"chase kernel {what} disagrees with its "
+                                 f"plain version on {list(H.shape)}, "
+                                 f"{nc + 1} bulges a step")
+        err = max(err, abs_diff(Ho, Hr))
+    shapes = sorted({(tuple(c[0][0].shape), c[0][3] + 1) for c in calls})
+    print(f"chase kernel vs plain {what}: {len(calls)} launches of one "
+          f"outer sweep (shape, bulges a step: {shapes}), all bitwise equal "
+          f"(max abs diff {err:.3e})")
+    main = [c[0] for c in calls if c[0][0].shape[1] == n + 1]
+    return err, main[0]
+
+
+def drive_schur(dev):
+    """Phase 27, schur-gauss-256: ``eigvals_schur`` on 32 seeded Gaussian
+    256x256 f32 matrices (8 shift pairs, AED window 32: one chase-kernel
+    launch an inner AED sweep and one a main sweep, replayed from a CUDA
+    graph): every lane converged and clean, the eigenvalues within
+    ``TOL_SCHUR_EIG`` of numpy's float64 ones; no kernel 1-6 launch;
+    then the chase kernel held bitwise against its plain version on
+    every launch of the first sweep.  Returns the input, the launches,
+    the held error and the main chase's arguments."""
+    from linalg_solver_tpu_torch.ops import schur
+    from linalg_solver_tpu_torch.ops.kernels import schur_chase as sc
+
+    a = gaussian_input(dev)
+    runs, off = record(schur, "real_schur")
+    reset_counts()
+    t0 = time.perf_counter()
+    ev = schur.eigvals_schur(a)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts, chase = phase_counts(), sc.LAUNCHES
+    off()
+    sweeps = int(runs[0][1].sweeps)
+    dev_ = max(eig_deviation(ev.real, ev.imag, a))
+    conv, clean = int(ev.converged.sum()), int(ev.clean.sum())
+    print(f"schur path eigvals_schur B={B_SPEC} n={N_SPEC} Gaussian: "
+          f"converged {conv}/{B_SPEC}, clean {clean}/{B_SPEC}, {sweeps} "
+          f"sweeps, max eigenvalue deviation from numpy float64 "
+          f"{dev_:.3e} (tol {TOL_SCHUR_EIG}), chase launches {chase}, "
+          f"other launches {counts}, {secs:.2f} s (CUDA-graph capture "
+          f"included)")
+    if any(counts.values()) or chase < 1:
+        raise AssertionError("eigvals_schur launched other kernels or no "
+                             "chase")
+    if ev.real.shape != (B_SPEC, N_SPEC) or not bool(
+            torch.isfinite(ev.real).all() & torch.isfinite(ev.imag).all()):
+        raise AssertionError("eigvals_schur's output has the wrong shape or "
+                             "non-finite values")
+    if conv != B_SPEC or clean != B_SPEC or not dev_ <= TOL_SCHUR_EIG:
+        raise AssertionError("eigvals_schur is wrong")
+    err, main = hold_chase(a, False, "on schur-gauss-256")
+    return {"a": a, "launches": chase, "err": err, "main": main,
+            "sweeps": sweeps}
+
+
+def drive_schur_spectral(dev):
+    """Phases 28-30: config 4's batch through ``spectral_pipeline(
+    method="schur")`` at ``max_distinct`` 3 and None (spectral-schur-256:
+    every lane diagonalizable, alg = geom = the cluster sizes, kernel 3
+    as in phase 24, a launch of it held bitwise); config 5's batch through
+    ``method="auto"`` (spectral-auto-jordan-256: the Schur route, no lane
+    diagonalizable); spectral-eig-256 through ``method="eig"`` (every lane
+    diagonalizable, alg = 1, ``max|diag(D) - lambda| <= TOL_EIG_CELL``,
+    P^-1 on the phase inverse: kernels 4 and 5 held bitwise) and the
+    chase kernel held with Q.  Returns the inputs, the launches of each
+    kernel and the held errors."""
+    from linalg_solver_tpu_torch.models import spectral
+    from linalg_solver_tpu_torch.ops import rbt
+    from linalg_solver_tpu_torch.ops.kernels import butterfly, lu_nopivot
+    from linalg_solver_tpu_torch.ops.kernels import gauss_jordan as gj
+    from linalg_solver_tpu_torch.ops.kernels import schur_chase as sc
+
+    out = {"launches": dict.fromkeys(phase_counts(), 0), "chase": 0}
+
+    def add(counts):
+        for k in counts:
+            out["launches"][k] += counts[k]
+        out["chase"] += sc.LAUNCHES
+
+    a4 = spectral_input(dev)
+    for md in (3, None):
+        K = md or N_SPEC
+        chunk = min(B_SPEC, max(1, 2**26 // (K * N_SPEC**2)))
+        calls, off = record(gj, "gauss_jordan_tiled", keep=1)
+        passes, off_passes = record(rbt, "_inverse_core")
+        schur_runs, off_s = record(spectral, "eigvals_schur")
+        reset_counts()
+        t0 = time.perf_counter()
+        rep = spectral.spectral_pipeline(a4, tol=TOL_SPEC, method="schur",
+                                         max_distinct=md)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = phase_counts()
+        add(counts)
+        off()
+        off_passes()
+        off_s()
+        flagged = [int(bad.sum()) for _, (_, bad) in passes]
+        del passes[:]
+        print(f"spectral-schur path spectral_pipeline(method='schur', "
+              f"max_distinct={md}) B={B_SPEC} n={N_SPEC}: Schur stage "
+              f"{len(schur_runs)} call(s), chase launches {sc.LAUNCHES}, "
+              f"launches {counts}, P^-1 in {len(flagged)} phase-inverse "
+              f"pass(es) flagging {flagged} lanes, {secs:.2f} s")
+        want = dict.fromkeys(counts, 0)
+        want.update(gauss_jordan=2 * -(-B_SPEC // chunk),
+                    butterfly=2 * len(flagged), lu_nopivot=4 * len(flagged))
+        if (counts != want or len(schur_runs) != 1 or sc.LAUNCHES < 1
+                or len(flagged) not in (1, 2)):
+            raise AssertionError(f"expected launches {want} and the Schur "
+                                 f"stage")
+        check_spectral_report(rep, SPEC_EIGS, f"schur pipeline "
+                                              f"max_distinct={md}")
+        arr, tol = calls[0][0]
+        del calls
+        hold_gj_bitwise(arr, tol, f"on the schur pipeline, max_distinct={md}")
+    out["a4"] = a4
+
+    a5 = jordan_input(dev)
+    schur_runs, off_s = record(spectral, "eigvals_schur")
+    eigh_runs, off_e = record(spectral, "_report_from_eigh")
+    reset_counts()
+    t0 = time.perf_counter()
+    rep = spectral.spectral_pipeline(a5, tol=TOL_SPEC, method="auto")
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = phase_counts()
+    add(counts)
+    off_s()
+    off_e()
+    alg = sorted(set(rep.alg_mult.flatten().tolist()))
+    at_built = [int(rep.alg_mult[0][(rep.eig_real[0] - e).abs()
+                                    <= TOL_SPEC].max()) for e in JORDAN_EIGS]
+    print(f"spectral-auto-jordan path spectral_pipeline(method='auto') "
+          f"B={B_SPEC} n={N_SPEC} (config 5): Schur route {len(schur_runs)} "
+          f"call(s), eigh route {len(eigh_runs)}, chase launches "
+          f"{sc.LAUNCHES}, launches {counts}, diagonalizable on "
+          f"{int(rep.diagonalizable.sum())}/{B_SPEC} lanes (want 0), alg "
+          f"multiplicities seen {alg}, lane 0's at the built eigenvalues "
+          f"{at_built} "
+          f"(built {jordan_structure(JORDAN_BLOCKS, JORDAN_EIGS, K_MAX)[1]}), "
+          f"{secs:.2f} s")
+    if (len(schur_runs) != 1 or eigh_runs or sc.LAUNCHES < 1
+            or bool(rep.diagonalizable.any())):
+        raise AssertionError("method='auto' on config 5 is wrong")
+    out["a5"] = a5
+
+    ae, lam = eig_input(dev)
+    eig_runs, off_g = record(spectral, "eig_real_batched")
+    bf_calls, bf_off = record(butterfly, "butterfly_two_sided")
+    lu_calls, lu_off = record(lu_nopivot, "panel_factor_nopivot")
+    reset_counts()
+    t0 = time.perf_counter()
+    rep = spectral.spectral_pipeline(ae, tol=TOL_SPEC, method="eig")
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = phase_counts()
+    add(counts)
+    off_g()
+    bf_off()
+    lu_off()
+    lam_t = torch.tensor(lam, device=dev, dtype=torch.float32)
+    err = float((rep.D.diagonal(dim1=1, dim2=2) - lam_t).abs().max())
+    ndiag = int(rep.diagonalizable.sum())
+    print(f"spectral-eig path spectral_pipeline(method='eig') B={B_SPEC} "
+          f"n={N_SPEC}: eig_real_batched {len(eig_runs)} call(s), chase "
+          f"launches {sc.LAUNCHES}, launches {counts} (P^-1 on the phase "
+          f"inverse), diagonalizable on {ndiag}/{B_SPEC} lanes, alg = 1 "
+          f"everywhere {bool((rep.alg_mult == 1).all())}, max|diag(D) - "
+          f"lambda| {err:.3e} (tol {TOL_EIG_CELL}), {secs:.2f} s")
+    if (len(eig_runs) != 1 or sc.LAUNCHES < 1 or counts["gauss_jordan"]
+            or counts["butterfly"] < 2 or counts["lu_nopivot"] < 4):
+        raise AssertionError("method='eig' did not take its route")
+    if (ndiag != B_SPEC or not bool((rep.alg_mult == 1).all())
+            or not err <= TOL_EIG_CELL):
+        raise AssertionError("method='eig' is wrong")
+    out["bf_err"] = hold_butterflies(bf_calls, "on the eig route's P^-1")
+    out["panel_err"], _ = hold_panels(lu_calls, "on the eig route's P^-1")
+    out["ae"] = ae
+    out["err"], out["main_q"] = hold_chase(ae, True, "on spectral-eig-256")
+    return out
+
+
+def time_schur_paths(dev, card, schur_out, spec_out):
+    """Phase 31: one outer sweep at [32, 256, 256] eagerly and as a CUDA
+    graph replay; the four cells' calls (CUDA events, median of 3) beside
+    ``torch.linalg.eigvals`` / ``eig`` on the same batches (reference
+    points only); the chase kernel alone at the main sweep's shape and
+    an AED window's, beside its plain version and bound.  Returns the
+    chase kernel's times."""
+    from linalg_solver_tpu_torch.models import spectral
+    from linalg_solver_tpu_torch.ops import schur
+    from linalg_solver_tpu_torch.ops.kernels import schur_chase as sc
+    from linalg_solver_tpu_torch.utils.benchmarking import cuda_time
+
+    a, a4, a5, ae = (schur_out["a"], spec_out["a4"], spec_out["a5"],
+                     spec_out["ae"])
+    npairs = schur._auto_npairs(N_SPEC)
+    aed_w = schur._auto_aed_w(N_SPEC, npairs)
+    H, Q, hi, st, an, _ = schur._schur_init(a)
+    state = (H, Q, hi, st, an, torch.zeros_like(hi, dtype=torch.bool),
+             torch.zeros((), dtype=torch.long, device=dev))
+
+    def eager_sweep():
+        with schur.f32_matmuls():
+            schur._schur_sweep(state, npairs, aed_w)
+
+    graph = schur._sweep_graph(state, npairs, aed_w)
+    t_eager = cuda_time(eager_sweep, warmup=1, iters=3)
+    t_graph = cuda_time(graph.replay, warmup=1, iters=3)
+    print(f"time one outer sweep B={B_SPEC} n={N_SPEC} (AED w={aed_w}, "
+          f"{2 * aed_w} inner sweeps, {npairs} shift pairs): eager "
+          f"{t_eager * 1e3:.4f} ms, CUDA graph {t_graph * 1e3:.4f} ms "
+          f"({card})")
+    cells = {
+        "schur-gauss-256 eigvals_schur": lambda: schur.eigvals_schur(a),
+        "torch.linalg.eigvals (reference point)":
+            lambda: torch.linalg.eigvals(a),
+        "spectral-schur-256 max_distinct=3":
+            lambda: spectral.spectral_pipeline(a4, tol=TOL_SPEC,
+                                               method="schur",
+                                               max_distinct=3),
+        "spectral-schur-256 max_distinct=None":
+            lambda: spectral.spectral_pipeline(a4, tol=TOL_SPEC,
+                                               method="schur"),
+        "spectral-auto-jordan-256": lambda: spectral.spectral_pipeline(
+            a5, tol=TOL_SPEC, method="auto"),
+        "spectral-eig-256": lambda: spectral.spectral_pipeline(
+            ae, tol=TOL_SPEC, method="eig"),
+        "torch.linalg.eig on spectral-eig-256 (reference point)":
+            lambda: torch.linalg.eig(ae),
+    }
+    times = {"sweep eager": t_eager, "sweep graph": t_graph}
+    for what, fn in cells.items():
+        times[what] = cuda_time(fn, warmup=0, iters=3)
+        print(f"time {what} B={B_SPEC} n={N_SPEC}: "
+              f"{times[what] * 1e3:.4f} ms ({card})")
+    rows = []
+    for args, what in ((schur_out["main"], "main sweep"),
+                       (spec_out["main_q"], "main sweep with Q")):
+        H, Qm, tables, nc = args
+        t_k = cuda_time(sc.francis_chase, H, Qm, tables, nc, warmup=1,
+                        iters=3)
+        t_p = cuda_time(sc.francis_chase_reference, H, Qm, tables, nc,
+                        warmup=0, iters=1)
+        b_ms, b_by = bound(*chase_work(H, Qm, tables))
+        print(f"time chase kernel {what} {list(H.shape)}, {nc + 1} bulges a "
+              f"step: kernel {t_k * 1e3:.4f} ms, plain {t_p * 1e3:.4f} ms, "
+              f"library none, bound {b_ms:.4f} ms {b_by} ({card})")
+        rows.append({"shape": list(H.shape), "op": what, "ms": t_k * 1e3,
+                     "plain_ms": t_p * 1e3, "bound_ms": b_ms,
+                     "bound_by": b_by, "library_ms": None})
+    return times, rows
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py: no CUDA device; there is no CPU path")
@@ -2520,6 +2907,15 @@ def main() -> None:
         eig_counts = {k: eig_counts[k] + c[k] for k in c}
     eig_counts["gauss_jordan"] += jordan["launches"]
 
+    # 27-31. the real Schur solver and the spectral pipeline's Schur
+    # routes at the same size, the sweep eager and as a graph, times
+    schur_out = drive_schur(dev)
+    spec_schur = drive_schur_spectral(dev)
+    schur_times, chase_shapes = time_schur_paths(dev, card, schur_out,
+                                                 spec_schur)
+    eig_counts = {k: eig_counts[k] + spec_schur["launches"][k]
+                  for k in eig_counts}
+
     # bounds from this run's shapes: bytes each input read and each output
     # written once; operations those the inputs need
     w = 2 * N_INV
@@ -2533,6 +2929,7 @@ def main() -> None:
                                      12 * B * N * N),
         "panel_factor_nopivot": bound(*nopivot_work(phase["solve_panels"])),
         "panel_factor_masked": bound(*panel_work(k6["panels"])),
+        "francis_chase": bound(*chase_work(*schur_out["main"][:3])),
     }
     rows = [{
         "name": "solve_fused_rbt",
@@ -2577,7 +2974,8 @@ def main() -> None:
         "replaces": "linalg_solver_tpu/ops/pallas/butterfly_kernel.py:91",
         "launches": (phase["butterfly_launches"] + large_launches
                      + eig_counts["butterfly"]),
-        "max_abs_err": max(bf_err, phase["butterfly_err"], large_err),
+        "max_abs_err": max(bf_err, phase["butterfly_err"], large_err,
+                           spec_schur["bf_err"]),
         "ms": ph_times["kernel butterfly_two_sided, device"] * 1e3,
         "host_ms": ph_times["kernel butterfly_two_sided"] * 1e3,
         "plain_ms": ph_times["plain butterfly_two_sided_reference"] * 1e3,
@@ -2588,7 +2986,7 @@ def main() -> None:
         "source": "linalg_solver_tpu_torch/csrc/lu_nopivot.cu",
         "replaces": "linalg_solver_tpu/ops/pallas/lu_nopivot_kernel.py:41",
         "launches": phase["panel_launches"] + eig_counts["lu_nopivot"],
-        "max_abs_err": phase["panel_err"],
+        "max_abs_err": max(phase["panel_err"], spec_schur["panel_err"]),
         "ms": ph_times[
             "kernel panel_factor_nopivot, the 8 solve panels, device"] * 1e3,
         "host_ms": ph_times[
@@ -2610,6 +3008,20 @@ def main() -> None:
             "plain panel_factor_masked_reference, the 4 panels"] * 1e3,
         "library_ms": k6_times[
             "library lu_factor_ex on the unpivoted rows, the 4 panels"] * 1e3,
+    }, {
+        "name": "francis_chase",
+        "route": "cuda",
+        "source": "linalg_solver_tpu_torch/csrc/schur_chase.cu",
+        # no Pallas kernel: the XLA scan of _chase_step (schur.py:869-891)
+        "replaces": "linalg_solver_tpu/ops/schur.py:893",
+        "launches": schur_out["launches"] + spec_schur["chase"],
+        "max_abs_err": max(schur_out["err"], spec_schur["err"]),
+        "ms": chase_shapes[0]["ms"],
+        "plain_ms": chase_shapes[0]["plain_ms"],
+        "library_ms": None,
+        "large_shapes": chase_shapes,
+        "sweep_eager_ms": schur_times["sweep eager"] * 1e3,
+        "sweep_graph_ms": schur_times["sweep graph"] * 1e3,
     }]
     for row in rows:
         row["bound_ms"], row["bound_by"] = bounds[row["name"]]

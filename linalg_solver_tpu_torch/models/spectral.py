@@ -4,17 +4,16 @@
 
 One report per batch: eigenvalues, algebraic multiplicities (tolerance
 clustering), geometric multiplicities (the nullity of A − λI) and the
-diagonalization.  Eigenvalues come from the symmetric direct solver
-(``method="eigh"``, and ``"auto"`` on a symmetric batch) or the legacy
-unreduced QR iteration (``method="qr"``); ``_spectral_core`` takes
-eigenvalues computed elsewhere.
+diagonalization.  Eigenvalues come from the Francis real-Schur solver
+(``ops.schur``: ``method="schur"``, the default, and ``"auto"`` on a
+batch that is not symmetric), from it with its eigenvectors
+(``method="eig"``), from the symmetric direct solver (``method="eigh"``,
+and ``"auto"`` on a symmetric batch) or from the legacy unreduced QR
+iteration (``method="qr"``); ``_spectral_core`` takes eigenvalues
+computed elsewhere.
 
-Not ported, and refused rather than sent to another eigensolver: the
-Francis real-Schur solver of ``ops/schur.py`` behind the reference's
-default ``method="schur"``, its eigenvector variant ``method="eig"``,
-and ``"auto"`` on a batch that is not symmetric (ROADMAP.md queue 1
-item 10); the device mesh of ``spectral_pipeline_sharded`` (queue 1
-item 13).
+Not ported, and refused rather than run on one device: the device mesh
+of ``spectral_pipeline_sharded`` (ROADMAP.md queue 1 item 13).
 """
 
 from __future__ import annotations
@@ -23,8 +22,11 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from ..ops import dispatch
 from ..ops.eigen import eigvals_qr_batched, spectral_decompose_batched
+from ..ops.schur import EigResult, eig_real_batched, eigvals_schur
 from ..ops.symmetric import eigh_batched, is_symmetric_batched
+from ..utils.precision import f32_matmuls
 
 METHODS = ("schur", "eig", "qr", "eigh", "auto")
 
@@ -38,14 +40,6 @@ class SpectralReport(NamedTuple):
     P: torch.Tensor               # [B, n, n]
     P_inv: torch.Tensor           # [B, n, n]
     D: torch.Tensor               # [B, n, n]
-
-
-def _schur_not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"spectral_pipeline({what}) needs the Francis real-Schur "
-        f"eigensolver of ops/schur.py, which is not ported yet (ROADMAP.md "
-        f"queue 1 item 10); method='eigh' serves symmetric batches and "
-        f"method='qr' small ones")
 
 
 def _spectral_core(a: torch.Tensor, ev_real: torch.Tensor,
@@ -67,25 +61,33 @@ def spectral_pipeline(a: torch.Tensor, iters: int = 100, tol: float = 1e-3,
                       max_distinct: Optional[int] = None) -> SpectralReport:
     """Full spectral report for a batch ``a [B, n, n]``.
 
-    ``method="eigh"``: symmetric input, the spectral theorem's path: one
-    direct symmetric eigensolve, P orthogonal (P⁻¹ = Pᵀ, no inverse
-    solve), always diagonalizable, alg = geom by clustering.
-    ``method="qr"``: the unreduced QR iteration (``iters`` steps), then
-    the spectral core.  ``method="auto"``: ``"eigh"`` if every matrix is
-    numerically symmetric (one host read), else the Schur path.
+    ``method="schur"`` (default): Francis-QR eigenvalues
+    (``ops.schur.eigvals_schur``, one host read a chunk of sweeps), then
+    the spectral core.  ``method="eig"``: Schur with accumulated vectors
+    and strevc-style back-substitution, O(n³) eigenvectors for spectra
+    of (mostly) distinct real eigenvalues; repeated eigenvalues make its
+    P near-singular, which the validation flags (``diagonalizable``
+    False); on success the geometric multiplicities are reported equal
+    to the algebraic ones.  ``method="eigh"``: symmetric input, the
+    spectral theorem's path: one direct symmetric eigensolve, P
+    orthogonal (P⁻¹ = Pᵀ, no inverse solve), always diagonalizable,
+    alg = geom by clustering.  ``method="qr"``: the unreduced QR
+    iteration (``iters`` steps), then the spectral core.
+    ``method="auto"``: ``"eigh"`` if every matrix is numerically
+    symmetric (one host read), else ``"schur"``.
 
-    ``"schur"`` (the reference's default), ``"eig"`` and ``"auto"`` on a
-    non-symmetric batch raise ``NotImplementedError``: ``ops/schur.py``
-    is not ported.  ``max_distinct`` bounds the distinct eigenvalues
-    whose eigenspaces the Schur path computes."""
+    ``max_distinct`` bounds the distinct eigenvalues whose eigenspaces
+    the Schur path computes (default n, exact)."""
     if method not in METHODS:
         raise ValueError(f"unknown method {method!r}; one of {METHODS}")
     if method == "auto":
-        if not bool(is_symmetric_batched(a).all()):
-            raise _schur_not_ported("method='auto' on a non-symmetric batch")
-        method = "eigh"
-    if method in ("schur", "eig"):
-        raise _schur_not_ported(f"method={method!r}")
+        method = "eigh" if bool(is_symmetric_batched(a).all()) else "schur"
+    if method == "schur":
+        ev = eigvals_schur(a)
+        return _spectral_core(a, ev.real, ev.imag, tol,
+                              max_distinct=max_distinct)
+    if method == "eig":
+        return _report_from_eig(a, eig_real_batched(a), tol)
     if method == "eigh":
         return _report_from_eigh(a, tol)
     return _spectral_pipeline_qr(a, iters=iters, tol=tol)
@@ -106,6 +108,35 @@ def _report_from_eigh(a: torch.Tensor, tol: float) -> SpectralReport:
         P, P.transpose(1, 2), torch.diag_embed(w))
 
 
+def _report_from_eig(a: torch.Tensor, res: EigResult,
+                     tol: float) -> SpectralReport:
+    """SpectralReport from an O(n³) eigendecomposition: slots sorted by
+    descending real part (the columns of V gathered along), P validated
+    by its inverse residual; P⁻¹ from ``dispatch.inverse_batched(auto)``
+    on P, or on I where a lane has not converged or lacks a real
+    eigenvector."""
+    B, n, _ = a.shape
+    dtype = res.vectors.dtype
+    order = torch.argsort(-res.real, dim=1, stable=True)
+    lam = res.real.to(dtype).gather(1, order)
+    lam_im = res.imag.to(dtype).gather(1, order)
+    P = res.vectors.gather(2, order[:, None, :].expand(B, n, n))
+    valid_s = res.valid.gather(1, order)
+    dr = lam[:, :, None] - lam[:, None, :]
+    di = lam_im[:, :, None] - lam_im[:, None, :]
+    alg = (dr * dr + di * di <= tol * tol).sum(2).to(torch.int32)
+    ok = res.converged & valid_s.all(1)
+    eye = torch.eye(n, dtype=dtype, device=a.device)
+    P_safe = torch.where(ok[:, None, None], P, eye)
+    P_inv = dispatch.inverse_batched(P_safe, backend="auto")
+    with f32_matmuls():
+        resid = (P_safe @ P_inv - eye).abs().amax((1, 2))
+        D = P_inv @ a.to(dtype) @ P_safe
+    ok = ok & torch.isfinite(resid) & (resid < max(1e-2, 3.0 * tol))
+    geom = torch.where(ok[:, None], alg, 0)
+    return SpectralReport(lam, lam_im, alg, geom, ok, P_safe, P_inv, D)
+
+
 def _spectral_pipeline_qr(a: torch.Tensor, iters: int = 100,
                           tol: float = 1e-3) -> SpectralReport:
     ev = eigvals_qr_batched(a, iters=iters)
@@ -119,5 +150,4 @@ def spectral_pipeline_sharded(a: torch.Tensor, mesh, tol: float = 1e-3,
     ported (one GPU; ROADMAP.md queue 1 item 13)."""
     raise NotImplementedError(
         "spectral_pipeline_sharded (the batch over a device mesh) is not "
-        "ported yet (ROADMAP.md queue 1 item 13); it also needs "
-        "ops/schur.py (queue 1 item 10)")
+        "ported yet (ROADMAP.md queue 1 item 13)")

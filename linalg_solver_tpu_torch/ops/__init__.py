@@ -23,12 +23,26 @@
 - ``eigen`` — characteristic polynomial (Faddeev–LeVerrier), QR-iteration
   eigenvalues, eigenspaces, multiplicities, diagonalization, and the
   batched spectral decomposition on kernel 3
+- ``schur`` — balancing, Hessenberg reduction and multishift Francis QR
+  with aggressive early deflation: the real Schur form, its vectors,
+  eigenvalues and the real eigenvectors (strevc)
 - ``symmetric`` — the symmetric eigensolver with a backward that is
   finite on repeated eigenvalues, and the symmetry probe
 - ``orth`` — batched masked CholeskyQR orthonormalization
 - ``generate`` — structured random batches on the device
 """
 
+from .schur import (
+    EigResult,
+    SchurEigvals,
+    SchurResult,
+    SchurVectors,
+    eig_real_batched,
+    eigvals_schur,
+    hessenberg,
+    real_schur,
+    real_schur_vectors,
+)
 from .symmetric import (
     EighResult,
     eigh_batched,
@@ -37,6 +51,9 @@ from .symmetric import (
 )
 
 __all__ = [
+    "SchurResult", "SchurVectors", "SchurEigvals", "EigResult",
+    "hessenberg", "real_schur", "eigvals_schur", "real_schur_vectors",
+    "eig_real_batched",
     "EighResult", "eigh_batched", "is_symmetric_batched",
     "symmetry_defect_batched",
 ]

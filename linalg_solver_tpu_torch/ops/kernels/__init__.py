@@ -9,6 +9,8 @@ version (counterpart of ``linalg_solver_tpu.ops.pallas``).
 - ``lu_nopivot`` — panel LU without a pivot search (phase engine)
 - ``lu_panel`` — partial-pivot panel LU without row swaps, skipping rows
   earlier panels pivoted (the pivoted phase loop of ``ops.lu_blocked``)
+- ``schur_chase`` — one Francis sweep's bulge chase (``ops.schur``; no
+  Pallas counterpart: the reference chases in an XLA scan)
 
 The functions below are the facade ``ops.dispatch`` routes to, as the
 JAX package's ``ops.pallas`` is: ``inverse_batched`` takes the fused RBT

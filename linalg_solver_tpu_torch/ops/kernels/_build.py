@@ -52,6 +52,7 @@ _SIGNATURES = {
     "panel_smem_bytes": (ctypes.c_size_t, [_I, _I]),
     "panel_variant": (_I, [_I, _I]),
     "panel_attributes": (_I, [_I] * 3 + [_P]),
+    "schur_chase": (_I, [_P] * 8 + [_I] * 5 + [_P]),
     "kernels_error_string": (ctypes.c_char_p, [_I]),
 }
 

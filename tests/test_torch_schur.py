@@ -1,0 +1,452 @@
+"""The port's real Schur solver (``linalg_solver_tpu_torch.ops.schur``)
+against the JAX package's ``ops.schur``, both on the CPU, fed the same
+seeded numpy inputs.
+
+Stage by stage on identical input state, at most ``1e-5·max(1, ‖A‖∞)``
+apart (``‖A‖∞`` of the stage's input): balancing, Hessenberg with and
+without Q, one ``_deflate`` (plain and strict), one ``_one_sweep`` with
+and without Q at one and two shift pairs, one AED round at n = 32,
+w = 8, ``_eigvals_from_T``, ``_standardize_real_blocks`` and
+``_trevc_full``; the integer state (``hi``, ``stagnant``, flags) equal.
+
+The whole solver cannot be bitwise the reference's (Francis iteration's
+path follows its roundings): ``converged`` and ``clean`` equal JAX's,
+the eigenvalues, matched to numpy's float64 ones, no farther from them
+than JAX's are plus ``1e-5·‖A‖∞``, ``Q`` orthogonal and ``Q T Qᵀ`` the
+balanced matrix to ``1e-5·‖A‖∞``.  Each size's batch holds one lane of
+each input kind: Gaussian, skew-symmetric (all complex pairs), a
+defective Jordan similarity and a companion matrix."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from linalg_solver_tpu.ops import schur as js
+from linalg_solver_tpu_torch.ops import schur as ts
+
+TOL = 1e-5
+
+
+def _close(got, want, scale):
+    got = np.asarray(got, np.float64)
+    want = np.asarray(want, np.float64)
+    assert got.shape == want.shape
+    assert np.abs(got - want).max() <= TOL * max(1.0, float(scale))
+
+
+def _exact(got, want):
+    np.testing.assert_array_equal(np.asarray(got), np.asarray(want))
+
+
+def _np(x):
+    return x.numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+def _kinds(n, seed):
+    """``[4, n, n]`` float32: Gaussian, skew, a defective Jordan
+    similarity (a block of size min(3, n) at 2, the rest at −1), a
+    companion matrix (roots 1 … n scaled into [−2, 2])."""
+    rng = np.random.RandomState(seed)
+    g = rng.randn(n, n)
+    s = rng.randn(n, n)
+    J = -np.eye(n)
+    for i in range(min(3, n)):
+        J[i, i] = 2.0
+        if i + 1 < min(3, n):
+            J[i, i + 1] = 1.0
+    P = np.eye(n) + 0.3 * rng.randn(n, n)
+    jor = P @ J @ np.linalg.inv(P)
+    coeffs = np.poly(np.linspace(-2.0, 2.0, n))
+    comp = np.zeros((n, n))
+    comp[0, :] = -coeffs[1:]
+    comp[np.arange(1, n), np.arange(n - 1)] = 1.0
+    return np.stack([g, s - s.T, jor, comp]).astype(np.float32)
+
+
+def _state(a, with_q):
+    """The JAX solver's initial state (balanced, Hessenberg, padded) as
+    numpy, shared by both sides."""
+    H, Q, hi, stag, anorm, scale = js._schur_init(jnp.asarray(a),
+                                                  with_q=with_q)
+    return (np.asarray(H), np.asarray(Q) if with_q else None,
+            np.asarray(hi), np.asarray(stag), np.asarray(anorm))
+
+
+def _t(x):
+    if x is None:
+        return None
+    t = torch.from_numpy(np.array(x))
+    return t.long() if t.dtype == torch.int32 else t
+
+
+# --- stages ---------------------------------------------------------------
+
+def test_balance_matches_jax():
+    rng = np.random.RandomState(0)
+    d = 2.0 ** rng.randint(-8, 9, (3, 12))
+    a = (rng.randn(3, 12, 12) * d[:, :, None] / d[:, None, :]).astype(
+        np.float32)
+    Aj, fj = js._balance_impl(jnp.asarray(a))
+    At, ft = ts._balance_impl(torch.from_numpy(a))
+    _exact(ft, fj)
+    _close(At, Aj, np.abs(a).sum(2).max())
+    _close(ts.balance_batched(torch.from_numpy(a)), Aj, np.abs(a).sum(2).max())
+    assert np.abs(_np(At)).sum(2).max() < np.abs(a).sum(2).max()
+
+
+@pytest.mark.parametrize("with_q", [False, True])
+def test_hessenberg_matches_jax(with_q):
+    a = np.random.RandomState(1).randn(3, 12, 12).astype(np.float32)
+    Hj, Qj = js._hessenberg_impl(jnp.asarray(a), with_q=with_q)
+    Ht, Qt = ts._hessenberg_impl(torch.from_numpy(a), with_q=with_q)
+    scale = np.abs(a).sum(2).max()
+    _close(Ht, Hj, scale)
+    if with_q:
+        _close(Qt, Qj, 1.0)
+    else:
+        _close(ts.hessenberg(torch.from_numpy(a)), js.hessenberg(a), scale)
+    assert np.abs(np.tril(_np(Ht), -2)).max() < 1e-5 * scale
+
+
+def _deflate_input():
+    """A padded Hessenberg state with subdiagonals on every criterion's
+    side: exact and tiny zeros, roundoff-scale entries, a trailing 2×2,
+    and lanes past the stall breaker's 20 stagnant sweeps."""
+    n = 12
+    rng = np.random.RandomState(2)
+    H = np.triu(rng.randn(4, n + 1, n + 1), -1)
+    H[:, n, :] = 0.0
+    H[:, :, n] = 0.0
+    H[:, n, n - 1] = 0.0
+    H[0, 6, 5] = 1e-30                       # below tiny/eps
+    H[0, 11, 10] = 0.0                       # trailing 1×1
+    H[1, 11, 10] = 3e-8                      # at the eps·‖A‖ floor
+    H[1, 10, 9] = 0.0                        # then a trailing 2×2
+    H[2, 4, 3] = 5e-5                        # stall-breaker territory
+    H[2, 3, 4] = 1e-4
+    H[2, 4, 4] = H[2, 3, 3] + 1e-3
+    H[3, 8, 7] = 5e-7
+    H[3, 7, 8] = 1e-9                        # Ahues–Tisseur product
+    H = H.astype(np.float32)
+    hi = np.array([n - 1] * 4, np.int32)
+    stag = np.array([0, 3, 60, 25], np.int32)
+    anorm = np.abs(H).sum(2).max(1).astype(np.float32)
+    return H, hi, stag, anorm
+
+
+@pytest.mark.parametrize("strict", [False, True])
+def test_deflate_matches_jax(strict):
+    H, hi, stag, anorm = _deflate_input()
+    rj = js._deflate(jnp.asarray(H), jnp.asarray(hi), jnp.asarray(stag),
+                     jnp.asarray(anorm), strict=strict)
+    rt = ts._deflate(_t(H), _t(hi), _t(stag), _t(anorm), strict=strict)
+    for got, want in zip(rt, rj):
+        _exact(got, want)
+    # every lane zeroed something (lane 2 only by the stall breaker,
+    # which the strict criteria leave out), and the breaker flagged the
+    # lane it force-split
+    changed = (_np(rt[0]) != H).any(axis=(1, 2)).tolist()
+    assert changed == [True, True, not strict, True]
+    assert _np(rt[3]).tolist() == ([False, False, True, False]
+                                   if not strict else [False] * 4)
+
+
+@pytest.mark.parametrize("with_q", [False, True])
+@pytest.mark.parametrize("npairs", [1, 2])
+def test_one_sweep_matches_jax(npairs, with_q):
+    a = np.random.RandomState(3).randn(3, 16, 16).astype(np.float32)
+    H, Q, hi, stag, anorm = _state(a, with_q)
+    rj = js._one_sweep(jnp.asarray(H), jnp.asarray(hi), jnp.asarray(stag),
+                       jnp.asarray(anorm),
+                       jnp.asarray(Q) if with_q else None, npairs=npairs)
+    rt = ts._one_sweep(_t(H), _t(hi), _t(stag), _t(anorm), _t(Q),
+                       npairs=npairs)
+    scale = anorm.max()
+    _close(rt[0], rj[0], scale)
+    _exact(rt[1], rj[1])
+    _exact(rt[2], rj[2])
+    _exact(rt[4], rj[4])
+    if with_q:
+        _close(rt[3], rj[3], 1.0)
+    # the sweep moved the matrix
+    assert np.abs(_np(rt[0]) - H).max() > 1e-2
+
+
+def _swept_state(a, sweeps, npairs, aed_w):
+    """The JAX solver's state after ``sweeps`` outer sweeps, as numpy."""
+    H, Q, hi, stag, anorm, _ = js._schur_init(jnp.asarray(a), with_q=True)
+    state = (H, Q, hi, stag, anorm, jnp.zeros(a.shape[0], bool))
+    state, _ = js._schur_sweeps(state, sweeps, with_q=True, npairs=npairs,
+                                aed_w=aed_w)
+    return tuple(np.asarray(x) for x in state)
+
+
+def test_aed_round_matches_jax():
+    """One AED round at n = 32, w = 8, two shift pairs, on a state three
+    sweeps in, where every window deflates something and the Jordan lane
+    nibbles its whole window.  That lane's window holds a defective
+    eigenvalue, whose Schur basis roundoff does not determine (the two
+    libraries' bases differ by O(‖A‖) there): it is held by its flags
+    and its spectrum; the others entry by entry."""
+    a = _kinds(32, 4)
+    H, Q, hi, stag, anorm, _ = _swept_state(a, 3, 2, 8)
+    rj = js._aed(jnp.asarray(H), jnp.asarray(Q), jnp.asarray(hi),
+                 jnp.asarray(stag), jnp.asarray(anorm), 8, 2, True)
+    rt = ts._aed(_t(H), _t(Q), _t(hi), _t(stag), _t(anorm), 8, 2, True)
+    for i in (2, 3, 5):
+        _exact(rt[i], rj[i])
+    _exact(rt[4][2], rj[4][2])
+    assert (_np(rt[2]) < hi).any() and _np(rt[5]).tolist()[2]
+    ok = [0, 1, 3]
+    scale = anorm[ok].max()
+    _close(_np(rt[0])[ok], np.asarray(rj[0])[ok], scale)
+    _close(_np(rt[1])[ok], np.asarray(rj[1])[ok], 1.0)
+    _close(_np(rt[4][0])[ok], np.asarray(rj[4][0])[ok], scale)
+    _close(_np(rt[4][1])[ok], np.asarray(rj[4][1])[ok], scale)
+    ev = [np.sort_complex(np.linalg.eigvals(np.asarray(x)[2, :32, :32]
+                                            .astype(np.float64)))
+          for x in (rt[0], rj[0])]
+    assert np.abs(ev[0] - ev[1]).max() <= 1e-2
+
+
+def _schur_tq(a):
+    """JAX's converged ``(T, Q)`` before standardization, as numpy."""
+    res, _, Q, _ = js._run_schur(jnp.asarray(a), 0, 64, True, True)
+    return np.asarray(res.T), np.asarray(Q)
+
+
+def test_eigvals_standardize_and_trevc_match_jax():
+    a = _kinds(10, 5)
+    T, Q = _schur_tq(a)
+    scale = np.abs(T).sum(2).max()
+    for got, want in zip(ts._eigvals_from_T(_t(T)), js._eigvals_from_T(T)):
+        _close(got, want, scale)
+    Tj, Qj = js._standardize_real_blocks(jnp.asarray(T), jnp.asarray(Q))
+    Tt, Qt = ts._standardize_real_blocks(_t(T), _t(Q))
+    _close(Tt, Tj, scale)
+    _close(Qt, Qj, 1.0)
+    Tj = np.asarray(Tj)
+    yj = js._trevc_full(jnp.asarray(Tj))
+    yt = ts._trevc_full(_t(Tj))
+    _close(yt[0], yj[0], 1.0)
+    _close(yt[1], yj[1], 1.0)
+    _exact(yt[2], yj[2])
+    # real and complex-pair columns both solved
+    lam_im = _np(ts._eigvals_from_T(_t(Tj))[1])
+    assert _np(yt[2]).all() and (lam_im != 0).any() and (lam_im == 0).any()
+    vj = js._trevc_real(jnp.asarray(Tj))
+    vt = ts._trevc_real(_t(Tj))
+    _close(vt[0], vj[0], 1.0)
+    _exact(vt[1], vj[1])
+
+
+# --- the whole solver -------------------------------------------------------
+
+def _match_dev(ev, want, defective=2):
+    """Per lane, the largest distance of ``ev`` from ``want`` under a
+    greedy nearest matching.  On lane ``defective`` (``_kinds``' Jordan
+    similarity) the three eigenvalues nearest 2 count by their mean: a
+    defective eigenvalue's members scatter by ~eps^(1/3)·‖A‖ along the
+    roundings of the path (so two correct solvers differ there by that
+    much), their mean is as well-conditioned as a simple eigenvalue."""
+    ev, want = np.array(ev), np.array(want)
+    if defective is not None and ev.shape[1] >= 3:
+        for x in (ev, want):
+            near = np.argsort(np.abs(x[defective] - 2.0))[:3]
+            x[defective, near] = x[defective, near].mean()
+    out = []
+    for got_l, want_l in zip(ev, want):
+        left = list(want_l)
+        worst = 0.0
+        for z in sorted(got_l, key=lambda z: (z.real, z.imag)):
+            j = int(np.argmin(np.abs(np.array(left) - z)))
+            worst = max(worst, abs(left.pop(j) - z))
+        out.append(worst)
+    return np.array(out)
+
+
+SIZES = [(2, {}), (3, {}), (8, {}), (24, {}),
+         (32, dict(nshift_pairs=2, aed_w=8))]
+
+
+@pytest.mark.parametrize("n,kw", SIZES, ids=[str(n) for n, _ in SIZES])
+def test_whole_solver_matches_jax(n, kw):
+    a = _kinds(n, 10 + n)
+    norm = np.abs(a).sum(2).max(1)
+    want = np.linalg.eigvals(a.astype(np.float64))
+
+    ej = js.eigvals_schur(jnp.asarray(a), **kw)
+    et = ts.eigvals_schur(torch.from_numpy(a), **kw)
+    _exact(et.converged, ej.converged)
+    _exact(et.clean, ej.clean)
+    assert _np(et.converged).all()
+    dj = _match_dev(np.asarray(ej.real) + 1j * np.asarray(ej.imag), want)
+    dt = _match_dev(_np(et.real) + 1j * _np(et.imag), want)
+    assert (dt <= dj + TOL * norm).all(), (dt, dj)
+    # the defective eigenvalue's members: within its eps^(1/3) scatter
+    if n >= 3:
+        lam = _np(et.real)[2] + 1j * _np(et.imag)[2]
+        assert np.sort(np.abs(lam - 2.0))[:3].max() <= 1e-2 * norm[2]
+
+    rj = js.real_schur(jnp.asarray(a), **kw)
+    rt = ts.real_schur(torch.from_numpy(a), **kw)
+    _exact(rt.converged, rj.converged)
+    _exact(rt.clean, rj.clean)
+    T = _np(rt.T)
+    assert np.abs(np.tril(T, -2)).max() == 0.0
+    sub = np.abs(np.diagonal(T, -1, 1, 2)) > 0
+    assert not (sub[:, :-1] & sub[:, 1:]).any()
+    assert rt.sweeps.dtype == torch.int32 and int(rt.sweeps) >= 0
+
+    vj = js.real_schur_vectors(jnp.asarray(a), **kw)
+    vt = ts.real_schur_vectors(torch.from_numpy(a), **kw)
+    _exact(vt.converged, vj.converged)
+    _exact(vt.clean, vj.clean)
+    Q = _np(vt.Q).astype(np.float64)
+    assert np.abs(Q.transpose(0, 2, 1) @ Q - np.eye(n)).max() <= 1e-5 * n
+    bal = _np(ts.balance_batched(torch.from_numpy(a))) if n > 2 else a
+    recon = Q @ _np(vt.T) @ Q.transpose(0, 2, 1)
+    assert (np.abs(recon - bal).max((1, 2)) <= TOL * np.maximum(norm, 1)
+            * 10).all()
+    _close(vt.scale, vj.scale, 1.0)
+
+    gj = js.eig_real_batched(jnp.asarray(a), **kw)
+    gt = ts.eig_real_batched(torch.from_numpy(a), **kw)
+    _exact(gt.converged, gj.converged)
+    _exact(gt.clean, gj.clean)
+    _exact(gt.valid.sum(1), np.asarray(gj.valid).sum(1))
+    # a valid column is an eigenvector of A for its eigenvalue
+    V = _np(gt.vectors).astype(np.float64)
+    lam = _np(gt.real).astype(np.float64)
+    res = np.abs(a @ V - V * lam[:, None, :]).max(1)
+    ok = _np(gt.valid)
+    assert (res[ok] <= 1e-3 * np.repeat(norm, ok.sum(1))).all()
+
+
+def test_float64_end_to_end():
+    """float64 runs end to end (the reference refuses it on the TPU
+    only): at n = 24 the eigenvalues land within 1e-9·‖A‖ of numpy's."""
+    a = _kinds(24, 7)[:2].astype(np.float64)
+    norm = np.abs(a).sum(2).max(1)
+    with jax.enable_x64(True):
+        ej = js.eigvals_schur(jnp.asarray(a))
+        et = ts.eigvals_schur(torch.from_numpy(a))
+        assert et.real.dtype == torch.float64
+        _exact(et.converged, ej.converged)
+        _exact(et.clean, ej.clean)
+        want = np.linalg.eigvals(a)
+        dj = _match_dev(np.asarray(ej.real) + 1j * np.asarray(ej.imag), want,
+                        defective=None)
+        dt = _match_dev(_np(et.real) + 1j * _np(et.imag), want,
+                        defective=None)
+    assert (dt <= 1e-9 * norm).all() and (dt <= dj + 1e-12 * norm).all()
+    vt = ts.real_schur_vectors(torch.from_numpy(a))
+    Q = vt.Q.numpy()
+    assert np.abs(Q.transpose(0, 2, 1) @ Q - np.eye(24)).max() < 1e-12
+
+
+def test_subnormal_reflector_counts_as_zero():
+    """A column whose squared norm is subnormal: the reference's
+    arithmetic flushes it to zero (no reflection), where ``2/|v|²``
+    would overflow and turn the result into NaN — in the Hessenberg
+    steps, the chase's reflectors and AED's collapse alike."""
+    v = torch.tensor([3e-23, 4e-23, 0.0], dtype=torch.float32)
+    assert float(ts._reflector_scale((v * v).sum()[None])[0]) == 0.0
+    a = np.zeros((1, 4, 4), np.float32)
+    a[0] = np.diag([1.0, 2.0, 3.0, 4.0])
+    a[0, 2, 0], a[0, 3, 0] = 3e-23, 4e-23
+    Hj, Qj = js._hessenberg_impl(jnp.asarray(a), with_q=True)
+    Ht, Qt = ts._hessenberg_impl(torch.from_numpy(a), with_q=True)
+    assert torch.isfinite(Ht).all() and torch.isfinite(Qt).all()
+    _close(Ht, Hj, 4.0)
+    _close(Qt, Qj, 1.0)
+    # the chase: a state whose first bulge has a subnormal 3-vector
+    H = np.zeros((1, 5, 5), np.float32)
+    H[0, :4, :4] = np.diag([1e-20, 1e-20, 1e-20, 1e-20])
+    H[0, 1, 0] = H[0, 2, 1] = H[0, 3, 2] = 1e-20
+    hi = np.array([3], np.int32)
+    stag = np.array([1], np.int32)
+    anorm = np.array([1.0], np.float32)
+    rt = ts._one_sweep(_t(H), _t(hi), _t(stag), _t(anorm), _t(np.eye(
+        4, 5, dtype=np.float32)[None]))
+    rj = js._one_sweep(jnp.asarray(H), jnp.asarray(hi), jnp.asarray(stag),
+                       jnp.asarray(anorm), jnp.eye(4, 5)[None])
+    assert torch.isfinite(rt[0]).all() and torch.isfinite(rt[3]).all()
+    _close(rt[0], rj[0], 1.0)
+    _close(rt[3], rj[3], 1.0)
+    # a matrix at 1e-30 (its products subnormal): finite, with the
+    # reference's flags (which do not converge at this scale either)
+    a = _kinds(8, 9)[:1] * 1e-30
+    et = ts.eigvals_schur(torch.from_numpy(a))
+    ej = js.eigvals_schur(jnp.asarray(a))
+    assert torch.isfinite(et.real).all() and torch.isfinite(et.imag).all()
+    _exact(et.converged, ej.converged)
+    _exact(et.clean, ej.clean)
+
+
+def test_masked_sweeps_leave_a_deflated_state_unchanged():
+    """The early stops the reference takes on the device (every lane
+    deflated) are masked passes here: an extra outer sweep on a fully
+    deflated state, and an extra inner AED sweep on a deflated window,
+    leave H, Q, ``hi`` and ``stagnant`` bitwise as they were and count
+    no sweep."""
+    a = torch.from_numpy(_kinds(32, 11))
+    H, Q, hi, stag, anorm, _ = ts._schur_init(a, with_q=True)
+    state = (H, Q, hi, stag, anorm, torch.zeros(4, dtype=torch.bool),
+             torch.zeros((), dtype=torch.long))
+    state = ts._schur_sweeps(state, 64, npairs=2, aed_w=8)
+    assert int(state[6]) < 64 and not bool((state[2] >= 1).any())
+    extra = ts._schur_sweeps(state, 2, npairs=2, aed_w=8)
+    for got, want in zip(extra, state):
+        assert torch.equal(got, want)
+    # the inner loop: a window that is already deflated
+    Tw = ts.F.pad(torch.triu(torch.randn(4, 8, 8)), (0, 1, 0, 1))
+    Qw = ts.F.pad(torch.eye(8).expand(4, 8, 8), (0, 1))
+    hw = torch.full((4,), -1, dtype=torch.long)
+    sw = torch.full((4,), 5, dtype=torch.long)
+    live = (hw >= 1).any()
+    new = ts._one_sweep(Tw, hw, sw, Tw.abs().sum(2).amax(1), Qw,
+                        strict_deflate=True)
+    for got, want in zip(ts._blend(live, new[:4], (Tw, hw, sw, Qw)),
+                         (Tw, hw, sw, Qw)):
+        assert torch.equal(got, want)
+
+
+def test_chase_wrapper_runs_its_plain_version_on_the_cpu():
+    """``kernels.schur_chase.francis_chase`` on CPU tensors is its plain
+    version, leaves its inputs as they were, and checks its arguments;
+    on the card the kernel is held against it bitwise
+    (``tests/test_torch_cuda.py``, ``chip_smoke.py``)."""
+    from linalg_solver_tpu_torch.ops.kernels import schur_chase as sc
+
+    a = torch.from_numpy(_kinds(24, 12))
+    H, Q, hi, stag, anorm, _ = ts._schur_init(a, with_q=True)
+    calls = []
+    orig = sc.francis_chase
+
+    def rec(*args):
+        calls.append([x.clone() if isinstance(x, torch.Tensor) else
+                      [t.clone() for t in x] if isinstance(x, list) else x
+                      for x in args])
+        return orig(*args)
+
+    sc.francis_chase = rec
+    try:
+        ts._one_sweep(H, hi, stag, anorm, Q, npairs=3)
+    finally:
+        sc.francis_chase = orig
+    # the window-shift solve's inner chases first, the main chase last
+    Hc, Qc, tables, nc = calls[-1]
+    assert nc == 2 and {c[3] for c in calls[:-1]} == {0}
+    assert tables[0].shape == (4, 3, 25)
+    before = Hc.clone()
+    got = sc.francis_chase(Hc, Qc, tables, nc)
+    want = sc.francis_chase_reference(Hc, Qc, tables, nc)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert torch.equal(Hc, before) and not torch.equal(got[0], before)
+    with pytest.raises(ValueError, match="tables"):
+        sc.francis_chase(Hc, Qc, tables, nc + 1)
+    with pytest.raises(ValueError, match="Q must be"):
+        sc.francis_chase(Hc, Qc[:, :, :-1], tables, nc)

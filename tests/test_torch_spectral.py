@@ -9,8 +9,9 @@ and 1e-4 (the QR route); ``P``, ``P⁻¹``, ``D`` within 1e-4 of their
 largest entry, where the eigh route's sign freedom makes the test
 compare spans (``P D Pᵀ`` and per-column ``|⟨p, q⟩|``) instead of
 vectors; null bases from the SVD as projectors (singular vectors differ
-in sign between the two libraries).  The refusals of the Schur methods
-and of the mesh are checked by message."""
+in sign between the two libraries).  The Schur routes (``"schur"``,
+``"eig"``, ``"auto"`` on a non-symmetric batch) against the reference's
+on the same batch; the refusal of the mesh is checked by message."""
 
 import jax
 import jax.numpy as jnp
@@ -158,14 +159,37 @@ def test_spectral_core_and_qr_pipeline_match_jax(symmetric_batch):
     _close(rt.D.numpy(), rj.D, rtol=1e-3)
 
 
+@pytest.fixture(scope="module")
+def nonsymmetric_batch():
+    """B = 4, n = 16, not symmetric: ``P diag(λ) P⁻¹`` with λ = 1 … 4,
+    four times each (lanes 0-1; P = I + G/8) and distinct reals
+    ``1 + 4i/15`` (lanes 2-3), float64 on the host, rounded."""
+    rng = np.random.RandomState(11)
+    lam = np.stack([np.repeat(np.arange(1.0, 5.0), 4)] * 2
+                   + [1.0 + 4.0 * np.arange(16) / 15] * 2)
+    P = np.eye(16) + rng.randn(4, 16, 16) / 8
+    a = np.einsum("bij,bj,bjk->bik", P, lam, np.linalg.inv(P))
+    return a.astype(np.float32)
+
+
 @pytest.mark.parametrize("method", ["schur", "eig", "auto"])
-def test_schur_methods_raise_naming_what_is_missing(jordan_batch, method):
-    """The reference's default and its eigenvector method need
-    ``ops/schur.py``, and so does ``auto`` on a non-symmetric batch: the
-    port refuses them and sends nothing to another eigensolver."""
-    with pytest.raises(NotImplementedError, match=r"ops/schur\.py"):
-        tspec.spectral_pipeline(torch.from_numpy(jordan_batch),
-                                method=method)
+def test_schur_methods_raise_naming_what_is_missing(nonsymmetric_batch,
+                                                    method):
+    """The reference's default, its eigenvector method and ``auto`` on a
+    non-symmetric batch (which takes the Schur route) run on
+    ``ops.schur`` and report what the JAX package reports: multiplicities
+    and ``diagonalizable`` equal, eigenvalues and D within 1e-4."""
+    a = nonsymmetric_batch
+    rj = jspec.spectral_pipeline(jnp.asarray(a), tol=1e-2, method=method)
+    rt = tspec.spectral_pipeline(torch.from_numpy(a), tol=1e-2,
+                                 method=method)
+    for f in ("alg_mult", "geom_mult", "diagonalizable"):
+        _exact(getattr(rt, f), getattr(rj, f))
+    for f in ("eig_real", "eig_imag", "D"):
+        _close(getattr(rt, f).numpy(), getattr(rj, f))
+    assert rt.diagonalizable.tolist() == [True] * 4
+    assert rt.alg_mult[0].tolist() == [4] * 16
+    assert rt.alg_mult[2].tolist() == [1] * 16
 
 
 def test_sharded_pipeline_raises_naming_its_item():
