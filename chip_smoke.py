@@ -152,29 +152,35 @@ uncaught exception and a non-zero exit:
 27. the real Schur solver (``ops.schur``) at the same size,
     schur-gauss-256: ``eigvals_schur`` on 32 seeded Gaussian 256x256
     matrices, every lane converged and clean, the eigenvalues within
-    2e-3 of numpy's float64 ones, the sweep count printed; the bulge
-    chase kernel (``csrc/schur_chase.cu``, one launch a Francis sweep:
-    64 AED inner sweeps and one main sweep an outer sweep, replayed from
-    a CUDA graph) held bitwise against its plain version on every launch
-    of the first outer sweep;
+    2e-3 of numpy's float64 ones, the sweep count printed, the window
+    kernel (``csrc/schur_window.cu``, one launch an AED round: the
+    windows' whole inner real Schur form) and the bulge chase kernel
+    (``csrc/schur_chase.cu``, one launch a main sweep; variant 1 holds H
+    in a cluster's shared memory) launched from a CUDA graph a sweep;
+    both held bitwise against their plain versions on every launch of
+    the first outer sweep (the main chase in both variants), in f32 and
+    in float64;
 28. spectral-schur-256: config 4's batch through
     ``spectral_pipeline(method="schur")`` at ``max_distinct`` 3 and None,
     every lane diagonalizable with alg = geom = the cluster sizes, kernel
     3 and the phase inverse launched as in phase 24, a kernel-3 launch
     held bitwise;
 29. spectral-auto-jordan-256: config 5's batch through ``method="auto"``
-    takes the Schur route, and no lane is reported diagonalizable;
+    takes the Schur route, and no lane is reported diagonalizable; both
+    Schur kernels held on its first sweep (a defective batch);
 30. spectral-eig-256: ``method="eig"`` on ``P diag(lambda) P^-1`` (256
     distinct reals, built in float64 from a seed): every lane
     diagonalizable, alg = 1, ``max|diag(D) - lambda| <= 1e-3``, P^-1 on
-    the phase inverse (kernels 4 and 5 held bitwise), the chase kernel
+    the phase inverse (kernels 4 and 5 held bitwise), both Schur kernels
     held with Q;
 31. time one outer sweep eagerly and as a CUDA-graph replay, the four
-    cells (median of 3) beside ``torch.linalg.eigvals`` / ``eig``, and
-    the chase kernel alone at the main sweep's shape beside its plain
-    version and bound.
+    cells (median of 3) beside ``torch.linalg.eigvals`` / ``eig``, the
+    window kernel alone on an AED round (f32, float64) beside its plain
+    version, the eager per-sweep loop it replaced and its bound, and the
+    chase kernel alone at the main sweep's shape (without Q, with Q,
+    float64) in both variants beside its plain version and bound.
 
-The line before the last is a JSON summary of the seven kernels, each with
+The line before the last is a JSON summary of the eight kernels, each with
 its bound (the larger of its bytes over 3.35 TB/s and its operations
 over the 67 TFLOP/s FP32 rate, counted from this run's inputs) and the
 time of the one library call that computes the same function, where
@@ -182,9 +188,10 @@ there is one (the ``ms`` of kernels 2, 4 and 5 is device time from
 ``torch.profiler``, kernel 5's over the solve path's eight panels;
 ``host_ms`` the CUDA-event time of the same Python calls; kernels 2 and
 3 list their large shapes, kernel 3's variant-3 shapes with their plain
-and path times; the chase kernel, which replaces an XLA scan and no
-Pallas kernel, its main sweep's shapes and the eager and graph sweep
-times); the last line is ``{"ok": true, "device": {...}}``.
+and path times; the chase and window kernels, which replace an XLA scan
+and an XLA while loop and no Pallas kernel, their shapes, the chase's
+other variant and the eager and graph sweep times); the last line is
+``{"ok": true, "device": {...}}``.
 Imports nothing of JAX.
 """
 
@@ -753,26 +760,29 @@ def check_phase_solve(dev):
 
 
 def phase_counts():
-    """Launches of kernels 1-6 since ``reset_counts`` (the chase kernel's
-    are ``schur_chase.LAUNCHES``, read by the Schur phases)."""
+    """Launches of kernels 1-6 and the AED window kernel since
+    ``reset_counts`` (the chase kernel's are ``schur_chase.LAUNCHES``,
+    read by the Schur phases)."""
     from linalg_solver_tpu_torch.ops.kernels import butterfly, gauss_jordan
     from linalg_solver_tpu_torch.ops.kernels import inv_rbt, lu_nopivot
-    from linalg_solver_tpu_torch.ops.kernels import lu_panel, solve_fused
+    from linalg_solver_tpu_torch.ops.kernels import lu_panel, schur_window
+    from linalg_solver_tpu_torch.ops.kernels import solve_fused
 
     return {"fused": solve_fused.LAUNCHES, "inv_rbt": inv_rbt.LAUNCHES,
             "gauss_jordan": gauss_jordan.LAUNCHES,
             "butterfly": butterfly.LAUNCHES, "lu_nopivot": lu_nopivot.LAUNCHES,
-            "lu_panel": lu_panel.LAUNCHES}
+            "lu_panel": lu_panel.LAUNCHES,
+            "schur_window": schur_window.LAUNCHES}
 
 
 def reset_counts():
     from linalg_solver_tpu_torch.ops.kernels import butterfly, gauss_jordan
     from linalg_solver_tpu_torch.ops.kernels import inv_rbt, lu_nopivot
     from linalg_solver_tpu_torch.ops.kernels import lu_panel, schur_chase
-    from linalg_solver_tpu_torch.ops.kernels import solve_fused
+    from linalg_solver_tpu_torch.ops.kernels import schur_window, solve_fused
 
     for mod in (solve_fused, inv_rbt, gauss_jordan, butterfly, lu_nopivot,
-                lu_panel, schur_chase):
+                lu_panel, schur_chase, schur_window):
         mod.LAUNCHES = 0
 
 
@@ -803,7 +813,7 @@ def drive_phase_paths(dev):
           f"launches {counts}, worst residual {resid:.3e} (tol {TOL_RESID}), "
           f"x {tuple(x.shape)}")
     want = {"fused": 0, "inv_rbt": 0, "gauss_jordan": 0, "butterfly": 1,
-            "lu_nopivot": N // 32, "lu_panel": 0}
+            "lu_nopivot": N // 32, "lu_panel": 0, "schur_window": 0}
     if counts != want:
         raise AssertionError(f"expected launches {want} (no rescue)")
     if x.shape != b.shape or not bool(torch.isfinite(x).all()):
@@ -830,7 +840,7 @@ def drive_phase_paths(dev):
     print(f"phase inverse path inverse_batched(auto) B={B} N={N}: launches "
           f"{counts}, worst max|AX - I| {r_inv:.3e} (tol {TOL_INV})")
     want = {"fused": 0, "inv_rbt": 0, "gauss_jordan": 0, "butterfly": 2,
-            "lu_nopivot": N // 64, "lu_panel": 0}
+            "lu_nopivot": N // 64, "lu_panel": 0, "schur_window": 0}
     if counts != want:
         raise AssertionError(f"expected launches {want} (no rescue)")
     if not (bool(torch.isfinite(xi).all()) and r_inv <= TOL_INV):
@@ -1049,7 +1059,7 @@ def drive_panel_paths(dev):
     out = {"launches": 0, "err": 0.0}
     a, b = bench_batch(dev)
     only6 = {"fused": 0, "inv_rbt": 0, "gauss_jordan": 0, "butterfly": 0,
-             "lu_nopivot": 0, "lu_panel": N // 64}
+             "lu_nopivot": 0, "lu_panel": N // 64, "schur_window": 0}
 
     # the mixed solve, k = 1; the pivoted rung must not be called
     calls, off = record(lu_panel, "panel_factor_masked")
@@ -1206,7 +1216,7 @@ def drive_large_paths(dev):
               f"{counts}, systems rescued {len(rescued)}, worst residual "
               f"{resid:.3e} (tol {TOL_RESID})")
         want = {"fused": 0, "inv_rbt": 0, "gauss_jordan": 0, "butterfly": 1,
-                "lu_nopivot": 0, "lu_panel": 0}
+                "lu_nopivot": 0, "lu_panel": 0, "schur_window": 0}
         if counts != want:
             raise AssertionError(f"expected launches {want}")
         if rescued:
@@ -2443,14 +2453,55 @@ def chase_work(H, Q, tables):
     return nbytes, live * (11 * npad + 11 * (npad + nq) + 30)
 
 
-def hold_chase(a, with_q, what):
-    """The chase kernel against its plain version, bitwise, on every
-    launch of one outer sweep of ``ops.schur`` from ``a``'s initial state
-    (the AED windows' chases and the main multishift chase: the arrays
-    the path gives the kernel in its first sweep).  Returns (max abs
-    diff, the main chase's arguments)."""
+def window_sweeps(Hw, Qw, hw, an, *_):
+    """Each lane's sweeps in the window kernel on these windows: the
+    sweeps it starts with ``hw >= 1`` in the plain batch loop, and one
+    for a lane converged on entry where the batch was live."""
     from linalg_solver_tpu_torch.ops import schur
     from linalg_solver_tpu_torch.ops.kernels import schur_chase as sc
+
+    w = Qw.shape[1]
+    live0 = bool((hw >= 1).any())
+    count = torch.zeros_like(hw)
+    stg = torch.zeros_like(hw)
+    H, Q, h = Hw, Qw, hw
+    for _ in range(2 * w):
+        live = h >= 1
+        if not bool(live.any()):
+            break
+        count += live.long()
+        H, h, stg, Q, _ = schur._one_sweep(
+            H, h, stg, an, Q, strict_deflate=True,
+            chase=sc.francis_chase_reference)
+    return torch.where((hw < 1) & live0, 1, count)
+
+
+def window_work(Hw, Qw, hw, an, *_):
+    """(bytes, operations) of one window-kernel launch: the windows and
+    their Q read and written once, hw, the norms, beta and the trailing
+    run's ends; each lane's sweeps (``window_sweeps``: what these inputs
+    need) of ``w - 1`` chase steps (11 operations a column of the row
+    update, 11 a row of H and Q in the column update, ~30 for the
+    reflector) and ~45 operations a position of deflation, shifts and
+    bulge starts, and ~15 a row of the trailing run."""
+    B, npad, _ = Hw.shape
+    w = npad - 1
+    e = Hw.element_size()
+    nbytes = B * (2 * e * (npad * npad + w * npad) + 2 * e + 40)
+    sweeps = int(window_sweeps(Hw, Qw, hw, an).sum())
+    per = (w - 1) * (11 * npad + 11 * (npad + w) + 30) + 45 * npad
+    return nbytes, sweeps * per + B * 15 * w
+
+
+def hold_schur(a, with_q, what):
+    """The window kernel (every AED round) and the chase kernel (every
+    launch, the main chase in both variants) against their plain
+    versions, bitwise (NaN-equal), on the arrays one outer sweep of
+    ``ops.schur`` from ``a``'s initial state gives them.  Returns (max abs
+    diff, the main chase's arguments, the window kernel's arguments)."""
+    from linalg_solver_tpu_torch.ops import schur
+    from linalg_solver_tpu_torch.ops.kernels import schur_chase as sc
+    from linalg_solver_tpu_torch.ops.kernels import schur_window as sw
 
     B_, n = a.shape[0], a.shape[1]
     npairs = schur._auto_npairs(n)
@@ -2458,49 +2509,75 @@ def hold_chase(a, with_q, what):
     H, Q, hi, st, an, _ = schur._schur_init(a, with_q=with_q)
     state = (H, Q, hi, st, an, torch.zeros_like(hi, dtype=torch.bool),
              torch.zeros((), dtype=torch.long, device=a.device))
-    calls = []
-    orig = sc.francis_chase
+    chases, wins = [], []
+    orig, orig_w = sc.francis_chase, sw.window_schur
 
     def rec(H, Q, tables, nc):
         args = (H.clone(), None if Q is None else Q.clone(),
                 [t.clone() for t in tables], nc)
         out = orig(H, Q, tables, nc)
-        calls.append((args, out))
+        chases.append((args, out))
         return out
 
-    sc.francis_chase = rec
+    def rec_w(*args):
+        out = orig_w(*args)
+        wins.append(([x.clone() if isinstance(x, torch.Tensor) else x
+                      for x in args], out))
+        return out
+
+    sc.francis_chase, sw.window_schur = rec, rec_w
     try:
         with schur.f32_matmuls():
             schur._schur_sweep(state, npairs, aed_w)
     finally:
-        sc.francis_chase = orig
+        sc.francis_chase, sw.window_schur = orig, orig_w
     torch.cuda.synchronize()
     err = 0.0
-    for (H, Q, tables, nc), (Ho, Qo) in calls:
+    for args, out in wins:
+        ref = sw.window_schur_reference(*args)
+        if not all(nan_equal(o, r) for o, r in zip(out, ref)):
+            raise AssertionError(f"window kernel {what} disagrees with its "
+                                 f"plain version on {list(args[0].shape)} "
+                                 f"{args[0].dtype}")
+        err = max(err, abs_diff(out[0], ref[0]), abs_diff(out[1], ref[1]))
+    for (H, Q, tables, nc), (Ho, Qo) in chases:
         Hr, Qr = sc.francis_chase_reference(H, Q, tables, nc)
-        same = nan_equal(Ho, Hr) and (Q is None or nan_equal(Qo, Qr))
-        if not same:
-            raise AssertionError(f"chase kernel {what} disagrees with its "
-                                 f"plain version on {list(H.shape)}, "
-                                 f"{nc + 1} bulges a step")
-        err = max(err, abs_diff(Ho, Hr))
-    shapes = sorted({(tuple(c[0][0].shape), c[0][3] + 1) for c in calls})
-    print(f"chase kernel vs plain {what}: {len(calls)} launches of one "
-          f"outer sweep (shape, bulges a step: {shapes}), all bitwise equal "
-          f"(max abs diff {err:.3e})")
-    main = [c[0] for c in calls if c[0][0].shape[1] == n + 1]
-    return err, main[0]
+        outs = [(Ho, Qo)]
+        if H.shape[1] == n + 1:
+            # the main chase: the other variant too
+            v = sc.variant(n, H.dtype)
+            outs += [sc.francis_chase(H, Q, tables, nc, v=u)
+                     for u in sc.VARIANTS if u != v]
+        for Hk, Qk in outs:
+            if not (nan_equal(Hk, Hr) and (Q is None or nan_equal(Qk, Qr))):
+                raise AssertionError(f"chase kernel {what} disagrees with "
+                                     f"its plain version on {list(H.shape)}, "
+                                     f"{nc + 1} bulges a step")
+            err = max(err, abs_diff(Hk, Hr))
+    shapes = sorted({(tuple(c[0][0].shape), c[0][3] + 1) for c in chases})
+    print(f"window kernel vs plain {what}: {len(wins)} launch(es) of one "
+          f"outer sweep ({[list(w_[0][0].shape) for w_ in wins]}, "
+          f"{a.dtype}), bitwise equal (NaN-equal) on H, Q, hw and the "
+          f"trailing deflation's rows and end; chase "
+          f"kernel vs plain: {len(chases)} launch(es) (shape, bulges a step: "
+          f"{shapes}), the main chase in variants {list(sc.VARIANTS)}, all "
+          f"bitwise equal (max abs diff {err:.3e})")
+    if len(wins) != 1 or any(c[0][0].shape[1] != n + 1 for c in chases):
+        raise AssertionError("an outer sweep took other launches than one "
+                             "window-kernel launch and the main chase")
+    main = [c[0] for c in chases if c[0][0].shape[1] == n + 1]
+    return err, main[0], wins[0][0]
 
 
 def drive_schur(dev):
     """Phase 27, schur-gauss-256: ``eigvals_schur`` on 32 seeded Gaussian
-    256x256 f32 matrices (8 shift pairs, AED window 32: one chase-kernel
-    launch an inner AED sweep and one a main sweep, replayed from a CUDA
-    graph): every lane converged and clean, the eigenvalues within
-    ``TOL_SCHUR_EIG`` of numpy's float64 ones; no kernel 1-6 launch;
-    then the chase kernel held bitwise against its plain version on
-    every launch of the first sweep.  Returns the input, the launches,
-    the held error and the main chase's arguments."""
+    256x256 f32 matrices (8 shift pairs, AED window 32: one window-kernel
+    launch an AED round and one chase-kernel launch a main sweep, replayed
+    from a CUDA graph): every lane converged and clean, the eigenvalues
+    within ``TOL_SCHUR_EIG`` of numpy's float64 ones; no kernel 1-6
+    launch; then both kernels held bitwise against their plain versions
+    on every launch of the first sweep, in f32 and in float64.  Returns
+    the input, the launches, the held error and the kernels' arguments."""
     from linalg_solver_tpu_torch.ops import schur
     from linalg_solver_tpu_torch.ops.kernels import schur_chase as sc
 
@@ -2512,6 +2589,7 @@ def drive_schur(dev):
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     counts, chase = phase_counts(), sc.LAUNCHES
+    window = counts.pop("schur_window")
     off()
     sweeps = int(runs[0][1].sweeps)
     dev_ = max(eig_deviation(ev.real, ev.imag, a))
@@ -2519,21 +2597,24 @@ def drive_schur(dev):
     print(f"schur path eigvals_schur B={B_SPEC} n={N_SPEC} Gaussian: "
           f"converged {conv}/{B_SPEC}, clean {clean}/{B_SPEC}, {sweeps} "
           f"sweeps, max eigenvalue deviation from numpy float64 "
-          f"{dev_:.3e} (tol {TOL_SCHUR_EIG}), chase launches {chase}, "
-          f"other launches {counts}, {secs:.2f} s (CUDA-graph capture "
-          f"included)")
-    if any(counts.values()) or chase < 1:
-        raise AssertionError("eigvals_schur launched other kernels or no "
-                             "chase")
+          f"{dev_:.3e} (tol {TOL_SCHUR_EIG}), window launches {window}, "
+          f"chase launches {chase}, other launches {counts}, {secs:.2f} s "
+          f"(CUDA-graph capture included)")
+    if any(counts.values()) or chase < 1 or window < 1:
+        raise AssertionError("eigvals_schur launched other kernels, or no "
+                             "window kernel or chase")
     if ev.real.shape != (B_SPEC, N_SPEC) or not bool(
             torch.isfinite(ev.real).all() & torch.isfinite(ev.imag).all()):
         raise AssertionError("eigvals_schur's output has the wrong shape or "
                              "non-finite values")
     if conv != B_SPEC or clean != B_SPEC or not dev_ <= TOL_SCHUR_EIG:
         raise AssertionError("eigvals_schur is wrong")
-    err, main = hold_chase(a, False, "on schur-gauss-256")
-    return {"a": a, "launches": chase, "err": err, "main": main,
-            "sweeps": sweeps}
+    err, main, win = hold_schur(a, False, "on schur-gauss-256")
+    err64, main64, win64 = hold_schur(a.double(), False,
+                                      "on schur-gauss-256 in float64")
+    return {"a": a, "launches": chase, "window": window,
+            "err": max(err, err64), "main": main, "win": win,
+            "main64": main64, "win64": win64, "sweeps": sweeps}
 
 
 def drive_schur_spectral(dev):
@@ -2559,6 +2640,8 @@ def drive_schur_spectral(dev):
         for k in counts:
             out["launches"][k] += counts[k]
         out["chase"] += sc.LAUNCHES
+        if counts["schur_window"] < 1:
+            raise AssertionError("the Schur route launched no window kernel")
 
     a4 = spectral_input(dev)
     for md in (3, None):
@@ -2587,7 +2670,8 @@ def drive_schur_spectral(dev):
               f"pass(es) flagging {flagged} lanes, {secs:.2f} s")
         want = dict.fromkeys(counts, 0)
         want.update(gauss_jordan=2 * -(-B_SPEC // chunk),
-                    butterfly=2 * len(flagged), lu_nopivot=4 * len(flagged))
+                    butterfly=2 * len(flagged), lu_nopivot=4 * len(flagged),
+                    schur_window=counts["schur_window"])
         if (counts != want or len(schur_runs) != 1 or sc.LAUNCHES < 1
                 or len(flagged) not in (1, 2)):
             raise AssertionError(f"expected launches {want} and the Schur "
@@ -2627,6 +2711,8 @@ def drive_schur_spectral(dev):
             or bool(rep.diagonalizable.any())):
         raise AssertionError("method='auto' on config 5 is wrong")
     out["a5"] = a5
+    err5, _, _ = hold_schur(a5, False, "on spectral-auto-jordan-256 "
+                                       "(defective)")
 
     ae, lam = eig_input(dev)
     eig_runs, off_g = record(spectral, "eig_real_batched")
@@ -2660,7 +2746,9 @@ def drive_schur_spectral(dev):
     out["bf_err"] = hold_butterflies(bf_calls, "on the eig route's P^-1")
     out["panel_err"], _ = hold_panels(lu_calls, "on the eig route's P^-1")
     out["ae"] = ae
-    out["err"], out["main_q"] = hold_chase(ae, True, "on spectral-eig-256")
+    err, out["main_q"], out["win_q"] = hold_schur(ae, True,
+                                                  "on spectral-eig-256")
+    out["err"] = max(err, err5)
     return out
 
 
@@ -2668,12 +2756,16 @@ def time_schur_paths(dev, card, schur_out, spec_out):
     """Phase 31: one outer sweep at [32, 256, 256] eagerly and as a CUDA
     graph replay; the four cells' calls (CUDA events, median of 3) beside
     ``torch.linalg.eigvals`` / ``eig`` on the same batches (reference
-    points only); the chase kernel alone at the main sweep's shape and
-    an AED window's, beside its plain version and bound.  Returns the
-    chase kernel's times."""
+    points only); the window kernel alone on the first AED round (f32 and
+    float64) beside its plain version, the per-sweep loop it replaced
+    (eager, a chase launch a sweep) and its bound; the chase kernel alone
+    at the main sweep's shape, with and without Q, in both variants,
+    beside its plain version and bound.  Returns the times and the
+    kernels' rows."""
     from linalg_solver_tpu_torch.models import spectral
     from linalg_solver_tpu_torch.ops import schur
     from linalg_solver_tpu_torch.ops.kernels import schur_chase as sc
+    from linalg_solver_tpu_torch.ops.kernels import schur_window as sw
     from linalg_solver_tpu_torch.utils.benchmarking import cuda_time
 
     a, a4, a5, ae = (schur_out["a"], spec_out["a4"], spec_out["a5"],
@@ -2691,10 +2783,11 @@ def time_schur_paths(dev, card, schur_out, spec_out):
     graph = schur._sweep_graph(state, npairs, aed_w)
     t_eager = cuda_time(eager_sweep, warmup=1, iters=3)
     t_graph = cuda_time(graph.replay, warmup=1, iters=3)
-    print(f"time one outer sweep B={B_SPEC} n={N_SPEC} (AED w={aed_w}, "
-          f"{2 * aed_w} inner sweeps, {npairs} shift pairs): eager "
-          f"{t_eager * 1e3:.4f} ms, CUDA graph {t_graph * 1e3:.4f} ms "
-          f"({card})")
+    print(f"time one outer sweep B={B_SPEC} n={N_SPEC} (AED w={aed_w}: one "
+          f"window-kernel launch of up to {2 * aed_w} inner sweeps; "
+          f"{npairs} shift pairs): eager {t_eager * 1e3:.4f} ms, CUDA graph "
+          f"{t_graph * 1e3:.4f} ms, launches a replay (chase, window) "
+          f"{graph.launches} ({card})")
     cells = {
         "schur-gauss-256 eigvals_schur": lambda: schur.eigvals_schur(a),
         "torch.linalg.eigvals (reference point)":
@@ -2718,22 +2811,56 @@ def time_schur_paths(dev, card, schur_out, spec_out):
         times[what] = cuda_time(fn, warmup=0, iters=3)
         print(f"time {what} B={B_SPEC} n={N_SPEC}: "
               f"{times[what] * 1e3:.4f} ms ({card})")
+
+    from linalg_solver_tpu_torch.ops.kernels import _build
+
+    lib = _build.load()
+    print("chase variant 1 at n=256 (blocks a cluster, clusters the card "
+          "runs at once): " + ", ".join(
+              f"{t} ({lib.chase_cluster_size(N_SPEC, f64)}, "
+              f"{lib.chase_clusters(N_SPEC, f64)})"
+              for t, f64 in (("f32", 0), ("float64", 1))))
+    wrows = []
+    for args, what in ((schur_out["win"], "AED round, f32"),
+                       (schur_out["win64"], "AED round, float64")):
+        t_k = cuda_time(sw.window_schur, *args, warmup=1, iters=5)
+        t_p = cuda_time(sw.window_schur_reference, *args, warmup=0, iters=1)
+        t_loop = cuda_time(lambda: schur._window_schur(
+            *args, chase=sc.francis_chase), warmup=0, iters=1)
+        b_ms, b_by = bound(*window_work(*args))
+        print(f"time window kernel {what} {list(args[0].shape)}: kernel "
+              f"{t_k * 1e3:.4f} ms, plain {t_p * 1e3:.4f} ms, the per-sweep "
+              f"loop on the chase kernel (eager) {t_loop * 1e3:.4f} ms, "
+              f"library none, bound {b_ms:.4f} ms {b_by} ({card})")
+        wrows.append({"shape": list(args[0].shape), "op": what,
+                      "ms": t_k * 1e3, "plain_ms": t_p * 1e3,
+                      "loop_ms": t_loop * 1e3, "bound_ms": b_ms,
+                      "bound_by": b_by, "library_ms": None})
     rows = []
     for args, what in ((schur_out["main"], "main sweep"),
-                       (spec_out["main_q"], "main sweep with Q")):
+                       (spec_out["main_q"], "main sweep with Q"),
+                       (schur_out["main64"], "main sweep, float64")):
         H, Qm, tables, nc = args
-        t_k = cuda_time(sc.francis_chase, H, Qm, tables, nc, warmup=1,
-                        iters=3)
+        v = sc.variant(N_SPEC, H.dtype)
+        t_v = {}
+        for u in (v, 1 - v, 1 - v, v):
+            t_v.setdefault(u, []).append(cuda_time(
+                sc.francis_chase, H, Qm, tables, nc, u, warmup=1, iters=3))
+        t_k = min(t_v[v])
+        t_o = min(t_v[1 - v])
         t_p = cuda_time(sc.francis_chase_reference, H, Qm, tables, nc,
                         warmup=0, iters=1)
         b_ms, b_by = bound(*chase_work(H, Qm, tables))
         print(f"time chase kernel {what} {list(H.shape)}, {nc + 1} bulges a "
-              f"step: kernel {t_k * 1e3:.4f} ms, plain {t_p * 1e3:.4f} ms, "
-              f"library none, bound {b_ms:.4f} ms {b_by} ({card})")
-        rows.append({"shape": list(H.shape), "op": what, "ms": t_k * 1e3,
+              f"step: variant {v} (by shape) {t_k * 1e3:.4f} ms, variant "
+              f"{1 - v} {t_o * 1e3:.4f} ms (in turns, best of 2), plain "
+              f"{t_p * 1e3:.4f} ms, library none, bound {b_ms:.4f} ms {b_by} "
+              f"({card})")
+        rows.append({"shape": list(H.shape), "op": what, "variant": v,
+                     "ms": t_k * 1e3, "other_variant_ms": t_o * 1e3,
                      "plain_ms": t_p * 1e3, "bound_ms": b_ms,
                      "bound_by": b_by, "library_ms": None})
-    return times, rows
+    return times, rows, wrows
 
 
 def main() -> None:
@@ -2911,8 +3038,8 @@ def main() -> None:
     # routes at the same size, the sweep eager and as a graph, times
     schur_out = drive_schur(dev)
     spec_schur = drive_schur_spectral(dev)
-    schur_times, chase_shapes = time_schur_paths(dev, card, schur_out,
-                                                 spec_schur)
+    schur_times, chase_shapes, window_shapes = time_schur_paths(
+        dev, card, schur_out, spec_schur)
     eig_counts = {k: eig_counts[k] + spec_schur["launches"][k]
                   for k in eig_counts}
 
@@ -2930,6 +3057,8 @@ def main() -> None:
         "panel_factor_nopivot": bound(*nopivot_work(phase["solve_panels"])),
         "panel_factor_masked": bound(*panel_work(k6["panels"])),
         "francis_chase": bound(*chase_work(*schur_out["main"][:3])),
+        "window_schur": (window_shapes[0]["bound_ms"],
+                         window_shapes[0]["bound_by"]),
     }
     rows = [{
         "name": "solve_fused_rbt",
@@ -3022,6 +3151,19 @@ def main() -> None:
         "large_shapes": chase_shapes,
         "sweep_eager_ms": schur_times["sweep eager"] * 1e3,
         "sweep_graph_ms": schur_times["sweep graph"] * 1e3,
+    }, {
+        "name": "window_schur",
+        "route": "cuda",
+        "source": "linalg_solver_tpu_torch/csrc/schur_window.cu",
+        # no Pallas kernel: the AED round's lax.while_loop (schur.py:571-597)
+        "replaces": "linalg_solver_tpu/ops/schur.py:586",
+        "launches": (schur_out["window"]
+                     + spec_schur["launches"]["schur_window"]),
+        "max_abs_err": max(schur_out["err"], spec_schur["err"]),
+        "ms": window_shapes[0]["ms"],
+        "plain_ms": window_shapes[0]["plain_ms"],
+        "library_ms": None,
+        "large_shapes": window_shapes,
     }]
     for row in rows:
         row["bound_ms"], row["bound_by"] = bounds[row["name"]]

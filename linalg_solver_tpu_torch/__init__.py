@@ -34,6 +34,10 @@ Ported so far:
   on one GPU;
 - the device eigen stack: ``ops.eigen``, ``ops.orth``, ``ops.symmetric``,
   ``ops.generate``, ``models.jordan.jordan_analysis`` and
-  ``models.spectral.spectral_pipeline`` (the symmetric and QR routes;
-  the Schur routes raise until ``ops/schur.py`` is ported).
+  ``models.spectral.spectral_pipeline``'s symmetric and QR routes;
+- the real Schur solver ``ops.schur`` (balancing, Hessenberg, multishift
+  Francis QR with aggressive early deflation, the Schur vectors and the
+  real eigenvectors), behind ``eigvals_schur``, ``eig_real_batched`` and
+  ``spectral_pipeline``'s ``"schur"``, ``"eig"`` and ``"auto"`` routes on
+  non-symmetric batches.
 """

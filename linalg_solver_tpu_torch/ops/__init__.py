@@ -30,8 +30,48 @@
   finite on repeated eigenvalues, and the symmetry probe
 - ``orth`` — batched masked CholeskyQR orthonormalization
 - ``generate`` — structured random batches on the device
+
+As in the reference, the functions ``rref``, ``solve`` and
+``rref_blocked`` shadow the modules of the same names on this package:
+reach those with ``importlib.import_module`` (``from . import solve``
+binds the function).
 """
 
+from .rref import (
+    EV_ELIM_ABOVE,
+    EV_ELIM_BELOW,
+    EV_NORM,
+    EV_SWAP,
+    EVENT_NAMES,
+    RREFResult,
+    rref,
+    rref_batched,
+)
+from .solve import (
+    BatchedAffineSubspace,
+    InverseResult,
+    det_gj,
+    det_gj_batched,
+    inverse,
+    inverse_batched,
+    nullspace,
+    nullspace_batched,
+    rank,
+    rank_batched,
+    solve,
+    solve_batched,
+)
+from .lu import (
+    LUResult,
+    det_lu,
+    det_lu_batched,
+    lu_factor,
+    lu_factor_batched,
+    lu_solve,
+    lu_solve_batched,
+    solve_lu,
+    solve_lu_batched,
+)
 from .schur import (
     EigResult,
     SchurEigvals,
@@ -42,6 +82,12 @@ from .schur import (
     hessenberg,
     real_schur,
     real_schur_vectors,
+)
+from .rref_blocked import (
+    BlockedRREF,
+    rank_blocked_batched,
+    rref_blocked,
+    solve_affine_blocked_batched,
 )
 from .symmetric import (
     EighResult,

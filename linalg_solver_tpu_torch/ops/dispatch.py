@@ -93,6 +93,7 @@ factors.
 
 from __future__ import annotations
 
+import importlib
 from typing import Optional
 
 import torch
@@ -102,8 +103,10 @@ from . import lu as _lu
 from . import lu_blocked as _lub
 from . import lu_large as _lul
 from . import rbt as _rbt
-from . import rref_blocked as _rrb
-from . import solve as _solve
+# the package binds the functions ``rref_blocked`` and ``solve`` over
+# these modules' names (as the reference does)
+_rrb = importlib.import_module(".rref_blocked", __package__)
+_solve = importlib.import_module(".solve", __package__)
 from .kernels.gauss_jordan import _like
 from .kernels.solve_fused import fits
 from ..utils.precision import f32_matmuls

@@ -11,6 +11,9 @@ version (counterpart of ``linalg_solver_tpu.ops.pallas``).
   earlier panels pivoted (the pivoted phase loop of ``ops.lu_blocked``)
 - ``schur_chase`` — one Francis sweep's bulge chase (``ops.schur``; no
   Pallas counterpart: the reference chases in an XLA scan)
+- ``schur_window`` — an AED window's whole inner real Schur form
+  (``ops.schur._aed``; no Pallas counterpart: the reference runs an XLA
+  while loop)
 
 The functions below are the facade ``ops.dispatch`` routes to, as the
 JAX package's ``ops.pallas`` is: ``inverse_batched`` takes the fused RBT

@@ -52,7 +52,13 @@ _SIGNATURES = {
     "panel_smem_bytes": (ctypes.c_size_t, [_I, _I]),
     "panel_variant": (_I, [_I, _I]),
     "panel_attributes": (_I, [_I] * 3 + [_P]),
-    "schur_chase": (_I, [_P] * 8 + [_I] * 5 + [_P]),
+    "schur_chase": (_I, [_P] * 8 + [_I] * 6 + [_P]),
+    "chase_variant": (_I, [_I] * 2),
+    "chase_cluster_size": (_I, [_I] * 2),
+    "chase_cluster_smem_bytes": (ctypes.c_size_t, [_I] * 2),
+    "chase_clusters": (_I, [_I] * 2),
+    "schur_window": (_I, [_P] * 8 + [_I] * 4 + [_P]),
+    "schur_window_smem_bytes": (ctypes.c_size_t, [_I, _I]),
     "kernels_error_string": (ctypes.c_char_p, [_I]),
 }
 

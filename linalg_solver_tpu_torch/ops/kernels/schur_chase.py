@@ -2,8 +2,10 @@
 ``ops.schur``; the reference chases in an XLA scan, ``_one_sweep``'s
 ``lax.scan`` over ``_chase_step``, and has no Pallas kernel for it).
 
-``francis_chase`` launches ``csrc/schur_chase.cu`` (one block a matrix,
-every chase step of the sweep in one launch) on CUDA tensors and runs
+``francis_chase`` launches ``csrc/schur_chase.cu`` (every chase step of
+the sweep in one launch; ``variant`` picks by shape between one block a
+matrix in device memory and a cluster of two or four blocks holding H's
+rows in their shared memory) on CUDA tensors and runs
 ``francis_chase_reference``, ~60 batched PyTorch operations a chase step
 on strided views of the state, on CPU tensors.  On a CUDA tensor it
 launches the kernel or raises; it never falls back.  ``LAUNCHES`` counts
@@ -21,6 +23,41 @@ import torch
 
 #: kernel launches since import (or since the caller last reset it)
 LAUNCHES = 0
+
+#: the variants: device memory, one block a matrix; a cluster of blocks
+#: holding H's rows in shared memory
+VARIANTS = (0, 1)
+#: variant 1 from this n (mirror of N_CLUSTER_MIN in the source)
+N_CLUSTER_MIN = 128
+_SMEM_MAX = 232448
+_MAXB = 64
+
+
+def cluster_smem_bytes(n: int, cs: int, dtype) -> int:
+    """Variant 1's dynamic shared memory a block at ``n`` in a cluster of
+    ``cs`` blocks (mirror of ``cluster_bytes``): ``ceil((n+1)/cs)`` rows
+    of H and a live flag a chase step."""
+    esize = torch.empty((), dtype=dtype).element_size()
+    b = -(-(n + 1) // cs) * (n + 1) * esize + n + 3 * (_MAXB - 1)
+    return (b + 15) & ~15
+
+
+def cluster_size(n: int, dtype) -> int:
+    """Variant 1's blocks a cluster at ``n`` (mirror of ``cluster_size``):
+    2 where half of H and a step's reflectors fit a block's shared
+    memory, else 4 where a quarter does, else 0."""
+    refl = 64 * 3 * 2 * (8 if dtype == torch.float64 else 4) + 64 * 2 * 4
+    for cs in (2, 4):
+        if cluster_smem_bytes(n, cs, dtype) + refl <= _SMEM_MAX:
+            return cs
+    return 0
+
+
+def variant(n: int, dtype) -> int:
+    """The variant the launch takes at ``n`` (mirror of
+    ``chase_variant``): 1 from ``N_CLUSTER_MIN`` where a cluster holds H,
+    else 0."""
+    return 1 if n >= N_CLUSTER_MIN and cluster_size(n, dtype) else 0
 
 
 def chase_tables(start, end, s_arr, p_arr, hi, chain, n_chain: int):
@@ -148,18 +185,19 @@ def _check(H, Q, tables, n_chain):
                              f"got {tuple(t.shape)}")
 
 
-def francis_chase(H, Q, tables, n_chain: int):
+def francis_chase(H, Q, tables, n_chain: int, v=None):
     """One sweep's chase on the padded Hessenberg batch ``H [B, n+1,
     n+1]`` and, when given, the accumulator ``Q [B, rows, n+1]`` (every
     reflector also applied on its right), under the control ``tables``
-    of ``chase_tables``.  Returns new ``(H, Q)``; the inputs are left as
-    they were."""
+    of ``chase_tables``.  ``v`` forces a kernel variant (tests; default
+    by shape).  Returns new ``(H, Q)``; the inputs are left as they
+    were."""
     _check(H, Q, tables, n_chain)
     H = H.clone(memory_format=torch.contiguous_format)
     if Q is not None:
         Q = Q.clone(memory_format=torch.contiguous_format)
     if H.is_cuda:
-        _launch(H, Q, tables, n_chain)
+        _launch(H, Q, tables, n_chain, v)
     elif H.device.type == "cpu":
         _chase(H, Q, tables, n_chain)
     else:
@@ -197,7 +235,7 @@ def _chase(H, Q, tables, n_chain: int):
             _bulges(H, Q, tables, p0, r_lo, r_hi - r_lo + 1)
 
 
-def _launch(H, Q, tables, n_chain):
+def _launch(H, Q, tables, n_chain, v=None):
     global LAUNCHES
     from . import _build
 
@@ -220,6 +258,6 @@ def _launch(H, Q, tables, n_chain):
             cre.data_ptr(), chs.data_ptr(), zcut.data_ptr(), S.data_ptr(),
             P.data_ptr(), B, npad - 1, n_chain,
             0 if Q is None else Q.shape[1], int(H.dtype == torch.float64),
-            stream)
+            -1 if v is None else v, stream)
     _build.check(err, "schur_chase launch")
     LAUNCHES += 1

@@ -17,11 +17,13 @@
   of the spectrum.
 
 The reference's device loops (``while_loop``, ``scan``, ``fori_loop``,
-``cond``) are Python loops of batched operations here, but for the bulge
-chase of a sweep, which is one launch of a hand-written kernel
+``cond``) are Python loops of batched operations here, but for two, each
+one launch of a hand-written kernel: the bulge chase of a sweep
 (``kernels.schur_chase``: its plain version chases on strided views of
-the state, the chase position being a Python integer).  No loop inside an
-outer sweep reads the device: a loop that the reference ends early when
+the state, the chase position being a Python integer) and an AED
+window's whole inner real Schur form (``kernels.schur_window``: its plain
+version is ``_window_schur``).  No loop inside an outer sweep reads the
+device: a loop that the reference ends early when
 every lane has deflated runs to its bound instead, and a pass in which
 no lane is live leaves the state as it was (``torch.where`` on a device
 flag), so the result is the early stop's.  The host reads once a
@@ -42,7 +44,7 @@ import torch
 import torch.nn.functional as F
 
 from ..utils.precision import f32_matmuls
-from .kernels import schur_chase
+from .kernels import schur_chase, schur_window
 
 def _f32(a: torch.Tensor) -> torch.Tensor:
     return a.to(torch.promote_types(a.dtype, torch.float32))
@@ -349,59 +351,32 @@ def _aed(H, Q, hi, stagnant, anorm, w: int, npairs: int, with_q: bool):
     B, npad, _ = H.shape
     n = npad - 1
     dtype, dev = H.dtype, H.device
-    fi = torch.finfo(dtype)
-    eps = fi.eps
-    smlnum = fi.tiny * (n / eps)
     idxw = torch.arange(w, device=dev)
 
     ws = (hi - (w - 1)).clamp(0, max(n - w, 0))
     hi_w0 = hi - ws                                     # local bottom
     beta = torch.where(ws > 0, _take1(H, ws, ws - 1), 0.0)
 
-    # --- inner real Schur of the window, with Q accumulation ---
+    # --- inner real Schur of the window, with Q accumulation, and the
+    # trailing deflation run: one kernel launch where it takes the window,
+    # else a chase launch a sweep ---
     Hw = F.pad(_window(H[:, :n, :n], ws, w), (0, 1, 0, 1))
     Qw = F.pad(torch.eye(w, dtype=dtype, device=dev).expand(B, w, w),
                (0, 1))
     anorm_w = Hw.abs().sum(2).amax(1)
     hw = hi_w0.clamp(-1, w - 1)
-    stg = torch.zeros_like(hi)
-    for _ in range(2 * w):
-        live = (hw >= 1).any()
-        new = _one_sweep(Hw, hw, stg, anorm_w, Qw, strict_deflate=True)
-        Hw, hw, stg, Qw = _blend(live, new[:4], (Hw, hw, stg, Qw))
+    if H.is_cuda and not schur_window.fits(w, dtype):
+        Hw, Qw, hw, nd, p_fin = _window_schur(
+            Hw, Qw, hw, anorm_w, beta, hi_w0, n,
+            chase=schur_chase.francis_chase)
+    else:
+        Hw, Qw, hw, nd, p_fin = schur_window.window_schur(
+            Hw, Qw, hw, anorm_w, beta, hi_w0, n)
     Tw = Hw[:, :w, :w]
     Qw = Qw[:, :, :w]
     conv_all = hw < 1
-
-    diag_w, sub_w, sup_w = _tridiag_parts(Tw)
     lam_re, lam_im = _eigvals_from_T(Tw)
     s_spike = beta[:, None] * Qw[:, 0, :]               # [B, w]
-
-    def take_w(v, i):
-        return v.gather(1, i.clamp(0, w - 1)[:, None])[:, 0]
-
-    # --- trailing deflation run (dlaqr3's test, no reordering) ---
-    p = hi_w0
-    nd = torch.zeros_like(hi)
-    stop = torch.zeros_like(hi, dtype=torch.bool)
-    for _ in range(w):
-        is2 = (p >= 1) & (take_w(sub_w, p - 1) != 0)
-        bstart = p - is2.long()
-        foo = take_w(diag_w, p).abs()
-        foo = torch.where(is2, foo + torch.sqrt(take_w(sub_w, p - 1).abs())
-                          * torch.sqrt(take_w(sup_w, p - 1).abs()), foo)
-        sv = take_w(s_spike, p).abs()
-        sv = torch.where(is2, torch.maximum(sv, take_w(s_spike, p - 1).abs()),
-                         sv)
-        # only blocks the inner iteration converged read as eigenvalues
-        conv_ok = conv_all | (bstart > hw)
-        defl = (~stop & (p >= 0) & conv_ok
-                & (sv <= (eps * foo).clamp(min=smlnum)))
-        sz = torch.where(is2, 2, 1)
-        nd = nd + torch.where(defl, sz, 0)
-        p = p - torch.where(defl, sz, 0)
-        stop = stop | ~defl
-    p_fin = p
 
     # --- shift harvest (before the collapse scrambles the blocks) ---
     m = 2 * npairs
@@ -460,16 +435,81 @@ def _aed(H, Q, hi, stagnant, anorm, w: int, npairs: int, with_q: bool):
     return H, Q, hi, stagnant, (sr, si, sl_ok), skip
 
 
+def _window_schur(Hw, Qw, hw, anorm_w, beta, hi_w0, n: int, chase=None):
+    """The inner real Schur form of AED windows and their trailing
+    deflation run (the plain version of ``kernels.schur_window``): up to
+    ``2w`` strict sweeps of the padded windows ``Hw [B, w+1, w+1]`` with
+    ``Qw [B, w, w+1]`` accumulated, a sweep in which no lane has ``hw >=
+    1`` leaving the state as it was (the reference's ``while_loop`` stops
+    there); then ``_trailing_deflation`` from ``hi_w0`` with the spike
+    ``beta·Qw[0, :]`` (``n``: the full matrix's size).  ``chase`` runs
+    each sweep's bulge chase (default: the plain chase).  Returns ``(Hw,
+    Qw, hw, nd, p_fin)``."""
+    chase = chase or schur_chase.francis_chase_reference
+    w = Qw.shape[1]
+    stg = torch.zeros_like(hw)
+    for _ in range(2 * w):
+        live = (hw >= 1).any()
+        new = _one_sweep(Hw, hw, stg, anorm_w, Qw, strict_deflate=True,
+                         chase=chase)
+        Hw, hw, stg, Qw = _blend(live, new[:4], (Hw, hw, stg, Qw))
+    nd, p_fin = _trailing_deflation(Hw[:, :w, :w], Qw[:, :, :w], hw, beta,
+                                    hi_w0, n)
+    return Hw, Qw, hw, nd, p_fin
+
+
+def _trailing_deflation(Tw, Qw, hw, beta, p, n: int):
+    """dlaqr3's deflation test on the window's real Schur form ``Tw``
+    (no reordering): from the window's bottom row ``p`` up, the longest
+    run of 1×1 and 2×2 blocks whose spike entries ``beta·Qw[0, :]`` are
+    negligible, each block read as eigenvalues only where the inner
+    iteration converged it (``hw``).  Returns ``(nd, p_fin)``: the rows
+    deflated and the bottom row of what is left."""
+    B, w, _ = Tw.shape
+    fi = torch.finfo(Tw.dtype)
+    eps = fi.eps
+    smlnum = fi.tiny * (n / eps)
+    diag_w, sub_w, sup_w = _tridiag_parts(Tw)
+    s_spike = beta[:, None] * Qw[:, 0, :]               # [B, w]
+    conv_all = hw < 1
+
+    def take_w(v, i):
+        return v.gather(1, i.clamp(0, w - 1)[:, None])[:, 0]
+
+    nd = torch.zeros_like(hw)
+    stop = torch.zeros_like(hw, dtype=torch.bool)
+    for _ in range(w):
+        is2 = (p >= 1) & (take_w(sub_w, p - 1) != 0)
+        bstart = p - is2.long()
+        foo = take_w(diag_w, p).abs()
+        foo = torch.where(is2, foo + torch.sqrt(take_w(sub_w, p - 1).abs())
+                          * torch.sqrt(take_w(sup_w, p - 1).abs()), foo)
+        sv = take_w(s_spike, p).abs()
+        sv = torch.where(is2, torch.maximum(sv, take_w(s_spike, p - 1).abs()),
+                         sv)
+        # only blocks the inner iteration converged read as eigenvalues
+        conv_ok = conv_all | (bstart > hw)
+        defl = (~stop & (p >= 0) & conv_ok
+                & (sv <= (eps * foo).clamp(min=smlnum)))
+        sz = torch.where(is2, 2, 1)
+        nd = nd + torch.where(defl, sz, 0)
+        p = p - torch.where(defl, sz, 0)
+        stop = stop | ~defl
+    return nd, p
+
+
 def _one_sweep(H, hi, stagnant, anorm, Q=None, npairs: int = 1,
-               shift_slots=None, skip=None, strict_deflate: bool = False):
+               shift_slots=None, skip=None, strict_deflate: bool = False,
+               chase=None):
     """Deflate, pick per-block shifts, run one multibulge Francis sweep
     (one bulge per unreduced block, all chased together).  With
     ``npairs > 1`` the bottom block also chases a chain of ``npairs − 1``
     bulges spaced 3 apart, on shifts from the trailing window's Ritz
     values (``shift_slots`` from AED, else ``_window_shift_pairs``).  With
     ``Q`` (``[B, rows, npad]``) every reflector is also applied on the
-    right of Q.  The inputs are left as they were.  Returns ``(H, hi,
-    stagnant, Q, forced)``."""
+    right of Q.  ``chase`` runs the bulge chase (default:
+    ``schur_chase.francis_chase``).  The inputs are left as they were.
+    Returns ``(H, hi, stagnant, Q, forced)``."""
     B, npad, _ = H.shape
     n = npad - 1
     H, hi, stagnant, forced = _deflate(H, hi, stagnant, anorm,
@@ -522,7 +562,7 @@ def _one_sweep(H, hi, stagnant, anorm, Q=None, npairs: int = 1,
 
     tables = schur_chase.chase_tables(start, end, s_arr, p_arr, hi, chain,
                                       n_chain)
-    H, Q = schur_chase.francis_chase(H, Q, tables, n_chain)
+    H, Q = (chase or schur_chase.francis_chase)(H, Q, tables, n_chain)
     return H, hi, stagnant, Q, forced
 
 
@@ -599,9 +639,9 @@ def _schur_sweep(state, npairs: int = 1, aed_w: int = 0):
 
 class _SweepGraph:
     """One outer sweep captured in a CUDA graph on static state buffers;
-    each ``replay`` runs one sweep on them in place and adds the chase
-    kernel launches it holds to ``schur_chase.LAUNCHES`` (the capture
-    itself launches nothing)."""
+    each ``replay`` runs one sweep on them in place and adds the chase and
+    window kernel launches it holds to ``schur_chase.LAUNCHES`` and
+    ``schur_window.LAUNCHES`` (the capture itself launches nothing)."""
 
     def __init__(self, state, npairs: int, aed_w: int):
         self.state = [None if t is None else t.clone() for t in state]
@@ -610,15 +650,16 @@ class _SweepGraph:
         with torch.cuda.stream(side), f32_matmuls():
             _schur_sweep(self.state, npairs, aed_w)         # warm-up
         torch.cuda.current_stream().wait_stream(side)
-        before = schur_chase.LAUNCHES
+        before = schur_chase.LAUNCHES, schur_window.LAUNCHES
         self.graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(self.graph), f32_matmuls():
             out = _schur_sweep(self.state, npairs, aed_w)
             for dst, src in zip(self.state, out):
                 if dst is not None and src is not dst:
                     dst.copy_(src)
-        self.launches = schur_chase.LAUNCHES - before
-        schur_chase.LAUNCHES = before
+        self.launches = (schur_chase.LAUNCHES - before[0],
+                         schur_window.LAUNCHES - before[1])
+        schur_chase.LAUNCHES, schur_window.LAUNCHES = before
 
     def load(self, state):
         for dst, src in zip(self.state, state):
@@ -627,7 +668,8 @@ class _SweepGraph:
 
     def replay(self):
         self.graph.replay()
-        schur_chase.LAUNCHES += self.launches
+        schur_chase.LAUNCHES += self.launches[0]
+        schur_window.LAUNCHES += self.launches[1]
 
 
 #: captured sweeps by (device, shape, dtype, with Q, npairs, aed_w)

@@ -6,6 +6,8 @@ nor the JAX package, so it runs on a machine that has only PyTorch:
     python -m pytest tests/test_torch_cuda.py -q -m cuda
 """
 
+import importlib
+
 import numpy as np
 import pytest
 import torch
@@ -337,7 +339,7 @@ def test_affine_and_rank_paths_launch_variant_3_once(cuda):
     """``affine_solve_batched(auto)`` at N = 256 and ``rank_batched(auto)``
     at N = 300: one launch of kernel 3 each (variant 3), consistent
     lanes solved, ranks those constructed."""
-    from linalg_solver_tpu_torch.ops import solve
+    solve = importlib.import_module("linalg_solver_tpu_torch.ops.solve")
 
     g = torch.Generator(device=cuda).manual_seed(3)
     a = torch.randn(4, 256, 256, generator=g, device=cuda)
@@ -848,57 +850,154 @@ def _schur_state(B, n, dev, with_q, dtype=torch.float32, seed=0):
                torch.zeros((), dtype=torch.long, device=dev))
 
 
+def _record_sweep(state, npairs=8, aed_w=32):
+    """Run one outer sweep from ``state``; return the arguments and
+    results of every window and chase launch in it."""
+    from linalg_solver_tpu_torch.ops import schur
+    from linalg_solver_tpu_torch.ops.kernels import schur_chase as sc
+    from linalg_solver_tpu_torch.ops.kernels import schur_window as sw
+
+    wins, chases = [], []
+    ow, oc = sw.window_schur, sc.francis_chase
+
+    def rw(*args):
+        out = ow(*args)
+        wins.append(([a.clone() if isinstance(a, torch.Tensor) else a
+                      for a in args], out))
+        return out
+
+    def rc(H, Q, tables, nc):
+        args = (H.clone(), None if Q is None else Q.clone(),
+                [t.clone() for t in tables], nc)
+        out = oc(H, Q, tables, nc)
+        chases.append((args, out))
+        return out
+
+    sw.window_schur, sc.francis_chase = rw, rc
+    try:
+        with schur.f32_matmuls():
+            schur._schur_sweep(state, npairs, aed_w)
+    finally:
+        sw.window_schur, sc.francis_chase = ow, oc
+    torch.cuda.synchronize()
+    return wins, chases
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_schur_chase_kernel_matches_plain_version(cuda, dtype):
-    """Every chase of one outer sweep at [32, 256, 256] (the AED
-    windows' and the main multishift sweep's, with Q) against the plain
-    version on the same input, bitwise: both round every operation on
-    its own in the same order."""
-    from linalg_solver_tpu_torch.ops import schur
+    """The chase of one outer sweep at [32, 256, 256] (the main multishift
+    sweep's, with Q; the AED windows go to the window kernel) against the
+    plain version on the same input, bitwise in both variants: both round
+    every operation on its own in the same order."""
     from linalg_solver_tpu_torch.ops.kernels import schur_chase as sc
 
     _, state = _schur_state(32, 256, cuda, True, dtype)
-    calls = []
-    orig = sc.francis_chase
+    _, calls = _record_sweep(state)
+    assert [c[0][0].shape[1] for c in calls] == [257]
+    (H, Q, tables, nc), (Ho, Qo) = calls[0]
+    Hr, Qr = sc.francis_chase_reference(H, Q, tables, nc)
+    assert torch.equal(Ho, Hr) and torch.equal(Qo, Qr)
+    assert sc.variant(256, dtype) == 1
+    out = sc.francis_chase(H, Q, tables, nc, v=0)
+    assert torch.equal(out[0], Hr) and torch.equal(out[1], Qr)
 
-    def rec(H, Q, tables, nc):
-        args = (H.clone(), None if Q is None else Q.clone(),
-                [t.clone() for t in tables], nc)
-        out = orig(H, Q, tables, nc)
-        calls.append((args, out))
-        return out
 
-    sc.francis_chase = rec
-    try:
-        with schur.f32_matmuls():
-            schur._schur_sweep(state, 8, 32)
-    finally:
-        sc.francis_chase = orig
-    assert {c[0][0].shape[1] for c in calls} == {33, 257}
-    for (H, Q, tables, nc), (Ho, Qo) in calls[::5] + calls[-1:]:
-        Hr, Qr = sc.francis_chase_reference(H, Q, tables, nc)
-        assert torch.equal(Ho, Hr) and torch.equal(Qo, Qr)
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_schur_chase_cluster_variant_without_q(cuda, dtype):
+    """The cluster variant (H in the shared memory of a cluster of blocks)
+    and the device-memory variant on the main chase without Q, bitwise
+    the plain version."""
+    from linalg_solver_tpu_torch.ops.kernels import schur_chase as sc
+
+    _, state = _schur_state(32, 256, cuda, False, dtype, seed=1)
+    _, calls = _record_sweep(state)
+    H, Q, tables, nc = calls[0][0]
+    assert Q is None and nc == 7
+    Hr, _ = sc.francis_chase_reference(H, Q, tables, nc)
+    for v in sc.VARIANTS:
+        assert torch.equal(sc.francis_chase(H, Q, tables, nc, v=v)[0], Hr)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_schur_window_kernel_matches_plain_version(cuda, dtype):
+    """The window kernel on the AED round of one outer sweep at [32, 256,
+    256] (its one launch), and on the same windows with lanes converged
+    on entry (hw 0 and -1) and a NaN lane, bitwise (NaN-equal) its plain
+    version: H, Q, hw and the trailing deflation's rows and end."""
+    from linalg_solver_tpu_torch.ops.kernels import schur_window as sw
+
+    _, state = _schur_state(32, 256, cuda, False, dtype)
+    before = sw.LAUNCHES
+    wins, _ = _record_sweep(state)
+    assert len(wins) == 1 and sw.LAUNCHES == before + 1
+    (Hw, Qw, hw, an, *rest), out = wins[0]
+    assert tuple(Hw.shape) == (32, 33, 33) and len(out) == 5
+    Hn, hn = Hw.clone(), hw.clone()
+    Hn[0, 3, 5] = float("nan")
+    hn[1], hn[2] = 0, -1
+    nan_args = (Hn, Qw, hn, an, *rest)
+    for args, got in (((Hw, Qw, hw, an, *rest), out),
+                      (nan_args, sw.window_schur(*nan_args))):
+        want = sw.window_schur_reference(*args)
+        for g, w in zip(got, want):
+            assert _nan_equal(g, w)
+    assert bool(torch.isnan(got[0][0]).any()) and int(got[2][0]) >= 1
+    assert bool((got[3] > 0).any())
+
+
+@pytest.mark.cuda
+def test_schur_kernel_mirrors_match_their_c_formulas(cuda):
+    """The Python mirrors of the chase's variant rule and cluster shape and
+    of the window kernel's shared memory agree with the C entry points."""
+    from linalg_solver_tpu_torch.ops.kernels import _build
+    from linalg_solver_tpu_torch.ops.kernels import schur_chase as sc
+    from linalg_solver_tpu_torch.ops.kernels import schur_window as sw
+
+    lib = _build.load()
+    for dtype, f64 in ((torch.float32, 0), (torch.float64, 1)):
+        for n in (2, 32, 64, 127, 128, 256, 300, 400, 500, 600):
+            assert lib.chase_variant(n, f64) == sc.variant(n, dtype), n
+            cs = lib.chase_cluster_size(n, f64)
+            assert cs == sc.cluster_size(n, dtype), n
+            if cs:
+                assert lib.chase_cluster_smem_bytes(n, f64) == \
+                    sc.cluster_smem_bytes(n, cs, dtype)
+        for w in (1, 8, 32, 64, 100, 118, 119, 127, 128):
+            want = sw.smem_bytes(w, dtype) if sw.fits(w, dtype) else 0
+            assert lib.schur_window_smem_bytes(w, f64) == want, (w, dtype)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("with_q", [False, True])
 def test_schur_outer_sweep_reads_nothing_back(cuda, with_q):
-    """One outer sweep at [32, 256, 256] (an AED round of up to 64 inner
-    sweeps, then the 276-step multishift chase) runs under
-    ``set_sync_debug_mode("error")``: no host read inside it; and its
-    CUDA-graph replay gives the eager sweep's state."""
+    """One outer sweep at [32, 256, 256] (an AED round: one window-kernel
+    launch of up to 64 inner sweeps; then the 276-step multishift chase)
+    runs under ``set_sync_debug_mode("error")``, eagerly and as a CUDA-graph
+    replay: no host read inside it; the replay gives the eager sweep's
+    state."""
     from linalg_solver_tpu_torch.ops import schur
 
+    from linalg_solver_tpu_torch.ops.kernels import schur_window as sw
+
     _, state = _schur_state(32, 256, cuda, with_q)
+    before = sw.LAUNCHES
     torch.cuda.set_sync_debug_mode("error")
     try:
         with schur.f32_matmuls():
             eager = schur._schur_sweep(state, 8, 32)
     finally:
         torch.cuda.set_sync_debug_mode(0)
+    assert sw.LAUNCHES == before + 1
     g = schur._sweep_graph(state, 8, 32)
-    g.replay()
+    assert g.launches == (1, 1)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        g.replay()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
     for got, want in zip(g.state, eager):
         if want is not None:
             assert torch.equal(got, want)

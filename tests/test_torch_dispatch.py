@@ -144,32 +144,6 @@ def test_rbt_with_the_jax_draws_matches_jax(ir_steps):
     assert _resid(a[keep], b[keep], xt[keep]).max() <= 1e-5
 
 
-@pytest.mark.parametrize(
-    "n,k", [(796, None), (1024, 16)], ids=["smem_k1", "n1024_k16"],
-)
-def test_auto_raises_outside_the_kernel_reach(n, k):
-    """796 is the smallest even N past the fused kernel's shared memory at
-    k=1, and not a multiple of 8, so the phase engine does not take it
-    either, nor kernel 3 (N <= 236): ``auto`` ends in the LU loop, as the
-    reference's does (``"loop"``), within 1e-5 of the JAX package's loop
-    (the same factorization; the substitutions sum in another order).
-    From N = 1024 with N % 128 == 0 the large-N solve takes only a vector
-    RHS, in the reference too: that still raises."""
-    if k is not None:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            dispatch.solve_batched(torch.zeros(1, n, n),
-                                   torch.zeros(1, n, k))
-        return
-    a, b = _batch(1, n, seed=n)
-    at, bt = torch.from_numpy(a), torch.from_numpy(b)
-    assert dispatch._resolve("auto", n, 1, True) == "loop"
-    x = dispatch.solve_batched(at, bt)
-    xj = np.asarray(jdispatch.solve_batched(jnp.asarray(a), jnp.asarray(b),
-                                            backend="loop"))
-    _assert_close(xj, x.numpy(), range(1), rtol=1e-5)
-    assert _resid(a, b, x.numpy()).max() <= 1e-5
-
-
 @pytest.mark.parametrize("n,k", [(63, None), (7, None), (63, 3)],
                          ids=["n63", "n7", "n63_k3"])
 def test_auto_routes_odd_n_to_the_pivoted_kernel(n, k):

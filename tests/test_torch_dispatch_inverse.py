@@ -10,10 +10,11 @@ inverse: 1e-4 of its largest entry, and a float64 residual
 ``max|A X − I| ≤ 5e-5``.  The pivoted kernel's results (det, rank, the
 inverse at N % 4 ≠ 0) need no draw and agree to 1e-5."""
 
+import importlib
+
 import numpy as np
 import pytest
 
-import jax
 import jax.numpy as jnp
 import torch
 
@@ -99,48 +100,6 @@ def test_rank_auto_matches_jax_facade():
         == [0, 0, 0, 0]
 
 
-@pytest.mark.parametrize(
-    "op,n",
-    [("inverse", 169), ("inverse", 170), ("det", 238), ("rank", 238)],
-)
-def test_auto_raises_past_the_kernels_reach(op, n):
-    """Past the kernels' shared memory ``auto`` now ends as the
-    reference's does.  169 is the first N past the pivoted inverse's
-    shared memory, and 169 and 170 are no multiples of 8 (the phase
-    inverse) or 4 (kernel 2): the Gauss–Jordan loop with ``tol = 1e-30``
-    (``"loop"``).  238 is past the pivoted [N, N] tile's shared memory
-    and no multiple of 64 (the blocked det): the LU loop.  The rank at
-    238 takes kernel 3 in its big reach (here its plain version).  Each
-    against the JAX package's ``"loop"`` backend at B = 1: values within
-    1e-5 (1e-4 for the inverse, whose entries carry the f32 rounding of
-    A⁻¹'s condition), the rank exactly."""
-    a = _batch(1, n, seed=n) if op == "inverse" else _det_batch(1, n, seed=n)
-    if op == "rank":
-        a[0, 5] = 2 * a[0, 1]
-        a[0, 9] = 0.0
-    at, aj = torch.from_numpy(a), jnp.asarray(a)
-    fn = {"inverse": dispatch.inverse_batched, "det": dispatch.det_batched,
-          "rank": dispatch.rank_batched}[op]
-    jfn = {"inverse": jdispatch.inverse_batched,
-           "det": jdispatch.det_batched,
-           "rank": jdispatch.rank_batched}[op]
-    if op == "rank":
-        assert kernels.supports("rank", n)
-    else:
-        assert dispatch._resolve_facade("auto", op, n) == "loop"
-    got = fn(at)
-    if op == "rank":
-        assert torch.equal(got, kernels.rank_batched(at))
-    want = np.asarray(jfn(aj, backend="loop"))
-    if op == "rank":
-        assert got.tolist() == want.tolist() == [n - 2]
-    elif op == "det":
-        np.testing.assert_allclose(got.numpy(), want, rtol=1e-5)
-    else:
-        assert np.abs(got.numpy() - want).max() <= 1e-4 * np.abs(want).max()
-        assert _resid(a, got.numpy()).max() <= 5e-5
-
-
 @pytest.mark.parametrize("op", ["inverse", "det"])
 def test_auto_inverse_and_det_at_1024_take_the_library(op):
     """From N = 1024 the reference routes the inverse and the det to
@@ -169,28 +128,6 @@ def test_auto_inverse_and_det_at_1024_take_the_library(op):
         np.testing.assert_allclose(got.numpy(), want, rtol=1e-3)
 
 
-@pytest.mark.parametrize("n", [170, 237])
-def test_auto_det_with_a_gradient_raises_where_the_inverse_stops(n):
-    """det reaches N = 237 on kernel 3, but its backward needs the
-    inverse, which past 167 takes only multiples of 4 to 180 and of 8
-    beyond: there the backward now takes the Gauss–Jordan loop, as the
-    reference's does, and no longer raises.  The gradient (Jacobi's
-    formula) agrees with the JAX package's ``"loop"`` backend within
-    1e-4 of its largest entry (the forward sums the log of 170 or 237
-    pivots in another order)."""
-    rng = np.random.RandomState(n)
-    a = (np.eye(n) + 0.1 * rng.randn(1, n, n) / np.sqrt(n)).astype(
-        np.float32)
-    assert dispatch._resolve_facade("auto", "det", n) == "pallas"
-    assert dispatch._resolve_facade("auto", "inverse", n) == "loop"
-    at = torch.from_numpy(a).requires_grad_()
-    dispatch.det_batched(at).sum().backward()
-    gj_ = np.asarray(jax.grad(lambda x: jdispatch.det_batched(
-        x, backend="loop").sum())(jnp.asarray(a)))
-    assert np.abs(at.grad.numpy() - gj_).max() <= 1e-4 * np.abs(gj_).max()
-    assert dispatch.det_batched(torch.eye(n)[None]).tolist() == [1.0]
-
-
 @pytest.mark.parametrize("n", [184, 256])
 def test_auto_inverse_past_the_kernels_takes_the_phase_engine(n):
     """184 is the first multiple of 8 past the small-N kernels (kernel 2
@@ -202,26 +139,6 @@ def test_auto_inverse_past_the_kernels_takes_the_phase_engine(n):
     x = dispatch.inverse_batched(a)
     assert torch.equal(x, rbt.inverse_rbt_batched(a))
     assert _resid(a.numpy(), x.numpy()).max() <= 5e-5
-
-
-def test_auto_det_gradient_at_168_takes_the_phase_inverse():
-    """At the first multiple of 8 past the kernels' inverse (N = 184 since
-    kernel 2 reaches 180; 168 before) the det's backward takes the phase
-    inverse.  ``backend="pallas"`` keeps to the kernels: there a gradient
-    still raises before the forward."""
-    n = 184
-    rng = np.random.RandomState(12)
-    a = (np.eye(n) + 0.1 * rng.randn(2, n, n) / np.sqrt(n)).astype(
-        np.float32)
-    grads = []
-    for det in (dispatch.det_batched, torch.linalg.det):
-        at = torch.from_numpy(a).requires_grad_()
-        (det(at) * torch.tensor([1.0, -0.5])).sum().backward()
-        grads.append(at.grad)
-    err = (grads[0] - grads[1]).abs().max() / grads[1].abs().max()
-    assert float(err) <= 1e-4
-    with pytest.raises(ValueError, match="gradient"):
-        dispatch.det_batched(torch.from_numpy(a).requires_grad_(), "pallas")
 
 
 @pytest.mark.parametrize("n", [168, 172, 176, 180])
@@ -241,25 +158,6 @@ def test_auto_inverse_to_180_takes_kernel_2(n):
         err = np.abs(x[i].numpy() - xj[i]).max()
         assert err <= 1e-4 * np.abs(xj[i]).max(), (i, err)
     assert _resid(a, x.numpy()).max() <= 5e-5
-
-
-@pytest.mark.parametrize("n", [168, 172, 176, 180])
-def test_auto_det_gradient_to_180_inverts_through_kernel_2(n):
-    """The det's backward inverts A through kernel 2 up to N = 180, where
-    it raised at 172 and 180 before; ``"pallas"`` takes it too."""
-    rng = np.random.RandomState(n + 1)
-    a = (np.eye(n) + 0.1 * rng.randn(2, n, n) / np.sqrt(n)).astype(
-        np.float32)
-    grads = []
-    for det in (dispatch.det_batched,
-                lambda t: dispatch.det_batched(t, "pallas"),
-                torch.linalg.det):
-        at = torch.from_numpy(a).requires_grad_()
-        (det(at) * torch.tensor([1.0, -0.5])).sum().backward()
-        grads.append(at.grad)
-    for got in grads[:2]:
-        err = (got - grads[2]).abs().max() / grads[2].abs().max()
-        assert float(err) <= 1e-4
 
 
 def _det_batch(B, n, seed):
@@ -460,7 +358,9 @@ def test_auto_keeps_every_earlier_route(op):
 def test_rank_dispatch_routes(monkeypatch, n, backend, route):
     """``rank_batched``: kernel 3 to max(M, N) = 424 (variant 3 past 237),
     the blocked RREF past it from 256, else the loop."""
-    from linalg_solver_tpu_torch.ops import rref_blocked, solve
+    rref_blocked = importlib.import_module(
+        "linalg_solver_tpu_torch.ops.rref_blocked")
+    solve = importlib.import_module("linalg_solver_tpu_torch.ops.solve")
 
     calls = []
     for mod, name, tag in ((kernels, "rank_batched", "kernel"),

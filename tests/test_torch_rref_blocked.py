@@ -16,8 +16,8 @@ import jax.numpy as jnp
 import numpy as np
 import torch
 
-from linalg_solver_tpu_torch.ops import rref_blocked as trb
-from linalg_solver_tpu_torch.ops import solve as tsolve
+trb = importlib.import_module("linalg_solver_tpu_torch.ops.rref_blocked")
+tsolve = importlib.import_module("linalg_solver_tpu_torch.ops.solve")
 
 jrb = importlib.import_module("linalg_solver_tpu.ops.rref_blocked")
 jsolve = importlib.import_module("linalg_solver_tpu.ops.solve")

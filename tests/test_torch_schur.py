@@ -1,23 +1,15 @@
 """The port's real Schur solver (``linalg_solver_tpu_torch.ops.schur``)
 against the JAX package's ``ops.schur``, both on the CPU, fed the same
-seeded numpy inputs.
+seeded numpy inputs, stage by stage (the whole solver:
+``tests/test_torch_schur_solver.py``).
 
-Stage by stage on identical input state, at most ``1e-5·max(1, ‖A‖∞)``
-apart (``‖A‖∞`` of the stage's input): balancing, Hessenberg with and
-without Q, one ``_deflate`` (plain and strict), one ``_one_sweep`` with
-and without Q at one and two shift pairs, one AED round at n = 32,
-w = 8, ``_eigvals_from_T``, ``_standardize_real_blocks`` and
-``_trevc_full``; the integer state (``hi``, ``stagnant``, flags) equal.
+On identical input state, at most ``1e-5·max(1, ‖A‖∞)`` apart (``‖A‖∞``
+of the stage's input): balancing, Hessenberg with and without Q, one
+``_deflate`` (plain and strict), one ``_one_sweep`` with and without Q at
+one and two shift pairs, one AED round at n = 32, w = 8,
+``_eigvals_from_T``, ``_standardize_real_blocks`` and ``_trevc_full``;
+the integer state (``hi``, ``stagnant``, flags) equal."""
 
-The whole solver cannot be bitwise the reference's (Francis iteration's
-path follows its roundings): ``converged`` and ``clean`` equal JAX's,
-the eigenvalues, matched to numpy's float64 ones, no farther from them
-than JAX's are plus ``1e-5·‖A‖∞``, ``Q`` orthogonal and ``Q T Qᵀ`` the
-balanced matrix to ``1e-5·‖A‖∞``.  Each size's batch holds one lane of
-each input kind: Gaussian, skew-symmetric (all complex pairs), a
-defective Jordan similarity and a companion matrix."""
-
-import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -25,61 +17,8 @@ import torch
 
 from linalg_solver_tpu.ops import schur as js
 from linalg_solver_tpu_torch.ops import schur as ts
-
-TOL = 1e-5
-
-
-def _close(got, want, scale):
-    got = np.asarray(got, np.float64)
-    want = np.asarray(want, np.float64)
-    assert got.shape == want.shape
-    assert np.abs(got - want).max() <= TOL * max(1.0, float(scale))
-
-
-def _exact(got, want):
-    np.testing.assert_array_equal(np.asarray(got), np.asarray(want))
-
-
-def _np(x):
-    return x.numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
-
-
-def _kinds(n, seed):
-    """``[4, n, n]`` float32: Gaussian, skew, a defective Jordan
-    similarity (a block of size min(3, n) at 2, the rest at −1), a
-    companion matrix (roots 1 … n scaled into [−2, 2])."""
-    rng = np.random.RandomState(seed)
-    g = rng.randn(n, n)
-    s = rng.randn(n, n)
-    J = -np.eye(n)
-    for i in range(min(3, n)):
-        J[i, i] = 2.0
-        if i + 1 < min(3, n):
-            J[i, i + 1] = 1.0
-    P = np.eye(n) + 0.3 * rng.randn(n, n)
-    jor = P @ J @ np.linalg.inv(P)
-    coeffs = np.poly(np.linspace(-2.0, 2.0, n))
-    comp = np.zeros((n, n))
-    comp[0, :] = -coeffs[1:]
-    comp[np.arange(1, n), np.arange(n - 1)] = 1.0
-    return np.stack([g, s - s.T, jor, comp]).astype(np.float32)
-
-
-def _state(a, with_q):
-    """The JAX solver's initial state (balanced, Hessenberg, padded) as
-    numpy, shared by both sides."""
-    H, Q, hi, stag, anorm, scale = js._schur_init(jnp.asarray(a),
-                                                  with_q=with_q)
-    return (np.asarray(H), np.asarray(Q) if with_q else None,
-            np.asarray(hi), np.asarray(stag), np.asarray(anorm))
-
-
-def _t(x):
-    if x is None:
-        return None
-    t = torch.from_numpy(np.array(x))
-    return t.long() if t.dtype == torch.int32 else t
-
+from torch_schur_cases import (_close, _exact, _kinds, _np, _state,
+                               _swept_state, _t)
 
 # --- stages ---------------------------------------------------------------
 
@@ -174,15 +113,6 @@ def test_one_sweep_matches_jax(npairs, with_q):
     assert np.abs(_np(rt[0]) - H).max() > 1e-2
 
 
-def _swept_state(a, sweeps, npairs, aed_w):
-    """The JAX solver's state after ``sweeps`` outer sweeps, as numpy."""
-    H, Q, hi, stag, anorm, _ = js._schur_init(jnp.asarray(a), with_q=True)
-    state = (H, Q, hi, stag, anorm, jnp.zeros(a.shape[0], bool))
-    state, _ = js._schur_sweeps(state, sweeps, with_q=True, npairs=npairs,
-                                aed_w=aed_w)
-    return tuple(np.asarray(x) for x in state)
-
-
 def test_aed_round_matches_jax():
     """One AED round at n = 32, w = 8, two shift pairs, on a state three
     sweeps in, where every window deflates something and the Jordan lane
@@ -240,111 +170,6 @@ def test_eigvals_standardize_and_trevc_match_jax():
     vt = ts._trevc_real(_t(Tj))
     _close(vt[0], vj[0], 1.0)
     _exact(vt[1], vj[1])
-
-
-# --- the whole solver -------------------------------------------------------
-
-def _match_dev(ev, want, defective=2):
-    """Per lane, the largest distance of ``ev`` from ``want`` under a
-    greedy nearest matching.  On lane ``defective`` (``_kinds``' Jordan
-    similarity) the three eigenvalues nearest 2 count by their mean: a
-    defective eigenvalue's members scatter by ~eps^(1/3)·‖A‖ along the
-    roundings of the path (so two correct solvers differ there by that
-    much), their mean is as well-conditioned as a simple eigenvalue."""
-    ev, want = np.array(ev), np.array(want)
-    if defective is not None and ev.shape[1] >= 3:
-        for x in (ev, want):
-            near = np.argsort(np.abs(x[defective] - 2.0))[:3]
-            x[defective, near] = x[defective, near].mean()
-    out = []
-    for got_l, want_l in zip(ev, want):
-        left = list(want_l)
-        worst = 0.0
-        for z in sorted(got_l, key=lambda z: (z.real, z.imag)):
-            j = int(np.argmin(np.abs(np.array(left) - z)))
-            worst = max(worst, abs(left.pop(j) - z))
-        out.append(worst)
-    return np.array(out)
-
-
-SIZES = [(2, {}), (3, {}), (8, {}), (24, {}),
-         (32, dict(nshift_pairs=2, aed_w=8))]
-
-
-@pytest.mark.parametrize("n,kw", SIZES, ids=[str(n) for n, _ in SIZES])
-def test_whole_solver_matches_jax(n, kw):
-    a = _kinds(n, 10 + n)
-    norm = np.abs(a).sum(2).max(1)
-    want = np.linalg.eigvals(a.astype(np.float64))
-
-    ej = js.eigvals_schur(jnp.asarray(a), **kw)
-    et = ts.eigvals_schur(torch.from_numpy(a), **kw)
-    _exact(et.converged, ej.converged)
-    _exact(et.clean, ej.clean)
-    assert _np(et.converged).all()
-    dj = _match_dev(np.asarray(ej.real) + 1j * np.asarray(ej.imag), want)
-    dt = _match_dev(_np(et.real) + 1j * _np(et.imag), want)
-    assert (dt <= dj + TOL * norm).all(), (dt, dj)
-    # the defective eigenvalue's members: within its eps^(1/3) scatter
-    if n >= 3:
-        lam = _np(et.real)[2] + 1j * _np(et.imag)[2]
-        assert np.sort(np.abs(lam - 2.0))[:3].max() <= 1e-2 * norm[2]
-
-    rj = js.real_schur(jnp.asarray(a), **kw)
-    rt = ts.real_schur(torch.from_numpy(a), **kw)
-    _exact(rt.converged, rj.converged)
-    _exact(rt.clean, rj.clean)
-    T = _np(rt.T)
-    assert np.abs(np.tril(T, -2)).max() == 0.0
-    sub = np.abs(np.diagonal(T, -1, 1, 2)) > 0
-    assert not (sub[:, :-1] & sub[:, 1:]).any()
-    assert rt.sweeps.dtype == torch.int32 and int(rt.sweeps) >= 0
-
-    vj = js.real_schur_vectors(jnp.asarray(a), **kw)
-    vt = ts.real_schur_vectors(torch.from_numpy(a), **kw)
-    _exact(vt.converged, vj.converged)
-    _exact(vt.clean, vj.clean)
-    Q = _np(vt.Q).astype(np.float64)
-    assert np.abs(Q.transpose(0, 2, 1) @ Q - np.eye(n)).max() <= 1e-5 * n
-    bal = _np(ts.balance_batched(torch.from_numpy(a))) if n > 2 else a
-    recon = Q @ _np(vt.T) @ Q.transpose(0, 2, 1)
-    assert (np.abs(recon - bal).max((1, 2)) <= TOL * np.maximum(norm, 1)
-            * 10).all()
-    _close(vt.scale, vj.scale, 1.0)
-
-    gj = js.eig_real_batched(jnp.asarray(a), **kw)
-    gt = ts.eig_real_batched(torch.from_numpy(a), **kw)
-    _exact(gt.converged, gj.converged)
-    _exact(gt.clean, gj.clean)
-    _exact(gt.valid.sum(1), np.asarray(gj.valid).sum(1))
-    # a valid column is an eigenvector of A for its eigenvalue
-    V = _np(gt.vectors).astype(np.float64)
-    lam = _np(gt.real).astype(np.float64)
-    res = np.abs(a @ V - V * lam[:, None, :]).max(1)
-    ok = _np(gt.valid)
-    assert (res[ok] <= 1e-3 * np.repeat(norm, ok.sum(1))).all()
-
-
-def test_float64_end_to_end():
-    """float64 runs end to end (the reference refuses it on the TPU
-    only): at n = 24 the eigenvalues land within 1e-9·‖A‖ of numpy's."""
-    a = _kinds(24, 7)[:2].astype(np.float64)
-    norm = np.abs(a).sum(2).max(1)
-    with jax.enable_x64(True):
-        ej = js.eigvals_schur(jnp.asarray(a))
-        et = ts.eigvals_schur(torch.from_numpy(a))
-        assert et.real.dtype == torch.float64
-        _exact(et.converged, ej.converged)
-        _exact(et.clean, ej.clean)
-        want = np.linalg.eigvals(a)
-        dj = _match_dev(np.asarray(ej.real) + 1j * np.asarray(ej.imag), want,
-                        defective=None)
-        dt = _match_dev(_np(et.real) + 1j * _np(et.imag), want,
-                        defective=None)
-    assert (dt <= 1e-9 * norm).all() and (dt <= dj + 1e-12 * norm).all()
-    vt = ts.real_schur_vectors(torch.from_numpy(a))
-    Q = vt.Q.numpy()
-    assert np.abs(Q.transpose(0, 2, 1) @ Q - np.eye(24)).max() < 1e-12
 
 
 def test_subnormal_reflector_counts_as_zero():

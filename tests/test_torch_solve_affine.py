@@ -23,8 +23,9 @@ import numpy as np
 import pytest
 import torch
 
-from linalg_solver_tpu_torch.ops import solve as tsolve
 from linalg_solver_tpu_torch.ops.kernels import gauss_jordan as gj
+
+tsolve = importlib.import_module("linalg_solver_tpu_torch.ops.solve")
 
 jsolve = importlib.import_module("linalg_solver_tpu.ops.solve")
 
@@ -151,7 +152,10 @@ def test_affine_dispatch_routes(monkeypatch, m, n, backend, route):
     """``affine_solve_batched`` and ``nullspace_batched``: kernel 3 where
     ``[s, s + 1]`` is in its big reach (s ≤ 423), the blocked RREF from
     max(M, N) = 256, else the loop, as ``dispatch.py:341-383`` routes."""
-    from linalg_solver_tpu_torch.ops import dispatch, rref_blocked
+    from linalg_solver_tpu_torch.ops import dispatch
+
+    rref_blocked = importlib.import_module(
+        "linalg_solver_tpu_torch.ops.rref_blocked")
 
     calls = []
     for mod, name, tag in ((tsolve, "solve_affine_gj_batched", "kernel"),

@@ -11,7 +11,10 @@ after 2 warm-up calls: device time a call (the sum of the device events'
 own times), device events a call (kernels, copies and sets), the busy
 share (device time a call over the unprofiled call time; the
 profiler's own overhead lengthens its window, whose share is kept as
-``window_share``), and the five largest device entries by name.  Prints
+``window_share``), and the five largest device entries by name.  The
+paths: the 256-wide solve, inverse, det and LU paths, the large-N
+solves, schur-gauss-256's ``eigvals_schur`` and one of its outer sweeps
+as a CUDA-graph replay.  Prints
 one line per path and the card's name and power limit, and writes the
 same as JSON to ``--out`` when given.  Needs a card: without one it
 exits with an error.  Imports nothing of JAX.
@@ -35,7 +38,7 @@ def _paths(dev):
     """Each path with its arguments: the inputs ``chip_smoke.py`` drives
     (its builders, so that both scripts measure the same cells)."""
     import chip_smoke as cs
-    from linalg_solver_tpu_torch.ops import dispatch
+    from linalg_solver_tpu_torch.ops import dispatch, schur
 
     a, b = cs.bench_batch(dev)
     ap, bp = cs.phase_batch(dev)
@@ -53,6 +56,15 @@ def _paths(dev):
     for bsz, n in cs.LARGE_CELLS:
         paths[f"large-{n} solve_batched(auto)"] = (
             dispatch.solve_batched, *cs.large_batch(bsz, n, dev))
+    g = cs.gaussian_input(dev)
+    paths["schur-gauss-256 eigvals_schur"] = (schur.eigvals_schur, g)
+    H, Q, hi, st, an, _ = schur._schur_init(g)
+    npairs = schur._auto_npairs(g.shape[1])
+    state = (H, Q, hi, st, an, torch.zeros_like(hi, dtype=torch.bool),
+             torch.zeros((), dtype=torch.long, device=dev))
+    paths["schur-gauss-256 one outer sweep (CUDA graph)"] = (
+        schur._sweep_graph(state, npairs, schur._auto_aed_w(
+            g.shape[1], npairs)).replay,)
     return paths
 
 
