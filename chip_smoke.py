@@ -2,8 +2,10 @@
 CUDA card, through the fused kernels and through the RBT phase engine,
 then its pivoted, rank-revealing paths (affine solve, nullspace, rank),
 the loop backend, ``BatchedSolver``'s serving flow, the device eigen
-stack (Jordan analysis and the spectral pipeline) and the real Schur
-solver with the spectral pipeline's Schur routes.
+stack (Jordan analysis and the spectral pipeline), the real Schur
+solver with the spectral pipeline's Schur routes, and
+``BatchedSolver``'s least squares, SVD, condition estimate and exact
+integer determinant.
 
     python3 chip_smoke.py
 
@@ -179,6 +181,32 @@ uncaught exception and a non-zero exit:
     version, the eager per-sweep loop it replaced and its bound, and the
     chase kernel alone at the main sweep's shape (without Q, with Q,
     float64) in both variants beside its plain version and bound.
+
+32. serving on one GPU, ``BatchedSolver()`` on inputs built on the card
+    from seeded generators: ``rcond`` at B=256, N=256 (Gaussian +
+    4 sqrt(N) I; two lanes with a row nearly repeated, one with a row
+    repeated) between the exact 1/kappa_1 of a float64 inverse (less
+    f32 rounding, 1e-3) and 3x it, 0 on the singular lane;
+33. ``lstsq`` with a vector RHS at [256, 768, 256] (the 3:1 ratio of
+    ``examples/solver_family.py``) and the minimum-norm case at
+    [256, 256, 768]: x within 1e-4 relative of ``torch.linalg.lstsq`` in
+    float64, the lane with a zero column (row) not ok and NaN; ``svd`` at
+    [256, 256, 256] and [256, 768, 256]: sigma within 1e-5 sigma_max of
+    float64 (the square roots of A^T A's float64 eigenvalues),
+    ||U S V^T - A|| / ||A|| within 1e-5, and ||U^T U - I||_2 within 1e-5
+    plus 2.5x the defect the reference's 8 QDWH steps leave on the lane
+    (``qdwh_reach``: 0 where they converge; the lanes it lets through
+    are printed with their float64 kappa_2);
+34. ``det_exact`` on 4096 matrices of 8x8 ``randint(-5, 5)`` (BASELINE
+    config 1's class) and 64 of 24x24 with entries to 1e4: det, rank and
+    ok bitwise the host's int32 Bareiss (``host_bareiss``), det equal to
+    the Python-int determinant on every lane where no product left int32,
+    every 24x24 lane not ok, and ``crt_det_batched`` exact on every lane
+    not ok or past int32; the lanes where the reference's overflow
+    sentinel misses a product past int32 (ok, det wrong, in the reference
+    too) are counted and listed;
+35. time each method beside its library call (``torch.linalg.cond(p=1)``,
+    ``lstsq``, ``svd``, float64 ``det``).
 
 The line before the last is a JSON summary of the eight kernels, each with
 its bound (the larger of its bytes over 3.35 TB/s and its operations
@@ -2863,6 +2891,281 @@ def time_schur_paths(dev, card, schur_out, spec_out):
     return times, rows, wrows
 
 
+# 32-35. serving on one GPU: BatchedSolver's lstsq, svd, rcond, det_exact
+FAM_B, FAM_N = 256, 256
+FAM_M = 768            # the 3:1 tall ratio of examples/solver_family.py:55
+FAM_NEAR = {10: 1e-3, 20: 1e-2}  # rcond lanes: a row nearly repeated
+FAM_SINGULAR = 30      # rcond lane with a repeated row: rcond 0
+FAM_DEFICIENT = 5      # lstsq lane with a zero column (zero row when wide)
+TOL_LSTSQ = 1e-4       # x against float64, relative, per lane
+TOL_SVD = 1e-5         # sigma / sigma_max, reconstruction, orthogonality
+RCOND_LOW = 1e-3       # f32 rounding below the exact 1/kappa_1 allowed
+EXACT_B, EXACT_N = 4096, 8        # BASELINE config 1's class, batched
+BIG_B, BIG_N, BIG_AMAX = 64, 24, 10_000   # past int32: crt_det_batched
+
+
+def family_inputs(dev, bsz=FAM_B, n=FAM_N, m=FAM_M):
+    """Phase 32's inputs, built on the card from seeded generators: the
+    rcond batch (Gaussian + 4 sqrt(N) I, two lanes with a row nearly
+    repeated, one with a row repeated), the tall and wide lstsq batches
+    (Gaussian, one lane rank-deficient), the square and tall SVD batches
+    (Gaussian), and the integer batches of det_exact."""
+    g = torch.Generator(device=dev).manual_seed(32)
+    cond = (torch.randn(bsz, n, n, generator=g, device=dev)
+            + 4 * n ** 0.5 * torch.eye(n, device=dev))
+    for lane, eps in FAM_NEAR.items():
+        cond[lane, 7] = cond[lane, 3] + eps * torch.randn(
+            n, generator=g, device=dev)
+    cond[FAM_SINGULAR, 9] = cond[FAM_SINGULAR, 2]
+    tall = torch.randn(bsz, m, n, generator=g, device=dev)
+    tall[FAM_DEFICIENT, :, 11] = 0.0
+    wide = torch.randn(bsz, n, m, generator=g, device=dev)
+    wide[FAM_DEFICIENT, 11] = 0.0
+    return {
+        "rcond": cond,
+        "lstsq_tall": (tall, torch.randn(bsz, m, generator=g, device=dev)),
+        "lstsq_wide": (wide, torch.randn(bsz, n, generator=g, device=dev)),
+        "svd_square": torch.randn(bsz, n, n, generator=g, device=dev),
+        "svd_tall": torch.randn(bsz, m, n, generator=g, device=dev),
+        "det_small": torch.randint(-5, 5, (EXACT_B, EXACT_N, EXACT_N),
+                                   generator=g, device=dev,
+                                   dtype=torch.int32),
+        "det_big": torch.randint(-BIG_AMAX, BIG_AMAX + 1,
+                                 (BIG_B, BIG_N, BIG_N), generator=g,
+                                 device=dev, dtype=torch.int32),
+    }
+
+
+def host_bareiss(a, exact):
+    """``ops.exact_int.bareiss_batched`` on the host, from its own
+    arithmetic: in int32 (wrapped like the card's, ``exact=False``), or in
+    Python integers (``exact=True``).  Returns (det, rank, ok, over):
+    ``ok`` the float32 overflow sentinel, ``over`` (exact only) whether a
+    product of a lane really left int32."""
+    import numpy as np
+
+    M = a.astype(object if exact else np.int64)
+    bsz, n, _ = M.shape
+
+    def wrap(x):
+        return x if exact else ((x + 2**31) & (2**32 - 1)) - 2**31
+
+    rows, lanes = np.arange(n), np.arange(bsz)
+    r = np.zeros(bsz, np.int64)
+    prev = np.ones(bsz, M.dtype)
+    sign = np.ones(bsz, M.dtype)
+    rank = np.zeros(bsz, np.int64)
+    ok = np.ones(bsz, bool)
+    over = np.zeros(bsz, bool)
+    for j in range(n):
+        elig = (rows[None] >= r[:, None]) & (M[:, :, j] != 0)
+        has = elig.any(axis=1)
+        p = np.where(has, elig.argmax(axis=1), 0)
+        swap = (has & (p != r))[:, None]
+        row_r, row_p = M[lanes, r].copy(), M[lanes, p].copy()
+        M[lanes, r] = np.where(swap, row_p, row_r)
+        M[lanes, p] = np.where(swap, row_r, row_p)
+        sign = np.where(swap[:, 0], -sign, sign)
+        piv, prow = M[lanes, r, j], M[lanes, r]
+        below = (rows[None] > r[:, None]) & has[:, None]
+        if not exact:
+            act = (rows[None] >= r[:, None])[:, :, None]
+            max_m = np.where(act, wrap(np.abs(M)), 0).max(axis=(1, 2))
+            risk = (np.float32(2.0) * max_m.astype(np.float32)
+                    * np.maximum(wrap(np.abs(piv)).astype(np.float32),
+                                 np.float32(1.0))) >= np.float32(2.0**31)
+            ok &= ~(risk & has)
+        t1 = M * piv[:, None, None]
+        t2 = (M[:, :, j] * below)[:, :, None] * prow[:, None, :]
+        if exact:
+            big = [np.abs(t) >= 2**31 for t in (t1, t2, t1 - t2)]
+            over |= ((big[0] | big[1] | big[2]) & below[:, :, None]).any(
+                axis=(1, 2))
+        upd = wrap(wrap(wrap(t1) - wrap(t2)) // prev[:, None, None])
+        M = np.where(below[:, :, None], upd, M)
+        rank += has
+        prev = np.where(has, piv, prev)
+        r += has
+    det = np.where(rank == n, wrap(sign * prev), 0)
+    return det, rank, ok, over
+
+
+def qdwh_reach(a64, s64, iters=8, l0=1e-3):
+    """[B] the largest ``1 - f(sigma_i / alpha)`` of each lane, ``f`` the
+    reference's ``iters`` dynamically weighted Halley steps from the lower
+    bound ``l0`` applied to a scalar in float64 (``ops.svd._qdwh_coeffs``),
+    ``alpha = sqrt(||A||_1 ||A||_inf)`` its scaling: how far from
+    orthogonal its polar factor is left on a singular value that starts
+    below ``l0`` (0 where the iteration converges)."""
+    from linalg_solver_tpu_torch.ops.svd import _qdwh_coeffs
+
+    alpha = torch.sqrt(torch.linalg.matrix_norm(a64, 1)
+                       * torch.linalg.matrix_norm(a64, float("inf")))
+    xs = s64 / alpha[:, None]
+    l = torch.full_like(alpha, l0)
+    for _ in range(iters):
+        a_, b_, c_, l = _qdwh_coeffs(l)
+        xs = xs * (a_[:, None] + b_[:, None] * xs * xs) / (
+            1 + c_[:, None] * xs * xs)
+    return (1 - xs).abs().amax(dim=1)
+
+
+def drive_family(dev, bsz=FAM_B, n=FAM_N, m=FAM_M):
+    """Phases 32-34: ``BatchedSolver().rcond``, ``.lstsq``, ``.svd`` and
+    ``.det_exact`` on ``family_inputs``, each checked against float64 on
+    the card or exact integers on the host (see the module docstring).
+    Returns the inputs and the outputs, for the times."""
+    import numpy as np
+
+    from linalg_solver_tpu_torch.models.solver import BatchedSolver
+    from linalg_solver_tpu_torch.ops.exact_int import crt_det_batched
+
+    solver = BatchedSolver()
+    x = family_inputs(dev, bsz, n, m)
+
+    # rcond: between the exact 1/kappa_1 (a float64 inverse) and 3x it
+    a = x["rcond"]
+    rc = solver.rcond(a).double()
+    a64 = a.double()
+    inv, info = torch.linalg.inv_ex(a64)
+    exact = 1.0 / (torch.linalg.matrix_norm(a64, 1)
+                   * torch.linalg.matrix_norm(inv, 1))
+    keep = torch.arange(bsz, device=dev) != FAM_SINGULAR
+    ratio = (rc / exact)[keep]
+    near = {k: (float(rc[k]), float(exact[k])) for k in FAM_NEAR}
+    print(f"serving rcond B={bsz} N={n}: rcond / exact 1/kappa_1 in "
+          f"[{float(ratio.min()):.6f}, {float(ratio.max()):.6f}] (limits "
+          f"[{1 - RCOND_LOW}, 3]), near-singular lanes (rcond, exact) {near}, "
+          f"singular lane {FAM_SINGULAR}: {float(rc[FAM_SINGULAR])}")
+    if not (float(ratio.min()) >= 1 - RCOND_LOW
+            and float(ratio.max()) <= 3.0):
+        raise AssertionError("rcond outside [exact, 3 exact]")
+    if float(rc[FAM_SINGULAR]) != 0.0:
+        raise AssertionError("rcond of a singular lane is not 0")
+
+    # lstsq: the least-squares and minimum-norm solutions
+    errs = {}
+    for what in ("lstsq_tall", "lstsq_wide"):
+        a, b = x[what]
+        res = solver.lstsq(a, b)
+        lanes_ok = res.ok.cpu().tolist()
+        want_ok = [i != FAM_DEFICIENT for i in range(bsz)]
+        good = res.ok
+        x64 = torch.linalg.lstsq(a[good].double(),
+                                 b[good].double()[..., None]).solution[..., 0]
+        rel = ((res.x[good].double() - x64).norm(dim=1)
+               / x64.norm(dim=1)).max()
+        errs[what] = float(rel)
+        nan = bool(res.x[FAM_DEFICIENT].isnan().all())
+        print(f"serving {what} {tuple(a.shape)}: max relative error of x "
+              f"against float64 {float(rel):.3e} (tol {TOL_LSTSQ}), ok False "
+              f"exactly on lane {FAM_DEFICIENT}: {lanes_ok == want_ok}, its "
+              f"x NaN {nan}")
+        if lanes_ok != want_ok or not nan or not float(rel) <= TOL_LSTSQ:
+            raise AssertionError(f"{what} failed its check")
+
+    # svd: sigma against float64, U S V^T against A, U^T U against I
+    for what in ("svd_square", "svd_tall"):
+        a = x[what]
+        res = solver.svd(a)
+        a64 = a.double()
+        s64 = torch.linalg.eigvalsh(a64.mT @ a64).flip(-1).clamp(min=0).sqrt()
+        U, s, V = res.U.double(), res.s.double(), res.V.double()
+        sig = float(((s - s64).abs().amax(dim=1) / s64[:, 0]).max())
+        rec = float((((U * s[:, None, :]) @ V.mT - a64).norm(dim=(1, 2))
+                     / a64.norm(dim=(1, 2))).max())
+        eye = torch.eye(U.shape[-1], dtype=torch.float64, device=dev)
+        # the 2-norm of the symmetric U^T U - I: its largest |eigenvalue|
+        orth = torch.linalg.eigvalsh(U.mT @ U - eye).abs().amax(dim=1)
+        reach = qdwh_reach(a64, s64)
+        short = (reach > 1e-7).nonzero().flatten().tolist()
+        info = {i: (float(orth[i]), float(reach[i]),
+                    float(s64[i, 0] / s64[i, -1])) for i in short}
+        worst = int(orth.argmax())
+        print(f"serving {what} {tuple(a.shape)}: ok {int(res.ok.sum())}/{bsz}, "
+              f"max |sigma - sigma64| / sigma_max {sig:.3e}, "
+              f"||U S V^T - A|| / ||A|| {rec:.3e}, ||U^T U - I||_2 "
+              f"{float(orth.max()):.3e} in lane {worst} (tol {TOL_SVD} each, "
+              f"plus 2.5x the defect the reference's 8 QDWH steps leave: "
+              f"(lane: ||U^T U - I||_2, defect, float64 kappa_2) {info})")
+        if not (bool(res.ok.all()) and max(sig, rec) <= TOL_SVD
+                and bool((orth <= TOL_SVD + 2.5 * reach).all())):
+            raise AssertionError(f"{what} failed its check")
+        errs[what] = max(sig, rec, float(orth.max()))
+
+    # det_exact: bitwise the host's int32 Bareiss, exact wherever no
+    # product left int32; crt_det_batched exact wherever one might have
+    for what in ("det_small", "det_big"):
+        a = x[what]
+        res = solver.det_exact(a)
+        a_np = a.cpu().numpy()
+        det32, rank32, ok32, _ = host_bareiss(a_np, exact=False)
+        det, rank, _, over = host_bareiss(a_np, exact=True)
+        card = [t.cpu().numpy() for t in res]
+        same = all(np.array_equal(c, h)
+                   for c, h in zip(card, (det32, rank32, ok32)))
+        ok = card[2]
+        fine = ~over
+        exact_ok = bool((card[0][fine] == det[fine].astype(np.int64)).all())
+        missed = np.nonzero(ok & over)[0].tolist()
+        crt_lanes = np.nonzero(~ok | over)[0]
+        crt = crt_det_batched(a[torch.from_numpy(crt_lanes).to(dev)])
+        crt_exact = crt == [int(det[i]) for i in crt_lanes]
+        print(f"serving {what} {tuple(a.shape)}: det, rank, ok bitwise the "
+              f"host's int32 Bareiss {same}; ok on {int(ok.sum())} lanes; a "
+              f"product left int32 on {int(over.sum())} lanes; det exact on "
+              f"every other lane {exact_ok}; ok with a product past int32 "
+              f"(the sentinel's misses, as the reference's) on "
+              f"{len(missed)} lanes {missed[:8]}; crt_det_batched exact on "
+              f"the {len(crt_lanes)} lanes not ok or past int32 {crt_exact}")
+        if not (same and exact_ok and crt_exact):
+            raise AssertionError(f"{what} failed its check")
+        if what == "det_big" and bool(ok.any()):
+            raise AssertionError("a 24x24 lane with entries to 1e4 is ok")
+    return x, errs
+
+
+def time_family(dev, card, x):
+    """Phase 35: each serving method beside the one library call that
+    computes the same function on the same input (CUDA events, median of
+    3).  Float64 ``det`` is the nearest library call to ``det_exact``,
+    not the same function: it is not exact."""
+    from linalg_solver_tpu_torch.models.solver import BatchedSolver
+    from linalg_solver_tpu_torch.utils.benchmarking import cuda_time
+
+    solver = BatchedSolver()
+    cells = (
+        ("serve-rcond-256", solver.rcond, (x["rcond"],),
+         "torch.linalg.cond(p=1)", lambda a: torch.linalg.cond(a, p=1)),
+        ("serve-lstsq-768x256", solver.lstsq, x["lstsq_tall"],
+         "torch.linalg.lstsq", lambda a, b: torch.linalg.lstsq(a, b[..., None])),
+        ("serve-lstsq-min-256x768", solver.lstsq, x["lstsq_wide"],
+         "torch.linalg.lstsq", lambda a, b: torch.linalg.lstsq(a, b[..., None])),
+        ("serve-svd-256", solver.svd, (x["svd_square"],),
+         "torch.linalg.svd", lambda a: torch.linalg.svd(
+             a, full_matrices=False)),
+        ("serve-svd-768x256", solver.svd, (x["svd_tall"],),
+         "torch.linalg.svd", lambda a: torch.linalg.svd(
+             a, full_matrices=False)),
+        ("serve-det-exact-8", solver.det_exact, (x["det_small"],),
+         "torch.linalg.det(float64)",
+         lambda a: torch.linalg.det(a.double())),
+        ("serve-det-exact-24", solver.det_exact, (x["det_big"],),
+         "torch.linalg.det(float64)",
+         lambda a: torch.linalg.det(a.double())),
+    )
+    out = {}
+    for cell, fn, args, lib_name, lib in cells:
+        t = cuda_time(fn, *args, warmup=1, iters=3)
+        tl = cuda_time(lib, *args, warmup=1, iters=3)
+        out[cell] = {"ms": t * 1e3, "library": lib_name,
+                     "library_ms": tl * 1e3,
+                     "shape": list(args[0].shape)}
+        print(f"time {cell} {tuple(args[0].shape)}: BatchedSolver "
+              f"{t * 1e3:.4f} ms, {lib_name} {tl * 1e3:.4f} ms ({card})")
+    return out
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py: no CUDA device; there is no CPU path")
@@ -3042,6 +3345,13 @@ def main() -> None:
         dev, card, schur_out, spec_schur)
     eig_counts = {k: eig_counts[k] + spec_schur["launches"][k]
                   for k in eig_counts}
+
+    # 32-35. serving on one GPU: BatchedSolver's lstsq, svd, rcond and
+    # det_exact at full size, checked, then timed beside the library
+    t0 = time.perf_counter()
+    family, _ = drive_family(dev)
+    time_family(dev, card, family)
+    print(f"serving phase: {time.perf_counter() - t0:.2f} s")
 
     # bounds from this run's shapes: bytes each input read and each output
     # written once; operations those the inputs need

@@ -6,13 +6,15 @@ backend: LU factor and solve, Gauss–Jordan inverse, determinant, rank,
 the affine solve of singular or rectangular systems, and
 ``solve_checked``, the solve with its residual check, whose failed
 systems a caller retries through ``affine_solve`` (as the reference's
-``examples/serving_pipeline.py`` does).
+``examples/serving_pipeline.py`` does); and, as the reference's methods
+do, ``lstsq`` (``ops.lstsq``), ``svd`` (``ops.svd``), ``rcond``
+(``ops.cond``) and ``det_exact`` (``ops.exact_int``), which take no
+backend.
 
 Not ported, and refused rather than sent to another solver: the device
 mesh (``mesh=``; the reference's ``batch_shard_axes``,
 ``_sharded_batch_op`` and ``preconditioner_training_step``, ROADMAP.md
-queue 1 item 13), ``lstsq``, ``svd`` and ``rcond`` (queue 1 item 9) and
-``det_exact`` (queue 1 item 11).
+queue 1 item 13).
 """
 
 from __future__ import annotations
@@ -22,13 +24,11 @@ from typing import Optional
 import torch
 
 from ..ops import dispatch
+from ..ops.cond import rcond_batched
+from ..ops.exact_int import bareiss_batched
+from ..ops.lstsq import lstsq_batched
+from ..ops.svd import svd_batched
 from ..utils.precision import f32_matmuls
-
-
-def _not_ported(what: str, item: int) -> NotImplementedError:
-    return NotImplementedError(
-        f"BatchedSolver.{what} is not ported yet (ROADMAP.md queue 1 item "
-        f"{item})")
 
 
 class BatchedSolver:
@@ -38,7 +38,9 @@ class BatchedSolver:
 
     def __init__(self, mesh: Optional[object] = None, backend: str = "auto"):
         if mesh is not None:
-            raise _not_ported("mesh (batch sharding over devices)", 13)
+            raise NotImplementedError(
+                "BatchedSolver.mesh (batch sharding over devices) is not "
+                "ported yet (ROADMAP.md queue 1 item 13)")
         self.mesh = None
         self.backend = backend
 
@@ -78,13 +80,21 @@ class BatchedSolver:
         return x, rel, rel < rel_tol
 
     def lstsq(self, a: torch.Tensor, b: torch.Tensor):
-        raise _not_ported("lstsq", 9)
+        """Least-squares / minimum-norm solve of full-rank rectangular
+        batches (``ops.lstsq``)."""
+        return lstsq_batched(a, b)
 
     def svd(self, a: torch.Tensor):
-        raise _not_ported("svd", 9)
+        """Thin SVD (QDWH polar + eigh, ``ops.svd``)."""
+        return svd_batched(a)
 
-    def rcond(self, a: torch.Tensor):
-        raise _not_ported("rcond", 9)
+    def rcond(self, a: torch.Tensor) -> torch.Tensor:
+        """[B] reciprocal 1-norm condition estimate (``ops.cond``), the
+        trust gate: a solve carries ~``-log10(eps/rcond)`` digits."""
+        return rcond_batched(a)
 
     def det_exact(self, a_int: torch.Tensor):
-        raise _not_ported("det_exact (Bareiss, ops.exact_int)", 11)
+        """Bit-exact integer determinants and ranks (Bareiss fraction-free
+        elimination in int32); see ``ops.exact_int`` for the overflow
+        contract."""
+        return bareiss_batched(a_int)

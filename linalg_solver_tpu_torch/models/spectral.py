@@ -28,8 +28,6 @@ from ..ops.schur import EigResult, eig_real_batched, eigvals_schur
 from ..ops.symmetric import eigh_batched, is_symmetric_batched
 from ..utils.precision import f32_matmuls
 
-METHODS = ("schur", "eig", "qr", "eigh", "auto")
-
 
 class SpectralReport(NamedTuple):
     eig_real: torch.Tensor        # [B, n]
@@ -71,15 +69,14 @@ def spectral_pipeline(a: torch.Tensor, iters: int = 100, tol: float = 1e-3,
     to the algebraic ones.  ``method="eigh"``: symmetric input, the
     spectral theorem's path: one direct symmetric eigensolve, P
     orthogonal (P⁻¹ = Pᵀ, no inverse solve), always diagonalizable,
-    alg = geom by clustering.  ``method="qr"``: the unreduced QR
-    iteration (``iters`` steps), then the spectral core.
+    alg = geom by clustering.  ``method="qr"``, and any other string, as
+    in the reference: the unreduced QR iteration (``iters`` steps), then
+    the spectral core.
     ``method="auto"``: ``"eigh"`` if every matrix is numerically
     symmetric (one host read), else ``"schur"``.
 
     ``max_distinct`` bounds the distinct eigenvalues whose eigenspaces
     the Schur path computes (default n, exact)."""
-    if method not in METHODS:
-        raise ValueError(f"unknown method {method!r}; one of {METHODS}")
     if method == "auto":
         method = "eigh" if bool(is_symmetric_batched(a).all()) else "schur"
     if method == "schur":

@@ -30,6 +30,16 @@
   finite on repeated eigenvalues, and the symmetry probe
 - ``orth`` — batched masked CholeskyQR orthonormalization
 - ``generate`` — structured random batches on the device
+- ``cond`` — Hager's 1-norm condition estimate on the LU factors
+- ``lstsq`` — least-squares and minimum-norm solves, thin QR and basis
+  completion by shifted CholeskyQR2
+- ``svd`` — QDWH polar decomposition, the SVD built on it, the
+  pseudoinverse, the 2-norm condition number and the SVD rank
+- ``spd`` — Cholesky solve, inverse and log-determinant, and the
+  pivoted (rank-revealing) Cholesky
+- ``exact_int`` — Bareiss elimination in int32 and CRT reconstruction:
+  exact integer determinants, ranks and solutions (not re-exported, as
+  in the reference)
 
 As in the reference, the functions ``rref``, ``solve`` and
 ``rref_blocked`` shadow the modules of the same names on this package:
@@ -95,6 +105,36 @@ from .symmetric import (
     is_symmetric_batched,
     symmetry_defect_batched,
 )
+from .cond import (
+    cond1_est_batched,
+    lu_solve_transposed,
+    lu_solve_transposed_batched,
+    rcond_batched,
+)
+from .lstsq import (
+    LstsqResult,
+    QRResult,
+    lstsq_batched,
+    qr_batched,
+)
+from .svd import (
+    PolarResult,
+    SVDResult,
+    cond2_batched,
+    pinv_batched,
+    polar_batched,
+    rank_svd_batched,
+    svd_batched,
+)
+from .spd import (
+    CholeskyResult,
+    PivotedCholesky,
+    cholesky_batched,
+    cholesky_inverse_batched,
+    cholesky_solve_batched,
+    logdet_spd_batched,
+    pivoted_cholesky_batched,
+)
 
 __all__ = [
     "SchurResult", "SchurVectors", "SchurEigvals", "EigResult",
@@ -102,4 +142,13 @@ __all__ = [
     "eig_real_batched",
     "EighResult", "eigh_batched", "is_symmetric_batched",
     "symmetry_defect_batched",
+    "cond1_est_batched", "rcond_batched",
+    "lu_solve_transposed", "lu_solve_transposed_batched",
+    "LstsqResult", "lstsq_batched", "QRResult", "qr_batched",
+    "SVDResult", "svd_batched", "pinv_batched",
+    "cond2_batched", "rank_svd_batched",
+    "PolarResult", "polar_batched",
+    "CholeskyResult", "cholesky_batched", "cholesky_solve_batched",
+    "cholesky_inverse_batched", "logdet_spd_batched",
+    "PivotedCholesky", "pivoted_cholesky_batched",
 ]

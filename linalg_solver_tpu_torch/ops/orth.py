@@ -11,9 +11,7 @@ far from orthogonal, and at 256-dimensional eigenspaces they push
 The reference's one-hot compaction matmul is an index scatter here: each
 masked column lands where the reference puts it, in the same order.
 ``jnp.linalg.cholesky`` returns NaN for a Gram matrix that is not
-positive definite, where ``torch.linalg.cholesky`` raises (and on the
-card waits for the host to check): ``_chol_qr`` takes
-``torch.linalg.cholesky_ex`` and sets NaN where its ``info`` is nonzero,
+positive definite: ``_chol_qr`` factors with ``ops.spd.cholesky_or_nan``,
 so a failed basis is non-finite in the same lanes as the reference's.
 """
 
@@ -22,6 +20,7 @@ from __future__ import annotations
 import torch
 
 from ..utils.precision import f32_matmuls
+from .spd import cholesky_or_nan
 
 
 def compact_columns(gens: torch.Tensor, gmask: torch.Tensor) -> torch.Tensor:
@@ -57,9 +56,7 @@ def _chol_qr(g: torch.Tensor, colmask: torch.Tensor, shift: float = 0.0):
         scale = gram.diagonal(dim1=1, dim2=2).sum(dim=1)[:, None, None]
         gram = gram + shift * scale * eye
     gram = gram + (1.0 - colmask[:, None, :]) * eye
-    L, info = torch.linalg.cholesky_ex(gram)
-    L = torch.where((info != 0)[:, None, None], torch.nan, L)
-    Q = _right_tri_solve(g, L)
+    Q = _right_tri_solve(g, cholesky_or_nan(gram))
     return Q * colmask[:, None, :]
 
 

@@ -1033,3 +1033,126 @@ def test_eigvals_schur_on_the_card(cuda):
             for z in got[i]:
                 j = int(np.argmin(np.abs(np.array(left) - z)))
                 assert abs(left.pop(j) - z) <= limit
+
+
+@pytest.mark.cuda
+def test_cholesky_on_the_card_is_nan_where_it_fails(cuda):
+    """``ops.spd`` on the card: an indefinite lane's factor is NaN in its
+    lower triangle and not ``ok`` (``cholesky_ex`` leaves finite garbage
+    there); the other lanes agree with the CPU's within 1e-5."""
+    from linalg_solver_tpu_torch.ops import spd
+
+    g = torch.Generator().manual_seed(5)
+    x = torch.randn(8, 64, 64, generator=g)
+    a = x @ x.mT + 64 * torch.eye(64)
+    a[3] = -a[3]
+    got = spd.cholesky_batched(a.to(cuda))
+    want = spd.cholesky_batched(a)
+    assert got.ok.cpu().tolist() == [True] * 3 + [False] + [True] * 4
+    lower = torch.ones(64, 64, dtype=torch.bool).tril()
+    assert got.L[3].isnan().cpu().equal(lower)
+    ok = want.ok
+    assert float((got.L.cpu()[ok] - want.L[ok]).abs().max()) <= (
+        RTOL * float(want.L[ok].abs().max()))
+
+
+@pytest.mark.cuda
+def test_lstsq_on_the_card(cuda):
+    """``ops.lstsq`` at the serving shape's ratio, [16, 768, 256] and its
+    minimum-norm transpose: x within 1e-4 of the float64 solution, the
+    lane with a zero column not ``ok`` and NaN."""
+    from linalg_solver_tpu_torch.ops.lstsq import lstsq_batched
+
+    g = torch.Generator(device=cuda).manual_seed(6)
+    for m, n in ((768, 256), (256, 768)):
+        a = torch.randn(16, m, n, generator=g, device=cuda)
+        if m >= n:
+            a[4, :, 7] = 0.0
+        else:
+            a[4, 7] = 0.0
+        b = torch.randn(16, m, generator=g, device=cuda)
+        res = lstsq_batched(a, b)
+        assert res.ok.cpu().tolist() == [i != 4 for i in range(16)]
+        assert bool(res.x[4].isnan().all())
+        keep = res.ok
+        want = torch.linalg.lstsq(a[keep].double(),
+                                  b[keep].double()[..., None]).solution[..., 0]
+        rel = (res.x[keep].double() - want).norm(dim=1) / want.norm(dim=1)
+        assert float(rel.max()) <= 1e-4
+
+
+@pytest.mark.cuda
+def test_svd_on_the_card(cuda):
+    """``ops.svd`` at [16, 256, 256]: σ within 1e-5·σmax of the float64
+    ones, ‖UΣVᵀ − A‖/‖A‖ and ‖UᵀU − I‖ within 1e-5."""
+    from linalg_solver_tpu_torch.ops.svd import svd_batched
+
+    g = torch.Generator(device=cuda).manual_seed(7)
+    a = torch.randn(16, 256, 256, generator=g, device=cuda)
+    res = svd_batched(a)
+    assert bool(res.ok.all())
+    s64 = torch.linalg.svdvals(a.double())
+    assert float((res.s.double() - s64).abs().amax(1).max()
+                 / s64[:, 0].max()) <= 1e-5
+    U, s, V = res.U.double(), res.s.double(), res.V.double()
+    back = (U * s[:, None, :]) @ V.mT
+    assert float(((back - a.double()).norm(dim=(1, 2))
+                  / a.double().norm(dim=(1, 2))).max()) <= 1e-5
+    eye = torch.eye(256, dtype=torch.float64, device=cuda)
+    assert float((U.mT @ U - eye).norm(dim=(1, 2)).max()) <= 1e-5
+
+
+@pytest.mark.cuda
+def test_rcond_on_the_card(cuda):
+    """``ops.cond`` on the card agrees with the CPU's within 1e-5 (the
+    same pivots), is 0 on a singular lane, and lies between the exact
+    1/κ₁ and three times it."""
+    from linalg_solver_tpu_torch.ops.cond import rcond_batched
+
+    g = torch.Generator().manual_seed(8)
+    n = 64
+    a = torch.randn(8, n, n, generator=g) + 4 * n ** 0.5 * torch.eye(n)
+    a[5, 9] = a[5, 3]
+    got = rcond_batched(a.to(cuda)).cpu()
+    want = rcond_batched(a)
+    assert float(got[5]) == 0.0 == float(want[5])
+    keep = torch.arange(8) != 5
+    assert bool(((got[keep] - want[keep]).abs()
+                 <= RTOL * want[keep]).all())
+    a64 = a[keep].double()
+    exact = 1 / (torch.linalg.matrix_norm(a64, 1)
+                 * torch.linalg.matrix_norm(torch.linalg.inv(a64), 1))
+    assert bool((got[keep] >= exact * (1 - 1e-4)).all())
+    assert bool((got[keep] <= 3 * exact).all())
+
+
+@pytest.mark.cuda
+def test_det_exact_on_the_card_flags_the_overflow_lanes(cuda):
+    """``ops.exact_int`` on the card: Bareiss gives the CPU's det, rank
+    and ok bit for bit, the wrapped det of an overflowing lane included;
+    ok is False there, and ``crt_det_batched`` on the card gives its exact
+    determinant."""
+    from linalg_solver_tpu_torch.ops import exact_int
+
+    g = torch.Generator().manual_seed(9)
+    a = torch.randint(-5, 5, (64, 8, 8), generator=g, dtype=torch.int32)
+    a[7] *= 3000
+    got = exact_int.bareiss_batched(a.to(cuda))
+    want = exact_int.bareiss_batched(a)
+    for x, y in zip(got, want):
+        assert torch.equal(x.cpu(), y)
+    assert not bool(got.ok[7])
+    dets = exact_int.crt_det_batched(a[[7]].to(cuda))
+    assert dets == exact_int.crt_det_batched(a[[7]])
+    import fractions
+    m = [[fractions.Fraction(int(v)) for v in row] for row in a[7]]
+    det = fractions.Fraction(1)
+    for j in range(8):
+        p = next(i for i in range(j, 8) if m[i][j] != 0)
+        if p != j:
+            m[j], m[p], det = m[p], m[j], -det
+        det *= m[j][j]
+        for i in range(j + 1, 8):
+            f = m[i][j] / m[j][j]
+            m[i] = [x - f * y for x, y in zip(m[i], m[j])]
+    assert dets == [int(det)]

@@ -116,13 +116,49 @@ def test_serving_flow_retries_only_the_planted_systems():
     np.testing.assert_array_equal(sub.dim.numpy(), np.asarray(subj.dim))
 
 
-@pytest.mark.parametrize("method,item", [
-    ("lstsq", 9), ("svd", 9), ("rcond", 9), ("det_exact", 11)])
-def test_unported_methods_raise_and_name_their_item(method, item):
-    solver = BatchedSolver()
-    args = (torch.eye(4)[None],) * (2 if method == "lstsq" else 1)
-    with pytest.raises(NotImplementedError, match=f"queue 1 item {item}"):
-        getattr(solver, method)(*args)
+def _serving_input(method):
+    rng = np.random.RandomState(41)
+    if method == "lstsq":
+        a = rng.randn(3, 10, 4).astype(np.float32)
+        a[1, :, 2] = 0.0              # rank-deficient: not ok, NaN
+        return a, rng.randn(3, 10).astype(np.float32)
+    if method == "det_exact":
+        a = rng.randint(-5, 5, size=(8, 8, 8)).astype(np.int32)
+        a[2, 4] = a[2, 1]             # singular
+        a[5] *= 2000                  # overflows int32: not ok
+        return (a,)
+    a = rng.randn(4, N, N).astype(np.float32)
+    if method == "rcond":
+        a[3, 5] = a[3, 2]             # singular: 0
+    return (a,)
+
+
+@pytest.mark.parametrize("method", ["lstsq", "svd", "rcond", "det_exact"])
+def test_serving_methods_match_jax(method):
+    """``lstsq``, ``svd``, ``rcond`` and ``det_exact`` against the JAX
+    ``BatchedSolver``'s on the same input: flags and integers exactly,
+    values within 1e-5 (singular vectors after aligning their signs)."""
+    args = _serving_input(method)
+    want = getattr(JSolver(), method)(*map(jnp.asarray, args))
+    got = getattr(BatchedSolver(), method)(*map(torch.from_numpy, args))
+    if method == "rcond":
+        _close(got, want)
+        assert got[3] == 0 and bool((got[:3] > 0).all())
+        return
+    for f in got._fields:
+        g, w = getattr(got, f).numpy(), np.asarray(getattr(want, f))
+        if f == "ok" or method == "det_exact":
+            np.testing.assert_array_equal(g, w)
+        elif method == "svd" and f in ("U", "V"):
+            sg = np.sign((got.U.numpy() * np.asarray(want.U)).sum(axis=1))
+            _close(g * sg[:, None, :], w)
+        else:
+            np.testing.assert_array_equal(np.isnan(g), np.isnan(w))
+            _close(np.nan_to_num(g), np.nan_to_num(w))
+    if method == "lstsq":
+        assert got.ok.tolist() == [True, False, True]
+    if method == "det_exact":
+        assert not bool(got.ok[5]) and int(got.rank[2]) == 7
 
 
 def test_mesh_raises_and_names_its_item():

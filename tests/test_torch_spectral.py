@@ -11,7 +11,9 @@ compare spans (``P D Pᵀ`` and per-column ``|⟨p, q⟩|``) instead of
 vectors; null bases from the SVD as projectors (singular vectors differ
 in sign between the two libraries).  The Schur routes (``"schur"``,
 ``"eig"``, ``"auto"`` on a non-symmetric batch) against the reference's
-on the same batch; the refusal of the mesh is checked by message."""
+on the same batch; a method the pipeline does not name takes the QR
+route, as in the reference; the refusal of the mesh is checked by
+message."""
 
 import jax
 import jax.numpy as jnp
@@ -195,5 +197,21 @@ def test_schur_methods_raise_naming_what_is_missing(nonsymmetric_batch,
 def test_sharded_pipeline_raises_naming_its_item():
     with pytest.raises(NotImplementedError, match="queue 1 item 13"):
         tspec.spectral_pipeline_sharded(torch.zeros(2, 4, 4), mesh=None)
-    with pytest.raises(ValueError, match="unknown method"):
-        tspec.spectral_pipeline(torch.zeros(2, 4, 4), method="lapack")
+
+
+def test_unknown_method_falls_through_to_qr_as_in_jax(symmetric_batch):
+    """A method the pipeline does not name takes the QR route in both
+    packages (the reference's fall-through)."""
+    a, _ = symmetric_batch
+    rj = jspec.spectral_pipeline(jnp.asarray(a), iters=60, tol=1e-2,
+                                 method="lapack")
+    rt = tspec.spectral_pipeline(torch.from_numpy(a), iters=60, tol=1e-2,
+                                 method="lapack")
+    qr = tspec.spectral_pipeline(torch.from_numpy(a), iters=60, tol=1e-2,
+                                 method="qr")
+    for f in ("alg_mult", "geom_mult", "diagonalizable"):
+        _exact(getattr(rt, f), getattr(rj, f))
+    _close(rt.eig_real.numpy(), rj.eig_real)
+    _close(rt.D.numpy(), rj.D, rtol=1e-3)
+    for f in rt._fields:
+        assert torch.equal(getattr(rt, f), getattr(qr, f))
