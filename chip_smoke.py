@@ -3,9 +3,12 @@ CUDA card, through the fused kernels and through the RBT phase engine,
 then its pivoted, rank-revealing paths (affine solve, nullspace, rank),
 the loop backend, ``BatchedSolver``'s serving flow, the device eigen
 stack (Jordan analysis and the spectral pipeline), the real Schur
-solver with the spectral pipeline's Schur routes, and
+solver with the spectral pipeline's Schur routes,
 ``BatchedSolver``'s least squares, SVD, condition estimate and exact
-integer determinant.
+integer determinant, and the eigenvector family built on the Schur
+kernels (eigenvectors and their condition, polynomial roots, the matrix
+sign, Sylvester, Lyapunov, Stein and Riccati equations, generalized and
+quadratic eigenproblems).
 
     python3 chip_smoke.py
 
@@ -206,7 +209,33 @@ uncaught exception and a non-zero exit:
     sentinel misses a product past int32 (ok, det wrong, in the reference
     too) are counted and listed;
 35. time each method beside its library call (``torch.linalg.cond(p=1)``,
-    ``lstsq``, ``svd``, float64 ``det``).
+    ``lstsq``, ``svd``, float64 ``det``);
+36-44. the eigenvector family at the Schur cells' width (``eigf_inputs``:
+    seeded numpy on the host; every check in float64 on the host, each
+    entry point with the kernels' counts set to 0 just before it and read
+    just after): eig-256, ``eig_batched`` on examples/chip_eig_tail.py's
+    32 Gaussian 256x256 matrices with ``refine_steps`` 0 and 1 (the
+    residuals' median, p99 and max, no column worse with refinement, the
+    spectrum against ``torch.linalg.eigvals``); eig-cond-256,
+    ``schur.eig_condition_batched`` on the same batch plus a lane holding
+    a 16-block Jordan chain (s against scipy's float64 left and right
+    eigenvectors, the chain's tiny s and large error estimate); roots of
+    1024 degree-32 polynomials against ``np.roots`` (a zero leading
+    coefficient flagged); sign-256 (S^2 = I, the half-plane counts,
+    the projector); sylvester-256, lyapunov-256 and stein-256 (relative
+    residuals, a rho = 1.1 lane flagged); care-128 and dare-128 against
+    scipy on 4 lanes; geig-256 (the symmetric-definite, LU and shift-
+    invert paths against scipy, a B of rank n - 4 on 4 lanes giving
+    exactly 4 infinite eigenvalues); quadeig-128's residuals.  The
+    limits are ``EIGF_LIMITS``; where the JAX package misses one on the
+    same input, ``EIGF_JAX`` holds its figure and the card is held to
+    1.5x it;
+45. time each entry point (median of 5 after the check's call) beside
+    its library call where one computes the same function
+    (``torch.linalg.eig``, ``eigvals`` of the companion, ``eigh`` of the
+    Cholesky-reduced matrix, ``eig(solve(B, A))``), and
+    ``_shifted_backsolve`` alone with its device events a call beside
+    ``real_schur_vectors``.
 
 The line before the last is a JSON summary of the eight kernels, each with
 its bound (the larger of its bytes over 3.35 TB/s and its operations
@@ -218,7 +247,8 @@ there is one (the ``ms`` of kernels 2, 4 and 5 is device time from
 3 list their large shapes, kernel 3's variant-3 shapes with their plain
 and path times; the chase and window kernels, which replace an XLA scan
 and an XLA while loop and no Pallas kernel, their shapes, the chase's
-other variant and the eager and graph sweep times); the last line is
+other variant and the eager and graph sweep times, and their launches
+on each path of the eigenvector family); the last line is
 ``{"ok": true, "device": {...}}``.
 Imports nothing of JAX.
 """
@@ -2521,20 +2551,21 @@ def window_work(Hw, Qw, hw, an, *_):
     return nbytes, sweeps * per + B * 15 * w
 
 
-def hold_schur(a, with_q, what):
-    """The window kernel (every AED round) and the chase kernel (every
-    launch, the main chase in both variants) against their plain
-    versions, bitwise (NaN-equal), on the arrays one outer sweep of
-    ``ops.schur`` from ``a``'s initial state gives them.  Returns (max abs
-    diff, the main chase's arguments, the window kernel's arguments)."""
+def hold_schur(a, with_q, what, balance=True, nshift_pairs=0, aed_w=-1):
+    """The window kernel (every AED round, where the sweep has one) and
+    the chase kernel (every launch, the main chase in both variants)
+    against their plain versions, bitwise (NaN-equal), on the arrays one
+    outer sweep of ``ops.schur`` from ``a``'s initial state gives them,
+    under ``real_schur``'s arguments.  Returns (max abs diff, the main
+    chase's arguments, the window kernel's arguments or None)."""
     from linalg_solver_tpu_torch.ops import schur
     from linalg_solver_tpu_torch.ops.kernels import schur_chase as sc
     from linalg_solver_tpu_torch.ops.kernels import schur_window as sw
 
     B_, n = a.shape[0], a.shape[1]
-    npairs = schur._auto_npairs(n)
-    aed_w = schur._auto_aed_w(n, npairs)
-    H, Q, hi, st, an, _ = schur._schur_init(a, with_q=with_q)
+    npairs, aed_w = schur._sweep_config(n, nshift_pairs, aed_w)
+    H, Q, hi, st, an, _ = schur._schur_init(a, balance=balance,
+                                            with_q=with_q)
     state = (H, Q, hi, st, an, torch.zeros_like(hi, dtype=torch.bool),
              torch.zeros((), dtype=torch.long, device=a.device))
     chases, wins = [], []
@@ -2583,18 +2614,20 @@ def hold_schur(a, with_q, what):
                                      f"{nc + 1} bulges a step")
             err = max(err, abs_diff(Hk, Hr))
     shapes = sorted({(tuple(c[0][0].shape), c[0][3] + 1) for c in chases})
-    print(f"window kernel vs plain {what}: {len(wins)} launch(es) of one "
-          f"outer sweep ({[list(w_[0][0].shape) for w_ in wins]}, "
-          f"{a.dtype}), bitwise equal (NaN-equal) on H, Q, hw and the "
-          f"trailing deflation's rows and end; chase "
+    print(f"window kernel vs plain {what}: " + (
+          f"{len(wins)} launch(es) of one outer sweep "
+          f"({[list(w_[0][0].shape) for w_ in wins]}, {a.dtype}), bitwise "
+          f"equal (NaN-equal) on H, Q, hw and the trailing deflation's rows "
+          f"and end" if aed_w else f"none (AED off at n = {n})") + f"; chase "
           f"kernel vs plain: {len(chases)} launch(es) (shape, bulges a step: "
-          f"{shapes}), the main chase in variants {list(sc.VARIANTS)}, all "
-          f"bitwise equal (max abs diff {err:.3e})")
-    if len(wins) != 1 or any(c[0][0].shape[1] != n + 1 for c in chases):
-        raise AssertionError("an outer sweep took other launches than one "
-                             "window-kernel launch and the main chase")
-    main = [c[0] for c in chases if c[0][0].shape[1] == n + 1]
-    return err, main[0], wins[0][0]
+          f"{shapes}, Q {with_q}), the main chase in variants "
+          f"{list(sc.VARIANTS)}, all bitwise equal (max abs diff {err:.3e})")
+    if (len(wins) != int(aed_w > 0) or not chases
+            or any(c[0][0].shape[1] != n + 1 for c in chases)):
+        raise AssertionError(f"an outer sweep took other launches than "
+                             f"{int(aed_w > 0)} window-kernel launch(es) "
+                             f"and the main chase")
+    return err, chases[0][0], wins[0][0] if wins else None
 
 
 def drive_schur(dev):
@@ -3166,6 +3199,734 @@ def time_family(dev, card, x):
     return out
 
 
+# --- phases 36-45: the eigenvector family (eig_batched and what is built
+# on it), at the Schur cells' width ---------------------------------------
+
+EIGF_B, EIGF_N = B_SPEC, N_SPEC
+ROOTS_B, ROOTS_D = 1024, 32
+ROOTS_ZERO_LANE = 5        # its leading coefficient is zero: ok False
+RIC_N, RIC_M = 128, 16     # care-128 / dare-128: Hamiltonians 256 x 256
+RIC_SCIPY_LANES = 4
+QUAD_N = 128               # quadeig-128: the linearization is 256 x 256
+STEIN_RHO, STEIN_BAD = 0.9, 1.1
+STEIN_BAD_LANE = 1
+GSHIFT_LANES = (0, 2, 4, 6)  # geig-256's shifted pencils: B of rank n - 4
+GSHIFT_INF = 4
+#: the family's limits
+EIGF_LIMITS = {
+    "eig_p99": 2e-6, "eig_max": 1e-5, "eig_worse": 1e-7,
+    "eig_spectrum": 1e-4, "cond_s": 1e-3, "cond_jordan_min_s": 1e-3,
+    "cond_jordan_max_err": 1e-2, "roots": 1e-3,
+    "sign_s2": 64 * EIGF_N * 2.0 ** -23, "sign_projector": 1e-4,
+    "sylvester": 1e-5, "sylvester_imag_defect": 1e-4, "lyapunov": 1e-5,
+    "lyapunov_imag_defect": 1e-4, "stein": 1e-5, "care": 1e-3,
+    "dare": 1e-3, "geigh_w": 1e-4, "geigh_vtbv": 1e-4,
+    "geig_spectrum": 1e-3, "geig_rcond": 10.0, "quadeig": 1e-4,
+}
+#: the JAX package's own figures where it misses a limit on the same
+#: inputs (JAX 0.9.0 on the CPU, all 32 lanes: ``JAX_PLATFORMS=cpu
+#: PYTHONPATH=. python tests/test_torch_eig_family.py --lanes 32 --cells
+#: eig-cond-256,sign-256,sylvester-256,care-128``; on every other limit
+#: it stays inside on the first 8 lanes, ``--lanes 8``): the card is held
+#: to 1.5x these
+EIGF_JAX = {
+    "cond_s": 1.3036941179998534e-03,
+    "sign_projector": 1.249580089468259e-04,
+    "sylvester_imag_defect": 2.3421755759045482e-04,
+}
+
+
+def eigf_inputs(bsz=EIGF_B, n=EIGF_N, roots_b=ROOTS_B, ric_n=RIC_N,
+                quad_n=QUAD_N):
+    """The family's inputs, float32 numpy arrays built on the host from
+    seeds (the special lanes sit among the first eight, so that a run on
+    eight lanes meets them too)."""
+    import numpy as np
+
+    f32 = np.float32
+    x = {}
+    # eig-256: examples/chip_eig_tail.py's batch
+    x["eig"] = np.random.RandomState(0).randn(bsz, n, n).astype(f32)
+    # eig-cond-256: the same, plus a lane holding test_ops_schur.py's
+    # near-defective input (a 16-block at 0.5 under a seeded similarity)
+    # beside n - 16 eigenvalues spaced 4/(n - 17) apart in [2, 6], under
+    # a seeded orthogonal similarity
+    rng = np.random.RandomState(6)
+    J = (np.eye(16) * 0.5 + np.eye(16, k=1)).astype(f32)
+    P = rng.randn(16, 16).astype(f32)
+    D = np.zeros((n, n))
+    D[:16, :16] = np.linalg.solve(P, J @ P)
+    D[16:, 16:] = np.diag(2.0 + 4.0 * np.arange(n - 16) / (n - 17))
+    Qo, _ = np.linalg.qr(np.random.RandomState(7).randn(n, n))
+    x["cond"] = np.concatenate([x["eig"], (Qo @ D @ Qo.T)[None].astype(f32)])
+    # roots: degree-32 polynomials from 16 conjugate pairs of prescribed
+    # roots, radius in [0.8, 1.2], angles pi (k + 1/2)/16 jittered by
+    # +-0.05: well separated
+    rng = np.random.RandomState(11)
+    h = ROOTS_D // 2
+    ang = np.pi * (np.arange(h) + 0.5) / h + rng.uniform(-0.05, 0.05,
+                                                         (roots_b, h))
+    z = rng.uniform(0.8, 1.2, (roots_b, h)) * np.exp(1j * ang)
+    z = np.concatenate([z, z.conj()], axis=1)
+    c = np.stack([np.poly(r).real for r in z])
+    c[ROOTS_ZERO_LANE, 0] = 0.0
+    x["roots"] = c.astype(f32)
+    rs = n ** 0.5
+    # sign-256: A = G + 3 sqrt(n) diag(+-1)
+    rng = np.random.RandomState(12)
+    signs = rng.choice([-1.0, 1.0], (bsz, n))
+    x["sign"] = (rng.randn(bsz, n, n)
+                 + 3 * rs * np.eye(n) * signs[:, None, :]).astype(f32)
+    # sylvester-256: A = G1 + 3 sqrt(n) I, B = G2 + 3 sqrt(n) I, C = G3;
+    # Lyapunov on A with Q = C + C^T
+    rng = np.random.RandomState(13)
+    a = (rng.randn(bsz, n, n) + 3 * rs * np.eye(n)).astype(f32)
+    b = (rng.randn(bsz, n, n) + 3 * rs * np.eye(n)).astype(f32)
+    cc = rng.randn(bsz, n, n).astype(f32)
+    x["sylvester"] = (a, b, cc)
+    x["lyapunov"] = (a, (cc + cc.transpose(0, 2, 1)).astype(f32))
+    # stein: rho(A) = 0.9 (a Gaussian scaled by its own spectral radius),
+    # 1.1 on one lane; Q = H H^T / n
+    rng = np.random.RandomState(14)
+    g = rng.randn(bsz, n, n)
+    rho = np.abs(np.linalg.eigvals(g)).max(axis=1)
+    scale = np.full(bsz, STEIN_RHO)
+    scale[STEIN_BAD_LANE] = STEIN_BAD
+    hh = rng.randn(bsz, n, n)
+    x["stein"] = ((g * (scale / rho)[:, None, None]).astype(f32),
+                  (hh @ hh.transpose(0, 2, 1) / n).astype(f32))
+    # care-128 / dare-128: B [n, m], Q = C^T C, R = I + H H^T / m; for
+    # the CARE A = G / (2 sqrt n) - I (eigenvalues' real parts in about
+    # [-1.5, -0.5]), for the DARE A = 0.9 G / sqrt(n) (rho about 0.9)
+    rng = np.random.RandomState(15)
+    m, rn = RIC_M, ric_n ** 0.5
+    ga = rng.randn(bsz, ric_n, ric_n) / rn
+    bb = rng.randn(bsz, ric_n, m).astype(f32)
+    cq = rng.randn(bsz, ric_n, ric_n) / rn
+    q = (cq.transpose(0, 2, 1) @ cq).astype(f32)
+    hr = rng.randn(bsz, m, m)
+    r = (np.eye(m) + hr @ hr.transpose(0, 2, 1) / m).astype(f32)
+    x["care"] = ((ga / 2 - np.eye(ric_n)).astype(f32), bb, q, r)
+    x["dare"] = ((0.9 * ga).astype(f32), bb, q, r)
+    # geig-256: symmetric A with B = H H^T / n + I; general A with
+    # B = H + 4 sqrt(n) I; the shifted pencils P diag(lam) Q,
+    # P diag(1, .., 1, 0 x 4) Q on GSHIFT_LANES (lam in [-3, -1])
+    rng = np.random.RandomState(16)
+    g = rng.randn(bsz, n, n)
+    hh = rng.randn(bsz, n, n)
+    x["geigh"] = ((g + g.transpose(0, 2, 1)).astype(f32),
+                  (hh @ hh.transpose(0, 2, 1) / n + np.eye(n)).astype(f32))
+    x["geig"] = (rng.randn(bsz, n, n).astype(f32),
+                 (rng.randn(bsz, n, n) + 4 * rs * np.eye(n)).astype(f32))
+    lam = -(1.0 + 2.0 * np.arange(n) / (n - 1))
+    da = np.tile(lam, (bsz, 1))
+    db = np.ones((bsz, n))
+    for lane in GSHIFT_LANES[:(bsz + 1) // 2]:
+        da[lane, -GSHIFT_INF:] = 1.0
+        db[lane, -GSHIFT_INF:] = 0.0
+    pp = np.eye(n) + 0.4 * rng.randn(bsz, n, n) / rs
+    qq = np.eye(n) + 0.4 * rng.randn(bsz, n, n) / rs
+    x["gshift"] = ((pp * da[:, None, :] @ qq).astype(f32),
+                   (pp * db[:, None, :] @ qq).astype(f32))
+    # quadeig-128: M = I + G/(4 sqrt n), C and K Gaussian / sqrt(n)
+    rng = np.random.RandomState(17)
+    g = rng.randn(3, bsz, quad_n, quad_n) / quad_n ** 0.5
+    x["quad"] = ((np.eye(quad_n) + g[0] / 4).astype(f32), g[1].astype(f32),
+                 g[2].astype(f32))
+    return x
+
+
+def eigf_lanes(x, lanes):
+    """The first ``lanes`` lanes of every input of ``eigf_inputs`` (the
+    condition batch keeps its last lane, the Jordan chain; the
+    polynomials are kept whole): the same inputs at fewer lanes."""
+    out = {}
+    for k, v in x.items():
+        if k == "cond":
+            out[k] = v[list(range(lanes)) + [v.shape[0] - 1]]
+        elif k == "roots":
+            out[k] = v
+        else:
+            out[k] = (tuple(t[:lanes] for t in v) if isinstance(v, tuple)
+                      else v[:lanes])
+    return out
+
+
+def _host(res):
+    """A result tuple's fields as numpy arrays (torch on any device, or
+    any array numpy can read)."""
+    import numpy as np
+
+    return {f: (v.detach().cpu().numpy() if hasattr(v, "detach")
+                else np.asarray(v))
+            for f, v in zip(res._fields, res) if v is not None}
+
+
+def _pairs(want, got):
+    """Indices pairing each of ``want`` with one of ``got`` (the one-to-one
+    matching of least total distance)."""
+    import numpy as np
+    from scipy.optimize import linear_sum_assignment
+
+    return linear_sum_assignment(np.abs(want[:, None] - got[None, :]))
+
+
+def fig_eig(a, r0, r1, lib):
+    """eig-256's figures from host results: over the valid columns, the
+    median, p99 and max of ||A v - lam v||_2 / ||A||_F with refine_steps 1
+    (and 0), the valid count, the worst growth of a column's residual
+    from 0 to 1 refinement step, and the spectrum's largest distance from
+    ``lib`` (eigenvalues in float64 from a library, matched one to one)
+    over ||A||_2."""
+    import numpy as np
+
+    a64 = a.astype(np.float64)
+    anorm = np.linalg.norm(a64, axis=(1, 2))
+    out = {}
+    res = {}
+    for k, r in ((0, r0), (1, r1)):
+        V = r["vectors_real"].astype(np.float64) + 1j * r["vectors_imag"]
+        lam = r["real"].astype(np.float64) + 1j * r["imag"]
+        rn = np.linalg.norm(a64 @ V - lam[:, None, :] * V, axis=1) / anorm[
+            :, None]
+        res[k] = rn
+        v = rn[r["valid"]]
+        out[k] = {"median": float(np.median(v)),
+                  "p99": float(np.percentile(v, 99)), "max": float(v.max()),
+                  "valid": int(r["valid"].sum())}
+    both = r0["valid"] & r1["valid"]
+    out["worse"] = float((res[1] - res[0])[both].max())
+    a2 = np.linalg.norm(a64, 2, axis=(1, 2))
+    lam = r1["real"].astype(np.float64) + 1j * r1["imag"]
+    dev = []
+    for b in range(a.shape[0]):
+        i, j = _pairs(lib[b], lam[b])
+        dev.append(np.abs(lib[b][i] - lam[b][j]).max() / a2[b])
+    out["spectrum"] = float(max(dev))
+    out["converged"] = int(r1["converged"].sum())
+    return out
+
+
+def fig_cond(a, r, jordan_lane):
+    """eig-cond-256's figures: the range of s, the largest relative
+    distance of s from scipy's float64 dtrsna-style s (left and right
+    eigenvectors of ``scipy.linalg.eig``) over the Gaussian lanes where
+    scipy's s > 1e-3, and the Jordan lane's min s and max err_est."""
+    import numpy as np
+    import scipy.linalg as sl
+
+    lam = r["real"].astype(np.float64) + 1j * r["imag"]
+    worst, at = 0.0, None
+    for b in range(a.shape[0]):
+        if b == jordan_lane:
+            continue
+        w, vl, vr = sl.eig(a[b].astype(np.float64), left=True, right=True)
+        s64 = np.abs((vl.conj() * vr).sum(0)) / (
+            np.linalg.norm(vl, axis=0) * np.linalg.norm(vr, axis=0))
+        i, j = _pairs(w, lam[b])
+        rel = np.where(s64[i] > 1e-3,
+                       np.abs(r["s"][b][j] - s64[i]) / s64[i], 0.0)
+        k = int(rel.argmax())
+        if rel[k] > worst:
+            worst, at = float(rel[k]), [b, float(s64[i][k]), str(w[i][k])]
+    s = r["s"]
+    return {"s_min": float(s.min()), "s_max": float(s.max()),
+            "s_vs_scipy": worst, "s_vs_scipy_at": at,
+            "jordan_min_s": float(s[jordan_lane].min()),
+            "jordan_max_err": float(r["err_est"][jordan_lane].max()),
+            "valid": int(r["valid"].sum()),
+            "converged": int(r["converged"].sum())}
+
+
+def fig_roots(c, r):
+    """roots' figures: each root's distance from numpy's float64
+    ``np.roots`` of the same float32 coefficients (matched one to one)
+    over max(1, |root|), the worst lane; the lanes not ok."""
+    import numpy as np
+
+    got = r["real"].astype(np.float64) + 1j * r["imag"]
+    worst = 0.0
+    for b in range(c.shape[0]):
+        if b == ROOTS_ZERO_LANE:
+            continue
+        want = np.roots(c[b].astype(np.float64))
+        i, j = _pairs(want, got[b])
+        worst = max(worst, float((np.abs(want[i] - got[b][j])
+                                  / np.maximum(1.0, np.abs(want[i]))).max()))
+    return {"roots": worst,
+            "not_ok": [int(i) for i in np.flatnonzero(~r["ok"])],
+            "converged": int(r["converged"].sum())}
+
+
+def fig_sign(r, counts, lib_counts, proj):
+    """sign-256's figures: max|S^2 - I|, whether the left counts equal the
+    library eigenvalues' negative real parts, max|P^2 - P|."""
+    import numpy as np
+
+    S = r["S"].astype(np.float64)
+    n = S.shape[-1]
+    P = proj.astype(np.float64)
+    return {"sign_s2": float(np.abs(S @ S - np.eye(n)).max()),
+            "counts_equal": bool((counts == lib_counts).all()),
+            "sign_projector": float(np.abs(P @ P - P).max()),
+            "iters": int(r["iters"]), "converged": int(r["converged"].sum())}
+
+
+def _fro(x):
+    import numpy as np
+
+    return np.linalg.norm(x, axis=(-2, -1))
+
+
+def fig_sylvester(a, b, c, r):
+    """The worst relative residual ||AX + XB - C|| / ((||A|| + ||B||)||X||
+    + ||C||) (Frobenius, float64), ok and the largest imag_defect."""
+    import numpy as np
+
+    a, b, c = (t.astype(np.float64) for t in (a, b, c))
+    X = r["X"].astype(np.float64)
+    res = _fro(a @ X + X @ b - c) / ((_fro(a) + _fro(b)) * _fro(X) + _fro(c))
+    return {"resid": float(res.max()), "ok": int(r["ok"].sum()),
+            "imag_defect": float(r["imag_defect"].max())}
+
+
+def fig_stein(a, q, r):
+    """The worst relative residual ||A X A^T - X + Q|| / (||A||^2 ||X|| +
+    ||X|| + ||Q||) over the lanes ok, and the lanes not ok."""
+    import numpy as np
+
+    a, q = a.astype(np.float64), q.astype(np.float64)
+    X = r["X"].astype(np.float64)
+    res = _fro(a @ X @ a.transpose(0, 2, 1) - X + q) / (
+        _fro(a) ** 2 * _fro(X) + _fro(X) + _fro(q))
+    return {"resid": float(res[r["ok"]].max()),
+            "not_ok": [int(i) for i in np.flatnonzero(~r["ok"])],
+            "iters": int(r["iters"])}
+
+
+def fig_riccati(args, r, discrete):
+    """ok, and X's largest relative distance (max-abs over max-abs) from
+    scipy's float64 solve_continuous_are / solve_discrete_are on the
+    first ``lanes`` lanes."""
+    import numpy as np
+    import scipy.linalg as sl
+
+    solve = sl.solve_discrete_are if discrete else sl.solve_continuous_are
+    worst = 0.0
+    for b in range(min(RIC_SCIPY_LANES, len(r["X"]))):
+        want = solve(*(t[b].astype(np.float64) for t in args))
+        worst = max(worst, float(np.abs(r["X"][b] - want).max()
+                                 / np.abs(want).max()))
+    return {"x_vs_scipy": worst, "ok": int(r["ok"].sum()),
+            "resid": float(r["resid"].max())}
+
+
+def fig_geig(xh, rh, xg, rg, rs):
+    """geig-256's figures: eigh_generalized's eigenvalues against scipy's
+    float64 ``eigh(a, b)`` (relative to the lane's largest) and
+    max|V^T B V - I|; eig_generalized's spectrum against scipy's
+    ``eigvals(a, b)`` (matched one to one, relative to the lane's
+    largest) and rcond_b over the exact 1/kappa_1(B) (its range); the
+    shifted pencils' count of columns not finite a lane."""
+    import numpy as np
+    import scipy.linalg as sl
+
+    a, b = (t.astype(np.float64) for t in xh)
+    wt, worst_w, worst_v = rh["w"].astype(np.float64), 0.0, 0.0
+    V = rh["V"].astype(np.float64)
+    for k in range(a.shape[0]):
+        w = sl.eigh(a[k], b[k], eigvals_only=True)
+        worst_w = max(worst_w, float(np.abs(wt[k] - w).max()
+                                     / np.abs(w).max()))
+        worst_v = max(worst_v, float(np.abs(V[k].T @ b[k] @ V[k]
+                                            - np.eye(len(w))).max()))
+    a, b = (t.astype(np.float64) for t in xg)
+    lam = rg["real"].astype(np.float64) + 1j * rg["imag"]
+    worst_l, ratio = 0.0, []
+    for k in range(a.shape[0]):
+        w = sl.eigvals(a[k], b[k])
+        i, j = _pairs(w, lam[k])
+        worst_l = max(worst_l, float(np.abs(w[i] - lam[k][j]).max()
+                                     / np.abs(w).max()))
+        ratio.append(float(rg["rcond_b"][k]) * np.linalg.cond(b[k], 1))
+    inf = (~rs["finite"]).sum(axis=1)
+    return {"geigh_w": worst_w, "geigh_vtbv": worst_v,
+            "geig_spectrum": worst_l, "rcond_ratio": [min(ratio), max(ratio)],
+            "geig_ok": int(rg["ok"].sum()),
+            "not_finite": {int(k): int(v) for k, v in enumerate(inf) if v},
+            "shift_ok": int(rs["ok"].sum())}
+
+
+def fig_quad(mck, r):
+    """quadeig-128's figure: the worst ||(lam^2 M + lam C + K) v|| /
+    ((|lam|^2 ||M|| + |lam| ||C|| + ||K||) ||v||) (2-norms of the vector,
+    1-norms of the matrices, float64) over the finite, valid columns; the
+    count of those columns."""
+    import numpy as np
+
+    M, C, K = (t.astype(np.float64) for t in mck)
+    lam = r["real"].astype(np.float64) + 1j * r["imag"]
+    V = r["vectors_real"].astype(np.float64) + 1j * r["vectors_imag"]
+    keep = r["finite"] & r["valid"]
+    lam0 = np.where(keep, lam, 0.0)
+    res = (M @ V * lam0[:, None, :] ** 2 + C @ V * lam0[:, None, :]
+           + K @ V)
+    nrm = lambda t: np.abs(t).sum(axis=1).max(axis=1)[:, None]
+    scale = (np.abs(lam0) ** 2 * nrm(M) + np.abs(lam0) * nrm(C) + nrm(K)) * (
+        np.linalg.norm(V, axis=1))
+    rel = np.linalg.norm(res, axis=1) / np.maximum(scale, 1e-300)
+    return {"quadeig": float(rel[keep].max()), "columns": int(keep.sum()),
+            "finite": int(r["finite"].sum()), "ok": int(r["ok"].sum())}
+
+
+def run_family(ops, x, to, lib, call=None, cells=None):
+    """Every entry point of the family on the inputs ``x`` (``to`` moves a
+    numpy array to the package's device; ``lib(a)`` gives a library's
+    eigenvalues of a numpy batch as numpy; ``call(key, thunk)``, if
+    given, runs each entry point, to count its launches; ``cells``, if
+    given, names the cells to run): the host results and figures, keyed
+    by cell.  Shared by ``drive_eig_family`` and a run of another package
+    with the same API on the same inputs."""
+    schur = ops.schur
+    out, figs = {}, {}
+    call = call or (lambda key, thunk: thunk())
+
+    def want(cell):
+        return cells is None or cell in cells
+
+    def go(key, fn, *args, **kw):
+        targs = [to(t) for t in args]
+        res = call(key, lambda: fn(*targs, **kw))
+        out[key] = _host(res) if hasattr(res, "_fields") else [
+            _host_array(t) for t in res]
+        return out[key]
+
+    if want("eig-256"):
+        a = x["eig"]
+        r0 = go("eig0", ops.eig_batched, a, refine_steps=0)
+        r1 = go("eig1", ops.eig_batched, a, refine_steps=1)
+        figs["eig-256"] = fig_eig(a, r0, r1, lib(a))
+    if want("eig-cond-256"):
+        rc = go("cond", schur.eig_condition_batched, x["cond"])
+        figs["eig-cond-256"] = fig_cond(x["cond"], rc,
+                                        x["cond"].shape[0] - 1)
+    if want("roots"):
+        figs["roots"] = fig_roots(x["roots"], go("roots", ops.roots_batched,
+                                                 x["roots"]))
+    if want("sign-256"):
+        rsg = go("sign", ops.sign_batched, x["sign"])
+        counts, _ = go("count", ops.eig_count_left_batched, x["sign"])
+        proj, _ = go("projector", ops.spectral_projector_batched, x["sign"])
+        figs["sign-256"] = fig_sign(rsg, counts,
+                                    (lib(x["sign"]).real < 0).sum(axis=1),
+                                    proj)
+    if want("sylvester-256"):
+        figs["sylvester-256"] = fig_sylvester(
+            *x["sylvester"], go("sylvester", ops.sylvester_batched,
+                                *x["sylvester"]))
+        a_l, q_l = x["lyapunov"]
+        figs["lyapunov-256"] = fig_sylvester(
+            a_l, a_l.transpose(0, 2, 1), q_l,
+            go("lyapunov", ops.lyapunov_batched, a_l, q_l))
+        figs["stein-256"] = fig_stein(*x["stein"], go(
+            "stein", ops.stein_batched, *x["stein"]))
+    if want("care-128"):
+        figs["care-128"] = fig_riccati(x["care"], go(
+            "care", ops.care_batched, *x["care"]), False)
+        figs["dare-128"] = fig_riccati(x["dare"], go(
+            "dare", ops.dare_batched, *x["dare"]), True)
+    if want("geig-256"):
+        figs["geig-256"] = fig_geig(
+            x["geigh"], go("geigh", ops.eigh_generalized_batched,
+                           *x["geigh"]),
+            x["geig"], go("geig", ops.eig_generalized_batched, *x["geig"]),
+            go("gshift", ops.eig_generalized_shifted_batched, *x["gshift"]))
+    if want("quadeig-128"):
+        figs["quadeig-128"] = fig_quad(x["quad"], go(
+            "quad", ops.quadeig_batched, *x["quad"]))
+    return out, figs
+
+
+def _host_array(t):
+    import numpy as np
+
+    return t.detach().cpu().numpy() if hasattr(t, "detach") else np.asarray(t)
+
+
+def hold_family(figs, bsz=EIGF_B):
+    """Every limit of the family on ``figs`` (``EIGF_LIMITS``, or 1.5x the
+    JAX package's figure in ``EIGF_JAX`` where that misses the limit);
+    raises on the first one missed."""
+    def lim(key):
+        jax_fig = EIGF_JAX.get(key)
+        base = EIGF_LIMITS[key]
+        return base if jax_fig is None or jax_fig <= base else 1.5 * jax_fig
+
+    e, c = figs["eig-256"], figs["eig-cond-256"]
+    checks = [
+        ("eig p99", e[1]["p99"], lim("eig_p99")),
+        ("eig max", e[1]["max"], lim("eig_max")),
+        ("eig refine 1 worse than 0 by", e["worse"], lim("eig_worse")),
+        ("eig spectrum vs library / ||A||_2", e["spectrum"],
+         lim("eig_spectrum")),
+        ("eig-cond s vs scipy", c["s_vs_scipy"], lim("cond_s")),
+        ("roots vs np.roots", figs["roots"]["roots"], lim("roots")),
+        ("sign max|S^2 - I|", figs["sign-256"]["sign_s2"], lim("sign_s2")),
+        ("sign projector max|P^2 - P|", figs["sign-256"]["sign_projector"],
+         lim("sign_projector")),
+        ("sylvester residual", figs["sylvester-256"]["resid"],
+         lim("sylvester")),
+        ("sylvester imag_defect", figs["sylvester-256"]["imag_defect"],
+         lim("sylvester_imag_defect")),
+        ("lyapunov residual", figs["lyapunov-256"]["resid"], lim("lyapunov")),
+        ("lyapunov imag_defect", figs["lyapunov-256"]["imag_defect"],
+         lim("lyapunov_imag_defect")),
+        ("stein residual", figs["stein-256"]["resid"], lim("stein")),
+        ("care X vs scipy", figs["care-128"]["x_vs_scipy"], lim("care")),
+        ("dare X vs scipy", figs["dare-128"]["x_vs_scipy"], lim("dare")),
+        ("geigh eigenvalues vs scipy", figs["geig-256"]["geigh_w"],
+         lim("geigh_w")),
+        ("geigh max|V^T B V - I|", figs["geig-256"]["geigh_vtbv"],
+         lim("geigh_vtbv")),
+        ("geig spectrum vs scipy", figs["geig-256"]["geig_spectrum"],
+         lim("geig_spectrum")),
+        ("quadeig residual", figs["quadeig-128"]["quadeig"], lim("quadeig")),
+    ]
+    for what, got, limit in checks:
+        if not got <= limit:
+            raise AssertionError(f"{what} {got} above its limit {limit}")
+    lo, hi = figs["geig-256"]["rcond_ratio"]
+    g = figs["geig-256"]
+    flags = [
+        ("eig-256 every lane converged", e["converged"] == bsz),
+        ("eig-cond-256 s in (0, 1]", c["s_min"] > 0 and c["s_max"] <= 1.0),
+        ("eig-cond-256 Jordan lane's min s below the limit",
+         c["jordan_min_s"] < EIGF_LIMITS["cond_jordan_min_s"]),
+        ("eig-cond-256 Jordan lane's max err_est above the limit",
+         c["jordan_max_err"] > EIGF_LIMITS["cond_jordan_max_err"]),
+        ("roots ok False on the zero-lead lane only",
+         figs["roots"]["not_ok"] == [ROOTS_ZERO_LANE]),
+        ("sign-256 converged on every lane",
+         figs["sign-256"]["converged"] == bsz),
+        ("sign-256 counts equal the library's",
+         figs["sign-256"]["counts_equal"]),
+        ("sylvester-256 ok on every lane", figs["sylvester-256"]["ok"] == bsz),
+        ("lyapunov-256 ok on every lane", figs["lyapunov-256"]["ok"] == bsz),
+        ("stein-256 not ok on the rho = 1.1 lane only",
+         figs["stein-256"]["not_ok"] == [STEIN_BAD_LANE]),
+        ("care-128 ok on every lane", figs["care-128"]["ok"] == bsz),
+        ("dare-128 ok on every lane", figs["dare-128"]["ok"] == bsz),
+        ("geig-256 rcond_b within 10x of 1/kappa_1",
+         1 / EIGF_LIMITS["geig_rcond"] <= lo and hi <= EIGF_LIMITS[
+             "geig_rcond"]),
+        ("geig-256 ok on every lane", g["geig_ok"] == bsz),
+        ("geig-256 shifted: 4 columns not finite on the rank n - 4 lanes "
+         "and none elsewhere",
+         g["not_finite"] == {k: GSHIFT_INF
+                             for k in GSHIFT_LANES[:(bsz + 1) // 2]}),
+    ]
+    for what, good in flags:
+        if not good:
+            raise AssertionError(f"{what}: no")
+
+
+def drive_eig_family(dev):
+    """Phases 36-44: every entry point of the family on ``eigf_inputs``
+    on the card, each driven with the kernels' counts set to 0 just before
+    it and read just after, its figures printed beside their limits and
+    held (``hold_family``); then both Schur kernels held against their
+    plain versions (``hold_schur``) on every distinct Schur input the
+    paths gave ``real_schur``, in its dtype, with or without Q.  Returns
+    the inputs, the results, the launches a cell, the kernels' held error
+    and the recorded arguments of the main path's ``_shifted_backsolve``."""
+    import numpy as np
+
+    from linalg_solver_tpu_torch import ops
+    from linalg_solver_tpu_torch.ops import schur
+    from linalg_solver_tpu_torch.ops.kernels import schur_chase as sc
+
+    t0 = time.perf_counter()
+    x = eigf_inputs()
+    print(f"eigenvector family inputs built on the host in "
+          f"{time.perf_counter() - t0:.2f} s")
+    launches = {}
+    schur_inputs = []        # (key, a, with_q, balance, npairs, aed_w)
+    run_schur, key_now = schur._run_schur, [None]
+
+    def run_rec(a, max_sweeps, chunk, balance, with_q, *rest):
+        schur_inputs.append((key_now[0], a.clone(), with_q, balance) + rest)
+        return run_schur(a, max_sweeps, chunk, balance, with_q, *rest)
+
+    def call(key, thunk):
+        key_now[0] = key
+        reset_counts()
+        res = thunk()
+        torch.cuda.synchronize()
+        counts = phase_counts()
+        launches[key] = {"chase": sc.LAUNCHES,
+                         "window": counts.pop("schur_window"),
+                         "kernels 1-6": sum(counts.values())}
+        return res
+
+    def to(t):
+        return torch.from_numpy(t).to(dev)
+
+    def lib(a):
+        return torch.linalg.eigvals(to(a)).cpu().numpy().astype(np.complex128)
+
+    bs_calls, off = record(schur, "_shifted_backsolve", keep=1)
+    schur._run_schur = run_rec
+    t0 = time.perf_counter()
+    try:
+        out, figs = run_family(ops, x, to, lib, call)
+    finally:
+        off()
+        schur._run_schur = run_schur
+    secs = time.perf_counter() - t0
+    for cell, f in figs.items():
+        print(f"eigenvector family {cell}: {json.dumps(f)}")
+    print(f"eigenvector family launches a call (chase, window, kernels 1-6):"
+          f" {json.dumps(launches)}; {secs:.2f} s with the host's checks")
+    print(f"eigenvector family limits {json.dumps(EIGF_LIMITS)}, the JAX "
+          f"package's figures where it misses one {json.dumps(EIGF_JAX)}")
+    hold_family(figs)
+    chase = sum(v["chase"] for v in launches.values())
+    window = sum(v["window"] for v in launches.values())
+    if chase < 1 or window < 1:
+        raise AssertionError("the eigenvector family launched no chase or "
+                             "no window kernel")
+    t0 = time.perf_counter()
+    err, held = 0.0, []
+    for key, a, with_q, *conf in schur_inputs:
+        if any(a.dtype == b.dtype and q == with_q and a.shape == b.shape
+               and torch.equal(a, b) for b, q in held):
+            continue
+        e, _, _ = hold_schur(a, with_q, f"on the family's {key} "
+                             f"{list(a.shape)}", *conf)
+        err = max(err, e)
+        held.append((a, with_q))
+    kinds = sorted({(str(a.dtype), tuple(a.shape), q) for a, q in held})
+    print(f"eigenvector family: both Schur kernels held on {len(held)} "
+          f"distinct Schur inputs of {len(schur_inputs)} ((dtype, shape, "
+          f"Q): {kinds}), max abs diff {err:.3e}, "
+          f"{time.perf_counter() - t0:.2f} s")
+    keys = {k for k, *_ in schur_inputs}
+    if not keys >= {"eig1", "cond", "roots", "sylvester", "lyapunov",
+                    "geig", "gshift", "quad"}:
+        raise AssertionError(f"the family's Schur inputs came only from "
+                             f"{sorted(keys)}")
+    return {"x": x, "out": out, "figs": figs, "launches": launches,
+            "chase": chase, "window": window, "err": err,
+            "backsolve": bs_calls[0][0]}
+
+
+def time_eig_family(dev, card, fam):
+    """Phase 45: each entry point as the median of 5 calls after the
+    check's call (its warm-up), beside the one library call that computes
+    the same function where there is one (after one warm-up of its own);
+    ``eig_condition_batched`` (its Schur form and back-substitutions in
+    float64) beside the same in float32, the reference's arithmetic
+    (after one warm-up), and that form's s against scipy's;
+    ``_shifted_backsolve`` alone on the main path's arguments, with its
+    device events a call, beside ``real_schur_vectors`` (eig_batched's
+    Schur part).  ``polyeig_batched`` is timed as ``quadeig_batched``,
+    which is the quadratic case of it."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from linalg_solver_tpu_torch import ops
+    from linalg_solver_tpu_torch.ops import schur
+    from linalg_solver_tpu_torch.utils.benchmarking import cuda_time
+
+    x = fam["x"]
+
+    def to(t):
+        return torch.from_numpy(t).to(dev)
+
+    a = to(x["eig"])
+    c = to(x["roots"])
+    comp = torch.diag(torch.ones(ROOTS_D - 1, device=dev), -1).expand(
+        c.shape[0], ROOTS_D, ROOTS_D).clone()
+    comp[:, 0, :] = -c[:, 1:] / torch.where(c[:, :1] != 0, c[:, :1], 1.0)
+    ah, bh = to(x["geigh"][0]), to(x["geigh"][1])
+    L = torch.linalg.cholesky(bh)
+    red = torch.linalg.solve_triangular(L, torch.linalg.solve_triangular(
+        L, ah, upper=False).transpose(1, 2), upper=False)
+    ag, bg = to(x["geig"][0]), to(x["geig"][1])
+    sg = to(x["sign"])
+    f32_form = "eig-cond-256 the same in float32"
+    cells = (
+        ("eig-256 eig_batched", ops.eig_batched, (a,),
+         "torch.linalg.eig", torch.linalg.eig, (a,)),
+        ("eig-cond-256 eig_condition_batched", schur.eig_condition_batched,
+         (to(x["cond"]),), None, None, None),
+        (f32_form, lambda a_: schur._eig_condition(a_, torch.float32),
+         (to(x["cond"]),), None, None, None),
+        ("roots roots_batched", ops.roots_batched, (c,),
+         "torch.linalg.eigvals(companion)", torch.linalg.eigvals, (comp,)),
+        ("geig-256 eigh_generalized_batched", ops.eigh_generalized_batched,
+         (ah, bh), "torch.linalg.eigh(L^-1 A L^-T)", torch.linalg.eigh,
+         (red,)),
+        ("geig-256 eig_generalized_batched", ops.eig_generalized_batched,
+         (ag, bg), "torch.linalg.eig(torch.linalg.solve(B, A))",
+         lambda a_, b_: torch.linalg.eig(torch.linalg.solve(b_, a_)),
+         (ag, bg)),
+        ("geig-256 eig_generalized_shifted_batched",
+         ops.eig_generalized_shifted_batched, tuple(map(to, x["gshift"])),
+         None, None, None),
+        ("quadeig-128 quadeig_batched", ops.quadeig_batched,
+         tuple(map(to, x["quad"])), None, None, None),
+        ("sign-256 sign_batched", ops.sign_batched, (sg,), None, None,
+         None),
+        ("sign-256 eig_count_left_batched", ops.eig_count_left_batched,
+         (sg,), None, None, None),
+        ("sign-256 spectral_projector_batched",
+         ops.spectral_projector_batched, (sg,), None, None, None),
+        ("sylvester-256 sylvester_batched", ops.sylvester_batched,
+         tuple(map(to, x["sylvester"])), None, None, None),
+        ("sylvester-256 lyapunov_batched", ops.lyapunov_batched,
+         tuple(map(to, x["lyapunov"])), None, None, None),
+        ("stein-256 stein_batched", ops.stein_batched,
+         tuple(map(to, x["stein"])), None, None, None),
+        ("care-128 care_batched", ops.care_batched,
+         tuple(map(to, x["care"])), None, None, None),
+        ("dare-128 dare_batched", ops.dare_batched,
+         tuple(map(to, x["dare"])), None, None, None),
+    )
+    out = {}
+    for cell, fn, args, lib_name, lib, lib_args in cells:
+        t = cuda_time(fn, *args, warmup=int(cell == f32_form), iters=5)
+        tl = (cuda_time(lib, *lib_args, warmup=1, iters=5)
+              if lib is not None else None)
+        out[cell] = {"ms": t * 1e3, "library": lib_name or "none",
+                     "library_ms": None if tl is None else tl * 1e3}
+        lib_txt = "none" if tl is None else f"{lib_name} {tl * 1e3:.4f} ms"
+        print(f"time {cell}: {t * 1e3:.4f} ms, library: {lib_txt} ({card})")
+    r32 = _host(schur._eig_condition(to(x["cond"]), torch.float32))
+    f32 = fig_cond(x["cond"], r32, x["cond"].shape[0] - 1)["s_vs_scipy"]
+    out[f32_form]["s_vs_scipy"] = f32
+    print(f"eig-cond-256's s against scipy's float64 s: float64 inside "
+          f"{fam['figs']['eig-cond-256']['s_vs_scipy']:.6e}, float32 inside "
+          f"{f32:.6e} (limit {EIGF_LIMITS['cond_s']}, 1.5x the JAX package "
+          f"{1.5 * EIGF_JAX['cond_s']:.6e})")
+    args = fam["backsolve"]
+    t_bs = cuda_time(schur._shifted_backsolve, *args, warmup=1, iters=5)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        schur._shifted_backsolve(*args)
+        torch.cuda.synchronize()
+    events = sum(e.count for e in prof.key_averages()
+                 if e.device_type == DeviceType.CUDA
+                 and not e.key.startswith("Activity"))
+    t_sv = cuda_time(schur.real_schur_vectors, a, warmup=1, iters=5)
+    out["_shifted_backsolve"] = {"ms": t_bs * 1e3, "device_events": events,
+                                 "shape": list(args[3].shape),
+                                 "real_schur_vectors_ms": t_sv * 1e3}
+    print(f"time _shifted_backsolve {list(args[3].shape)}: {t_bs * 1e3:.4f} "
+          f"ms, {events} device events a call; real_schur_vectors (eig_"
+          f"batched's Schur part) {t_sv * 1e3:.4f} ms ({card})")
+    return out
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py: no CUDA device; there is no CPU path")
@@ -3353,6 +4114,13 @@ def main() -> None:
     time_family(dev, card, family)
     print(f"serving phase: {time.perf_counter() - t0:.2f} s")
 
+    # 36-45. the eigenvector family: eig_batched and what is built on it,
+    # at the Schur cells' width, checked on the host in float64, timed
+    t0 = time.perf_counter()
+    eigf = drive_eig_family(dev)
+    time_eig_family(dev, card, eigf)
+    print(f"eigenvector family phase: {time.perf_counter() - t0:.2f} s")
+
     # bounds from this run's shapes: bytes each input read and each output
     # written once; operations those the inputs need
     w = 2 * N_INV
@@ -3453,14 +4221,18 @@ def main() -> None:
         "source": "linalg_solver_tpu_torch/csrc/schur_chase.cu",
         # no Pallas kernel: the XLA scan of _chase_step (schur.py:869-891)
         "replaces": "linalg_solver_tpu/ops/schur.py:893",
-        "launches": schur_out["launches"] + spec_schur["chase"],
-        "max_abs_err": max(schur_out["err"], spec_schur["err"]),
+        "launches": (schur_out["launches"] + spec_schur["chase"]
+                     + eigf["chase"]),
+        "max_abs_err": max(schur_out["err"], spec_schur["err"],
+                           eigf["err"]),
         "ms": chase_shapes[0]["ms"],
         "plain_ms": chase_shapes[0]["plain_ms"],
         "library_ms": None,
         "large_shapes": chase_shapes,
         "sweep_eager_ms": schur_times["sweep eager"] * 1e3,
         "sweep_graph_ms": schur_times["sweep graph"] * 1e3,
+        "eig_family_launches": {k: v["chase"]
+                                for k, v in eigf["launches"].items()},
     }, {
         "name": "window_schur",
         "route": "cuda",
@@ -3468,12 +4240,16 @@ def main() -> None:
         # no Pallas kernel: the AED round's lax.while_loop (schur.py:571-597)
         "replaces": "linalg_solver_tpu/ops/schur.py:586",
         "launches": (schur_out["window"]
-                     + spec_schur["launches"]["schur_window"]),
-        "max_abs_err": max(schur_out["err"], spec_schur["err"]),
+                     + spec_schur["launches"]["schur_window"]
+                     + eigf["window"]),
+        "max_abs_err": max(schur_out["err"], spec_schur["err"],
+                           eigf["err"]),
         "ms": window_shapes[0]["ms"],
         "plain_ms": window_shapes[0]["plain_ms"],
         "library_ms": None,
         "large_shapes": window_shapes,
+        "eig_family_launches": {k: v["window"]
+                                for k, v in eigf["launches"].items()},
     }]
     for row in rows:
         row["bound_ms"], row["bound_by"] = bounds[row["name"]]

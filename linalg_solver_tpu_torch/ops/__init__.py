@@ -25,7 +25,10 @@
   batched spectral decomposition on kernel 3
 - ``schur`` — balancing, Hessenberg reduction and multishift Francis QR
   with aggressive early deflation: the real Schur form, its vectors,
-  eigenvalues and the real eigenvectors (strevc)
+  eigenvalues, the real eigenvectors (strevc), the full complex
+  eigendecomposition with Rayleigh-shifted inverse iteration
+  (``eig_batched``) and per-eigenvalue condition numbers
+  (``schur.eig_condition_batched``, not re-exported, as in the reference)
 - ``symmetric`` — the symmetric eigensolver with a backward that is
   finite on repeated eigenvalues, and the symmetry probe
 - ``orth`` — batched masked CholeskyQR orthonormalization
@@ -37,6 +40,17 @@
   pseudoinverse, the 2-norm condition number and the SVD rank
 - ``spd`` — Cholesky solve, inverse and log-determinant, and the
   pivoted (rank-revealing) Cholesky
+- ``sylvester`` — Sylvester and Lyapunov equations (Bartels–Stewart on the
+  Schur form and ``eig_batched``) and the Stein equation (Smith doubling)
+- ``riccati`` — continuous (matrix sign) and discrete (doubling) algebraic
+  Riccati equations
+- ``geig`` — generalized eigenproblems: symmetric-definite (Cholesky),
+  invertible B (LU), and singular B by shift-invert
+- ``quadeig`` — polynomial and quadratic eigenproblems by companion
+  linearization
+- ``roots`` — polynomial roots: the companion matrix's Schur eigenvalues
+- ``sign`` — the matrix sign function, half-plane eigenvalue counts and
+  spectral projectors
 - ``exact_int`` — Bareiss elimination in int32 and CRT reconstruction:
   exact integer determinants, ranks and solutions (not re-exported, as
   in the reference)
@@ -83,10 +97,12 @@ from .lu import (
     solve_lu_batched,
 )
 from .schur import (
+    EigFullResult,
     EigResult,
     SchurEigvals,
     SchurResult,
     SchurVectors,
+    eig_batched,
     eig_real_batched,
     eigvals_schur,
     hessenberg,
@@ -126,6 +142,19 @@ from .svd import (
     rank_svd_batched,
     svd_batched,
 )
+from .sylvester import (
+    SteinResult,
+    SylvesterResult,
+    lyapunov_batched,
+    stein_batched,
+    sylvester_batched,
+)
+from .riccati import (
+    CAREResult,
+    DAREResult,
+    care_batched,
+    dare_batched,
+)
 from .spd import (
     CholeskyResult,
     PivotedCholesky,
@@ -135,11 +164,36 @@ from .spd import (
     logdet_spd_batched,
     pivoted_cholesky_batched,
 )
+from .geig import (
+    GeneralizedEigResult,
+    GeneralizedEigShifted,
+    GeneralizedEighResult,
+    eig_generalized_batched,
+    eig_generalized_shifted_batched,
+    eigh_generalized_batched,
+)
+from .quadeig import (
+    PolyEigResult,
+    QuadEigResult,
+    polyeig_batched,
+    quadeig_batched,
+)
+from .roots import (
+    RootsResult,
+    roots_batched,
+)
+from .sign import (
+    SignResult,
+    eig_count_left_batched,
+    sign_batched,
+    spectral_projector_batched,
+)
 
 __all__ = [
     "SchurResult", "SchurVectors", "SchurEigvals", "EigResult",
     "hessenberg", "real_schur", "eigvals_schur", "real_schur_vectors",
     "eig_real_batched",
+    "EigFullResult", "eig_batched",
     "EighResult", "eigh_batched", "is_symmetric_batched",
     "symmetry_defect_batched",
     "cond1_est_batched", "rcond_batched",
@@ -148,7 +202,18 @@ __all__ = [
     "SVDResult", "svd_batched", "pinv_batched",
     "cond2_batched", "rank_svd_batched",
     "PolarResult", "polar_batched",
+    "SylvesterResult", "sylvester_batched", "lyapunov_batched",
+    "SteinResult", "stein_batched", "CAREResult", "care_batched",
+    "DAREResult", "dare_batched",
     "CholeskyResult", "cholesky_batched", "cholesky_solve_batched",
     "cholesky_inverse_batched", "logdet_spd_batched",
     "PivotedCholesky", "pivoted_cholesky_batched",
+    "GeneralizedEighResult", "eigh_generalized_batched",
+    "GeneralizedEigResult", "eig_generalized_batched",
+    "GeneralizedEigShifted", "eig_generalized_shifted_batched",
+    "PolyEigResult", "polyeig_batched",
+    "QuadEigResult", "quadeig_batched",
+    "RootsResult", "roots_batched",
+    "SignResult", "sign_batched", "eig_count_left_batched",
+    "spectral_projector_batched",
 ]

@@ -1156,3 +1156,194 @@ def test_det_exact_on_the_card_flags_the_overflow_lanes(cuda):
             f = m[i][j] / m[j][j]
             m[i] = [x - f * y for x, y in zip(m[i], m[j])]
     assert dets == [int(det)]
+
+
+def _eigpairs(res):
+    lam = (res.real.double() + 1j * res.imag.double()).cpu().numpy()
+    V = (res.vectors_real.double()
+         + 1j * res.vectors_imag.double()).cpu().numpy()
+    return lam, V, res.valid.cpu().numpy()
+
+
+@pytest.mark.cuda
+def test_eig_batched_on_the_card(cuda):
+    """``eig_batched`` at n = 128 on the card (both Schur kernels
+    launched) against its own run on the CPU (the plain versions): the
+    flags and the valid count of each lane equal; the eigenvalues, matched
+    one to one with numpy's float64 ones, no farther from them than 1e-5
+    of the lane's largest or 1.5x the CPU run's distance (the two Schur
+    forms round differently, and an eigenvalue's rounding grows with its
+    condition); the residual ``‖Av − λv‖ / ‖A‖_F`` of every valid column
+    below 1e-5."""
+    from scipy.optimize import linear_sum_assignment
+
+    from linalg_solver_tpu_torch.ops import schur
+    from linalg_solver_tpu_torch.ops.kernels import schur_chase as sc
+    from linalg_solver_tpu_torch.ops.kernels import schur_window as sw
+
+    a = torch.from_numpy(np.random.RandomState(0).randn(4, 128, 128)
+                         .astype(np.float32))
+    sc.LAUNCHES = sw.LAUNCHES = 0
+    got = schur.eig_batched(a.to(cuda))
+    torch.cuda.synchronize()
+    assert sc.LAUNCHES >= 1 and sw.LAUNCHES >= 1
+    want = schur.eig_batched(a)
+    assert torch.equal(got.converged.cpu(), want.converged)
+    assert torch.equal(got.valid.sum(1).cpu(), want.valid.sum(1))
+    lg, Vg, vg = _eigpairs(got)
+    lw, _, _ = _eigpairs(want)
+    a64 = a.double().numpy()
+    for b in range(4):
+        true = np.linalg.eigvals(a64[b])
+        dev = []
+        for lam in (lg[b], lw[b]):
+            r, c = linear_sum_assignment(np.abs(true[:, None] - lam[None]))
+            dev.append(np.abs(true[r] - lam[c]).max())
+        assert dev[0] <= max(1e-5 * np.abs(true).max(), 1.5 * dev[1])
+        res = np.linalg.norm(a64[b] @ Vg[b] - Vg[b] * lg[b][None], axis=0)
+        assert res[vg[b]].max() / np.linalg.norm(a64[b]) <= 1e-5
+
+
+@pytest.mark.cuda
+def test_shifted_backsolve_on_the_card(cuda):
+    """The row loop on the card against the CPU within 1e-5 of the
+    largest entry, at a rectangular right side."""
+    from linalg_solver_tpu_torch.ops import schur
+
+    rng = np.random.RandomState(2)
+    sv = schur.real_schur_vectors(torch.from_numpy(
+        rng.randn(3, 96, 96).astype(np.float32)))
+    args = [sv.T] + [torch.from_numpy(rng.randn(*s).astype(np.float32))
+                     for s in ((3, 40), (3, 40), (3, 96, 40), (3, 96, 40))]
+    want = schur._shifted_backsolve(*args)
+    got = schur._shifted_backsolve(*(t.to(cuda) for t in args))
+    for g, w in zip(got, want):
+        assert (g.cpu() - w).abs().max() <= 1e-5 * w.abs().max()
+
+
+@pytest.mark.cuda
+def test_matrix_equations_on_the_card(cuda):
+    """sign, Sylvester, Stein, CARE and DARE on the card against the CPU:
+    the flags and ``iters`` equal, the solutions within 1e-4 of the
+    largest entry."""
+    from linalg_solver_tpu_torch import ops
+
+    rng = np.random.RandomState(3)
+    n, m = 48, 6
+    f32 = np.float32
+    shift = 3 * np.sqrt(n) * np.eye(n)
+    cases = {
+        "sign": (ops.sign_batched, ((rng.randn(4, n, n) + shift
+                                     * rng.choice([-1, 1], (4, 1, n)))
+                                    .astype(f32),)),
+        "sylvester": (ops.sylvester_batched,
+                      tuple((rng.randn(4, n, n) + s).astype(f32)
+                            for s in (shift, shift, 0))),
+        "stein": (ops.stein_batched,
+                  ((rng.randn(4, n, n) * 0.4 / np.sqrt(n)).astype(f32),
+                   np.tile(np.eye(n, dtype=f32), (4, 1, 1)))),
+    }
+    ga = (rng.randn(4, n, n) / np.sqrt(n)).astype(f32)
+    bb = rng.randn(4, n, m).astype(f32)
+    q = np.tile(np.eye(n, dtype=f32), (4, 1, 1))
+    r = np.tile(np.eye(m, dtype=f32), (4, 1, 1))
+    cases["care"] = (ops.care_batched, (ga / 2 - np.eye(n, dtype=f32),
+                                        bb, q, r))
+    cases["dare"] = (ops.dare_batched, (0.9 * ga, bb, q, r))
+    for name, (fn, args) in cases.items():
+        want = fn(*map(torch.from_numpy, args))
+        got = fn(*(torch.from_numpy(x).to(cuda) for x in args))
+        for f in want._fields:
+            g, w = getattr(got, f).cpu(), getattr(want, f)
+            if f in ("S", "X"):
+                assert (g - w).abs().max() <= 1e-4 * w.abs().max(), name
+            elif f in ("ok", "converged", "iters"):
+                assert torch.equal(g, w), (name, f)
+        assert bool(got[1].all()), name
+
+
+@pytest.mark.cuda
+def test_generalized_eigenproblems_on_the_card(cuda):
+    """The three ``geig`` paths and ``quadeig`` on the card against the
+    CPU: the flags and the count of infinite eigenvalues equal, the
+    finite eigenvalues matched one to one within 1e-5 of the lane's
+    largest (1e-4 through shift-invert, whose rounding grows with
+    κ(A − σB))."""
+    from scipy.optimize import linear_sum_assignment
+
+    from linalg_solver_tpu_torch import ops
+
+    rng = np.random.RandomState(4)
+    n = 48
+    f32 = np.float32
+    g = rng.randn(3, n, n)
+    h = rng.randn(3, n, n)
+    spd = (h @ h.transpose(0, 2, 1) / n + np.eye(n)).astype(f32)
+    bsing = (rng.randn(3, n, n) + 4 * np.sqrt(n) * np.eye(n)).astype(f32)
+    bsing[0, :, -2:] = 0.0
+    cases = (
+        (ops.eigh_generalized_batched, ((g + g.transpose(0, 2, 1))
+                                        .astype(f32), spd), 1e-5),
+        (ops.eig_generalized_batched, (g.astype(f32), spd), 1e-5),
+        (ops.eig_generalized_shifted_batched, (g.astype(f32), bsing), 1e-4),
+        (ops.quadeig_batched, (spd[:, :24, :24], g[:, :24, :24].astype(f32),
+                               h[:, :24, :24].astype(f32)), 1e-4),
+    )
+    for fn, args, tol in cases:
+        want = fn(*map(torch.from_numpy, args))
+        got = fn(*(torch.from_numpy(x).to(cuda) for x in args))
+        assert torch.equal(got.ok.cpu(), want.ok)
+        if hasattr(want, "w"):
+            assert (got.w.cpu() - want.w).abs().max() <= tol * (
+                want.w.abs().max())
+            continue
+        fw = getattr(want, "finite", torch.ones_like(want.valid))
+        fg = getattr(got, "finite", fw).cpu()
+        assert torch.equal(fg.sum(1), fw.sum(1))
+        for b in range(want.real.shape[0]):
+            lw = (want.real[b] + 1j * want.imag[b])[fw[b]].numpy()
+            lg = (got.real[b] + 1j * got.imag[b]).cpu()[fg[b]].numpy()
+            r, c = linear_sum_assignment(np.abs(lw[:, None] - lg[None]))
+            assert np.abs(lw[r] - lg[c]).max() <= tol * np.abs(lw).max()
+
+
+@pytest.mark.cuda
+def test_eig_family_block_on_the_card(cuda):
+    """``chip_smoke.py``'s family figures and limits at a small size on
+    the card."""
+    import chip_smoke
+
+    from linalg_solver_tpu_torch import ops
+
+    x = chip_smoke.eigf_inputs(bsz=2, n=32, roots_b=8, ric_n=16, quad_n=16)
+    _, figs = chip_smoke.run_family(
+        ops, x, lambda t: torch.from_numpy(t).to(cuda),
+        lambda a: np.linalg.eigvals(a.astype(np.float64)))
+    chip_smoke.hold_family(figs, bsz=2)
+
+
+@pytest.mark.cuda
+def test_shift_invert_floor_on_a_spread_pencil(cuda):
+    """The shift-invert μ floor (``mu_floor·n·eps·‖M‖₁``, the reference's
+    formula) on 4 seeded pencils P diag(linspace(−3, 7, 252), 1 × 4) Q,
+    P diag(1 × 252, 0 × 4) Q at n = 256: 4 infinite eigenvalues a lane,
+    and a finite spectrum spread on both sides of the first shift.  The
+    floor grows with n and marks finite eigenvalues infinite: more than
+    200 of the 256 columns on every lane (a known fault of both
+    packages; a fix changes this test)."""
+    from linalg_solver_tpu_torch import ops
+
+    n = 256
+    rng = np.random.RandomState(30)
+    da = np.concatenate([np.linspace(-3.0, 7.0, n - 4), np.ones(4)])
+    db = np.concatenate([np.ones(n - 4), np.zeros(4)])
+    a = np.empty((4, n, n), np.float32)
+    b = np.empty((4, n, n), np.float32)
+    for k in range(4):
+        p = rng.randn(n, n) * 0.4 / np.sqrt(n) + np.eye(n)
+        q = rng.randn(n, n) * 0.4 / np.sqrt(n) + np.eye(n)
+        a[k], b[k] = p * da @ q, p * db @ q
+    res = ops.eig_generalized_shifted_batched(torch.from_numpy(a).to(cuda),
+                                              torch.from_numpy(b).to(cuda))
+    marked = (~res.finite).sum(1).tolist()
+    assert min(marked) > 200, marked
