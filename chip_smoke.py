@@ -235,9 +235,42 @@ uncaught exception and a non-zero exit:
     (``torch.linalg.eig``, ``eigvals`` of the companion, ``eigh`` of the
     Cholesky-reduced matrix, ``eig(solve(B, A))``), and
     ``_shifted_backsolve`` alone with its device events a call beside
-    ``real_schur_vectors``.
+    ``real_schur_vectors``;
+46-51. ordered Schur forms, pseudospectra, matrix functions, nearness and
+    fitting at full width (``mf_inputs``: seeded numpy on the host; every
+    check in float64 on the host, each entry point with the kernels'
+    counts set to 0 just before it and read just after): ordschur-256
+    (eig-256's batch: its Schur pair once, then the |lambda| sort, the
+    Re lambda < 0 reorder and the stable invariant subspace: Q T Q^H
+    against D A D^-1, Q unitary, the order, V^T V = I and the invariance
+    residual); cluster-cond-256 (``schur_cluster_cond_batched`` on the same
+    pair with ``sep_iters=5``: 11 launches of the trsyl kernel, s against
+    LAPACK's ztrsen on 4 lanes, sep at most gap, no lane perturbed);
+    pseudo-128 (8 x G/sqrt(n), a 32 x 32 grid over [-2, 2]^2 from a
+    seeded start, sigma_min at 64 seeded points against the same 20-step
+    iteration in float64 on the card's own Schur form T, and against a
+    float64 SVD of A - zI where that iteration has converged to the SVD of
+    T - zI); funm-128 (sqrtm, logm,
+    powm(1/2) and the expm round trip on G + 3 sqrt(n) I); expm-256 (4 G /
+    sqrt(n) and its gradient against scipy's expm and expm_frechet);
+    funm-256 (``funm_batched(exp)`` on eig-256's batch against scipy's
+    expm; its V^-1 through the 512 x 512 real embedding on the phase
+    engine's butterfly and no-pivot panel kernels); frechet-128 (the Frechet derivative against scipy's, expm_cond
+    against a float64 power iteration); nearness-128 (64 corrupted rank-40
+    correlation matrices: the nearest correlation, PSD and orthogonal
+    matrices); fitting-768x256 (ridge, TLS, Procrustes on a planted
+    rotation, principal angles).  The limits are ``MF_LIMITS``, or 1.5x
+    the JAX package's figure in ``MF_JAX`` where it misses one on the same
+    input.  Then the trsyl kernel held bitwise against its plain version on
+    the cluster-cond path's first forward and first adjoint launch, and
+    the butterfly and panel kernels on every launch of the funm path;
+52. time each entry point (median of 5 after the check's call) beside its
+    library call where one computes the same function
+    (``torch.linalg.matrix_exp``, ``svdvals`` of the stacked A - zI,
+    ``svd`` of [A | b] and of B A^T), and the trsyl kernel alone on both
+    recorded launches beside its plain version and bound.
 
-The line before the last is a JSON summary of the eight kernels, each with
+The line before the last is a JSON summary of the nine kernels, each with
 its bound (the larger of its bytes over 3.35 TB/s and its operations
 over the 67 TFLOP/s FP32 rate, counted from this run's inputs) and the
 time of the one library call that computes the same function, where
@@ -248,7 +281,9 @@ there is one (the ``ms`` of kernels 2, 4 and 5 is device time from
 and path times; the chase and window kernels, which replace an XLA scan
 and an XLA while loop and no Pallas kernel, their shapes, the chase's
 other variant and the eager and graph sweep times, and their launches
-on each path of the eigenvector family); the last line is
+on each path of the eigenvector family; the trsyl kernel, which replaces
+the nested XLA scans of ``_trsyl_masked`` and no Pallas kernel, its
+forward and adjoint shapes); the last line is
 ``{"ok": true, "device": {...}}``.
 Imports nothing of JAX.
 """
@@ -3927,6 +3962,840 @@ def time_eig_family(dev, card, fam):
     return out
 
 
+# --- phases 46-52: ordered Schur forms, pseudospectra, matrix functions,
+# nearness and fitting, at full width --------------------------------------
+
+MF_B, MF_N = EIGF_B, EIGF_N    # ordschur-256, cluster-cond-256, expm/funm-256
+SEP_ITERS = 5
+PS_B, PS_N, PS_G, PS_ITERS = 8, 128, 32, 20   # pseudo-128
+PS_POINTS = 64                 # grid points held against float64 on the host
+FN_B, FN_N = 32, 128           # funm-128, frechet-128
+NEAR_B, NEAR_N, NEAR_K = 64, 128, 40          # nearness-128
+FIT_B = 32                     # fitting-768x256 (FAM_M x FAM_N)
+RIDGE_LAM = 0.5
+MF_SCIPY_LANES = 4
+COND_LANES, COND_REF_ITERS = 2, 40
+#: the block's limits, the JAX package's own test tolerances
+#: (tests/test_ops_{ordschur,pseudospectra,funm,nearness,fitting}.py,
+#: tests/test_autodiff.py), relative to the largest entry where the test's
+#: entries are of order one; ridge's and TLS's x absolute, as the tests
+#: hold them
+MF_LIMITS = {
+    "ord_recon": 3e-5, "ord_unitary": 1e-5, "inv_orth": 1e-5,
+    "inv_resid": 1e-3, "cc_s": 2e-3, "sigmin": 1e-4, "sigmin_svd": 1e-4,
+    "sqrtm": 1e-4, "logm_roundtrip": 1e-4, "powm_half": 1e-3, "expm": 1e-4,
+    "expm_grad": 5e-5, "funm_exp": 2e-4, "funm_imag": 1e-4,
+    "frechet_expm": 2e-5, "frechet_L": 2e-5, "ncorr_diag": 1e-5,
+    "ncorr_min_eig": 1e-6, "npsd_min_eig": 1e-5, "npsd_x": 1e-4,
+    "north_orth": 1e-5, "north_q": 1e-4, "ridge": 1e-5, "tls": 2e-4,
+    "procrustes": 1e-4, "angles": 1e-4,
+}
+#: the JAX package's figures where it misses a limit on the same inputs
+#: (JAX 0.9.0 on the CPU: ``JAX_PLATFORMS=cpu PYTHONPATH=. python
+#: tests/test_torch_matfun.py --lanes 32 --cells ordschur-256,
+#: cluster-cond-256,fitting-768x256``, ``--lanes 8 --cells pseudo-128``
+#: and ``--lanes 4`` for the rest, inside every other limit): the card is
+#: held to 1.5x these.  ord_unitary: n = 256 sweeps of rotations on Q in
+#: float32
+MF_JAX = {"ord_unitary": 1.0661477100493144e-05}
+
+
+def mf_inputs(bsz=MF_B, n=MF_N, ps_b=PS_B, ps_n=PS_N, fn_b=FN_B, fn_n=FN_N,
+              near_b=NEAR_B, near_n=NEAR_N, fit_b=FIT_B, fit_m=FAM_M,
+              fit_n=FAM_N):
+    """The block's inputs, float32 numpy arrays built on the host from
+    seeds."""
+    import numpy as np
+
+    f32 = np.float32
+    x = {}
+    # ordschur-256 / cluster-cond-256 / funm(exp): eig-256's batch
+    x["ord"] = np.random.RandomState(0).randn(bsz, n, n).astype(f32)
+    # pseudo-128: examples/chip_session7.py's 8 x G / sqrt(n)
+    rng = np.random.RandomState(21)
+    x["pseudo"] = (rng.randn(ps_b, ps_n, ps_n) / ps_n ** 0.5).astype(f32)
+    pts = np.linspace(-2, 2, PS_G).astype(f32)
+    x["grid"] = (pts, pts)
+    # the held points: (lane, im index, re index), drawn before any run
+    x["points"] = np.stack([np.arange(PS_POINTS) % ps_b,
+                            rng.randint(0, PS_G, PS_POINTS),
+                            rng.randint(0, PS_G, PS_POINTS)], axis=1)
+    # the inverse iteration's start, one a grid point (row-major over
+    # (im, re)), real and imaginary parts
+    rng = np.random.RandomState(27)
+    x["ps_u0"] = tuple(rng.randn(PS_G * PS_G, ps_n).astype(f32)
+                       for _ in range(2))
+    # funm-128: examples/chip_new_families.py's G + 3 sqrt(n) I
+    rng = np.random.RandomState(22)
+    x["funm"] = (rng.randn(fn_b, fn_n, fn_n)
+                 + 3.0 * fn_n ** 0.5 * np.eye(fn_n)).astype(f32)
+    # expm-256: 4 G / sqrt(n) (1-norm ~ 50: every lane squares) and the
+    # cotangent of its gradient
+    rng = np.random.RandomState(23)
+    x["expm"] = ((4.0 * rng.randn(bsz, n, n) / n ** 0.5).astype(f32),
+                 rng.randn(bsz, n, n).astype(f32))
+    # frechet-128: A = G / sqrt(n), E Gaussian
+    rng = np.random.RandomState(24)
+    x["frechet"] = ((rng.randn(fn_b, fn_n, fn_n) / fn_n ** 0.5).astype(f32),
+                    rng.randn(fn_b, fn_n, fn_n).astype(f32))
+    # nearness-128: examples/chip_session7.py's rank-40 correlation
+    # matrices plus 0.3 Gaussian noise
+    rng = np.random.RandomState(25)
+    g = rng.randn(near_b, near_n, NEAR_K)
+    c = g @ g.transpose(0, 2, 1)
+    d = np.sqrt(np.einsum("bii->bi", c))
+    x["near"] = (c / (d[:, :, None] * d[:, None, :])
+                 + 0.3 * rng.randn(near_b, near_n, near_n)).astype(f32)
+    # fitting-768x256: b = A x + 0.01 noise (ridge, TLS); Procrustes on
+    # P [n, m] and R P with R orthogonal; angles between span(A) and
+    # span(A + 0.1 G)
+    rng = np.random.RandomState(26)
+    a = rng.randn(fit_b, fit_m, fit_n)
+    b = np.einsum("bmn,bn->bm", a, rng.randn(fit_b, fit_n)) + 0.01 * (
+        rng.randn(fit_b, fit_m))
+    x["fit"] = (a.astype(f32), b.astype(f32))
+    r, _ = np.linalg.qr(rng.randn(fit_b, fit_n, fit_n))
+    p = rng.randn(fit_b, fit_n, fit_m)
+    x["procrustes"] = (p.astype(f32), (r @ p).astype(f32), r)
+    x["angles"] = (a.astype(f32),
+                   (a + 0.1 * rng.randn(*a.shape)).astype(f32))
+    return x
+
+
+def mf_lanes(x, lanes):
+    """The first ``lanes`` lanes of every batch of ``mf_inputs`` (the grid,
+    its starts and the held points kept, the points moved onto the kept
+    lanes)."""
+    out = {}
+    for k, v in x.items():
+        if k in ("grid", "ps_u0"):
+            out[k] = v
+        elif k == "points":
+            out[k] = v.copy()
+            out[k][:, 0] %= lanes
+        else:
+            out[k] = (tuple(t[:lanes] for t in v) if isinstance(v, tuple)
+                      else v[:lanes])
+    return out
+
+
+def _c128(h, re, im):
+    return h[re].astype("float64") + 1j * h[im].astype("float64")
+
+
+def fig_ordschur(a, sv, srt, reo, inv, sel):
+    """ordschur-256's figures (float64 on the host): the worst
+    ||Q T Q^H - D A D^-1||_max / ||A||_max and ||Q^H Q - I||_max of the
+    sorted and the reordered forms; whether the sort's |lambda| is
+    nonincreasing (with the JAX test's slack) and the reorder puts the
+    selected eigenvalues first; the invariant subspace's ok count, m
+    against numpy's count of Re lambda < 0 (a lane may differ only where
+    an eigenvalue lies within 1e-3 of the axis), ||V^T V - I||_max and
+    ||A V - V (V^T A V)||_F / ||A||_F."""
+    import numpy as np
+
+    a64 = a.astype(np.float64)
+    recon, unit = 0.0, 0.0
+    for r in (srt, reo):
+        T, Q = _c128(r, "t_re", "t_im"), _c128(r, "q_re", "q_im")
+        for b in range(a.shape[0]):
+            s = sv["scale"][b].astype(np.float64)
+            dad = a64[b] * s[:, None] / s[None, :]
+            recon = max(recon, float(np.abs(Q[b] @ T[b] @ Q[b].conj().T - dad)
+                                     .max() / np.abs(a64[b]).max()))
+            unit = max(unit, float(np.abs(Q[b].conj().T @ Q[b]
+                                          - np.eye(len(s))).max()))
+    mags = np.abs(_c128(srt, "w_re", "w_im"))
+    order = bool((np.diff(mags, axis=1) <= 1e-4 * mags[:, :-1] + 1e-5).all())
+    w = _c128(reo, "w_re", "w_im")
+    lead = all((w[b, :m].real < 0).all() and (w[b, m:].real >= 0).all()
+               for b, m in enumerate(reo["m"]))
+    m_sel = bool((reo["m"] == sel.sum(axis=1)).all())
+    V = inv["v"].astype(np.float64)
+    orth, resid, m_off = 0.0, 0.0, []
+    for b in range(a.shape[0]):
+        m = int(inv["m"][b])
+        wa = np.linalg.eigvals(a64[b])
+        if m != int((wa.real < 0).sum()) and not (
+                np.abs(wa.real) < 1e-3).any():
+            m_off.append(b)
+        Vb = V[b][:, :m]
+        orth = max(orth, float(np.abs(Vb.T @ Vb - np.eye(m)).max()))
+        AV = a64[b] @ Vb
+        resid = max(resid, float(np.linalg.norm(AV - Vb @ (Vb.T @ AV))
+                                 / np.linalg.norm(a64[b])))
+    return {"ord_recon": recon, "ord_unitary": unit, "sort_order": order,
+            "reorder_lead": lead, "reorder_m": m_sel, "inv_orth": orth,
+            "inv_resid": resid, "inv_ok": int(inv["ok"].sum()),
+            "inv_m_off": m_off}
+
+
+def fig_cluster(cc, reo, lanes=MF_SCIPY_LANES):
+    """cluster-cond-256's figures: s against LAPACK's ztrsen (scipy, job
+    'E') on the reordered complex form in float64, the worst relative
+    distance over the first ``lanes`` lanes; the largest sep / gap (sep
+    estimates from above a quantity at most gap); s's range; the lanes
+    flagged perturbed; m equal to the reorder's."""
+    import numpy as np
+    from scipy.linalg import lapack
+
+    T, Q = _c128(reo, "t_re", "t_im"), _c128(reo, "q_re", "q_im")
+    worst = 0.0
+    n = T.shape[-1]
+    for b in range(min(lanes, T.shape[0])):
+        m = int(reo["m"][b])
+        sel = (np.arange(n) < m).astype(np.int32)
+        out = lapack.ztrsen(sel, T[b], Q[b], job="E", wantq=0,
+                            lwork=max(1, 2 * m * (n - m)))
+        s64, info = out[4], out[-1]
+        if info != 0:
+            raise AssertionError(f"ztrsen info {info} on lane {b}")
+        worst = max(worst, abs(float(cc["s"][b]) - s64) / s64)
+    return {"cc_s": worst,
+            "sep_over_gap": float((cc["sep"] / cc["gap"]).max()),
+            "s_range": [float(cc["s"].min()), float(cc["s"].max())],
+            "perturbed": [int(i) for i in np.flatnonzero(cc["perturbed"])],
+            "m_equal": bool((cc["m"] == reo["m"]).all())}
+
+
+def _sigmin_iteration(t, z, u, iters):
+    """The port's inverse iteration for sigma_min(T - zI) in float64 on the
+    host: ``iters`` steps of a solve with (T - zI)^H then with T - zI from
+    the start ``u``, scipy's triangular solves."""
+    import numpy as np
+    import scipy.linalg as sl
+
+    m = t - z * np.eye(t.shape[-1])
+    u = u / np.linalg.norm(u)
+    lam = 0.0
+    for _ in range(iters):
+        w = sl.solve_triangular(m, sl.solve_triangular(m, u, trans="C"))
+        lam = np.linalg.norm(w)
+        u = w / lam
+    return 1.0 / np.sqrt(lam)
+
+
+def fig_pseudo(a, grid, points, ps, pt, u0, iters=PS_ITERS):
+    """pseudo-128's figures at the held points: sigma_min against the same
+    ``iters``-step inverse iteration in float64 on the host, on the
+    package's own complex Schur form T (``pt``) and from the same start
+    ``u0`` (the worst relative distance: the program, not the iteration's
+    convergence); against numpy's float64 SVD of A - zI (the JAX package's
+    test) at the points where that float64 iteration has converged, within
+    1e-6 of the SVD of T - zI, and their count; the converged count and the
+    grid's shape."""
+    import numpy as np
+
+    re, im = grid
+    T = _c128(pt, "t_re", "t_im")
+    u = u0[0].astype(np.float64) + 1j * u0[1].astype(np.float64)
+    eye = np.eye(a.shape[-1])
+    worst, worst_svd, held = 0.0, 0.0, 0
+    for b, i, j in points:
+        z = complex(re[j], im[i])
+        got = float(ps["sigmin"][b, i, j])
+        ref = _sigmin_iteration(T[b], z, u[i * len(re) + j], iters)
+        worst = max(worst, abs(got - ref) / ref)
+        svd_t = np.linalg.svd(T[b] - z * eye, compute_uv=False)[-1]
+        if abs(ref - svd_t) <= 1e-6 * svd_t:
+            held += 1
+            svd = np.linalg.svd(a[b].astype(np.float64) - z * eye,
+                                compute_uv=False)[-1]
+            worst_svd = max(worst_svd, abs(got - svd) / svd)
+    return {"sigmin": worst, "sigmin_svd": worst_svd, "svd_points": held,
+            "converged": int(ps["converged"].sum()),
+            "shape": list(ps["sigmin"].shape)}
+
+
+def _rel_max(got, want):
+    import numpy as np
+
+    return float(np.abs(got.astype(np.float64) - want).max()
+                 / np.abs(want).max())
+
+
+def fig_funm(a, sq, lg, back, pw):
+    """funm-128's figures: sqrtm's ||Y^2 - A||_max / ||A||_max, logm's
+    round trip ||expm(logm A) - A||_max / ||A||_max, powm(A, 1/2) against
+    sqrtm relative to max|Y|, and the converged counts."""
+    import numpy as np
+
+    a64 = a.astype(np.float64)
+    Y = sq["Y"].astype(np.float64)
+    return {"sqrtm": _rel_max(Y @ Y, a64),
+            "logm_roundtrip": _rel_max(back, a64),
+            "powm_half": _rel_max(pw[0], Y),
+            "sqrtm_converged": int(sq["converged"].sum()),
+            "logm_converged": int(lg["converged"].sum()),
+            "powm_ok": int(pw[1].sum()), "logm_roots": lg["roots"].tolist()}
+
+
+def fig_expm(a, g, e, grad, lanes=MF_SCIPY_LANES):
+    """expm-256's figures on the first ``lanes`` lanes: expm against
+    scipy's float64 ``expm`` relative to its largest entry, and the
+    gradient of sum(G * expm(A)) against scipy's ``expm_frechet(A^T, G)``
+    over max(its largest entry, 1)."""
+    import numpy as np
+    import scipy.linalg as sl
+
+    we, wg = 0.0, 0.0
+    for b in range(min(lanes, a.shape[0])):
+        a64 = a[b].astype(np.float64)
+        we = max(we, _rel_max(e[b], sl.expm(a64)))
+        _, L = sl.expm_frechet(a64.T, g[b].astype(np.float64))
+        wg = max(wg, float(np.abs(grad[b] - L).max()
+                           / max(np.abs(L).max(), 1.0)))
+    return {"expm": we, "expm_grad": wg,
+            "finite": bool(np.isfinite(e).all() and np.isfinite(grad).all())}
+
+
+def fig_funm_exp(a, fm, lanes=MF_SCIPY_LANES):
+    """funm(exp) on eig-256's batch: F against scipy's float64 ``expm``
+    relative to its largest entry (first ``lanes`` lanes), imag_max
+    relative to max|F|, the ok count and the largest resid."""
+    import numpy as np
+    import scipy.linalg as sl
+
+    worst = max(_rel_max(fm["F"][b], sl.expm(a[b].astype(np.float64)))
+                for b in range(min(lanes, a.shape[0])))
+    fmax = np.abs(fm["F"]).max(axis=(1, 2))
+    return {"funm_exp": worst,
+            "funm_imag": float((fm["imag_max"] / fmax).max()),
+            "ok": int(fm["ok"].sum()), "resid": float(fm["resid"].max())}
+
+
+def _cond_reference(a, e0, iters):
+    """The power iteration of ``expm_cond_batched`` in float64 with scipy's
+    ``expm_frechet``, run ``iters`` steps from ``e0``: the operator norm."""
+    import numpy as np
+    import scipy.linalg as sl
+
+    E, sig = e0, 0.0
+    for _ in range(iters):
+        E = E / np.linalg.norm(E)
+        _, W = sl.expm_frechet(a, E)
+        sig = np.linalg.norm(W)
+        _, E = sl.expm_frechet(a.T, W)
+    return sig
+
+
+def fig_frechet(a, e, fr, kc, lanes=MF_SCIPY_LANES, cond_lanes=COND_LANES):
+    """frechet-128's figures: expm and L(A, E) against scipy's float64
+    ``expm_frechet`` (L over max(its largest entry, 1)) on the first
+    ``lanes`` lanes; expm_cond's operator norm over a float64 power
+    iteration of ``COND_REF_ITERS`` steps (from a seeded start) on the
+    first ``cond_lanes`` lanes: its range."""
+    import numpy as np
+    import scipy.linalg as sl
+
+    we, wl = 0.0, 0.0
+    for b in range(min(lanes, a.shape[0])):
+        eA, L = sl.expm_frechet(a[b].astype(np.float64),
+                                e[b].astype(np.float64))
+        we = max(we, float(np.abs(fr["expm"][b] - eA).max()))
+        wl = max(wl, float(np.abs(fr["L"][b] - L).max()
+                           / max(np.abs(L).max(), 1.0)))
+    rng = np.random.RandomState(28)
+    ratio = []
+    for b in range(min(cond_lanes, a.shape[0])):
+        ref = _cond_reference(a[b].astype(np.float64),
+                              rng.randn(*a.shape[1:]), COND_REF_ITERS)
+        ratio.append(float(kc[1][b]) / ref)
+    return {"frechet_expm": we, "frechet_L": wl,
+            "cond_ratio": [min(ratio), max(ratio)]}
+
+
+def fig_nearness(c, nc, npsd, north):
+    """nearness-128's figures (float64 on the host, every lane): the
+    correlation's max|diag - 1|, min eigenvalue, converged count and
+    iterations; the PSD repair's min eigenvalue and its distance from the
+    float64 closed form; the orthogonal factor's ||Q^T Q - I||_max and
+    distance from the SVD's U V^T, and its ok count."""
+    import numpy as np
+
+    c64 = c.astype(np.float64)
+    X = nc["x"].astype(np.float64)
+    P = npsd["x"].astype(np.float64)
+    Qo = north[0].astype(np.float64)
+    n = c.shape[-1]
+    diag, wmin, pmin, px, qo, qd = 0.0, np.inf, np.inf, 0.0, 0.0, 0.0
+    for b in range(c.shape[0]):
+        diag = max(diag, float(np.abs(np.diag(X[b]) - 1).max()))
+        wmin = min(wmin, float(np.linalg.eigvalsh(X[b]).min()))
+        pmin = min(pmin, float(np.linalg.eigvalsh(P[b]).min()))
+        we, V = np.linalg.eigh((c64[b] + c64[b].T) / 2)
+        px = max(px, float(np.abs(P[b] - (V * np.maximum(we, 0)) @ V.T)
+                           .max()))
+        qo = max(qo, float(np.abs(Qo[b].T @ Qo[b] - np.eye(n)).max()))
+        U, _, Vt = np.linalg.svd(c64[b])
+        qd = max(qd, float(np.abs(Qo[b] - U @ Vt).max()))
+    return {"ncorr_diag": diag, "ncorr_min_eig": -wmin,
+            "ncorr_converged": int(nc["converged"].sum()),
+            "ncorr_iters": int(nc["iters"]), "npsd_min_eig": -pmin,
+            "npsd_x": px, "north_orth": qo, "north_q": qd,
+            "north_ok": int(north[2].sum())}
+
+
+def fig_fitting(fit, proc, ang, rd, tl, pr, an, lanes=MF_SCIPY_LANES):
+    """fitting-768x256's figures (float64 on the host): ridge's x against
+    the normal equations and TLS's x against the SVD of [A | b] (every
+    lane, max abs), ok counts; Procrustes' Q against the planted rotation
+    (max abs); the angles against scipy's ``subspace_angles`` on the
+    first ``lanes`` lanes (sorted, max abs)."""
+    import numpy as np
+    import scipy.linalg as sl
+
+    a, b = (t.astype(np.float64) for t in fit)
+    n = a.shape[-1]
+    wr, wt = 0.0, 0.0
+    for k in range(a.shape[0]):
+        want = np.linalg.solve(a[k].T @ a[k] + RIDGE_LAM * np.eye(n),
+                               a[k].T @ b[k])
+        wr = max(wr, float(np.abs(rd["x"][k] - want).max()))
+        _, _, Vt = np.linalg.svd(np.concatenate([a[k], b[k][:, None]], 1))
+        want = -Vt[-1, :n] / Vt[-1, n]
+        wt = max(wt, float(np.abs(tl["x"][k] - want).max()))
+    wa = 0.0
+    for k in range(min(lanes, a.shape[0])):
+        want = np.sort(sl.subspace_angles(*(t[k].astype(np.float64)
+                                            for t in ang)))
+        wa = max(wa, float(np.abs(np.sort(an["angles"][k]) - want).max()))
+    return {"ridge": wr, "ridge_ok": int(rd["ok"].sum()), "tls": wt,
+            "tls_ok": int(tl["ok"].sum()),
+            "procrustes": float(np.abs(pr["Q"] - proc[2]).max()),
+            "procrustes_ok": int(pr["ok"].sum()), "angles": wa,
+            "angles_ok": int(an["ok"].sum())}
+
+
+def run_matfun(ops, x, to, grad, exp, call=None, cells=None, pass_u0=True):
+    """Every entry point of the block on the inputs ``x`` (``to`` moves a
+    numpy array to the package's device; ``grad(fn, a, g)`` is the
+    gradient of sum(g * fn(a)); ``exp`` the package's elementwise
+    exponential; ``call(key, thunk)``, if given, runs each entry point;
+    ``cells`` the cells to run, default all; ``pass_u0`` hands the grid
+    its start ``x["ps_u0"]``, which the JAX package draws itself and
+    ``x["ps_u0"]`` must then hold): the host results and figures, keyed
+    by cell.  Shared by ``drive_matfun`` and a run of the JAX package,
+    which has the same API, on the same inputs."""
+    out, figs = {}, {}
+    call = call or (lambda key, thunk: thunk())
+
+    def want(cell):
+        return cells is None or cell in cells
+
+    def go(name, fn, *args, **kw):
+        targs = [to(t) for t in args]
+        res = call(name, lambda: fn(*targs, **kw))
+        out[name] = _host(res) if hasattr(res, "_fields") else (
+            [_host_array(t) for t in res] if isinstance(res, tuple)
+            else _host_array(res))
+        return out[name]
+
+    if want("ordschur-256") or want("cluster-cond-256"):
+        a = x["ord"]
+        sv = go("schur", ops.real_schur_vectors, a)
+        T, Q = sv["T"], sv["Q"]
+        cs = go("rsf2csf", ops.rsf2csf_batched, T, Q)
+        sel = cs["t_re"].diagonal(axis1=1, axis2=2) < 0
+        reo = go("reorder", ops.schur_reorder_batched, T, Q, sel)
+    if want("ordschur-256"):
+        srt = go("sort", ops.schur_sort_batched, T, Q, key="abs_desc")
+        inv = go("invariant", ops.invariant_subspace_batched, a,
+                 select_fn=lambda re, im: re < 0)
+        figs["ordschur-256"] = fig_ordschur(a, sv, srt, reo, inv, sel)
+    if want("cluster-cond-256"):
+        cc = go("cluster_cond", ops.schur_cluster_cond_batched, T, Q, sel,
+                sep_iters=SEP_ITERS)
+        figs["cluster-cond-256"] = fig_cluster(cc, reo)
+    if want("pseudo-128"):
+        kw = {"u0": tuple(to(t) for t in x["ps_u0"])} if pass_u0 else {}
+        ps = go("pseudo", ops.pseudospectrum_grid_batched, x["pseudo"],
+                *x["grid"], iters=PS_ITERS, **kw)
+
+        def complex_schur(a_):
+            sv_ = ops.real_schur_vectors(a_, balance=False)
+            return ops.rsf2csf_batched(sv_.T, sv_.Q)
+
+        # the complex Schur form the grid's iteration ran on
+        pt = go("pseudo_schur", complex_schur, x["pseudo"])
+        figs["pseudo-128"] = fig_pseudo(x["pseudo"], x["grid"], x["points"],
+                                        ps, pt, x["ps_u0"])
+    if want("funm-128"):
+        af = x["funm"]
+        sq = go("sqrtm", ops.sqrtm_batched, af)
+        lg = go("logm", ops.logm_batched, af)
+        back = go("logm_expm", ops.expm_batched, lg["L"])
+        pw = go("powm", ops.powm_batched, af, p=0.5)
+        figs["funm-128"] = fig_funm(af, sq, lg, back, pw)
+    if want("expm-256"):
+        ae, ge = x["expm"]
+        e = go("expm", ops.expm_batched, ae)
+        gr = call("expm_grad", lambda: grad(ops.expm_batched, to(ae),
+                                            to(ge)))
+        out["expm_grad"] = _host_array(gr)
+        figs["expm-256"] = fig_expm(ae, ge, e, out["expm_grad"])
+    if want("funm-256"):
+        fm = go("funm", ops.funm.funm_batched, x["ord"], f=exp)
+        figs["funm-256"] = fig_funm_exp(x["ord"], fm)
+    if want("frechet-128"):
+        af, ef = x["frechet"]
+        fr = go("frechet", ops.expm_frechet_batched, af, ef)
+        kc = go("expm_cond", ops.expm_cond_batched, af)
+        figs["frechet-128"] = fig_frechet(af, ef, fr, kc)
+    if want("nearness-128"):
+        c = x["near"]
+        nc = go("ncorr", ops.nearest_correlation_batched, c)
+        npsd = go("npsd", ops.nearest_psd_batched, c)
+        north = go("north", ops.nearest_orthogonal_batched, c)
+        figs["nearness-128"] = fig_nearness(c, nc, npsd, north)
+    if want("fitting-768x256"):
+        rd = go("ridge", ops.ridge_batched, *x["fit"], lam=RIDGE_LAM)
+        tl = go("tls", ops.tls_batched, *x["fit"])
+        pr = go("procrustes", ops.procrustes_batched, *x["procrustes"][:2])
+        an = go("angles", ops.subspace_angles_batched, *x["angles"])
+        figs["fitting-768x256"] = fig_fitting(x["fit"], x["procrustes"],
+                                              x["angles"], rd, tl, pr, an)
+    return out, figs
+
+
+def mf_limit(key):
+    """A limit of the block: ``MF_LIMITS``, or 1.5x the JAX package's
+    figure in ``MF_JAX`` where that misses the limit."""
+    jax_fig = MF_JAX.get(key)
+    base = MF_LIMITS[key]
+    return base if jax_fig is None or jax_fig <= base else 1.5 * jax_fig
+
+
+def hold_matfun(figs, bsz=MF_B, ps_b=PS_B, fn_b=FN_B, near_b=NEAR_B,
+                fit_b=FIT_B):
+    """Every limit and flag of the block on ``figs``; raises on the first
+    one missed."""
+    cells = {"ord_recon": "ordschur-256", "ord_unitary": "ordschur-256",
+             "inv_orth": "ordschur-256", "inv_resid": "ordschur-256",
+             "cc_s": "cluster-cond-256", "sigmin": "pseudo-128",
+             "sigmin_svd": "pseudo-128",
+             "sqrtm": "funm-128", "logm_roundtrip": "funm-128",
+             "powm_half": "funm-128", "expm": "expm-256",
+             "expm_grad": "expm-256", "funm_exp": "funm-256",
+             "funm_imag": "funm-256", "frechet_expm": "frechet-128",
+             "frechet_L": "frechet-128"}
+    cells.update({k: "nearness-128" for k in MF_LIMITS
+                  if k.startswith(("ncorr", "npsd", "north"))})
+    cells.update({k: "fitting-768x256" for k in ("ridge", "tls",
+                                                 "procrustes", "angles")})
+    for key, cell in cells.items():
+        if cell in figs and not figs[cell][key] <= mf_limit(key):
+            raise AssertionError(f"{cell} {key} {figs[cell][key]} above its "
+                                 f"limit {mf_limit(key)}")
+    flags = []
+    if "ordschur-256" in figs:
+        o = figs["ordschur-256"]
+        flags += [("ordschur sort order", o["sort_order"]),
+                  ("ordschur selected first", o["reorder_lead"]),
+                  ("ordschur m equal to the selection", o["reorder_m"]),
+                  ("invariant subspace ok on every lane",
+                   o["inv_ok"] == bsz),
+                  ("invariant subspace m equal to numpy's count",
+                   o["inv_m_off"] == [])]
+    if "cluster-cond-256" in figs:
+        c = figs["cluster-cond-256"]
+        flags += [("cluster sep at most gap", c["sep_over_gap"] <= 1.0),
+                  ("cluster s in (0, 1]",
+                   c["s_range"][0] > 0 and c["s_range"][1] <= 1.0),
+                  ("cluster no lane perturbed", c["perturbed"] == []),
+                  ("cluster m equal to the reorder's", c["m_equal"])]
+    if "pseudo-128" in figs:
+        p = figs["pseudo-128"]
+        flags += [("pseudo converged on every lane", p["converged"] == ps_b),
+                  ("pseudo: an eighth of the held points converged in "
+                   f"{PS_ITERS} iterations", p["svd_points"] >= PS_POINTS // 8)]
+    if "funm-128" in figs:
+        f = figs["funm-128"]
+        flags += [("sqrtm converged on every lane",
+                   f["sqrtm_converged"] == fn_b),
+                  ("logm converged on every lane",
+                   f["logm_converged"] == fn_b),
+                  ("powm ok on every lane", f["powm_ok"] == fn_b)]
+    if "expm-256" in figs:
+        flags += [("expm and its gradient finite",
+                   figs["expm-256"]["finite"])]
+    if "funm-256" in figs:
+        flags += [("funm ok on every lane", figs["funm-256"]["ok"] == bsz)]
+    if "frechet-128" in figs:
+        lo, hi = figs["frechet-128"]["cond_ratio"]
+        flags += [("expm_cond within [0.5, 1.05] of the float64 power "
+                   "iteration", 0.5 <= lo and hi <= 1.05)]
+    if "nearness-128" in figs:
+        nr = figs["nearness-128"]
+        flags += [("nearest correlation converged on every lane",
+                   nr["ncorr_converged"] == near_b),
+                  ("nearest orthogonal ok on every lane",
+                   nr["north_ok"] == near_b)]
+    if "fitting-768x256" in figs:
+        ft = figs["fitting-768x256"]
+        flags += [(f"{k} ok on every lane", ft[f"{k}_ok"] == fit_b)
+                  for k in ("ridge", "tls", "procrustes", "angles")]
+    for what, good in flags:
+        if not good:
+            raise AssertionError(f"{what}: no")
+
+
+def torch_grad(fn, a, g):
+    """The gradient of sum(g * fn(a)) by autograd."""
+    a = a.detach().clone().requires_grad_(True)
+    (fn(a) * g).sum().backward()
+    return a.grad
+
+
+def trsyl_work(t_re, m, esize):
+    """(bytes, operations) of one masked Sylvester solve on this run's
+    data: T's upper triangle (re, im) read, C's block read and X's block
+    written; a complex multiply-add (8 operations) for each term of each
+    row's product and column sum, and ~12 for each entry's quotient."""
+    bsz, n, _ = t_re.shape
+    nbytes, ops = 0.0, 0.0
+    for mb in m.tolist():
+        k = mb * (n - mb)
+        nbytes += (n * (n + 1) + 4 * k) * esize
+        ops += 8 * (n - mb) * mb * (mb - 1) / 2 + 8 * mb * (n - mb) * (
+            n - mb - 1) / 2 + 12 * k
+    return nbytes, ops
+
+
+def hold_trsyl(calls, what):
+    """The trsyl kernel's results on recorded launches against its plain
+    version on the same arguments: X bitwise (NaN where the other is NaN)
+    and pert equal.  Returns (max abs diff, plain seconds of each call)."""
+    from linalg_solver_tpu_torch.ops.kernels import trsyl
+
+    err, secs = 0.0, []
+    for (args, kw), (xr, xi, pert) in calls:
+        t0 = time.perf_counter()
+        rr, ri, rp = trsyl.trsyl_masked_reference(*args, **kw)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        err = max(err, abs_diff(xr, rr), abs_diff(xi, ri))
+        same = nan_equal(xr, rr) and nan_equal(xi, ri)
+        print(f"trsyl kernel vs plain {what} {list(xr.shape)} "
+              f"adjoint={kw.get('adjoint', False)}: bitwise {same}, max abs "
+              f"diff {err:.3e}, pert equal {torch.equal(pert, rp)} "
+              f"(lanes flagged {int(pert.sum())}), plain "
+              f"{secs[-1]:.2f} s")
+        if not same or not torch.equal(pert, rp):
+            raise AssertionError(f"the trsyl kernel disagrees with its plain "
+                                 f"version {what}")
+    return err, secs
+
+
+def drive_matfun(dev):
+    """Phases 46-51: every entry point of the block on ``mf_inputs`` on the
+    card, each with the kernels' counts set to 0 just before it and read
+    just after, its figures printed beside their limits and held
+    (``hold_matfun``); then the trsyl kernel held against its plain
+    version on the first forward and the first adjoint launch of the
+    cluster-cond path.  Returns the inputs, the figures, the launches a
+    call, the trsyl calls and the held error."""
+    from linalg_solver_tpu_torch import ops
+    from linalg_solver_tpu_torch.ops.kernels import butterfly, lu_nopivot
+    from linalg_solver_tpu_torch.ops.kernels import lu_panel
+    from linalg_solver_tpu_torch.ops.kernels import schur_chase as sc
+    from linalg_solver_tpu_torch.ops.kernels import trsyl
+
+    t0 = time.perf_counter()
+    x = mf_inputs()
+    print(f"matrix-function inputs built on the host in "
+          f"{time.perf_counter() - t0:.2f} s")
+    launches = {}
+
+    def call(key, thunk):
+        reset_counts()
+        trsyl.LAUNCHES = 0
+        res = thunk()
+        torch.cuda.synchronize()
+        launches[key] = {"trsyl": trsyl.LAUNCHES, "chase": sc.LAUNCHES,
+                         **phase_counts()}
+        return res
+
+    calls = []
+    orig = trsyl.trsyl_masked
+
+    def rec(*args, **kw):
+        out = orig(*args, **kw)
+        if len(calls) < 2 and all(kw.get("adjoint", False) != c[0][1].get(
+                "adjoint", False) for c in calls):
+            calls.append(((tuple(t.clone() for t in args), dict(kw)), out))
+        return out
+
+    trsyl.trsyl_masked = rec
+    # funm_batched inverts V through the 2n real embedding: the phase
+    # engine's butterfly and no-pivot panel kernels (kernel 6 if a lane
+    # needs the pivoted rescue)
+    bf_calls, bf_off = record(butterfly, "butterfly_two_sided")
+    lu_calls, lu_off = record(lu_nopivot, "panel_factor_nopivot")
+    k6_calls, k6_off = record(lu_panel, "panel_factor_masked")
+    t0 = time.perf_counter()
+    try:
+        out, figs = run_matfun(ops, x, lambda t: torch.from_numpy(
+            t).to(dev), torch_grad, torch.exp, call)
+    finally:
+        trsyl.trsyl_masked = orig
+        bf_off()
+        lu_off()
+        k6_off()
+    secs = time.perf_counter() - t0
+    for cell, f in figs.items():
+        print(f"matrix functions {cell}: {json.dumps(f)}")
+    shown = {key: {k: v for k, v in c.items() if v}
+             for key, c in launches.items()}
+    print(f"matrix functions launches a call (the kernels launched): "
+          f"{json.dumps(shown)}; {secs:.2f} s with the host's checks")
+    print(f"matrix functions limits {json.dumps(MF_LIMITS)}, the JAX "
+          f"package's figures where it misses one {json.dumps(MF_JAX)}")
+    hold_matfun(figs)
+    if launches["cluster_cond"]["trsyl"] != 1 + 2 * SEP_ITERS:
+        raise AssertionError(f"cluster-cond launched the trsyl kernel "
+                             f"{launches['cluster_cond']['trsyl']} times, "
+                             f"not {1 + 2 * SEP_ITERS}")
+    fl = launches["funm"]
+    if fl["butterfly"] < 2 or fl["lu_nopivot"] < 1:
+        raise AssertionError(f"funm_batched's inverse did not run the phase "
+                             f"engine's kernels: {fl}")
+    total = {k: sum(v[k] for v in launches.values()) for k in fl}
+    unheld = {k: total[k] for k in ("fused", "inv_rbt", "gauss_jordan")
+              if total[k]}
+    if unheld:
+        raise AssertionError(f"the block launched kernels it does not hold: "
+                             f"{unheld}")
+    err, plain_s = hold_trsyl(calls, "on the cluster-cond path")
+    bf_err = hold_butterflies(bf_calls, "on the funm path")
+    panel_err, _ = hold_panels(lu_calls, "on the funm path")
+    k6_err = hold_masked(k6_calls, "on the funm path") if k6_calls else 0.0
+    return {"x": x, "figs": figs, "launches": launches, "calls": calls,
+            "err": err, "plain_s": plain_s, "counts": total,
+            "bf_err": bf_err, "panel_err": panel_err, "k6_err": k6_err}
+
+
+def time_matfun(dev, card, mf):
+    """Phase 52: each entry point as the median of 5 calls after the
+    check's call (its warm-up), beside the one library call that computes
+    the same function where there is one (after one warm-up of its own):
+    ``torch.linalg.matrix_exp`` for expm and funm(exp), ``svdvals`` of the
+    stacked A - zI for the grid (one call: it takes ~31 s), ``svd`` for
+    Procrustes and TLS; then the
+    trsyl kernel alone on the recorded forward and adjoint launches (median
+    of 5 after one warm-up), its plain version (the hold's one call) and
+    its bound."""
+    from linalg_solver_tpu_torch import ops
+    from linalg_solver_tpu_torch.ops.kernels import trsyl
+    from linalg_solver_tpu_torch.utils.benchmarking import cuda_time
+
+    x = mf["x"]
+
+    def to(t):
+        return torch.from_numpy(t).to(dev)
+
+    a = to(x["ord"])
+    sv = ops.real_schur_vectors(a)
+    cs = ops.rsf2csf_batched(sv.T, sv.Q)
+    sel = cs.t_re.diagonal(dim1=1, dim2=2) < 0
+    ps = to(x["pseudo"])
+    re, im = (to(t) for t in x["grid"])
+    zz = torch.complex(*torch.meshgrid(re, im, indexing="xy"))
+    stacked = (ps.to(torch.complex64)[:, None, :, :]
+               - zz.reshape(-1)[None, :, None, None] * torch.eye(
+                   PS_N, dtype=torch.complex64, device=dev))
+    af, ae = to(x["funm"]), to(x["expm"][0])
+    ge = to(x["expm"][1])
+    fa, fe = (to(t) for t in x["frechet"])
+    c = to(x["near"])
+    fa_, fb_ = (to(t) for t in x["fit"])
+    pa, pb = (to(t) for t in x["procrustes"][:2])
+    ua, va = (to(t) for t in x["angles"])
+    cells = (
+        ("ordschur-256 real_schur_vectors", ops.real_schur_vectors, (a,),
+         None, None, None),
+        ("ordschur-256 rsf2csf_batched", ops.rsf2csf_batched,
+         (sv.T, sv.Q), None, None, None),
+        ("ordschur-256 schur_sort_batched", ops.schur_sort_batched,
+         (sv.T, sv.Q), None, None, None),
+        ("ordschur-256 schur_reorder_batched", ops.schur_reorder_batched,
+         (sv.T, sv.Q, sel), None, None, None),
+        ("ordschur-256 invariant_subspace_batched",
+         lambda a_: ops.invariant_subspace_batched(a_, lambda r, i: r < 0),
+         (a,), None, None, None),
+        ("cluster-cond-256 schur_cluster_cond_batched",
+         ops.schur_cluster_cond_batched, (sv.T, sv.Q, sel), None, None,
+         None),
+        ("pseudo-128 pseudospectrum_grid_batched",
+         ops.pseudospectrum_grid_batched, (ps, re, im),
+         "torch.linalg.svdvals(A - zI, stacked)", torch.linalg.svdvals,
+         (stacked,)),
+        ("funm-128 sqrtm_batched", ops.sqrtm_batched, (af,), None, None,
+         None),
+        ("funm-128 logm_batched", ops.logm_batched, (af,), None, None, None),
+        ("funm-128 powm_batched", ops.powm_batched, (af, 0.5), None, None,
+         None),
+        ("expm-256 expm_batched", ops.expm_batched, (ae,),
+         "torch.linalg.matrix_exp", torch.linalg.matrix_exp, (ae,)),
+        ("expm-256 expm_batched and its gradient",
+         lambda a_, g_: torch_grad(ops.expm_batched, a_, g_), (ae, ge),
+         "torch.linalg.matrix_exp and its gradient",
+         lambda a_, g_: torch_grad(torch.linalg.matrix_exp, a_, g_),
+         (ae, ge)),
+        ("funm-256 funm_batched(exp)",
+         lambda a_: ops.funm.funm_batched(a_, torch.exp), (a,),
+         "torch.linalg.matrix_exp", torch.linalg.matrix_exp, (a,)),
+        ("frechet-128 expm_frechet_batched", ops.expm_frechet_batched,
+         (fa, fe), None, None, None),
+        ("frechet-128 expm_cond_batched", ops.expm_cond_batched, (fa,),
+         None, None, None),
+        ("nearness-128 nearest_correlation_batched",
+         ops.nearest_correlation_batched, (c,), None, None, None),
+        ("nearness-128 nearest_psd_batched", ops.nearest_psd_batched, (c,),
+         None, None, None),
+        ("nearness-128 nearest_orthogonal_batched",
+         ops.nearest_orthogonal_batched, (c,), None, None, None),
+        ("fitting-768x256 ridge_batched", ops.ridge_batched,
+         (fa_, fb_, RIDGE_LAM), None, None, None),
+        ("fitting-768x256 tls_batched", ops.tls_batched, (fa_, fb_),
+         "torch.linalg.svd([A | b])",
+         lambda a_, b_: torch.linalg.svd(torch.cat([a_, b_[:, :, None]], 2),
+                                         full_matrices=False),
+         (fa_, fb_)),
+        ("fitting-768x256 procrustes_batched", ops.procrustes_batched,
+         (pa, pb), "torch.linalg.svd(B A^T)",
+         lambda a_, b_: torch.linalg.svd(b_ @ a_.transpose(1, 2)),
+         (pa, pb)),
+        ("fitting-768x256 subspace_angles_batched",
+         ops.subspace_angles_batched, (ua, va), None, None, None),
+    )
+    out = {}
+    for cell, fn, args, lib_name, lib, lib_args in cells:
+        t = cuda_time(fn, *args, warmup=0, iters=5)
+        # svdvals of the 8,192 stacked 128 x 128 complex matrices takes
+        # ~31 s a call on the H100: one call, without a warm-up
+        once = cell.startswith("pseudo-128")
+        tl = (cuda_time(lib, *lib_args, warmup=int(not once),
+                        iters=1 if once else 5)
+              if lib is not None else None)
+        out[cell] = {"ms": t * 1e3, "library": lib_name or "none",
+                     "library_ms": None if tl is None else tl * 1e3}
+        lib_txt = "none" if tl is None else f"{lib_name} {tl * 1e3:.4f} ms"
+        print(f"time {cell}: {t * 1e3:.4f} ms, library: {lib_txt} ({card})")
+    shapes = []
+    for ((args, kw), _), plain_s in zip(mf["calls"], mf["plain_s"]):
+        t = cuda_time(lambda *a_: trsyl.trsyl_masked(*a_, **kw), *args,
+                      warmup=1, iters=5)
+        esize = args[0].element_size()
+        b_ms, b_by = bound(*trsyl_work(args[0], args[2], esize))
+        shapes.append({"shape": list(args[0].shape),
+                       "adjoint": bool(kw.get("adjoint", False)),
+                       "ms": t * 1e3, "plain_ms": plain_s * 1e3,
+                       "bound_ms": b_ms, "bound_by": b_by})
+        print(f"time trsyl kernel {shapes[-1]} ({card})")
+    return out, shapes
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py: no CUDA device; there is no CPU path")
@@ -4121,6 +4990,14 @@ def main() -> None:
     time_eig_family(dev, card, eigf)
     print(f"eigenvector family phase: {time.perf_counter() - t0:.2f} s")
 
+    # 46-52. ordered Schur forms (the trsyl kernel), pseudospectra, matrix
+    # functions, nearness and fitting at full width, checked on the host in
+    # float64, timed
+    t0 = time.perf_counter()
+    mf = drive_matfun(dev)
+    _, trsyl_shapes = time_matfun(dev, card, mf)
+    print(f"matrix-function phase: {time.perf_counter() - t0:.2f} s")
+
     # bounds from this run's shapes: bytes each input read and each output
     # written once; operations those the inputs need
     w = 2 * N_INV
@@ -4137,6 +5014,8 @@ def main() -> None:
         "francis_chase": bound(*chase_work(*schur_out["main"][:3])),
         "window_schur": (window_shapes[0]["bound_ms"],
                          window_shapes[0]["bound_by"]),
+        "trsyl_masked": (trsyl_shapes[0]["bound_ms"],
+                         trsyl_shapes[0]["bound_by"]),
     }
     rows = [{
         "name": "solve_fused_rbt",
@@ -4180,20 +5059,25 @@ def main() -> None:
         "source": "linalg_solver_tpu_torch/csrc/butterfly.cu",
         "replaces": "linalg_solver_tpu/ops/pallas/butterfly_kernel.py:91",
         "launches": (phase["butterfly_launches"] + large_launches
-                     + eig_counts["butterfly"]),
+                     + eig_counts["butterfly"] + mf["counts"]["butterfly"]),
         "max_abs_err": max(bf_err, phase["butterfly_err"], large_err,
-                           spec_schur["bf_err"]),
+                           spec_schur["bf_err"], mf["bf_err"]),
         "ms": ph_times["kernel butterfly_two_sided, device"] * 1e3,
         "host_ms": ph_times["kernel butterfly_two_sided"] * 1e3,
         "plain_ms": ph_times["plain butterfly_two_sided_reference"] * 1e3,
         "library_ms": None,
+        "matfun_launches": {k: v["butterfly"]
+                            for k, v in mf["launches"].items()
+                            if v["butterfly"]},
     }, {
         "name": "panel_factor_nopivot",
         "route": "cuda",
         "source": "linalg_solver_tpu_torch/csrc/lu_nopivot.cu",
         "replaces": "linalg_solver_tpu/ops/pallas/lu_nopivot_kernel.py:41",
-        "launches": phase["panel_launches"] + eig_counts["lu_nopivot"],
-        "max_abs_err": max(phase["panel_err"], spec_schur["panel_err"]),
+        "launches": (phase["panel_launches"] + eig_counts["lu_nopivot"]
+                     + mf["counts"]["lu_nopivot"]),
+        "max_abs_err": max(phase["panel_err"], spec_schur["panel_err"],
+                           mf["panel_err"]),
         "ms": ph_times[
             "kernel panel_factor_nopivot, the 8 solve panels, device"] * 1e3,
         "host_ms": ph_times[
@@ -4202,13 +5086,16 @@ def main() -> None:
             "plain panel_factor_nopivot_reference, the 8 solve panels"] * 1e3,
         "library_ms": ph_times[
             "library lu_factor_ex(pivot=False), the 8 solve panels"] * 1e3,
+        "matfun_launches": {k: v["lu_nopivot"]
+                            for k, v in mf["launches"].items()
+                            if v["lu_nopivot"]},
     }, {
         "name": "panel_factor_masked",
         "route": "cuda",
         "source": "linalg_solver_tpu_torch/csrc/lu_panel.cu",
         "replaces": "linalg_solver_tpu/ops/pallas/lu_panel_kernel.py:49",
-        "launches": k6["launches"],
-        "max_abs_err": max(k6_err, k6["err"]),
+        "launches": k6["launches"] + mf["counts"]["lu_panel"],
+        "max_abs_err": max(k6_err, k6["err"], mf["k6_err"]),
         "ms": k6_times[
             "kernel panel_factor_masked, the 4 mixed-path panels"] * 1e3,
         "plain_ms": k6_times[
@@ -4222,7 +5109,7 @@ def main() -> None:
         # no Pallas kernel: the XLA scan of _chase_step (schur.py:869-891)
         "replaces": "linalg_solver_tpu/ops/schur.py:893",
         "launches": (schur_out["launches"] + spec_schur["chase"]
-                     + eigf["chase"]),
+                     + eigf["chase"] + mf["counts"]["chase"]),
         "max_abs_err": max(schur_out["err"], spec_schur["err"],
                            eigf["err"]),
         "ms": chase_shapes[0]["ms"],
@@ -4233,6 +5120,8 @@ def main() -> None:
         "sweep_graph_ms": schur_times["sweep graph"] * 1e3,
         "eig_family_launches": {k: v["chase"]
                                 for k, v in eigf["launches"].items()},
+        "matfun_launches": {k: v["chase"] for k, v in mf["launches"].items()
+                            if v["chase"]},
     }, {
         "name": "window_schur",
         "route": "cuda",
@@ -4241,7 +5130,7 @@ def main() -> None:
         "replaces": "linalg_solver_tpu/ops/schur.py:586",
         "launches": (schur_out["window"]
                      + spec_schur["launches"]["schur_window"]
-                     + eigf["window"]),
+                     + eigf["window"] + mf["counts"]["schur_window"]),
         "max_abs_err": max(schur_out["err"], spec_schur["err"],
                            eigf["err"]),
         "ms": window_shapes[0]["ms"],
@@ -4250,6 +5139,24 @@ def main() -> None:
         "large_shapes": window_shapes,
         "eig_family_launches": {k: v["window"]
                                 for k, v in eigf["launches"].items()},
+        "matfun_launches": {k: v["schur_window"]
+                            for k, v in mf["launches"].items()
+                            if v["schur_window"]},
+    }, {
+        "name": "trsyl_masked",
+        "route": "cuda",
+        "source": "linalg_solver_tpu_torch/csrc/trsyl.cu",
+        # no Pallas kernel: the nested XLA scans of _trsyl_masked
+        # (ordschur.py:637, :649)
+        "replaces": "linalg_solver_tpu/ops/ordschur.py:510",
+        "launches": mf["counts"]["trsyl"],
+        "max_abs_err": mf["err"],
+        "ms": trsyl_shapes[0]["ms"],
+        "plain_ms": trsyl_shapes[0]["plain_ms"],
+        "library_ms": None,
+        "large_shapes": trsyl_shapes,
+        "matfun_launches": {k: v["trsyl"] for k, v in mf["launches"].items()
+                            if v["trsyl"]},
     }]
     for row in rows:
         row["bound_ms"], row["bound_by"] = bounds[row["name"]]

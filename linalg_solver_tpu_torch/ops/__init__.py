@@ -51,6 +51,18 @@
 - ``roots`` — polynomial roots: the companion matrix's Schur eigenvalues
 - ``sign`` — the matrix sign function, half-plane eigenvalue counts and
   spectral projectors
+- ``ordschur`` — rsf2csf, ordered complex Schur forms, invariant
+  subspaces and cluster condition numbers (the masked Sylvester solve on
+  ``kernels.trsyl``)
+- ``pseudospectra`` — σmin(A − zI) over points and grids by inverse
+  iteration on the complex Schur form
+- ``funm`` — expm (differentiable), sqrtm, logm, powm and their SPD forms,
+  the trigonometric and hyperbolic functions, ``funm`` on the
+  eigendecomposition, expm's Fréchet derivative, condition number and
+  action on vectors
+- ``nearness`` — nearest PSD, correlation and orthogonal matrices
+- ``fitting`` — ridge, total least squares, Procrustes and principal
+  angles
 - ``exact_int`` — Bareiss elimination in int32 and CRT reconstruction:
   exact integer determinants, ranks and solutions (not re-exported, as
   in the reference)
@@ -155,6 +167,23 @@ from .riccati import (
     care_batched,
     dare_batched,
 )
+from .funm import (
+    ExpmFrechetResult,
+    ExpmvResult,
+    LogmResult,
+    SqrtmResult,
+    expm_batched,
+    expm_cond_batched,
+    expm_frechet_batched,
+    expm_multiply_batched,
+    expm_multiply_matvec,
+    logm_batched,
+    logm_spd_batched,
+    powm_batched,
+    powm_spd_batched,
+    sqrtm_batched,
+    sqrtm_spd_batched,
+)
 from .spd import (
     CholeskyResult,
     PivotedCholesky,
@@ -172,6 +201,28 @@ from .geig import (
     eig_generalized_shifted_batched,
     eigh_generalized_batched,
 )
+from .fitting import (
+    ProcrustesResult,
+    RidgeResult,
+    SubspaceAngles,
+    TLSResult,
+    procrustes_batched,
+    ridge_batched,
+    subspace_angles_batched,
+    tls_batched,
+)
+from .nearness import (
+    NearestCorrResult,
+    NearestPSDResult,
+    nearest_correlation_batched,
+    nearest_orthogonal_batched,
+    nearest_psd_batched,
+)
+from .pseudospectra import (
+    PseudospectraResult,
+    pseudospectrum_grid_batched,
+    sigmin_points_batched,
+)
 from .quadeig import (
     PolyEigResult,
     QuadEigResult,
@@ -187,6 +238,17 @@ from .sign import (
     eig_count_left_batched,
     sign_batched,
     spectral_projector_batched,
+)
+from .ordschur import (
+    ClusterCondition,
+    ComplexSchur,
+    InvariantSubspace,
+    OrderedSchur,
+    invariant_subspace_batched,
+    rsf2csf_batched,
+    schur_cluster_cond_batched,
+    schur_reorder_batched,
+    schur_sort_batched,
 )
 
 __all__ = [
@@ -205,15 +267,33 @@ __all__ = [
     "SylvesterResult", "sylvester_batched", "lyapunov_batched",
     "SteinResult", "stein_batched", "CAREResult", "care_batched",
     "DAREResult", "dare_batched",
+    "expm_batched", "ExpmvResult", "expm_multiply_batched",
+    "ExpmFrechetResult", "expm_frechet_batched", "expm_cond_batched",
+    "expm_multiply_matvec", "sqrtm_spd_batched", "logm_spd_batched",
+    "powm_spd_batched",
+    "SqrtmResult", "sqrtm_batched", "LogmResult", "logm_batched",
+    "powm_batched",
     "CholeskyResult", "cholesky_batched", "cholesky_solve_batched",
     "cholesky_inverse_batched", "logdet_spd_batched",
     "PivotedCholesky", "pivoted_cholesky_batched",
     "GeneralizedEighResult", "eigh_generalized_batched",
     "GeneralizedEigResult", "eig_generalized_batched",
     "GeneralizedEigShifted", "eig_generalized_shifted_batched",
+    "NearestCorrResult", "NearestPSDResult",
+    "nearest_correlation_batched", "nearest_orthogonal_batched",
+    "nearest_psd_batched",
+    "PseudospectraResult", "pseudospectrum_grid_batched",
+    "sigmin_points_batched",
     "PolyEigResult", "polyeig_batched",
     "QuadEigResult", "quadeig_batched",
+    "RidgeResult", "ridge_batched", "TLSResult", "tls_batched",
+    "ProcrustesResult", "procrustes_batched",
+    "SubspaceAngles", "subspace_angles_batched",
     "RootsResult", "roots_batched",
     "SignResult", "sign_batched", "eig_count_left_batched",
     "spectral_projector_batched",
+    "ComplexSchur", "rsf2csf_batched",
+    "OrderedSchur", "schur_reorder_batched", "schur_sort_batched",
+    "InvariantSubspace", "invariant_subspace_batched",
+    "ClusterCondition", "schur_cluster_cond_batched",
 ]

@@ -29,8 +29,13 @@ Solve backends:
   (the JAX package's ``"xla"`` is ``jnp.linalg.solve``).
 - ``"dd"`` — not ported (ROADMAP.md queue 1 item 6): it raises.
 - ``"auto"`` — ``"rbt"`` where the fused kernel reaches, and where the
-  phase engine does (N a multiple of 8 below 1024, the reference's
-  conditions); ``"mixed"`` from N = 1024 with N % 128 = 0 and a vector
+  phase engine does (N a multiple of 8 below 1024).  This departs from
+  the reference at even N < 256: the reference takes Gauss–Jordan there
+  (N ≤ 127), then ``"mixed"`` below 256, and only then RBT; the port
+  runs the fused RBT kernel from the smallest even N.  No H100
+  measurement chose either route (ROADMAP.md queue 3, "a route that
+  differs, unmeasured"; the port's benchmark settles it).  ``"mixed"``
+  from N = 1024 with N % 128 = 0 and a vector
   RHS, as the reference routes it; ``"xla"`` from N = 1024 with
   N % 128 ≠ 0, as the reference routes it; ``"pallas"`` where none of
   those takes the shape and kernel 3 does (odd N ≤ 235 at k = 1, and

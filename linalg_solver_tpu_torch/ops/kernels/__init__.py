@@ -14,6 +14,9 @@ version (counterpart of ``linalg_solver_tpu.ops.pallas``).
 - ``schur_window`` — an AED window's whole inner real Schur form
   (``ops.schur._aed``; no Pallas counterpart: the reference runs an XLA
   while loop)
+- ``trsyl`` — the masked triangular Sylvester solve of the cluster
+  condition numbers (``ops.ordschur``; no Pallas counterpart: the
+  reference runs a nested XLA scan)
 
 The functions below are the facade ``ops.dispatch`` routes to, as the
 JAX package's ``ops.pallas`` is: ``inverse_batched`` takes the fused RBT

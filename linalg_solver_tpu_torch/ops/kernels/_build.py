@@ -59,6 +59,7 @@ _SIGNATURES = {
     "chase_clusters": (_I, [_I] * 2),
     "schur_window": (_I, [_P] * 8 + [_I] * 4 + [_P]),
     "schur_window_smem_bytes": (ctypes.c_size_t, [_I, _I]),
+    "trsyl_masked": (_I, [_P] * 9 + [_I] * 4 + [_P]),
     "kernels_error_string": (ctypes.c_char_p, [_I]),
 }
 

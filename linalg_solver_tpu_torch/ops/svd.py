@@ -18,6 +18,13 @@ results stay comparable.  Two departures, both in rounding only:
   ``ops.symmetric.eigh_batched``: the library's float32 ``eigh`` on an
   H100 is too inaccurate (see there).  A lane whose ``H`` is not finite
   gets NaN, as from ``jnp.linalg.eigh``, where torch's ``eigh`` raises.
+- On the card each step's Gram product ``XᵀX`` is summed in float64 and
+  rounded (``_gram``): there the float32 product's rounding over the long
+  dimension set the polar factor's error, and TLS's x on 32 lanes of
+  ``[768, 257]`` missed the reference test's 2e-4 (3.13e-4, the median lane
+  1.17e-4 against 5.07e-5 on a CPU; 6.45e-5 with the float64 Gram; NVIDIA
+  H100 80GB HBM3, 700 W, ``tests/test_torch_matfun_probe.py``).  On the
+  CPU the float32 product keeps the reference's rounding.
 
 f32 conditioning: the iteration factors ``Z = I + c·XᵀX`` whose
 condition is ~``c``; the weighting starts from the clamped lower bound
@@ -66,6 +73,15 @@ def _qdwh_coeffs(l):
     return a, b, c, torch.clamp(l_new, max=1.0)
 
 
+def _gram(x: torch.Tensor) -> torch.Tensor:
+    """``XᵀX`` of a batch; on the card summed in float64 and rounded to
+    X's dtype."""
+    if not x.is_cuda:
+        return x.transpose(1, 2) @ x
+    xd = x.to(torch.float64)
+    return (xd.transpose(1, 2) @ xd).to(x.dtype)
+
+
 def _qdwh_polar(x: torch.Tensor, l0: float, iters: int):
     """Orthogonal polar factor of a scaled tall batch (σmax ≲ 1), the
     Cholesky variant: ``X⁺ = (b/c)X + (a − b/c)·X(I + cXᵀX)⁻¹``."""
@@ -74,7 +90,7 @@ def _qdwh_polar(x: torch.Tensor, l0: float, iters: int):
     l = torch.full((bsz,), l0, dtype=x.dtype, device=x.device)
     for _ in range(iters):
         a, b, c, l = _qdwh_coeffs(l)
-        W = cholesky_or_nan(eye + c[:, None, None] * (x.transpose(1, 2) @ x))
+        W = cholesky_or_nan(eye + c[:, None, None] * _gram(x))
         # Y = X Z⁻¹ (Z = W Wᵀ): Yᵀ = W⁻ᵀ W⁻¹ Xᵀ
         y = torch.linalg.solve_triangular(W, x.transpose(1, 2), upper=False)
         y = torch.linalg.solve_triangular(W.transpose(1, 2), y, upper=True)

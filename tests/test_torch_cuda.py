@@ -1347,3 +1347,159 @@ def test_shift_invert_floor_on_a_spread_pencil(cuda):
                                               torch.from_numpy(b).to(cuda))
     marked = (~res.finite).sum(1).tolist()
     assert min(marked) > 200, marked
+
+
+def _trsyl_case(n, dtype, dev, seed):
+    """A reordered complex Schur form [4, n, n] with m a lane (Re λ < 0 of
+    three Gaussian lanes first), a right-hand side on the block, and a
+    fourth lane, upper triangular, whose repeated eigenvalue 2 is split
+    across the clusters (its denominators floored: pert)."""
+    from linalg_solver_tpu_torch import ops
+
+    rng = np.random.RandomState(seed)
+    a = torch.from_numpy(rng.randn(3, n, n)).to(dev, dtype)
+    sv = ops.real_schur_vectors(a)
+    cs = ops.rsf2csf_batched(sv.T, sv.Q)
+    sel = cs.t_re.diagonal(dim1=1, dim2=2) < 0
+    t2 = np.triu(rng.randn(n, n))
+    np.fill_diagonal(t2, np.r_[2.0, 2.0, np.arange(3, n + 1)])
+    s2 = np.zeros(n, bool)
+    s2[0] = True
+    T = torch.cat([sv.T, torch.from_numpy(t2).to(dev, dtype)[None]])
+    Q = torch.cat([sv.Q, torch.eye(n, dtype=dtype, device=dev)[None]])
+    os = ops.schur_reorder_batched(T, Q, torch.cat(
+        [sel, torch.from_numpy(s2).to(dev)[None]]))
+    c = torch.from_numpy(rng.randn(2, 4, n, n)).to(dev, dtype)
+    return os.t_re, os.t_im, os.m, c[0], c[1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [64, 256])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("adjoint", [False, True])
+def test_trsyl_kernel_matches_plain_version(cuda, n, dtype, adjoint):
+    """The masked Sylvester kernel against its plain version on the same
+    input, bitwise (both sum each row's product a term at a time in the
+    same order and round every operation on its own), pert equal and set
+    on the split lane only."""
+    from linalg_solver_tpu_torch.ops.kernels import trsyl
+
+    args = _trsyl_case(n, dtype, cuda, seed=n + adjoint)
+    trsyl.LAUNCHES = 0
+    xr, xi, pert = trsyl.trsyl_masked(*args, adjoint=adjoint)
+    torch.cuda.synchronize()
+    assert trsyl.LAUNCHES == 1
+    rr, ri, rp = trsyl.trsyl_masked_reference(*args, adjoint=adjoint)
+    assert torch.equal(xr, rr) and torch.equal(xi, ri)
+    assert pert.tolist() == rp.tolist() == [False, False, False, True]
+    m = args[2]
+    block = ((torch.arange(n, device=cuda)[None, :, None] < m[:, None, None])
+             & (torch.arange(n, device=cuda)[None, None, :]
+                >= m[:, None, None]))
+    assert float(xr.masked_fill(block, 0).abs().max()) == 0.0
+
+
+@pytest.mark.cuda
+def test_trsyl_kernel_reach(cuda):
+    from linalg_solver_tpu_torch.ops.kernels import trsyl
+
+    t = torch.zeros(1, 1025, 1025, device=cuda)
+    m = torch.zeros(1, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="no kernel"):
+        trsyl.trsyl_masked(t, t, m, t, t)
+    # an empty batch and an empty cluster launch nothing wrong
+    e = torch.zeros(0, 8, 8, device=cuda)
+    assert trsyl.trsyl_masked(e, e, m[:0], e, e)[0].shape == (0, 8, 8)
+    z = torch.randn(2, 8, 8, device=cuda).triu()
+    xr, xi, pert = trsyl.trsyl_masked(z, z, torch.tensor(
+        [0, 8], dtype=torch.int32, device=cuda), z, z)
+    assert float(xr.abs().max()) == 0.0 and not bool(pert.any())
+
+
+@pytest.mark.cuda
+def test_cluster_cond_launches_the_kernel(cuda):
+    """schur_cluster_cond_batched launches the kernel 1 + 2 sep_iters
+    times and runs no plain loop."""
+    from linalg_solver_tpu_torch import ops
+    from linalg_solver_tpu_torch.ops.kernels import trsyl
+
+    a = torch.from_numpy(np.random.RandomState(1).randn(4, 48, 48)).to(
+        cuda, torch.float32)
+    sv = ops.real_schur_vectors(a)
+    sel = ops.rsf2csf_batched(sv.T, sv.Q).t_re.diagonal(dim1=1, dim2=2) < 0
+    plain = trsyl.trsyl_masked_reference
+    trsyl.trsyl_masked_reference = None      # any call to it fails
+    trsyl.LAUNCHES = 0
+    try:
+        cc = ops.schur_cluster_cond_batched(sv.T, sv.Q, sel, sep_iters=3)
+        torch.cuda.synchronize()
+    finally:
+        trsyl.trsyl_masked_reference = plain
+    assert trsyl.LAUNCHES == 7
+    assert bool(((cc.s > 0) & (cc.s <= 1) & (cc.sep <= cc.gap + 1e-5)).all())
+
+
+@pytest.mark.cuda
+def test_matfun_block_on_the_card(cuda):
+    """``chip_smoke.py``'s matrix-function figures and limits at a small
+    size on the card."""
+    import chip_smoke
+
+    from linalg_solver_tpu_torch import ops
+
+    small = {"bsz": 2, "n": 32, "ps_b": 2, "ps_n": 16, "fn_b": 2,
+             "fn_n": 16, "near_b": 2, "near_n": 16, "fit_b": 2, "fit_m": 48,
+             "fit_n": 16}
+    x = chip_smoke.mf_inputs(**small)
+    _, figs = chip_smoke.run_matfun(
+        ops, x, lambda t: torch.from_numpy(t).to(cuda),
+        chip_smoke.torch_grad, torch.exp)
+    chip_smoke.hold_matfun(figs, bsz=2, ps_b=2, fn_b=2, near_b=2, fit_b=2)
+
+
+@pytest.mark.cuda
+def test_funm_inverse_runs_the_phase_engine(cuda):
+    """``funm_batched`` at n = 96 inverts V through the 192 x 192 real
+    embedding: the phase engine's butterfly and no-pivot panel kernels,
+    and V V^-1 reconstructs A."""
+    from linalg_solver_tpu_torch.ops import funm
+    from linalg_solver_tpu_torch.ops.kernels import butterfly, lu_nopivot
+
+    rng = np.random.RandomState(31)
+    a = torch.from_numpy(rng.randn(4, 96, 96).astype(np.float32)).to(cuda)
+    butterfly.LAUNCHES = lu_nopivot.LAUNCHES = 0
+    res = funm.funm_batched(a, torch.exp)
+    torch.cuda.synchronize()
+    assert butterfly.LAUNCHES >= 2 and lu_nopivot.LAUNCHES >= 1
+    assert bool(res.ok.all()) and float(res.resid.max()) < 1e-4
+
+
+@pytest.mark.cuda
+def test_default_start_is_drawn_on_the_card(cuda):
+    """A power iteration's default start is drawn on a generator of the
+    card, not on the host."""
+    from linalg_solver_tpu_torch.utils import draws
+
+    (u,) = draws.start((4, 8), torch.float32, cuda)
+    g = torch.Generator(device=cuda).manual_seed(draws.SEED)
+    assert u.is_cuda and torch.equal(
+        u, torch.randn(4, 8, generator=g, device=cuda))
+
+
+@pytest.mark.cuda
+def test_polar_on_the_card_sums_its_gram_in_float64(cuda):
+    """On the card the QDWH polar factor is the probe's float64-Gram
+    variant bit for bit, and TLS's x on 4 lanes of the fitting cell is
+    inside the reference test's 2e-4."""
+    import chip_smoke
+    import test_torch_matfun_probe as probe
+
+    from linalg_solver_tpu_torch.ops.svd import polar_batched
+
+    a, b = chip_smoke.mf_inputs()["fit"]
+    ab = torch.cat([torch.from_numpy(a[:4]),
+                    torch.from_numpy(b[:4])[:, :, None]], 2).to(cuda)
+    up, h = probe.polar_variant(ab, ("gram",))
+    ref = polar_batched(ab)
+    assert torch.equal(up, ref.up) and torch.equal(h, ref.H)
+    assert probe.tls_probe(cuda, 4)["tls_batched"]["max"] <= 2e-4

@@ -47,5 +47,7 @@ def test_port_imports_without_jax_or_sympy():
     out = subprocess.run([sys.executable, "-c", SCRIPT], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-4000:]
-    # the package, ops, ops.kernels, models, utils and their modules
-    assert int(out.stdout.split()[-1]) >= 40
+    # the package, ops, ops.kernels, models, utils and their modules (with
+    # ops.ordschur, pseudospectra, funm, nearness, fitting, ops.kernels.trsyl
+    # and utils.draws: 52)
+    assert int(out.stdout.split()[-1]) >= 52
