@@ -100,11 +100,13 @@ uncaught exception and a non-zero exit:
     registers, spill bytes and
     resident blocks an SM of every variant of kernels 1, 2, 3, 5 and 6 on
     one line;
-19. hold kernel 3's device-memory variant (3, the reference's big reach)
-    against its plain version, bitwise on perm, reduced array and pivots,
-    at B=8 and [256, 257], [423, 424], [424, 424], on full-rank,
-    rank-deficient, square-padded rectangular and inconsistent lanes, and
-    show that the check fails for the kernel run with tol = 0;
+19. hold kernel 3's cluster variant (3, the reference's big reach: the
+    tile in the shared memory of a cluster of 2 or 4 blocks) against its
+    plain version, bitwise on perm, reduced array and pivots, at B=8 and
+    [256, 257], [423, 424], [424, 424], on full-rank, rank-deficient,
+    square-padded rectangular and inconsistent lanes and lanes with an
+    Inf and a NaN, and show that the check fails for the kernel run with
+    tol = 0;
 20. drive the paths that take it: ``affine_solve_batched(auto)`` and
     ``nullspace_batched(auto)`` at B=N=256 and ``rank_batched(auto)`` at
     B=256, N=424 (one variant-3 launch each, the kernel held bitwise
@@ -143,7 +145,10 @@ uncaught exception and a non-zero exit:
     inverse's two kernel-4 and four kernel-5 launches a pass (a second
     pass, the redraw, where its gate flags a lane); every lane
     diagonalizable with alg = geom = the cluster sizes and
-    ``max|diag(D) - lambda| <= 1e-2``; a launch of each held bitwise;
+    ``max|diag(D) - lambda| <= 1e-2``; every kernel-3 launch held bitwise
+    (the first of a cell whole, a later launch of 1024 matrices on every
+    16th lane from its index mod 16 on, ``GJ_HOLD_LANES``), a launch of
+    each other kernel;
 25. the defective control: the spectral core on phase 23's batch with
     its exact eigenvalues flags no lane diagonalizable, geom < alg at 2
     and 5; ``spectral_pipeline(method="qr")`` at B=32, n=32 on a
@@ -168,11 +173,12 @@ uncaught exception and a non-zero exit:
 28. spectral-schur-256: config 4's batch through
     ``spectral_pipeline(method="schur")`` at ``max_distinct`` 3 and None,
     every lane diagonalizable with alg = geom = the cluster sizes, kernel
-    3 and the phase inverse launched as in phase 24, a kernel-3 launch
-    held bitwise;
+    3 and the phase inverse launched as in phase 24, every kernel-3
+    launch held bitwise as there;
 29. spectral-auto-jordan-256: config 5's batch through ``method="auto"``
-    takes the Schur route, and no lane is reported diagonalizable; both
-    Schur kernels held on its first sweep (a defective batch);
+    takes the Schur route, and no lane is reported diagonalizable; its
+    kernel-3 launches held bitwise as in phase 24; both Schur kernels
+    held on its first sweep (a defective batch);
 30. spectral-eig-256: ``method="eig"`` on ``P diag(lambda) P^-1`` (256
     distinct reals, built in float64 from a seed): every lane
     diagonalizable, alg = 1, ``max|diag(D) - lambda| <= 1e-3``, P^-1 on
@@ -262,13 +268,15 @@ uncaught exception and a non-zero exit:
     rotation, principal angles).  The limits are ``MF_LIMITS``, or 1.5x
     the JAX package's figure in ``MF_JAX`` where it misses one on the same
     input.  Then the trsyl kernel held bitwise against its plain version on
-    the cluster-cond path's first forward and first adjoint launch, and
-    the butterfly and panel kernels on every launch of the funm path;
+    every launch of the cluster-cond path (the plain version on the CPU,
+    each direction's launches stacked into one call), and the butterfly
+    and panel kernels on every launch of the funm path;
 52. time each entry point (median of 5 after the check's call) beside its
     library call where one computes the same function
     (``torch.linalg.matrix_exp``, ``svdvals`` of the stacked A - zI,
-    ``svd`` of [A | b] and of B A^T), and the trsyl kernel alone on both
-    recorded launches beside its plain version and bound.
+    ``svd`` of [A | b] and of B A^T), and the trsyl kernel alone on the
+    first forward and adjoint launch beside its plain version (a launch's
+    share of the CPU hold) and bound.
 
 The line before the last is a JSON summary of the nine kernels, each with
 its bound (the larger of its bytes over 3.35 TB/s and its operations
@@ -1577,10 +1585,13 @@ def drive_inverse_large(dev, card):
 def variant_attributes():
     """Registers a thread, spill bytes and resident blocks an SM of every
     variant of kernels 1, 2, 3 (variant 3 at the affine [256, 257] and the
-    rank's [424, 424]), 5 and 6, at a shape each takes."""
+    rank's [424, 424], with its blocks a cluster and the clusters resident
+    at once), 5 and 6, at a shape each takes, and the trsyl kernel's
+    registers, spills and shared memory at the matrix-function width."""
     from linalg_solver_tpu_torch.ops.kernels import gauss_jordan as gj
     from linalg_solver_tpu_torch.ops.kernels import inv_rbt, lu_nopivot
     from linalg_solver_tpu_torch.ops.kernels import lu_panel, solve_fused
+    from linalg_solver_tpu_torch.ops.kernels import trsyl
 
     return {
         "inv_rbt": {f"N={n}": inv_rbt.attributes(n)
@@ -1594,6 +1605,9 @@ def variant_attributes():
                                       (237, 237), (256, 257), (424, 424))},
         "lu_panel": {f"[{n}, {nb}]": lu_panel.attributes(n, nb)
                      for n, nb in ((960, 32), (256, 64), (889, 64))},
+        "trsyl": {f"n={MF_N} {dt} adjoint={adj}": trsyl.attributes(
+            MF_N, getattr(torch, dt), adj)
+            for dt in ("float32", "float64") for adj in (False, True)},
     }
 
 
@@ -1658,9 +1672,9 @@ def compare(x, bad, x_ref, bad_ref):
     return float(rel[worst]), worst, float(diff.max()), None
 
 
-#: kernel 3's device-memory variant (3) against its plain version: B = 8
-#: at the affine solve's [256, 257] and [423, 424] and the rank's
-#: [424, 424], the reference's big reach
+#: kernel 3's cluster variant (3) against its plain version: B = 8 at the
+#: affine solve's [256, 257] and [423, 424] and the rank's [424, 424], the
+#: reference's big reach (clusters of 2, 4 and 4 blocks)
 V3_SHAPES = ((256, 257), (423, 424), (424, 424))
 #: lanes of ``variant3_batch`` whose dependent rows were rounded in f32:
 #: a threshold of 0 takes their rounding residues as pivots
@@ -1688,11 +1702,12 @@ N_DET_GRAD = 170       # det on kernel 3 with the loop inverse's backward
 def variant3_batch(n, w, dev):
     """B = 8 ``[n, w]`` arrays for variant 3 (w = n: the rank's, w = n + 1:
     the affine solve's ``[A | b]``) and the paths' default thresholds:
-    lanes 0, 1 and 7 Gaussian; 2 a row that is a combination of two
-    others (rounded in f32); 3 a zero row, a repeated row and a rounded
-    combination; 4 a rectangular ``[n - 37, n - 20]`` system square-padded
-    with zeros; 5 inconsistent (a repeated row of A beside another b) or,
-    at w = n, a repeated column; 6 rank 40 (a product, rounded)."""
+    lane 0 Gaussian; 1 Gaussian with an Inf; 2 a row that is a combination
+    of two others (rounded in f32); 3 a zero row, a repeated row and a
+    rounded combination; 4 a rectangular ``[n - 37, n - 20]`` system
+    square-padded with zeros; 5 inconsistent (a repeated row of A beside
+    another b) or, at w = n, a repeated column; 6 rank 40 (a product,
+    rounded); 7 Gaussian with a NaN in its last column."""
     from linalg_solver_tpu_torch.ops.kernels import gauss_jordan as gj
 
     g = torch.Generator(device=dev).manual_seed(n + w)
@@ -1710,11 +1725,15 @@ def variant3_batch(n, w, dev):
         a[5, :, 6] = a[5, :, 1]
     a[6, :, :n] = torch.randn(n, 40, generator=g, device=dev) @ torch.randn(
         40, n, generator=g, device=dev)
+    a[1, n // 2, 3] = float("inf")
+    a[7, n - 5, w - 1] = float("nan")
     if w > n:   # solve.augment_square_padded's default
         tol = 100 * (n + 1) * torch.finfo(torch.float32).eps * a.abs().amax(
             dim=(1, 2))
     else:
         tol = gj.default_rank_tol(a)
+    # the thresholds see the finite lanes' scale
+    tol[1], tol[7] = tol[0], tol[0]
     return a, tol
 
 
@@ -1737,6 +1756,65 @@ def hold_gj_bitwise(arr, tol, what):
         raise AssertionError(f"pivoted kernel disagrees with its plain "
                              f"version {what}")
     return r, p
+
+
+#: a kernel-3 launch of more matrices than this, but the first of a cell,
+#: is held on every k-th of them, k = ceil(B / GJ_HOLD_LANES), from the
+#: launch's index mod k on, so that the launches together cover every lane
+#: index (the plain version's time grows with the batch: 2.2 s at
+#: [1024, 256, 257] on the H100)
+GJ_HOLD_LANES = 64
+
+
+def record_gj():
+    """Wrap ``gauss_jordan_tiled`` so that every launch keeps the lanes it
+    is held on with the kernel's results there: all of the first launch
+    and of a launch of at most GJ_HOLD_LANES matrices, else every k-th
+    from the launch's index mod k on.  Returns the list of kept launches
+    ``(arr, tol, result, B)`` (the first one whole) and a function that
+    takes the wrapper off."""
+    from linalg_solver_tpu_torch.ops.kernels import gauss_jordan as gj
+
+    kept = []
+    orig = gj.gauss_jordan_tiled
+
+    def wrapped(a, tol=None):
+        res = orig(a, tol)
+        bsz = a.shape[0]
+        k = 1 if not kept else -(-bsz // GJ_HOLD_LANES)
+        sel = torch.arange(len(kept) % k, bsz, k, device=a.device)
+        t = torch.zeros(bsz, device=a.device) if tol is None else tol
+        kept.append((a[sel].clone(), t[sel].clone(), gj.GJResult(
+            res.reduced[sel], res.perm[sel], res.pivots[sel]), bsz))
+        return res
+
+    gj.gauss_jordan_tiled = wrapped
+    return kept, lambda: setattr(gj, "gauss_jordan_tiled", orig)
+
+
+def hold_gj_launches(kept, what):
+    """Every kept launch (``record_gj``) against the plain version on its
+    kept lanes, bitwise on perm, reduced array and pivots, the launches'
+    lanes (one shape) in one plain call.  Returns the launches held."""
+    from linalg_solver_tpu_torch.ops.kernels import gauss_jordan as gj
+
+    arr = torch.cat([k[0] for k in kept])
+    tol = torch.cat([k[1] for k in kept])
+    p = gj.gauss_jordan_reference(arr, tol)
+    r = [torch.cat([k[2][i] for k in kept]) for i in range(3)]
+    same = (torch.equal(r[1], p.perm) and nan_equal(r[0], p.reduced)
+            and nan_equal(r[2], p.pivots))
+    print(f"pivoted kernel vs plain {what}: {len(kept)} launches of "
+          f"[B, {arr.shape[1]}, {arr.shape[2]}] (variant "
+          f"{gj.variant(*arr.shape[1:])}), B {sorted({k[3] for k in kept})}, "
+          f"{arr.shape[0]} lanes held (every lane of the first launch and "
+          f"of one of at most {GJ_HOLD_LANES}, else every k-th): perm, "
+          f"reduced and pivots "
+          f"bitwise equal {same}")
+    if not same:
+        raise AssertionError(f"pivoted kernel disagrees with its plain "
+                             f"version {what}")
+    return len(kept)
 
 
 def check_variant3(dev):
@@ -2299,9 +2377,9 @@ def drive_spectral(dev):
     eigenvalues at ``max_distinct`` 3 and None: kernel 3 twice on
     ``[96, 256, 257]`` and 16 times on ``[1024, 256, 257]``, and P^-1 on
     the phase inverse (two kernel-4 and four kernel-5 launches a pass,
-    a second pass where its gate flags a lane); a launch of each held
-    bitwise.  Returns the input, eigenvalues, the launches
-    and the arrays."""
+    a second pass where its gate flags a lane); each held
+    bitwise (every launch, ``record_gj``'s lanes).  Returns the input,
+    eigenvalues, the launches and the arrays."""
     from linalg_solver_tpu_torch.models import spectral
     from linalg_solver_tpu_torch.ops import rbt
     from linalg_solver_tpu_torch.ops.kernels import gauss_jordan as gj
@@ -2331,7 +2409,7 @@ def drive_spectral(dev):
         K = md or N_SPEC
         chunk = min(B_SPEC, max(1, 2**26 // (K * N_SPEC**2)))
         want_gj, rows = 2 * -(-B_SPEC // chunk), chunk * K
-        calls, off = record(gj, "gauss_jordan_tiled", keep=1)
+        kept, off_kept = record_gj()
         passes, off_passes = record(rbt, "_inverse_core")
         reset_counts()
         t0 = time.perf_counter()
@@ -2340,9 +2418,9 @@ def drive_spectral(dev):
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
         counts = phase_counts()
-        off()
+        off_kept()
         off_passes()
-        arr, tol = calls[0][0]
+        arr, tol = kept[0][:2]
         shape = [rows, N_SPEC, N_SPEC + 1]
         flagged = [int(bad.sum()) for _, (_, bad) in passes]
         del passes[:]
@@ -2364,8 +2442,9 @@ def drive_spectral(dev):
             raise AssertionError(f"expected launches {want} on {shape}")
         check_spectral_report(rep, SPEC_EIGS, f"spectral core "
                                               f"max_distinct={md}")
-        del calls
-        hold_gj_bitwise(arr, tol, f"on the spectral core, max_distinct={md}")
+        if hold_gj_launches(kept, f"on the spectral core, max_distinct="
+                                  f"{md}") != want_gj:
+            raise AssertionError("a kernel-3 launch of the core was not held")
         out["launches"][md] = counts
         out["arrays"][md] = (arr, tol)
     return out
@@ -2451,7 +2530,8 @@ def time_eigen_paths(dev, card, jordan, spec):
     times = {}
     for what, (fn, has_gj) in paths.items():
         t = cuda_time(fn, warmup=1, iters=3)
-        k3 = (device_time(fn, warmup=0, iters=1, match="gj_device_kernel")
+        k3 = (device_time(fn, warmup=0, iters=1,
+                          match="gj_cluster_kernel")
               if has_gj else None)
         times[what] = (t, k3)
         k3_s = "" if k3 is None else f", kernel 3 device time {k3 * 1e3:.4f} ms"
@@ -2717,9 +2797,10 @@ def drive_schur_spectral(dev):
     """Phases 28-30: config 4's batch through ``spectral_pipeline(
     method="schur")`` at ``max_distinct`` 3 and None (spectral-schur-256:
     every lane diagonalizable, alg = geom = the cluster sizes, kernel 3
-    as in phase 24, a launch of it held bitwise); config 5's batch through
-    ``method="auto"`` (spectral-auto-jordan-256: the Schur route, no lane
-    diagonalizable); spectral-eig-256 through ``method="eig"`` (every lane
+    as in phase 24, every launch held bitwise on ``record_gj``'s lanes);
+    config 5's batch through ``method="auto"`` (spectral-auto-jordan-256:
+    the Schur route, no lane diagonalizable, its kernel-3 launches held
+    likewise); spectral-eig-256 through ``method="eig"`` (every lane
     diagonalizable, alg = 1, ``max|diag(D) - lambda| <= TOL_EIG_CELL``,
     P^-1 on the phase inverse: kernels 4 and 5 held bitwise) and the
     chase kernel held with Q.  Returns the inputs, the launches of each
@@ -2743,7 +2824,7 @@ def drive_schur_spectral(dev):
     for md in (3, None):
         K = md or N_SPEC
         chunk = min(B_SPEC, max(1, 2**26 // (K * N_SPEC**2)))
-        calls, off = record(gj, "gauss_jordan_tiled", keep=1)
+        kept, off = record_gj()
         passes, off_passes = record(rbt, "_inverse_core")
         schur_runs, off_s = record(spectral, "eigvals_schur")
         reset_counts()
@@ -2774,14 +2855,16 @@ def drive_schur_spectral(dev):
                                  f"stage")
         check_spectral_report(rep, SPEC_EIGS, f"schur pipeline "
                                               f"max_distinct={md}")
-        arr, tol = calls[0][0]
-        del calls
-        hold_gj_bitwise(arr, tol, f"on the schur pipeline, max_distinct={md}")
+        if hold_gj_launches(kept, f"on the schur pipeline, max_distinct="
+                                  f"{md}") != want["gauss_jordan"]:
+            raise AssertionError("a kernel-3 launch of the pipeline was not "
+                                 "held")
     out["a4"] = a4
 
     a5 = jordan_input(dev)
     schur_runs, off_s = record(spectral, "eigvals_schur")
     eigh_runs, off_e = record(spectral, "_report_from_eigh")
+    kept, off_kept = record_gj()
     reset_counts()
     t0 = time.perf_counter()
     rep = spectral.spectral_pipeline(a5, tol=TOL_SPEC, method="auto")
@@ -2789,6 +2872,7 @@ def drive_schur_spectral(dev):
     secs = time.perf_counter() - t0
     counts = phase_counts()
     add(counts)
+    off_kept()
     off_s()
     off_e()
     alg = sorted(set(rep.alg_mult.flatten().tolist()))
@@ -2806,6 +2890,9 @@ def drive_schur_spectral(dev):
     if (len(schur_runs) != 1 or eigh_runs or sc.LAUNCHES < 1
             or bool(rep.diagonalizable.any())):
         raise AssertionError("method='auto' on config 5 is wrong")
+    if counts["gauss_jordan"] and hold_gj_launches(
+            kept, "on spectral-auto-jordan-256") != counts["gauss_jordan"]:
+        raise AssertionError("a kernel-3 launch of auto-jordan was not held")
     out["a5"] = a5
     err5, _, _ = hold_schur(a5, False, "on spectral-auto-jordan-256 "
                                        "(defective)")
@@ -4563,25 +4650,35 @@ def trsyl_work(t_re, m, esize):
 
 
 def hold_trsyl(calls, what):
-    """The trsyl kernel's results on recorded launches against its plain
-    version on the same arguments: X bitwise (NaN where the other is NaN)
-    and pert equal.  Returns (max abs diff, plain seconds of each call)."""
+    """The trsyl kernel's results on every recorded launch against its
+    plain version on the same arguments: X bitwise (NaN where the other is
+    NaN) and pert equal.  The plain version runs on the CPU (the same
+    IEEE operations, one rounding each, so the same bits as on the card;
+    its ~10^5 small operations a call take a fraction of the card's launch
+    time), the launches of one direction stacked into one call (lanes are
+    independent).  Returns (max abs diff, {adjoint: (plain seconds of the
+    stacked call, launches)})."""
     from linalg_solver_tpu_torch.ops.kernels import trsyl
 
-    err, secs = 0.0, []
-    for (args, kw), (xr, xi, pert) in calls:
+    err, secs = 0.0, {}
+    for adjoint in (False, True):
+        group = [c for c in calls if c[0][1].get("adjoint", False) == adjoint]
+        if not group:
+            continue
+        args = [torch.cat([c[0][0][i] for c in group]).cpu()
+                for i in range(5)]
+        got = [torch.cat([c[1][i] for c in group]).cpu() for i in range(3)]
         t0 = time.perf_counter()
-        rr, ri, rp = trsyl.trsyl_masked_reference(*args, **kw)
-        torch.cuda.synchronize()
-        secs.append(time.perf_counter() - t0)
-        err = max(err, abs_diff(xr, rr), abs_diff(xi, ri))
-        same = nan_equal(xr, rr) and nan_equal(xi, ri)
-        print(f"trsyl kernel vs plain {what} {list(xr.shape)} "
-              f"adjoint={kw.get('adjoint', False)}: bitwise {same}, max abs "
-              f"diff {err:.3e}, pert equal {torch.equal(pert, rp)} "
-              f"(lanes flagged {int(pert.sum())}), plain "
-              f"{secs[-1]:.2f} s")
-        if not same or not torch.equal(pert, rp):
+        rr, ri, rp = trsyl.trsyl_masked_reference(*args, adjoint=adjoint)
+        secs[adjoint] = (time.perf_counter() - t0, len(group))
+        err = max(err, abs_diff(got[0], rr), abs_diff(got[1], ri))
+        same = nan_equal(got[0], rr) and nan_equal(got[1], ri)
+        print(f"trsyl kernel vs plain (CPU) {what}: {len(group)} launches of "
+              f"{list(group[0][1][0].shape)} adjoint={adjoint}, stacked: "
+              f"bitwise {same}, max abs diff {err:.3e}, pert equal "
+              f"{torch.equal(got[2], rp)} (lanes flagged "
+              f"{int(got[2].sum())}), plain {secs[adjoint][0]:.2f} s")
+        if not same or not torch.equal(got[2], rp):
             raise AssertionError(f"the trsyl kernel disagrees with its plain "
                                  f"version {what}")
     return err, secs
@@ -4592,8 +4689,7 @@ def drive_matfun(dev):
     card, each with the kernels' counts set to 0 just before it and read
     just after, its figures printed beside their limits and held
     (``hold_matfun``); then the trsyl kernel held against its plain
-    version on the first forward and the first adjoint launch of the
-    cluster-cond path.  Returns the inputs, the figures, the launches a
+    version on every launch of the cluster-cond path.  Returns the inputs, the figures, the launches a
     call, the trsyl calls and the held error."""
     from linalg_solver_tpu_torch import ops
     from linalg_solver_tpu_torch.ops.kernels import butterfly, lu_nopivot
@@ -4621,9 +4717,7 @@ def drive_matfun(dev):
 
     def rec(*args, **kw):
         out = orig(*args, **kw)
-        if len(calls) < 2 and all(kw.get("adjoint", False) != c[0][1].get(
-                "adjoint", False) for c in calls):
-            calls.append(((tuple(t.clone() for t in args), dict(kw)), out))
+        calls.append(((tuple(t.clone() for t in args), dict(kw)), out))
         return out
 
     trsyl.trsyl_masked = rec
@@ -4652,7 +4746,8 @@ def drive_matfun(dev):
     print(f"matrix functions limits {json.dumps(MF_LIMITS)}, the JAX "
           f"package's figures where it misses one {json.dumps(MF_JAX)}")
     hold_matfun(figs)
-    if launches["cluster_cond"]["trsyl"] != 1 + 2 * SEP_ITERS:
+    if (launches["cluster_cond"]["trsyl"] != 1 + 2 * SEP_ITERS
+            or len(calls) != 1 + 2 * SEP_ITERS):
         raise AssertionError(f"cluster-cond launched the trsyl kernel "
                              f"{launches['cluster_cond']['trsyl']} times, "
                              f"not {1 + 2 * SEP_ITERS}")
@@ -4682,9 +4777,9 @@ def time_matfun(dev, card, mf):
     ``torch.linalg.matrix_exp`` for expm and funm(exp), ``svdvals`` of the
     stacked A - zI for the grid (one call: it takes ~31 s), ``svd`` for
     Procrustes and TLS; then the
-    trsyl kernel alone on the recorded forward and adjoint launches (median
-    of 5 after one warm-up), its plain version (the hold's one call) and
-    its bound."""
+    trsyl kernel alone on the first recorded forward and adjoint launches
+    (median of 5 after one warm-up), its plain version (a launch's share
+    of the hold's stacked call on the CPU) and its bound."""
     from linalg_solver_tpu_torch import ops
     from linalg_solver_tpu_torch.ops.kernels import trsyl
     from linalg_solver_tpu_torch.utils.benchmarking import cuda_time
@@ -4783,15 +4878,18 @@ def time_matfun(dev, card, mf):
         lib_txt = "none" if tl is None else f"{lib_name} {tl * 1e3:.4f} ms"
         print(f"time {cell}: {t * 1e3:.4f} ms, library: {lib_txt} ({card})")
     shapes = []
-    for ((args, kw), _), plain_s in zip(mf["calls"], mf["plain_s"]):
+    for adjoint in (False, True):
+        args, kw = next(c[0] for c in mf["calls"]
+                        if c[0][1].get("adjoint", False) == adjoint)
         t = cuda_time(lambda *a_: trsyl.trsyl_masked(*a_, **kw), *args,
                       warmup=1, iters=5)
         esize = args[0].element_size()
         b_ms, b_by = bound(*trsyl_work(args[0], args[2], esize))
-        shapes.append({"shape": list(args[0].shape),
-                       "adjoint": bool(kw.get("adjoint", False)),
-                       "ms": t * 1e3, "plain_ms": plain_s * 1e3,
-                       "bound_ms": b_ms, "bound_by": b_by})
+        plain_s, count = mf["plain_s"][adjoint]
+        shapes.append({"shape": list(args[0].shape), "adjoint": adjoint,
+                       "ms": t * 1e3, "plain_ms": plain_s / count * 1e3,
+                       "plain_on": "cpu", "bound_ms": b_ms,
+                       "bound_by": b_by})
         print(f"time trsyl kernel {shapes[-1]} ({card})")
     return out, shapes
 

@@ -58,16 +58,21 @@
 // (gj_kernel.py:49-52, VMEM_TILE_BUDGET_BIG over 128 lanes of 4 bytes:
 // n * ceil8(w) <= 180,224 elements, rank [n, n] to n = 424 and the
 // affine [s, s + 1] to s = 423), which only the callers without a blocked
-// alternative take.  It keeps the tile in device memory: one block of
-// 1024 threads a matrix copies its matrix into `out` and runs
-// gj_pivot.cuh's steps there (as kernel 2's level 3 does in its
-// scratch), with the small per-step arrays in shared memory.  Each step
-// streams the whole n w tile through the L2 (720 KB a matrix at n = 424,
-// more than the 50 MB L2 holds for one block an SM), so it is bound by
-// that traffic; it is written to be right first.
+// alternative take.  Such a tile (263 KB at [256, 257], 720 KB at
+// [424, 424]) is past one block's shared memory, and in device memory
+// each step streamed the whole tile through an L2 that a batch of them
+// overflows.  So it lives in the shared memory of a thread-block cluster
+// of 2, 4 or 8 blocks (the fewest whose share fits: 2 at [256, 257], 4
+// at [424, 424]), the columns dealt round-robin to the blocks, each block
+// in variant 0's layout and step; only the next step's coefficients and
+// pivot cross blocks, pushed through distributed shared memory, with one
+// cluster barrier a step.  Device memory sees one read of A and one write
+// of the result.
 // Not ported: the padding of w to a multiple of 8, the identity filler to
 // 128 lanes and the [n, w, batch] transpose, which exist only for the
 // TPU's tiles and lanes.
+
+#include <cooperative_groups.h>
 
 #include "warp_pivot.cuh"
 
@@ -383,40 +388,178 @@ gj_smem_kernel(const float* __restrict__ a, const float* __restrict__ tol,
   }
 }
 
-// Variant 3: the tile in device memory, in place in `out` (row stride
-// w), under gj_pivot.cuh's routine with 1024 threads; its small arrays
-// (prow [w], nfc [2][w], coeff, pivoted, perm and pivs [n], the argmax
-// slots [2][32]) in shared memory.
-constexpr int DM_NT = 1024;
+// Variant 3: the tile in the shared memory of a cluster of C blocks
+// (C = gj_cluster_size(n, w): 2, 4 or 8), block r of the cluster holding
+// the columns c = r + C k in variant 0's layout (column-major, stride
+// n | 1), a warp owning whole columns: local column k is warp k mod 32's.
+// Every element lives in one block and is only ever touched by the warp
+// that owns its column, so the tile needs no barrier; what crosses blocks
+// is the next step's coefficients [n] and (p, has), which the warp that
+// owns column j + 1 pushes into the second coefficient buffer of every
+// block through distributed shared memory.  One cluster barrier a step
+// (arrive.release, wait.acquire) publishes them, as variant 0's one
+// __syncthreads does.  It allocates gj_cluster_floats(n, w, C): the
+// block's share ceil(w / C) (n | 1), two coefficient buffers [2][n], the
+// column counts [ceil(w / C)] and two (p, has) slots.  R rows a lane.
+constexpr int CL_NW = 32;
 
-__host__ __device__ inline size_t gj_device_smem_floats(int n, int w) {
-  return 3 * (size_t)w + 4 * (size_t)n + 2 * (DM_NT / 32);
+__host__ __device__ inline size_t gj_cluster_floats(int n, int w, int C) {
+  const size_t cmax = (w + C - 1) / C;
+  return cmax * (size_t)(n | 1) + 2 * (size_t)n + cmax + 4;
 }
 
-__global__ void __launch_bounds__(DM_NT, 1)
-gj_device_kernel(const float* __restrict__ a, const float* __restrict__ tol,
-                 float* __restrict__ out, int* __restrict__ perm,
-                 float* __restrict__ pivs, int n, int w) {
+// Step j + 1's pivot search by the warp that owns column j + 1, on its
+// updated entries cv[i] (rows lane + 32 i): pivot_step's coefficients,
+// p and has written into buffer `buf` of every block of the cluster, and
+// perm[j + 1], pivs[j + 1].
+template <int C, int R>
+__device__ __forceinline__ void cluster_pivot_step(
+    const float (&cv)[R], unsigned pivbits, int n, float tol, float* coeff,
+    int* slots, int* perm_j, float* pivs_j, int lane) {
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int nf_col = column_nonfinite(cv, n, lane);
+  const int p = warp_argmax(cv, pivbits, n, lane);  // < n
+  const Pivot q = pivot_of(row_value(cv, p >> 5, p & 31), nf_col, tol);
+  float cf[R];
+#pragma unroll
+  for (int i = 0; i < R; ++i) cf[i] = coefficient(lane + 32 * i, p, cv[i], q);
+#pragma unroll
+  for (int b = 0; b < C; ++b) {
+    float* dst = cluster.map_shared_rank(coeff, b);
+#pragma unroll
+    for (int i = 0; i < R; ++i)
+      if (lane + 32 * i < n) dst[lane + 32 * i] = cf[i];
+    if (lane == 0) {
+      int* s = cluster.map_shared_rank(slots, b);
+      s[0] = p;
+      s[1] = q.has;
+    }
+  }
+  if (lane == 0) {
+    *perm_j = p;
+    *pivs_j = q.has ? q.piv : 0.f;
+  }
+}
+
+template <int C, int R>
+__global__ void __launch_bounds__(CL_NW * 32, 1)
+gj_cluster_kernel(const float* __restrict__ a, const float* __restrict__ tol,
+                  float* __restrict__ out, int* __restrict__ perm,
+                  float* __restrict__ pivs, int n, int w) {
+  namespace cg = cooperative_groups;
+  constexpr int NT = CL_NW * 32;
   extern __shared__ float smem[];
-  const size_t m = blockIdx.x, nw = (size_t)n * w;
-  GJTile g;
-  g.ld = w;
-  g.T = out + m * nw;
-  g.prow = smem;
-  g.nfc = reinterpret_cast<int*>(g.prow + w);
-  g.coeff = reinterpret_cast<float*>(g.nfc + 2 * w);
-  g.pivoted = reinterpret_cast<int*>(g.coeff + n);
-  g.perm = g.pivoted + n;
-  g.pivs = reinterpret_cast<float*>(g.perm + n);
-  g.redv = g.pivs + n;
-  g.redi = reinterpret_cast<int*>(g.redv + DM_NT / 32);
-  for (size_t idx = threadIdx.x; idx < nw; idx += DM_NT)
-    g.T[idx] = a[m * nw + idx];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int ldc = n | 1, cmax = (w + C - 1) / C;
+  const int cols = (w - rank + C - 1) / C;  // this block's columns
+  float* T = smem;                          // [cmax][n | 1]
+  float* coeff = T + (size_t)cmax * ldc;    // [2][n]
+  int* nf = reinterpret_cast<int*>(coeff + 2 * n);  // [cmax]
+  int* slots = nf + cmax;                   // [2][2]
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int full = n >> 5, part = n & 31;
+  const size_t m = blockIdx.x / C, nw = (size_t)n * w;
+  const float t = tol[m];
+  int* perm_m = perm + m * n;
+  float* pivs_m = pivs + m * n;
+  const float* am = a + m * nw + rank;
+  for (int idx = tid; idx < n * cols; idx += NT) {
+    const int r = idx / cols, k = idx - r * cols;
+    T[k * ldc + r] = am[(size_t)r * w + C * k];
+  }
   __syncthreads();
-  gj_pivot_steps<DM_NT>(g, n, w, tol[m]);
-  for (int j = threadIdx.x; j < n; j += DM_NT) {
-    perm[m * n + j] = g.perm[j];
-    pivs[m * n + j] = g.pivs[j];
+
+  bool bad = true, dirty = false;
+  auto recount = [&]() {
+    if (__any_sync(GJ_FULL, bad)) {
+      for (int k = warp; k < cols; k += CL_NW) {
+        int cnt = 0;
+#pragma unroll
+        for (int i = 0; i < R; ++i) {
+          const int r = lane + 32 * i;
+          cnt += __popc(
+              __ballot_sync(GJ_FULL, r < n && nonfinite(T[k * ldc + r])));
+        }
+        if (lane == 0) nf[k] = cnt;
+      }
+      dirty = true;
+    } else if (dirty) {
+      for (int k = warp + CL_NW * lane; k < cols; k += CL_NW * 32) nf[k] = 0;
+      dirty = false;
+    }
+    __syncwarp();
+  };
+  auto column = [&](int k, float (&cv)[R]) {
+#pragma unroll
+    for (int i = 0; i < R; ++i) {
+      const int r = lane + 32 * i;
+      cv[i] = r < n ? T[k * ldc + r] : 0.f;
+    }
+  };
+  recount();
+  unsigned pivbits = 0;
+  cluster.sync();  // every block of the cluster runs before any remote write
+  if (rank == 0 && warp == 0) {
+    float cv[R];
+    column(0, cv);
+    cluster_pivot_step<C, R>(cv, pivbits, n, t, coeff, slots, perm_m, pivs_m,
+                             lane);
+  }
+  cluster.sync();
+
+  for (int j = 0; j < n; ++j) {
+    const int buf = j & 1, p = slots[2 * buf];
+    const bool has = slots[2 * buf + 1];
+    float cf[R];
+#pragma unroll
+    for (int i = 0; i < R; ++i)
+      cf[i] = lane + 32 * i < n ? coeff[buf * n + lane + 32 * i] : 0.f;
+    if (has && lane == (p & 31)) pivbits |= 1u << (p >> 5);
+    const bool subst = dirty;
+    // the pivot row's entry of local column k (NaN where its one-hot sum
+    // is)
+    auto prow = [&](int k) {
+      const float v = T[k * ldc + p];
+      return subst && nf[k] - nonfinite(v) > 0 ? NAN : v;
+    };
+    const int jn = j + 1, kn = jn / C;
+    if (jn < n && rank == jn - C * kn && warp == kn % CL_NW) {
+      const float pk = prow(kn);
+      float cv[R];
+      column(kn, cv);
+#pragma unroll
+      for (int i = 0; i < R; ++i) cv[i] = fmaf(-cf[i], pk, cv[i]);
+      cluster_pivot_step<C, R>(cv, pivbits, n, t, coeff + (buf ^ 1) * n,
+                               slots + 2 * (buf ^ 1), perm_m + jn,
+                               pivs_m + jn, lane);
+    }
+    float chk = 0.f;
+    for (int k = warp; k < cols; k += CL_NW) {
+      const float pk = prow(k);
+      float* col = T + k * ldc + lane;
+#pragma unroll
+      for (int i = 0; i < R; ++i) {
+        if (i < full || (i == full && lane < part)) {
+          const float v = fmaf(-cf[i], pk, col[32 * i]);
+          col[32 * i] = v;
+          chk += v;
+        }
+      }
+    }
+    bad = nonfinite(chk);
+    recount();
+    // the coefficients pushed this step are visible in every block, and
+    // every read of the other buffer is done; after the last step no block
+    // writes into another, so a block may leave
+    cluster.sync();
+  }
+
+  float* om = out + m * nw + rank;
+  for (int idx = tid; idx < n * cols; idx += NT) {
+    const int r = idx / cols, k = idx - r * cols;
+    om[(size_t)r * w + C * k] = T[k * ldc + r];
   }
 }
 
@@ -430,6 +573,63 @@ constexpr int V2_NW = 32, V2_R = 4, V2_C = 8, V2_B = 1;  // n <= 128, w <= 256
 constexpr size_t GJ_MAX_SMEM = 232448;
 constexpr size_t GJ_BIG_ELEMS = 180224;
 
+// Variant 3's rows a lane: 8 to n = 256, else 14 (n <= 448; fits_big
+// ends at n = 424).
+constexpr int CL_R_SMALL = 8, CL_R_LARGE = 14;
+
+// Variant 3's cluster size at [n, w]: the least of 2, 4 and 8 blocks whose
+// share fits a block's shared memory (0: none does).
+int cluster_size_of(int n, int w) {
+  for (int c = 2; c <= 8; c *= 2)
+    if (gj_cluster_floats(n, w, c) * sizeof(float) <= GJ_MAX_SMEM) return c;
+  return 0;
+}
+
+template <int R>
+const void* cluster_function(int c) {
+  switch (c) {
+    case 2: return (const void*)gj_cluster_kernel<2, R>;
+    case 4: return (const void*)gj_cluster_kernel<4, R>;
+    default: return (const void*)gj_cluster_kernel<8, R>;
+  }
+}
+
+cudaLaunchConfig_t cluster_config(int c, int batch, size_t smem,
+                                  cudaStream_t st,
+                                  cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(c * batch);
+  cfg.blockDim = dim3(CL_NW * 32);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = c;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+template <int R>
+cudaError_t launch_cluster(int c, const float* a, const float* tol,
+                           float* out, int* perm, float* pivs, int batch,
+                           int n, int w, size_t smem, cudaStream_t st) {
+  cudaLaunchAttribute attr[1];
+  const cudaLaunchConfig_t cfg = cluster_config(c, batch, smem, st, attr);
+  switch (c) {
+    case 2:
+      return cudaLaunchKernelEx(&cfg, gj_cluster_kernel<2, R>, a, tol, out,
+                                perm, pivs, n, w);
+    case 4:
+      return cudaLaunchKernelEx(&cfg, gj_cluster_kernel<4, R>, a, tol, out,
+                                perm, pivs, n, w);
+    default:
+      return cudaLaunchKernelEx(&cfg, gj_cluster_kernel<8, R>, a, tol, out,
+                                perm, pivs, n, w);
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -441,22 +641,36 @@ size_t gj_smem_bytes(int n, int w) {
 }
 
 // The variant that takes an [n, w] array: 1 and 2 keep it in registers,
-// 0 in shared memory (where gj_smem_bytes fits a block), 3 in device
-// memory (past that, within the big reach); -1 where none does.
+// 0 in shared memory (where gj_smem_bytes fits a block), 3 in a cluster's
+// shared memory (past that, within the big reach, where a block's share
+// of gj_cluster_size(n, w) blocks fits); -1 where none does.
 int gj_variant(int n, int w) {
   if (n <= 32 * V1_R && w <= V1_NW * V1_C) return 1;
   if (n <= 32 * V2_R && w <= V2_NW * V2_C) return 2;
   if (n < 1 || n > w) return -1;
   if (gj_smem_bytes(n, w) <= GJ_MAX_SMEM) return 0;
-  if ((size_t)n * ((w + 7) / 8 * 8) <= GJ_BIG_ELEMS) return 3;
+  if ((size_t)n * ((w + 7) / 8 * 8) <= GJ_BIG_ELEMS &&
+      n <= 32 * CL_R_LARGE && cluster_size_of(n, w) > 0)
+    return 3;
   return -1;
 }
 
-static const void* gj_function(int variant) {
+// Variant 3's blocks a cluster at [n, w] (2, 4 or 8; 0 where it does not
+// fit) and the dynamic shared memory of one of them, in bytes.
+int gj_cluster_size(int n, int w) { return cluster_size_of(n, w); }
+size_t gj_cluster_smem_bytes(int n, int w) {
+  const int c = cluster_size_of(n, w);
+  return c ? gj_cluster_floats(n, w, c) * sizeof(float) : 0;
+}
+
+static const void* gj_function(int variant, int n, int w) {
   switch (variant) {
     case 1: return (const void*)gj_regs_kernel<V1_NW, V1_R, V1_C, V1_B>;
     case 2: return (const void*)gj_regs_kernel<V2_NW, V2_R, V2_C, V2_B>;
-    case 3: return (const void*)gj_device_kernel;
+    case 3:
+      return n <= 32 * CL_R_SMALL
+                 ? cluster_function<CL_R_SMALL>(cluster_size_of(n, w))
+                 : cluster_function<CL_R_LARGE>(cluster_size_of(n, w));
     default: return (const void*)gj_smem_kernel;
   }
 }
@@ -464,22 +678,22 @@ static const void* gj_function(int variant) {
 static int gj_threads(int variant) {
   return variant == 1   ? V1_NW * 32
          : variant == 2 ? V2_NW * 32
-         : variant == 3 ? DM_NT
+         : variant == 3 ? CL_NW * 32
                         : SM_NW * 32;
 }
 
 // Dynamic shared memory of `variant` at [n, w], in bytes: variant 0 the
 // reach's budget, variants 1 and 2 the staging tile [n, w | 1], variant 3
-// its small arrays.
+// a block's share of the cluster.
 static size_t gj_variant_smem(int variant, int n, int w) {
   if (variant == 0) return gj_smem_bytes(n, w);
-  if (variant == 3) return gj_device_smem_floats(n, w) * sizeof(float);
+  if (variant == 3) return gj_cluster_smem_bytes(n, w);
   return (size_t)n * gj_ld(w) * sizeof(float);
 }
 
 // Set the shared-memory limit of `variant` for [n, w]; 0 on success.
 static cudaError_t gj_prepare(int variant, int n, int w) {
-  return cudaFuncSetAttribute(gj_function(variant),
+  return cudaFuncSetAttribute(gj_function(variant, n, w),
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                               (int)gj_variant_smem(variant, n, w));
 }
@@ -487,7 +701,7 @@ static cudaError_t gj_prepare(int variant, int n, int w) {
 // Registers a thread, local (spill) bytes a thread and resident blocks an
 // SM of `variant` at [n, w], into out[0..2]; returns the cudaError_t.
 int gj_attributes(int variant, int n, int w, int* out) {
-  const void* fn = gj_function(variant);
+  const void* fn = gj_function(variant, n, w);
   cudaFuncAttributes attr;
   cudaError_t err = cudaFuncGetAttributes(&attr, fn);
   if (err == cudaSuccess) err = gj_prepare(variant, n, w);
@@ -501,17 +715,31 @@ int gj_attributes(int variant, int n, int w, int* out) {
   return (int)err;
 }
 
+// Variant 3's clusters resident on the card at once at [n, w]
+// (cudaOccupancyMaxActiveClusters), or minus the cudaError_t of the query.
+int gj_clusters(int n, int w) {
+  cudaError_t err = gj_prepare(3, n, w);
+  if (err != cudaSuccess) return -(int)err;
+  cudaLaunchAttribute attr[1];
+  const cudaLaunchConfig_t cfg = cluster_config(
+      cluster_size_of(n, w), 1, gj_cluster_smem_bytes(n, w), 0, attr);
+  int count = 0;
+  err = cudaOccupancyMaxActiveClusters(&count, gj_function(3, n, w), &cfg);
+  return err == cudaSuccess ? count : -(int)err;
+}
+
 // Launches the variant gj_variant(n, w) on `stream`; returns the
 // cudaError_t of the launch (0 on success).  Device pointers to
 // contiguous data: a and out [batch, n, w] f32 (distinct), tol [batch]
 // f32, perm [batch, n] int32, pivs [batch, n] f32.  Variant 0 needs
-// n <= 256.
+// n <= 256; variant 3 needs a card that holds one of its clusters
+// (gj_clusters(n, w) > 0, which the wrapper checks once a shape).
 int gauss_jordan_f32(const void* a, const void* tol, void* out, void* perm,
                      void* pivs, int batch, int n, int w, void* stream) {
   const int variant = gj_variant(n, w);
   if (variant < 0 || (variant == 0 && n > 32 * SM_RMAX))
     return (int)cudaErrorInvalidValue;
-  const cudaError_t err = gj_prepare(variant, n, w);
+  cudaError_t err = gj_prepare(variant, n, w);
   if (err != cudaSuccess) return (int)err;
   const cudaStream_t st = (cudaStream_t)stream;
   const size_t smem = gj_variant_smem(variant, n, w);
@@ -528,10 +756,18 @@ int gauss_jordan_f32(const void* a, const void* tol, void* out, void* perm,
           <<<batch, V2_NW * 32, smem, st>>>(A, tl, (float*)out, (int*)perm,
                                             (float*)pivs, n, w);
       break;
-    case 3:
-      gj_device_kernel<<<batch, DM_NT, smem, st>>>(
-          A, tl, (float*)out, (int*)perm, (float*)pivs, n, w);
+    case 3: {
+      const int c = cluster_size_of(n, w);
+      err = n <= 32 * CL_R_SMALL
+                ? launch_cluster<CL_R_SMALL>(c, A, tl, (float*)out,
+                                             (int*)perm, (float*)pivs, batch,
+                                             n, w, smem, st)
+                : launch_cluster<CL_R_LARGE>(c, A, tl, (float*)out,
+                                             (int*)perm, (float*)pivs, batch,
+                                             n, w, smem, st);
+      if (err != cudaSuccess) return (int)err;
       break;
+    }
     default:
       gj_smem_kernel<<<batch, SM_NW * 32, smem, st>>>(
           A, tl, (float*)out, (int*)perm, (float*)pivs, n, w);

@@ -1,7 +1,7 @@
-// Pivoted Gauss-Jordan steps on a tile in shared or device memory,
-// shared by gauss_jordan.cu (its variant 3, the tile in device memory,
-// and the layout its shared-memory reach is measured in) and inv_rbt.cu
-// (its level-3 rescue, in a device-memory scratch).
+// Pivoted Gauss-Jordan steps on a tile in shared or device memory, used
+// by inv_rbt.cu (its level-3 rescue, in a device-memory scratch); the
+// layout is also the one gauss_jordan.cu's shared-memory reach is
+// measured in.
 //
 // Ports the step of the Pallas TPU kernel `_gj_kernel`
 // (linalg_solver_tpu/ops/pallas/gj_kernel.py:79-115), which

@@ -24,8 +24,9 @@ inverse where it reaches (N % 4 = 0 to 180, the reference's
 ``inv_rbt_kernel.supported``) and the pivoted kernel elsewhere (to
 N = 167); solve and det run on the pivoted kernel in a block's shared
 memory (to N = 236 and 237), and the rank on it to N = 424, past 237 in
-device memory (the reference gives the rank its big VMEM budget, having
-no blocked rank-revealing alternative below 256).  Past the kernels'
+a thread-block cluster's shared memory (the reference gives the rank its
+big VMEM budget, having no blocked rank-revealing alternative below
+256).  Past the kernels'
 reach they raise.
 """
 

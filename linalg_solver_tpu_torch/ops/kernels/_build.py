@@ -38,6 +38,9 @@ _SIGNATURES = {
     "gj_smem_bytes": (ctypes.c_size_t, [_I, _I]),
     "gj_variant": (_I, [_I, _I]),
     "gj_attributes": (_I, [_I] * 3 + [_P]),
+    "gj_cluster_size": (_I, [_I, _I]),
+    "gj_cluster_smem_bytes": (ctypes.c_size_t, [_I, _I]),
+    "gj_clusters": (_I, [_I, _I]),
     "inv_rbt_f32": (_I, [_P] * 9 + [_I] * 4 + [_P]),
     "inv_rbt_smem_bytes": (ctypes.c_size_t, [_I]),
     "inv_variant": (_I, [_I]),
@@ -60,6 +63,7 @@ _SIGNATURES = {
     "schur_window": (_I, [_P] * 8 + [_I] * 4 + [_P]),
     "schur_window_smem_bytes": (ctypes.c_size_t, [_I, _I]),
     "trsyl_masked": (_I, [_P] * 9 + [_I] * 4 + [_P]),
+    "trsyl_attributes": (_I, [_I] * 3 + [_P]),
     "kernels_error_string": (ctypes.c_char_p, [_I]),
 }
 

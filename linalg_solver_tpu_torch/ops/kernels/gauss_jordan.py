@@ -10,11 +10,13 @@ falls back.  The kernel has four variants, chosen by shape alone
 (``variant``): the ``[N, W]`` array in registers at ``N ≤ 64, W ≤ 128``
 (256 threads) and at ``N ≤ 128, W ≤ 256`` (1024 threads), else in shared
 memory (1024 threads) where a block's shared memory holds it (``fits``,
-the reach of the inverse, solve and det routes), else in device memory
-(1024 threads) within the reference's big VMEM budget (``fits_big``:
-``[N, N]`` to 424, ``[N, N + 1]`` to 423), which only the rank and the
-affine solve take, as in the reference.  ``LAUNCHES`` counts kernel
-launches of every variant.
+the reach of the inverse, solve and det routes), else in the shared
+memory of a thread-block cluster of ``cluster_size`` blocks of 1024
+threads (2, 4 or 8, a block holding every C-th column) within the
+reference's big VMEM budget (``fits_big``: ``[N, N]`` to 424,
+``[N, N + 1]`` to 423), which only the rank and the affine solve take,
+as in the reference.  ``LAUNCHES`` counts kernel launches of every
+variant.
 
 Step ``j`` takes as pivot the first row of largest ``|a[:, j]|`` among
 the rows not pivoted yet (a NaN counts as the largest, as in
@@ -80,29 +82,54 @@ def fits_big(n: int, w: int) -> bool:
     return 1 <= n <= w and n * ((w + 7) // 8 * 8) <= _BIG_ELEMS
 
 
+def cluster_smem_bytes(n: int, w: int, c: int) -> int:
+    """Shared memory of one block of variant 3's ``c``-block cluster at
+    ``[n, w]``, in bytes: the mirror of ``gj_cluster_floats`` (the
+    block's ``⌈w/c⌉`` columns at the odd stride ``n | 1``, two coefficient
+    buffers ``[2, n]``, the columns' non-finite counts and two ``(p,
+    has)`` slots)."""
+    cmax = -(-w // c)
+    return 4 * (cmax * (n | 1) + 2 * n + cmax + 4)
+
+
+def cluster_size(n: int, w: int) -> int:
+    """Variant 3's blocks a cluster at ``[n, w]``: the least of 2, 4 and 8
+    whose block share fits (0: none does); the mirror of
+    ``gj_cluster_size``."""
+    for c in (2, 4, 8):
+        if cluster_smem_bytes(n, w, c) <= _MAX_SMEM:
+            return c
+    return 0
+
+
 def variant(n: int, w: int) -> int:
     """The variant that takes an ``[n, w]`` array: the mirror of
     ``gj_variant`` in ``csrc/gauss_jordan.cu`` (1: ``n ≤ 64, w ≤ 128``;
     2: ``n ≤ 128, w ≤ 256``; 0: the rest that ``fits``; 3: the rest that
-    ``fits_big``; -1: none)."""
+    ``fits_big`` where a cluster holds it, ``n ≤ 448``; -1: none)."""
     if n <= 64 and w <= 128:
         return 1
     if n <= 128 and w <= 256:
         return 2
     if fits(n, w):
         return 0
-    if fits_big(n, w):
+    if fits_big(n, w) and n <= 448 and cluster_size(n, w):
         return 3
     return -1
 
 
 def attributes(n: int, w: int) -> dict:
     """Registers, spill bytes and resident blocks an SM of the variant
-    that takes ``[n, w]`` (on a machine with the card)."""
+    that takes ``[n, w]`` (on a machine with the card); for variant 3 also
+    its blocks a cluster and the clusters the card holds at once."""
     from . import _build
 
     v = variant(n, w)
-    return {"variant": v, **_build.attributes("gj_attributes", v, n, w)}
+    out = {"variant": v, **_build.attributes("gj_attributes", v, n, w)}
+    if v == 3:
+        out["cluster_size"] = cluster_size(n, w)
+        out["clusters"] = _build.load().gj_clusters(n, w)
+    return out
 
 
 def _check(a: torch.Tensor, tol: Optional[torch.Tensor]):
@@ -145,6 +172,13 @@ def _launch(a32: torch.Tensor, tol: torch.Tensor) -> GJResult:
             f"[{n}, {w}] is past the kernel's reach: {lib.gj_smem_bytes(n, w)}"
             f" bytes of shared memory per block (it has {_MAX_SMEM}) and "
             f"past the big reach (fits_big)")
+    if variant(n, w) == 3 and B and _clusters(lib, n, w) < 1:
+        c = cluster_size(n, w)
+        raise RuntimeError(
+            f"gauss_jordan_tiled: the card holds no cluster of {c} blocks "
+            f"of {cluster_smem_bytes(n, w, c)} bytes of shared memory, "
+            f"which [{n}, {w}] needs (cudaOccupancyMaxActiveClusters: "
+            f"{_clusters(lib, n, w)})")
     a32 = a32.contiguous()
     tol = tol.contiguous()
     dev = a32.device
@@ -162,6 +196,17 @@ def _launch(a32: torch.Tensor, tol: torch.Tensor) -> GJResult:
     _build.check(err, "gauss_jordan launch")
     LAUNCHES += 1
     return GJResult(reduced, perm, pivots)
+
+
+_CLUSTERS: dict = {}
+
+
+def _clusters(lib, n: int, w: int) -> int:
+    """Variant 3's clusters resident at once at ``[n, w]``, asked once a
+    shape."""
+    if (n, w) not in _CLUSTERS:
+        _CLUSTERS[n, w] = lib.gj_clusters(n, w)
+    return _CLUSTERS[n, w]
 
 
 def _first_argmax(masked: torch.Tensor) -> torch.Tensor:

@@ -21,10 +21,10 @@ needs ``Σ_k M[i, k]·X[k, :]`` over the rows solved before it (below it
 forward, above it for the adjoint) and each column ``j`` the running sum
 ``Σ_l x_l·M[l, j]`` over the columns solved before it in the row.
 
-``trsyl_masked`` launches ``csrc/trsyl.cu`` (one block a lane, a thread a
-column) on CUDA tensors and runs ``trsyl_masked_reference``, the
-reference's double loop as Python loops of batched operations, on CPU
-tensors.  On a CUDA tensor it launches the kernel or raises; it never
+``trsyl_masked`` launches ``csrc/trsyl.cu`` (one warp a lane, the
+columns solved 32 at a time by a chain of shuffles) on CUDA tensors and
+runs ``trsyl_masked_reference``, the reference's double loop as Python
+loops of batched operations, on CPU tensors.  On a CUDA tensor it launches the kernel or raises; it never
 falls back (``fits`` says which shapes the kernel takes).  ``LAUNCHES``
 counts kernel launches.  Both sum in the same order and round every
 operation on its own, the row's masked product a term at a time, so they
@@ -38,13 +38,28 @@ import torch
 #: kernel launches since import (or since the caller last reset it)
 LAUNCHES = 0
 
-#: the kernel's reach: a thread a column, one block a lane
+#: the kernel's reach
 MAX_N = 1024
 
 
 def fits(n: int, dtype) -> bool:
     """Whether the kernel takes ``[B, n, n]`` in ``dtype``."""
     return dtype in (torch.float32, torch.float64) and 1 <= n <= MAX_N
+
+
+def attributes(n: int, dtype, adjoint: bool = False) -> dict:
+    """Registers, spill bytes and dynamic shared memory of the kernel that
+    takes ``[B, n, n]`` in ``dtype`` (on a machine with the card)."""
+    import ctypes
+
+    from . import _build
+
+    out = (ctypes.c_int * 3)()
+    _build.check(_build.load().trsyl_attributes(
+        n, int(dtype == torch.float64), int(adjoint), out),
+        "trsyl_attributes")
+    return {"registers": out[0], "local_bytes": out[1],
+            "smem_bytes": out[2]}
 
 
 def _check(t_re, t_im, m, c_re, c_im):

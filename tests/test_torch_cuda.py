@@ -310,18 +310,22 @@ def test_gauss_jordan_kernel_matches_plain_version(cuda, n, w):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n,w", [(256, 257), (424, 424)])
+@pytest.mark.parametrize("n,w", [(256, 257), (424, 424), (423, 424)])
 def test_gauss_jordan_device_memory_variant_is_bitwise(cuda, n, w):
-    """Variant 3 (the tile in device memory, the big reach): perm, the
-    reduced array and the pivots equal to the plain version's, bit for
-    bit, on full-rank, rank-deficient (a repeated and a zero row, a zero
-    column) lanes, with and without a threshold."""
+    """Variant 3 (the big reach; the tile in a cluster's shared memory,
+    once in device memory): perm, the reduced array and
+    the pivots equal to the plain version's, bit for bit, on full-rank,
+    rank-deficient (a repeated and a zero row, a zero column: a skipped
+    step) lanes, a lane with an Inf and one with a NaN in the last
+    column, with a threshold (tol > 0) and without."""
     assert gj.variant(n, w) == 3
     g = torch.Generator(device=cuda).manual_seed(n + w)
     a = torch.randn(8, n, w, generator=g, device=cuda)
     a[1, 5] = a[1, 2]
     a[2, :, 3] = 0.0
     a[3, 9] = 0.0
+    a[5, 7, 11] = float("inf")
+    a[6, n - 3, w - 1] = float("nan")
     tol = torch.full((8,), 1e-4, device=cuda)
     tol[4] = 0.0
     before = gj.LAUNCHES
@@ -332,6 +336,48 @@ def test_gauss_jordan_device_memory_variant_is_bitwise(cuda, n, w):
     assert torch.equal(r.perm, p.perm)
     assert _nan_equal(r.reduced, p.reduced) and _nan_equal(r.pivots, p.pivots)
     assert (r.pivots != 0).sum(dim=1).tolist()[:4] == [n, n - 1, n - 1, n - 1]
+    # the Inf spreads through its lane, the NaN stays a NaN
+    assert not bool(torch.isfinite(r.reduced[5]).all())
+    assert bool(r.reduced[6].isnan().any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,w,c", [(300, 301, 2), (129, 600, 2),
+                                   (20, 8000, 4), (4, 45056, 8)])
+def test_gauss_jordan_cluster_sizes_are_bitwise(cuda, n, w, c):
+    """Variant 3 in each of its cluster sizes and row counts a lane (14
+    past n = 256), bitwise against the plain version with a skipped
+    column, an Inf and a NaN lane, and its C formulas against the
+    Python mirrors; the card holds at least one such cluster."""
+    from linalg_solver_tpu_torch.ops.kernels import _build
+
+    lib = _build.load()
+    assert gj.variant(n, w) == 3 and gj.cluster_size(n, w) == c
+    assert lib.gj_cluster_size(n, w) == c
+    assert lib.gj_cluster_smem_bytes(n, w) == gj.cluster_smem_bytes(n, w, c)
+    assert lib.gj_clusters(n, w) > 0
+    g = torch.Generator(device=cuda).manual_seed(n + w)
+    a = torch.randn(4, n, w, generator=g, device=cuda)
+    a[1, :, 0] = 0.0
+    a[2, n // 2, w // 2] = float("inf")
+    a[3, n - 1, w - 1] = float("nan")
+    tol = torch.tensor([0.0, 1e-3, 0.0, 0.0], device=cuda)
+    r = gj.gauss_jordan_tiled(a, tol)
+    torch.cuda.synchronize()
+    p = gj.gauss_jordan_reference(a, tol)
+    assert torch.equal(r.perm, p.perm)
+    assert _nan_equal(r.reduced, p.reduced) and _nan_equal(r.pivots, p.pivots)
+
+
+@pytest.mark.cuda
+def test_gauss_jordan_cluster_mirrors_match_the_kernel(cuda):
+    from linalg_solver_tpu_torch.ops.kernels import _build
+
+    lib = _build.load()
+    for n in range(200, 431):
+        for w in (n, n + 1, 2 * n, 180224 // n // 8 * 8):
+            assert lib.gj_cluster_size(n, w) == gj.cluster_size(n, w)
+            assert lib.gj_variant(n, w) == gj.variant(n, w)
 
 
 @pytest.mark.cuda
@@ -1374,7 +1420,7 @@ def _trsyl_case(n, dtype, dev, seed):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n", [64, 256])
+@pytest.mark.parametrize("n", [16, 64, 256])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("adjoint", [False, True])
 def test_trsyl_kernel_matches_plain_version(cuda, n, dtype, adjoint):
@@ -1397,6 +1443,27 @@ def test_trsyl_kernel_matches_plain_version(cuda, n, dtype, adjoint):
              & (torch.arange(n, device=cuda)[None, None, :]
                 >= m[:, None, None]))
     assert float(xr.masked_fill(block, 0).abs().max()) == 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [16, 64, 256, 320])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("adjoint", [False, True])
+def test_trsyl_kernel_at_the_edges_of_m(cuda, n, dtype, adjoint):
+    """m = 1 and m = n - 1 beside n / 2 (and the split lane's m = 1),
+    bitwise against the plain version (on the CPU: the same operations
+    rounded the same way), and a thread past 256 columns (n = 320)."""
+    from linalg_solver_tpu_torch.ops.kernels import trsyl
+
+    args = list(_trsyl_case(n, dtype, cuda, seed=n + 7))
+    args[2] = torch.tensor([1, n - 1, n // 2, 1], dtype=torch.int32,
+                           device=cuda)
+    xr, xi, pert = trsyl.trsyl_masked(*args, adjoint=adjoint)
+    torch.cuda.synchronize()
+    rr, ri, rp = trsyl.trsyl_masked_reference(*[x.cpu() for x in args],
+                                              adjoint=adjoint)
+    assert torch.equal(xr.cpu(), rr) and torch.equal(xi.cpu(), ri)
+    assert torch.equal(pert.cpu(), rp) and bool(rp[3])
 
 
 @pytest.mark.cuda

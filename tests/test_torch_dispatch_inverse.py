@@ -8,7 +8,13 @@ The port's default draws (torch generators) differ from the JAX
 threefry draws, so the two inverses agree to f32 rounding of the
 inverse: 1e-4 of its largest entry, and a float64 residual
 ``max|A X − I| ≤ 5e-5``.  The pivoted kernel's results (det, rank, the
-inverse at N % 4 ≠ 0) need no draw and agree to 1e-5."""
+inverse at N % 4 ≠ 0) need no draw and agree to 1e-5.
+
+Some of its cases live in
+``tests/test_torch_dispatch_inverse_routes.py`` (files of at most 11
+tests: pytest-xdist's ``--dist loadfile`` queues a file by its number of
+tests, and so queues these after the slow JAX file
+``tests/test_lu_large.py``)."""
 
 import importlib
 
@@ -100,34 +106,6 @@ def test_rank_auto_matches_jax_facade():
         == [0, 0, 0, 0]
 
 
-@pytest.mark.parametrize("op", ["inverse", "det"])
-def test_auto_inverse_and_det_at_1024_take_the_library(op):
-    """From N = 1024 the reference routes the inverse and the det to
-    ``"xla"`` (``jnp.linalg``); the port to ``torch.linalg``, bitwise as
-    called directly, and within 1e-4 (inverse, of its largest entry) or
-    1e-3 (det, a product of 1024 pivots) of ``jnp.linalg``.  The det's
-    input is I + G/(2 sqrt N), whose determinant stays inside f32's
-    range."""
-    n = 1024
-    if op == "inverse":
-        a = _batch(1, n, seed=16)
-        fn, lib, jfn = dispatch.inverse_batched, torch.linalg.inv, \
-            jnp.linalg.inv
-    else:
-        a = _det_batch(1, n, seed=16)
-        fn, lib, jfn = dispatch.det_batched, torch.linalg.det, jnp.linalg.det
-    at = torch.from_numpy(a)
-    assert dispatch._resolve_facade("auto", op, n) == "xla"
-    got = fn(at)
-    assert torch.equal(got, lib(at))
-    want = np.asarray(jfn(jnp.asarray(a)))
-    if op == "inverse":
-        assert np.abs(got.numpy() - want).max() <= 1e-4 * np.abs(want).max()
-        assert _resid(a, got.numpy()).max() <= 5e-5
-    else:
-        np.testing.assert_allclose(got.numpy(), want, rtol=1e-3)
-
-
 @pytest.mark.parametrize("n", [184, 256])
 def test_auto_inverse_past_the_kernels_takes_the_phase_engine(n):
     """184 is the first multiple of 8 past the small-N kernels (kernel 2
@@ -141,57 +119,11 @@ def test_auto_inverse_past_the_kernels_takes_the_phase_engine(n):
     assert _resid(a.numpy(), x.numpy()).max() <= 5e-5
 
 
-@pytest.mark.parametrize("n", [168, 172, 176, 180])
-def test_auto_inverse_to_180_takes_kernel_2(n):
-    """From N = 168 to 180 at N % 4 = 0 ``auto`` takes kernel 2, as the
-    reference's takes ``inv_rbt_kernel``: bitwise its wrapper's result,
-    within the draws' 1e-4 of the JAX kernel (interpret mode), and a
-    float64 residual of 5e-5."""
-    a = _batch(2, n, seed=n)
-    at = torch.from_numpy(a)
-    assert dispatch._resolve_facade("auto", "inverse", n) == "pallas"
-    assert inv_rbt.fits(n) and not gj.fits(n, 2 * n)
-    x = dispatch.inverse_batched(at)
-    assert torch.equal(x, inv_rbt.inverse_rbt_fused_batched(at))
-    xj = _jax_facade_inverse(a)
-    for i in range(2):
-        err = np.abs(x[i].numpy() - xj[i]).max()
-        assert err <= 1e-4 * np.abs(xj[i]).max(), (i, err)
-    assert _resid(a, x.numpy()).max() <= 5e-5
-
-
 def _det_batch(B, n, seed):
     """I + G/(2√n): a determinant of order one, inside f32's range."""
     rng = np.random.RandomState(seed)
     return (np.eye(n) + rng.randn(B, n, n) / (2 * np.sqrt(n))).astype(
         np.float32)
-
-
-def test_auto_det_at_256_takes_the_blocked_phase_loop():
-    """256 is past the pivoted [N, N] tile (237): ``pallas_det_batched``
-    with nb = 64, bitwise as called directly; a singular matrix gives 0
-    and a row swap flips the sign."""
-    a = _det_batch(3, 256, seed=13)
-    a[1] = 0.0
-    a[2, [3, 9]] = a[2, [9, 3]]
-    at = torch.from_numpy(a)
-    d = dispatch.det_batched(at)
-    assert torch.equal(d, lu_blocked.pallas_det_batched(at, nb=64))
-    want = np.linalg.det(a.astype(np.float64))
-    assert float(d[1]) == 0.0 and np.sign(float(d[2])) == np.sign(want[2])
-    np.testing.assert_allclose(d.numpy()[[0, 2]], want[[0, 2]], rtol=1e-4)
-
-
-def test_auto_det_gradient_at_256():
-    """The backward inverts through the phase inverse (N % 8 == 0)."""
-    a = _det_batch(2, 256, seed=14)
-    grads = []
-    for det in (dispatch.det_batched, torch.linalg.det):
-        at = torch.from_numpy(a).requires_grad_()
-        (det(at) * torch.tensor([1.0, -0.5])).sum().backward()
-        grads.append(at.grad)
-    err = (grads[0] - grads[1]).abs().max() / grads[1].abs().max()
-    assert float(err) <= 1e-4
 
 
 @pytest.mark.parametrize("n", [16, 128])
@@ -370,39 +302,3 @@ def test_rank_dispatch_routes(monkeypatch, n, backend, route):
                             calls.append(_t))
     dispatch.rank_batched(torch.zeros(1, n, n - 1), backend=backend)
     assert calls == [route]
-
-
-def test_blocked_and_loop_backends_match_jax():
-    """The reference's ``"blocked"`` (XLA panels: here the library's LU
-    with its diagonal-block inverses) and ``"loop"`` backends at N = 16,
-    against the JAX package's same backends; ``"dd"`` raises and names
-    its queue item."""
-    n = 16
-    a = _batch(2, n, seed=5)
-    at, aj = torch.from_numpy(a), jnp.asarray(a)
-    b = np.random.RandomState(6).randn(2, n).astype(np.float32)
-    bt, bj = torch.from_numpy(b), jnp.asarray(b)
-    for be in ("blocked", "loop"):
-        x = dispatch.solve_batched(at, bt, backend=be).numpy()
-        xj = np.asarray(jdispatch.solve_batched(aj, bj, backend=be))
-        assert np.abs(x - xj).max() <= 1e-5 * np.abs(xj).max(), be
-        d = dispatch.det_batched(at, backend=be).numpy()
-        np.testing.assert_allclose(
-            d, np.asarray(jdispatch.det_batched(aj, backend=be)), rtol=1e-5)
-        xi = dispatch.inverse_batched(at, backend=be)
-        assert torch.equal(xi, dispatch.inverse_batched(at, backend="loop"))
-        assert _resid(a, xi.numpy()).max() <= 5e-5
-    res = dispatch.lu_factor_batched(at, backend="blocked")
-    rj = jdispatch.lu_factor_batched(aj, backend="blocked")
-    for f in ("perm", "sign", "ok"):
-        np.testing.assert_array_equal(getattr(res, f).numpy(),
-                                      np.asarray(getattr(rj, f)))
-    assert np.abs(res.lu.numpy() - np.asarray(rj.lu)).max() <= 1e-5 * \
-        np.abs(np.asarray(rj.lu)).max()
-    x = lu_blocked.blocked_lu_solve(res, bt)
-    assert np.abs(x.numpy() - np.asarray(jdispatch.solve_batched(
-        aj, bj, backend="loop"))).max() <= 1e-4 * np.abs(x.numpy()).max()
-    for fn in (dispatch.solve_batched, dispatch.inverse_batched):
-        args = (at, bt) if fn is dispatch.solve_batched else (at,)
-        with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-            fn(*args, backend="dd")

@@ -10,7 +10,12 @@ Both pick the same pivots (``perm``, ``sign`` and ``ok`` equal).  Values
 agree to 1e-5 of each system's largest entry: the panel kernels agree to
 the bit, but the trailing products sum in another order in XLA and in
 torch (and on the CPU the JAX package's ``"bfloat16"`` factor precision
-is full f32, as the port's is)."""
+is full f32, as the port's is).
+
+Some of its cases live in ``tests/test_torch_lu_mixed.py`` (files of at
+most 11 tests: pytest-xdist's ``--dist loadfile`` queues a file by its
+number of tests, and so queues these after the slow JAX file
+``tests/test_lu_large.py``)."""
 
 import numpy as np
 import pytest
@@ -61,23 +66,6 @@ def test_pallas_solve_matches_jax(k):
     assert _resid(a, b, xt.numpy()).max() <= 1e-5
 
 
-@pytest.mark.parametrize("ir_steps,nbi", [(0, None), (1, None), (2, None),
-                                          (2, 4)],
-                         ids=["ir0", "ir1", "ir2", "ir2_nbi4"])
-def test_pallas_solve_mixed_matches_jax(ir_steps, nbi):
-    """``nbi=4``: the two-level panel, 4-wide sub-panels of each 16-wide
-    panel through the kernel."""
-    a, b = _batch(3, 32, seed=2 + ir_steps)
-    xt = lu_blocked.pallas_solve_mixed_batched(
-        torch.from_numpy(a), torch.from_numpy(b), nb=16, ir_steps=ir_steps,
-        nbi=nbi)
-    xj = jlub.pallas_solve_mixed_batched(
-        jnp.asarray(a), jnp.asarray(b), nb=16, ir_steps=ir_steps,
-        interpret=True, nbi=nbi)
-    _close(xt.numpy(), xj)
-    assert _resid(a, b, xt.numpy()).max() <= 1e-5
-
-
 def test_two_level_panel_is_the_one_level_factorization():
     """The reference's own claim for the split: the same pivots and the
     same factors, to f32 rounding of the inner products."""
@@ -96,26 +84,6 @@ def _growth_system(n):
     w = np.eye(n, dtype=np.float32) - np.tril(np.ones((n, n), np.float32), -1)
     w[:, -1] = 1.0
     return w
-
-
-def test_mixed_rescue_takes_only_the_flagged_system():
-    """System 1 keeps a large residual after refinement: it and only it
-    is solved again by the pivoted rung; the other systems come back
-    bitwise as without the fallback."""
-    a, b = _batch(3, 64, seed=7)
-    a[1] = _growth_system(64)
-    at, bt = torch.from_numpy(a), torch.from_numpy(b)
-    x = lu_blocked.pallas_solve_mixed_batched(at, bt, nb=16)
-    x0 = lu_blocked.pallas_solve_mixed_batched(at, bt, nb=16, fallback=False)
-    assert _resid(a, b, x0.numpy())[1] > 1e-2
-    for i in (0, 2):
-        assert torch.equal(x[i], x0[i]), i
-    assert torch.equal(x[1:2], lu_blocked.blocked_solve_batched(
-        at[1:2], bt[1:2], ir_steps=2))
-    assert not torch.equal(x[1], x0[1])
-    xj = np.asarray(jlub.pallas_solve_mixed_batched(
-        jnp.asarray(a), jnp.asarray(b), nb=16, interpret=True))
-    _close(x.numpy()[[0, 2]], xj[[0, 2]])
 
 
 def test_pallas_det_matches_jax():

@@ -9,7 +9,12 @@ CPU, fed the JAX butterfly draws (keys 17/29, redraw 101/103) through
 fuses some products and sums into FMAs, and the JAX panel kernel folds
 its steps), so solutions and inverses agree to 1e-5 of each system's
 largest entry, and the rescue-free passes raise exactly the same
-per-system flags."""
+per-system flags.
+
+Some of its cases live in ``tests/test_torch_rbt_phase_inverse.py``
+(files of at most 11 tests: pytest-xdist's ``--dist loadfile`` queues a
+file by its number of tests, and so queues these after the slow JAX file
+``tests/test_lu_large.py``)."""
 
 import numpy as np
 import pytest
@@ -85,48 +90,6 @@ def test_phase_solve_matches_jax(ir_steps):
     assert xt.shape == xj.shape == b.shape
     _assert_close(xt, xj, [0, 1, 2, 4])
     assert not np.isfinite(xt[3]).all() and not np.isfinite(xj[3]).all()
-
-
-@pytest.mark.parametrize(
-    "n,nb,ns_steps",
-    [(32, 16, 0), (32, 16, 1), (32, 16, 2), (32, 32, 1),
-     (64, 32, 0), (64, 32, 1), (64, 32, 2), (64, 16, 1)],
-)
-def test_phase_inverse_matches_jax(n, nb, ns_steps):
-    """nb = n is the reference's single-phase branch (``m == 1``)."""
-    a, _ = _probe_batch(4, n, seed=n + nb + ns_steps)
-    draw = _jax_diags(n, rbt.MAIN_SEEDS)
-    at = torch.from_numpy(a)
-
-    _, bad = rbt._inverse_core(at, draw, nb, ns_steps, "float32")
-    _, bad_j = jrbt._inverse_core(jnp.asarray(a), nb, ns_steps, "float32",
-                                  2, rbt.MAIN_SEEDS, True, 8, True)
-    assert bad.tolist() == np.asarray(bad_j).tolist()
-    assert bad.tolist() == [False, True, False, True]
-
-    xt = rbt.inverse_rbt_batched(
-        at, nb=nb, ns_steps=ns_steps, diags=draw,
-        rescue_diags=_jax_diags(n, rbt.RESCUE_SEEDS)).numpy()
-    xj = np.asarray(jrbt.pallas_inverse_rbt_batched(
-        jnp.asarray(a), nb=nb, ns_steps=ns_steps, interpret=True))
-    # the zero matrix ends in the pivoted Gauss-Jordan inverse on both
-    np.testing.assert_array_equal(xt[3], xj[3])
-    eye = np.eye(n)
-    r = np.abs(np.einsum("bij,bjk->bik", a[:3].astype(np.float64),
-                         xt[:3].astype(np.float64)) - eye).max(axis=(1, 2))
-    if ns_steps:
-        _assert_close(xt, xj, [0, 1, 2])
-        assert r.max() <= 5e-5
-        return
-    # Unrefined, the redraw's inverse of matrix 1 is off the float64
-    # inverse by up to ~2e-4 in either package (the growth of the
-    # pivot-free factorization under that draw), so there the two are
-    # held to that, not to each other.
-    _assert_close(xt, xj, [0, 2])
-    x64 = np.linalg.inv(a[1].astype(np.float64))
-    for x in (xt[1], xj[1]):
-        assert np.abs(x - x64).max() <= 1e-3 * np.abs(x64).max()
-    assert r.max() <= 1e-3
 
 
 def test_solve_takes_the_fused_kernel_up_to_k8_and_the_phases_past():

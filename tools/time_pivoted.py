@@ -2,7 +2,9 @@
 for comparing two versions of the package.
 
     python3 tools/time_pivoted.py [--label NAME] [--out FILE.json]
-                                  [--dump FILE.pt] [--grid | --grid-inv]
+                                  [--dump FILE.pt]
+                                  [--grid | --grid-inv | --big]
+                                  [--trsyl-form FILE.cu ...]
     python3 tools/time_pivoted.py --compare A.pt B.pt
 
 Run on a machine with an NVIDIA H100 (or another sm_90a card) and nvcc,
@@ -52,7 +54,20 @@ variants' routes (``solve_fused.variant``).  ``--grid-inv`` times only
 kernel 2, device time at B=1024 on the bench class for N = 16, 20, ...,
 180 in every variant that takes N (``inv_rbt.VARIANTS``, chosen with
 ``inverse_rbt_fused(..., v=)``): the shapes that chose its routes
-(``inv_rbt.variant``).
+(``inv_rbt.variant``).  ``--big`` times only kernel 3's big-reach
+variant (3) at the shapes its paths give it, [1024, 256, 257] (the
+spectral core at ``max_distinct=None``), [96, 256, 257] (the Jordan
+``"gj"`` path), [256, 256, 257] (affine-256) on ``affine_batch``'s
+``[A | b]`` and [256, 424, 424] (rank-424) on ``rank_batch``, and the
+trsyl kernel forward and adjoint at [32, 256, 256] on a seeded upper
+triangular complex T (diagonal spread over [-2, 2] + [-1, 1] i, the rest
+Gaussian / 16) with m = 120 ... 135 by lane, each as CUDA-event and as
+device time (the kernel's own entries).  ``--trsyl-form`` (with
+``--big``) builds each given source, a form of ``csrc/trsyl.cu`` with
+its C entry point ``trsyl_masked``, with the package's ``nvcc`` flags
+into the package's build directory, checks that it agrees with the
+package's kernel to the bit on those operands, and times it in turns
+with the package's kernel, three rounds each way.
 
 Uses only the wrappers' public calls, so it times any version of the
 package that has them.  Prints one JSON object with the card's name and
@@ -98,6 +113,8 @@ def main() -> None:
     ap.add_argument("--compare", nargs=2)
     ap.add_argument("--grid", action="store_true")
     ap.add_argument("--grid-inv", action="store_true")
+    ap.add_argument("--big", action="store_true")
+    ap.add_argument("--trsyl-form", nargs="+", default=[])
     args = ap.parse_args()
     if args.compare:
         compare(*args.compare)
@@ -151,6 +168,14 @@ def main() -> None:
                         lambda *x, v=v: inv_rbt.inverse_rbt_fused(*x, v=v),
                         a, *d) * 1e3
         _emit(res, args.out)
+        return
+    if args.big:
+        _big(cs, dev, t, ms, device_time)
+        for path in args.trsyl_form:
+            _trsyl_form(path, dev, ms)
+        _emit(res, args.out)
+        if args.dump:
+            torch.save(outputs, args.dump)
         return
     for n in (64, 127, 167):
         a = cs.inverse_batch(cs.B_INV, n, 500 + n, dev)
@@ -263,6 +288,107 @@ def main() -> None:
     _emit(res, args.out)
     if args.dump:
         torch.save(outputs, args.dump)
+
+
+def trsyl_input(dev, bsz=32, n=256, seed=15):
+    """``--big``'s trsyl operands: T upper triangular (re, im) with its
+    diagonal spread over [-2, 2] + [-1, 1] i and Gaussian / 16 above it,
+    C Gaussian, m = 120 + lane mod 16."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    t_re = torch.randn(bsz, n, n, generator=g, device=dev).triu(1) / 16
+    t_im = torch.randn(bsz, n, n, generator=g, device=dev).triu(1) / 16
+    t_re.diagonal(dim1=1, dim2=2).copy_(
+        4 * torch.rand(bsz, n, generator=g, device=dev) - 2)
+    t_im.diagonal(dim1=1, dim2=2).copy_(
+        2 * torch.rand(bsz, n, generator=g, device=dev) - 1)
+    c_re = torch.randn(bsz, n, n, generator=g, device=dev)
+    c_im = torch.randn(bsz, n, n, generator=g, device=dev)
+    m = 120 + torch.arange(bsz, device=dev, dtype=torch.int32) % 16
+    return t_re, t_im, m, c_re, c_im
+
+
+def _big(cs, dev, t, ms, device_time) -> None:
+    """``--big``: kernel 3's variant 3 at its four path shapes and the
+    trsyl kernel at [32, 256, 256], CUDA events and device time."""
+    from linalg_solver_tpu_torch.ops.kernels import gauss_jordan as gj
+    from linalg_solver_tpu_torch.ops.kernels import trsyl
+
+    for bsz, seed in ((1024, 51), (96, 52), (cs.B, 31)):
+        a, b, _ = cs.affine_batch(bsz, cs.N, seed, dev)
+        arr = torch.cat([a, b[:, :, None]], dim=2)
+        name = f"kernel 3 [{bsz}, {cs.N}, {cs.N + 1}]"
+        t(name, gj.gauss_jordan_tiled, arr)
+        ms[name + ", device"] = device_time(gj.gauss_jordan_tiled, arr,
+                                            match="gj_") * 1e3
+    r, _ = cs.rank_batch(cs.B, cs.N_RANK_BIG, 41, dev)
+    name = f"kernel 3 [{cs.B}, {cs.N_RANK_BIG}, {cs.N_RANK_BIG}]"
+    t(name, gj.gauss_jordan_tiled, r)
+    ms[name + ", device"] = device_time(gj.gauss_jordan_tiled, r,
+                                        match="gj_") * 1e3
+    ops = trsyl_input(dev)
+    for adjoint in (False, True):
+        def fn(*x, adjoint=adjoint):
+            return trsyl.trsyl_masked(*x, adjoint=adjoint)
+
+        name = f"trsyl [32, 256, 256] adjoint={adjoint}"
+        t(name, fn, *ops)
+        ms[name + ", device"] = device_time(fn, *ops,
+                                            match="trsyl_kernel") * 1e3
+
+
+def _trsyl_form(path: str, dev, ms) -> None:
+    """``--trsyl-form``: the form of the trsyl kernel in ``path``, built
+    and held against the package's kernel, then timed in turns with it."""
+    import ctypes
+    import hashlib
+    import subprocess
+
+    from linalg_solver_tpu_torch.ops.kernels import _build, trsyl
+    from linalg_solver_tpu_torch.utils.benchmarking import cuda_time
+
+    src = os.path.abspath(path)
+    h = hashlib.sha256(open(src, "rb").read()).hexdigest()[:16]
+    lib_path = _build.BUILD_DIR / f"trsyl_form_{h}.so"
+    if not lib_path.exists():
+        _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-shared",
+                        f"-I{_build.CSRC}", "-o", str(lib_path), src],
+                       check=True)
+    lib = ctypes.CDLL(str(lib_path))
+    lib.trsyl_masked.restype = ctypes.c_int
+    lib.trsyl_masked.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 \
+        + [ctypes.c_void_p]
+    t_re, t_im, m, c_re, c_im = trsyl_input(dev)
+    name = os.path.basename(path)
+    mm = m.to(torch.int32).contiguous()
+    for adjoint in (False, True):
+        def form():
+            m_re, m_im, smin = trsyl._operands(t_re, t_im, adjoint)
+            x_re, x_im = torch.zeros_like(m_re), torch.zeros_like(m_im)
+            pert = torch.zeros(m.shape[0], dtype=torch.bool, device=dev)
+            err = lib.trsyl_masked(
+                m_re.data_ptr(), m_im.data_ptr(), mm.data_ptr(),
+                c_re.data_ptr(), c_im.data_ptr(), smin.data_ptr(),
+                x_re.data_ptr(), x_im.data_ptr(), pert.data_ptr(),
+                m.shape[0], m_re.shape[1], int(adjoint), 0,
+                torch.cuda.current_stream(dev).cuda_stream)
+            if err:
+                raise RuntimeError(f"{name}: CUDA error {err}")
+            return x_re, x_im, pert
+
+        def package():
+            return trsyl.trsyl_masked(t_re, t_im, m, c_re, c_im,
+                                      adjoint=adjoint)
+
+        if not all(_bitwise(a, b) for a, b in zip(form(), package())):
+            raise AssertionError(f"{name} adjoint={adjoint} disagrees with "
+                                 f"the package's trsyl kernel")
+        key = f"trsyl [32, 256, 256] adjoint={adjoint}"
+        for r in range(3):
+            ms[f"{key}, package, round {r}"] = cuda_time(
+                package, warmup=2, iters=10) * 1e3
+            ms[f"{key}, {name}, round {r}"] = cuda_time(
+                form, warmup=2, iters=10) * 1e3
 
 
 def _cold_events(fn, flush, iters: int = 20) -> float:
