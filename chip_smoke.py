@@ -8,13 +8,15 @@ solver with the spectral pipeline's Schur routes,
 integer determinant, and the eigenvector family built on the Schur
 kernels (eigenvectors and their condition, polynomial roots, the matrix
 sign, Sylvester, Lyapunov, Stein and Riccati equations, generalized and
-quadratic eigenproblems).
+quadratic eigenproblems), the matrix functions, and BASELINE config 1's
+exact LaTeX derivation with the card's pivot events replayed into it.
 
     python3 chip_smoke.py
 
 Run from the root of a checkout, on a machine with one NVIDIA H100 (or
-another sm_90a card) and nvcc.  Phases, in order; any failure is an
-uncaught exception and a non-zero exit:
+another sm_90a card), nvcc and g++ (the CUDA kernels and the native
+planner are built from the checkout's sources at first use).  Phases, in
+order; any failure is an uncaught exception and a non-zero exit:
 
 1. require CUDA; print the card's name and power limit;
 2. build the CUDA kernels from ``linalg_solver_tpu_torch/csrc``;
@@ -276,7 +278,23 @@ uncaught exception and a non-zero exit:
     (``torch.linalg.matrix_exp``, ``svdvals`` of the stacked A - zI,
     ``svd`` of [A | b] and of B A^T), and the trsyl kernel alone on the
     first forward and adjoint launch beside its plain version (a launch's
-    share of the CPU hold) and bound.
+    share of the CPU hold) and bound;
+53. BASELINE config 1's exact text path on this host, which has no sympy
+    (``drive_text``): build the native determinant planner with ``g++``
+    (its seconds printed); write config 1's derivation through the port's
+    ``exact.Matrix`` (``find_preimage_of`` with every log on an 8 x 8
+    randint(-5, 5) system, the planned determinant of a sparse 6 x 6 and
+    a dense 5 x 5, all from ``random.Random(2026)``) with the Python
+    planner engine and hold it byte for byte against
+    ``tests/data_torch/text_config1.tex``, which a CPU test holds the JAX
+    package to; plan both determinants with both engines (the same cost;
+    each engine's plan time and whether its text equals the file
+    printed); run 4096 config-1 systems (numpy, seed 2026) through
+    ``rref_batched`` on the card and on the CPU, the events equal lane by
+    lane; replay 256 of them into LaTeX and count the lanes whose text is
+    the exact path's (``TEXT_MATCHED``, which the CPU test pins against
+    the JAX package); hold ``crt_solve_batched``'s regular lanes on the
+    card against ``find_preimage_of``'s solution.
 
 The line before the last is a JSON summary of the nine kernels, each with
 its bound (the larger of its bytes over 3.35 TB/s and its operations
@@ -4894,6 +4912,202 @@ def time_matfun(dev, card, mf):
     return out, shapes
 
 
+# ---------------------------------------------------------------------------
+# 53. BASELINE config 1's exact text path on the card's host
+# ---------------------------------------------------------------------------
+
+TEXT_SEED = 2026
+TEXT_LANES = 4096      # config-1 systems through rref_batched on the card
+TEXT_REPLAYED = 256    # of them replayed into LaTeX on the host
+#: replayed lanes whose text equals the exact path's (the JAX package's
+#: count on the same lanes, pinned by tests/test_torch_text_golden.py)
+TEXT_MATCHED = 256
+TEXT_GOLDEN = "tests/data_torch/text_config1.tex"
+
+
+def config1_inputs(seed=TEXT_SEED):
+    """BASELINE config 1's matrices as integer rows, from one
+    ``random.Random(seed)``: an 8 x 8 randint(-5, 5) A and its b, a sparse
+    6 x 6 drawn row by row as the CLI's ``sparse_dist`` draws (an entry
+    nonzero where ``random() > 0.45``), and a dense 5 x 5."""
+    import random
+
+    rng = random.Random(seed)
+    a = [[rng.randint(-5, 5) for _ in range(8)] for _ in range(8)]
+    b = [rng.randint(-5, 5) for _ in range(8)]
+    sparse = [[rng.randint(-5, 5) if rng.random() > 0.45 else 0
+               for _ in range(6)] for _ in range(6)]
+    dense = [[rng.randint(-5, 5) for _ in range(5)] for _ in range(5)]
+    return a, b, sparse, dense
+
+
+def config1_derivation(Matrix, log, exact, inputs):
+    """Log config 1's derivation through a package's ``Matrix`` and ``log``
+    (``exact`` makes an integer that package's exact number): the system's
+    solution set by ``find_preimage_of`` with every log, then the planned
+    ``determinant(log_permutation_details=True)`` of the sparse 6 x 6 and
+    the dense 5 x 5.  Returns the solution set and the determinants."""
+    a, b, sparse, dense = inputs
+    log(r"\section{Lineární soustava}")
+    A = Matrix([[exact(x) for x in row] for row in a])
+    log(r"Lineární soustava $A\,x=b$ s $A=%s$", A)
+    sol = A.find_preimage_of([exact(x) for x in b], log_matrices=True,
+                             log_steps=True, log_result=True)
+    log(r"\textbf{Množina řešení:} $%s$", sol)
+    dets = []
+    for items in (sparse, dense):
+        log(r"\section{Determinant}")
+        M = Matrix([[exact(x) for x in row] for row in items])
+        log(r"Vstupní matice $A$: $%s$ \\", M)
+        dets.append(M.determinant(log_permutation_details=True))
+        log(r"\textbf{Determinant:} $%s$", dets[-1])
+    return sol, dets
+
+
+def text_lanes(count=TEXT_LANES, seed=TEXT_SEED):
+    """Config-1 systems as numpy int64 on the host: A [count, 8, 8] and b
+    [count, 8], entries in [-5, 5]."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    return (rng.integers(-5, 6, size=(count, 8, 8)),
+            rng.integers(-5, 6, size=(count, 8)))
+
+
+def drive_text(dev, lanes=TEXT_LANES, replayed=TEXT_REPLAYED):
+    """Phase 53: build the native planner; write config 1's derivation
+    with the Python engine and hold it byte for byte against the golden
+    file; plan the two determinants with both engines (same cost); run
+    ``lanes`` config-1 systems through ``rref_batched`` on ``dev`` and on
+    the CPU (events equal lane by lane); replay ``replayed`` of them into
+    LaTeX and count those whose text is the exact path's; hold the CRT
+    solve's regular lanes against ``find_preimage_of``."""
+    import os
+    import pathlib
+
+    import numpy as np
+
+    from linalg_solver_tpu_torch import planner
+    from linalg_solver_tpu_torch.exact import Matrix, from_reference_items
+    from linalg_solver_tpu_torch.ops.exact_int import crt_det_batched
+    from linalg_solver_tpu_torch.ops.exact_int import crt_solve_batched
+    from linalg_solver_tpu_torch.ops.rref import rref_batched
+    from linalg_solver_tpu_torch.planner import native
+    from linalg_solver_tpu_torch.trace import events
+    from linalg_solver_tpu_torch.utils.trace import capture_logs, log
+    from fractions import Fraction
+
+    t_phase = time.perf_counter()
+    saved = os.environ.get("LINALG_TPU_NATIVE")
+    t0 = time.perf_counter()
+    native.load()
+    build_s = time.perf_counter() - t0
+    print(f"text: native planner built with g++ in {build_s:.3f} s "
+          f"({native.library_path().name})")
+
+    inputs = config1_inputs()
+    pats = {"sparse-6": inputs[2], "dense-5": inputs[3]}
+    texts, plans, plan_s = {}, {}, {}
+    try:
+        for name in ("python", "native"):
+            # the planner reads its engine at each call
+            os.environ["LINALG_TPU_NATIVE"] = "1" if name == "native" else "0"
+            for what, items in pats.items():
+                p = [[x != 0 for x in row] for row in items]
+                t0 = time.perf_counter()
+                plans[name, what] = planner.find_optimal_determinant_process(p)
+                plan_s[name, what] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            out = []
+            texts[name] = capture_logs(lambda: out.append(config1_derivation(
+                Matrix, log, Fraction, inputs)))
+            print(f"text: config 1 derivation with the {name} engine in "
+                  f"{time.perf_counter() - t0:.3f} s, {len(texts[name])} "
+                  f"characters")
+    finally:
+        if saved is None:
+            os.environ.pop("LINALG_TPU_NATIVE", None)
+        else:
+            os.environ["LINALG_TPU_NATIVE"] = saved
+    sol, dets = out[0]
+    golden = (pathlib.Path(__file__).resolve().parent / TEXT_GOLDEN
+              ).read_text(encoding="utf-8")
+    same_golden = texts["python"] == golden
+    print(f"text: python-engine text equals {TEXT_GOLDEN} byte for byte: "
+          f"{same_golden}; native-engine text equal to it: "
+          f"{texts['native'] == golden}")
+    if not same_golden:
+        raise AssertionError(f"config 1's text differs from {TEXT_GOLDEN}")
+    for what in pats:
+        cp, cn = plans["python", what].cost, plans["native", what].cost
+        print(f"text: plan {what}: cost ({cp.multiplications}, "
+              f"{cp.additions}) python {plan_s['python', what]:.4f} s, "
+              f"native ({cn.multiplications}, {cn.additions}) "
+              f"{plan_s['native', what]:.4f} s")
+        if cp != cn:
+            raise AssertionError(f"the engines' costs differ on {what}")
+    a_in, b_in = inputs[:2]
+    if any(sum(a_in[i][j] * sol.vec[j] for j in range(8)) != b_in[i]
+           for i in range(8)):
+        raise AssertionError("config 1's solution does not solve A x = b")
+    exact = [crt_det_batched(torch.tensor([items], device=dev))[0]
+             for items in pats.values()]
+    print(f"text: planned determinants {', '.join(map(str, dets))}, CRT "
+          f"determinants on {dev} {', '.join(map(str, exact))}")
+    if dets != exact:
+        raise AssertionError("a planned determinant differs from the CRT one")
+
+    # the card's pivot events against the CPU's, lane by lane
+    A, b = (x[:lanes] for x in text_lanes())
+    aug = torch.from_numpy(np.concatenate([A, b[:, :, None]], axis=2)).to(
+        torch.float32)
+    t0 = time.perf_counter()
+    res = rref_batched(aug.to(dev), bar_col=8, tol=events.REPLAY_TOL,
+                       pivot_rule="first")
+    ev, ne = res.events.cpu(), res.num_events.cpu()
+    rref_s = time.perf_counter() - t0
+    ref = rref_batched(aug, bar_col=8, tol=events.REPLAY_TOL,
+                       pivot_rule="first")
+    same_lanes = ((ev == ref.events).all(dim=(1, 2))
+                  & (ne == ref.num_events))
+    print(f"text: rref_batched on {dev} over {lanes} config-1 systems in "
+          f"{rref_s:.3f} s: events equal to the CPU's on "
+          f"{int(same_lanes.sum())} of {lanes} lanes")
+    if not bool(same_lanes.all()):
+        raise AssertionError("the card's pivot events differ from the CPU's")
+
+    # replay on the host, against the exact path's text
+    host = aug.numpy()
+    t0 = time.perf_counter()
+    matched = sum(events.replay_matches_exact(host[k], ev[k].numpy(),
+                                              int(ne[k]), bar_col=8)
+                  for k in range(replayed))
+    print(f"text: {matched} of {replayed} replayed lanes match the exact "
+          f"path's text (pinned {TEXT_MATCHED}) in "
+          f"{time.perf_counter() - t0:.3f} s")
+    if matched != TEXT_MATCHED:
+        raise AssertionError(f"{matched} lanes matched, not {TEXT_MATCHED}")
+
+    # the CRT solve's regular lanes against find_preimage_of
+    xs, _ = crt_solve_batched(torch.from_numpy(A[:replayed]).to(dev),
+                              torch.from_numpy(b[:replayed]).to(dev))
+    regular = 0
+    for k, xk in enumerate(xs):
+        pre = Matrix(from_reference_items(A[k].tolist())).find_preimage_of(
+            from_reference_items([b[k].tolist()])[0])
+        unique = hasattr(pre, "dim") and pre.dim() == 0
+        regular += xk is not None
+        if unique != (xk is not None) or (unique and list(pre.vec) != xk):
+            raise AssertionError(f"lane {k}: the CRT solve differs from "
+                                 f"find_preimage_of")
+    print(f"text: crt_solve_batched regular on {regular} of {replayed} "
+          f"lanes, each equal to find_preimage_of's solution")
+    seconds = time.perf_counter() - t_phase
+    print(f"text phase: {seconds:.2f} s")
+    return {"build_s": build_s, "matched": matched, "seconds": seconds,
+            "plan_s": {f"{k[0]} {k[1]}": v for k, v in plan_s.items()}}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py: no CUDA device; there is no CPU path")
@@ -5095,6 +5309,11 @@ def main() -> None:
     mf = drive_matfun(dev)
     _, trsyl_shapes = time_matfun(dev, card, mf)
     print(f"matrix-function phase: {time.perf_counter() - t0:.2f} s")
+
+    # 53. BASELINE config 1's exact text path on this host (no sympy): the
+    # native planner's build, the derivation against its golden file, both
+    # planner engines, the card's pivot events replayed into LaTeX
+    drive_text(dev)
 
     # bounds from this run's shapes: bytes each input read and each output
     # written once; operations those the inputs need

@@ -21,10 +21,10 @@ needs ``Σ_k M[i, k]·X[k, :]`` over the rows solved before it (below it
 forward, above it for the adjoint) and each column ``j`` the running sum
 ``Σ_l x_l·M[l, j]`` over the columns solved before it in the row.
 
-``trsyl_masked`` launches ``csrc/trsyl.cu`` (one warp a lane, the
-columns solved 32 at a time by a chain of shuffles) on CUDA tensors and
-runs ``trsyl_masked_reference``, the reference's double loop as Python
-loops of batched operations, on CPU tensors.  On a CUDA tensor it launches the kernel or raises; it never
+``trsyl_masked`` launches ``csrc/trsyl.cu`` (one block a lane, a thread a
+column) on CUDA tensors and runs ``trsyl_masked_reference``, the
+reference's double loop as Python loops of batched operations, on CPU
+tensors.  On a CUDA tensor it launches the kernel or raises; it never
 falls back (``fits`` says which shapes the kernel takes).  ``LAUNCHES``
 counts kernel launches.  Both sum in the same order and round every
 operation on its own, the row's masked product a term at a time, so they
@@ -38,7 +38,7 @@ import torch
 #: kernel launches since import (or since the caller last reset it)
 LAUNCHES = 0
 
-#: the kernel's reach
+#: the kernel's reach: a thread a column, one block a lane
 MAX_N = 1024
 
 

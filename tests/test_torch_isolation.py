@@ -49,5 +49,7 @@ def test_port_imports_without_jax_or_sympy():
     assert out.returncode == 0, out.stderr[-4000:]
     # the package, ops, ops.kernels, models, utils and their modules (with
     # ops.ordschur, pseudospectra, funm, nearness, fitting, ops.kernels.trsyl
-    # and utils.draws: 52)
-    assert int(out.stdout.split()[-1]) >= 52
+    # and utils.draws: 52), and the exact text path: utils.fmt and
+    # utils.trace, exact and its 5 modules, planner and its 9, trace and
+    # trace.events (72)
+    assert int(out.stdout.split()[-1]) >= 72
