@@ -294,9 +294,34 @@ order; any failure is an uncaught exception and a non-zero exit:
     lane; replay 256 of them into LaTeX and count the lanes whose text is
     the exact path's (``TEXT_MATCHED``, which the CPU test pins against
     the JAX package); hold ``crt_solve_batched``'s regular lanes on the
-    card against ``find_preimage_of``'s solution.
+    card against ``find_preimage_of``'s solution;
+54. the CLI (``drive_cli``): ``python -m linalg_solver_tpu_torch -o F
+    --seed S --quiet`` for S = 2026, 7 and 123, each file byte for byte
+    ``tests/data_torch/cli_seed{S}.tex`` (the JAX package's files; a CPU
+    test holds the JAX package to them); then the CLI with ``--device`` in
+    this process, every kernel count set to 0 just before and read just
+    after: its exact part equal to the golden file, the replayed
+    derivation equal to the exact path's text, the Bareiss determinants
+    equal to ``crt_det_batched``, the spectral table exact;
+55. sturm-4096 (``drive_sturm``): ``eigh_tridiagonal_batched`` on
+    Gaussian [256, 4096] tridiagonals (``examples/chip_session7.py``'s
+    cell; the bisection kernel's 64 launches, one a step, counted), lane
+    0 against float64 LAPACK; the kernel bitwise against its plain
+    version on the card at [16, 4096] and [32, 512] (intervals and live
+    step count), their times against the bound and the plain version,
+    ``torch.linalg.eigvalsh`` on the [16, 4096] lanes' dense tridiagonals
+    as the library call; the count kernel through
+    ``sturm_count_batched`` at the [16, 4096] intervals' midpoints (its
+    one launch counted), bitwise its plain version, timed;
+56. getvec-512 (``drive_getvec``): the twisted factorization's vectors at
+    [32, 512], every vector ``ok``, the residual's max and p99, timed;
+57. tridiag-4096 and rsvd-1024 (``drive_tridiag_rsvd``): cyclic reduction
+    at [256, 4096], k = 1, on diagonally dominant systems, its float64
+    residual; ``randomized_svd_batched`` on [64, 1024, 1024] of rank 32
+    plus 1e-3 noise at k = 32, its σ against the float64 SVD, beside
+    ``torch.svd_lowrank`` and ``torch.linalg.svd``, timed.
 
-The line before the last is a JSON summary of the nine kernels, each with
+The line before the last is a JSON summary of the eleven kernels, each with
 its bound (the larger of its bytes over 3.35 TB/s and its operations
 over the 67 TFLOP/s FP32 rate, counted from this run's inputs) and the
 time of the one library call that computes the same function, where
@@ -309,7 +334,12 @@ and an XLA while loop and no Pallas kernel, their shapes, the chase's
 other variant and the eager and graph sweep times, and their launches
 on each path of the eigenvector family; the trsyl kernel, which replaces
 the nested XLA scans of ``_trsyl_masked`` and no Pallas kernel, its
-forward and adjoint shapes); the last line is
+forward and adjoint shapes; the Sturm bisection kernel, which replaces
+the XLA while loop of ``eigh_tridiagonal_batched``, its row at
+[16, 4096] beside its library call and its [256, 4096] and [32, 512]
+shapes with their live steps; the Sturm count kernel, which replaces the
+XLA scan of ``sturm_count_batched``, its [16, 4096] lanes at 4096 points
+each); the last line is
 ``{"ok": true, "device": {...}}``.
 Imports nothing of JAX.
 """
@@ -5108,6 +5138,486 @@ def drive_text(dev, lanes=TEXT_LANES, replayed=TEXT_REPLAYED):
             "plan_s": {f"{k[0]} {k[1]}": v for k, v in plan_s.items()}}
 
 
+# ---------------------------------------------------------------------------
+# 54. The CLI: the exact sections on this host, then --device on the card
+# ---------------------------------------------------------------------------
+
+CLI_SEEDS = (2026, 7, 123)
+CLI_GOLDEN = "tests/data_torch/cli_seed{}.tex"
+#: the spectral table --device writes for diagonalizable_batch's [4, 1, 1,
+#: -2]: distinct eigenvalues descending (.4g), algebraic and geometric
+#: multiplicities, diagonalizable
+CLI_TABLE_ROW = r" & $4, 1, -2$ & 1, 2, 1 & 1, 2, 1 & ano \\"
+#: the kernels --device launches: the Schur stage's chase at n = 4 (no AED
+#: window below its size), the spectral core's pivoted Gauss–Jordan and
+#: P⁻¹'s fused inverse (N = 4)
+CLI_KERNELS = ("chase", "gauss_jordan", "inv_rbt")
+
+
+def all_counts():
+    """Launches of every kernel since ``reset_all_counts``."""
+    from linalg_solver_tpu_torch.ops.kernels import schur_chase, sturm, trsyl
+
+    return {**phase_counts(), "chase": schur_chase.LAUNCHES,
+            "trsyl": trsyl.LAUNCHES, "sturm": sturm.LAUNCHES}
+
+
+def reset_all_counts():
+    from linalg_solver_tpu_torch.ops.kernels import sturm, trsyl
+
+    reset_counts()
+    trsyl.LAUNCHES = sturm.LAUNCHES = 0
+
+
+def drive_cli(dev):
+    """Phase 54: ``python -m linalg_solver_tpu_torch -o F --seed S --quiet``
+    for each of ``CLI_SEEDS``, each file byte for byte its golden file
+    (which the JAX package writes; a CPU test holds it to them); then the
+    CLI with ``--device`` in this process, every kernel count set to 0
+    just before and read just after: its exact part equal to the golden
+    file, its replay (recomputed from the same draws) equal to the exact
+    path's text, its Bareiss determinants equal to ``crt_det_batched``,
+    its spectral table exact."""
+    import pathlib
+    import tempfile
+
+    t_phase = time.perf_counter()
+    root = pathlib.Path(__file__).resolve().parent
+    with tempfile.TemporaryDirectory() as tmp:
+        return _drive_cli(dev, root, pathlib.Path(tmp), t_phase)
+
+
+def _drive_cli(dev, root, out, t_phase):
+    """``drive_cli`` writing its files into ``out``."""
+    import os
+    import re
+    import sys
+
+    from linalg_solver_tpu_torch import cli
+    from linalg_solver_tpu_torch.ops.exact_int import bareiss_batched
+    from linalg_solver_tpu_torch.ops.exact_int import crt_det_batched
+    from linalg_solver_tpu_torch.ops.generate import diagonalizable_batch
+    from linalg_solver_tpu_torch.ops.generate import full_rank_batch
+    from linalg_solver_tpu_torch.ops.generate import random_batch
+    from linalg_solver_tpu_torch.ops.kernels import gauss_jordan as gj
+    from linalg_solver_tpu_torch.ops.kernels import inv_rbt
+    from linalg_solver_tpu_torch.ops.rref import rref_batched
+    from linalg_solver_tpu_torch.trace import events
+    from linalg_solver_tpu_torch.utils.trace import global_logger
+
+    env = dict(os.environ, PYTHONPATH=str(root))
+    seconds = {}
+    for seed in CLI_SEEDS:
+        path = out / f"cli_{seed}.tex"
+        t0 = time.perf_counter()
+        run = subprocess.run(
+            [sys.executable, "-m", "linalg_solver_tpu_torch", "-o",
+             str(path), "--seed", str(seed), "--quiet"], cwd=root, env=env,
+            capture_output=True, text=True, timeout=300)
+        seconds[seed] = time.perf_counter() - t0
+        golden = (root / CLI_GOLDEN.format(seed)).read_text(encoding="utf-8")
+        same = run.returncode == 0 and path.read_text(
+            encoding="utf-8") == golden
+        print(f"cli: python -m linalg_solver_tpu_torch --seed {seed} in "
+              f"{seconds[seed]:.2f} s: equal to {CLI_GOLDEN.format(seed)} "
+              f"byte for byte: {same}")
+        if not same:
+            raise AssertionError(f"the CLI's file for seed {seed} differs "
+                                 f"from its golden file: {run.stderr[-2000:]}")
+
+    # --device, in this process so that the kernel counts can be read and
+    # the pivoted and inverse kernels' arguments kept (the chase runs in
+    # the Schur sweep's CUDA graph: hold_cli_launches holds it on one
+    # eager sweep of the same batch)
+    path = out / "cli_device.tex"
+    saved, echo = list(global_logger.accum), global_logger.auto_print
+    global_logger.accum.clear()
+    launched = {"gauss_jordan": [], "inv_rbt": []}
+    wraps = [(gj, "gauss_jordan_tiled", "gauss_jordan"),
+             (inv_rbt, "inverse_rbt_fused", "inv_rbt")]
+    origs = [getattr(mod, fn) for mod, fn, _ in wraps]
+
+    def keeper(orig, key):
+        def wrapped(*args, **kwargs):
+            kept = [[t.clone() for t in x] if isinstance(x, list) else
+                    x.clone() if isinstance(x, torch.Tensor) else x
+                    for x in args]
+            out_ = orig(*args, **kwargs)
+            launched[key].append((kept, kwargs, out_))
+            return out_
+        return wrapped
+
+    for (mod, fn, key), orig in zip(wraps, origs):
+        setattr(mod, fn, keeper(orig, key))
+    reset_all_counts()
+    t0 = time.perf_counter()
+    try:
+        cli.main(["-o", str(path), "--seed", "2026", "--quiet", "--device"])
+        torch.cuda.synchronize()
+    finally:
+        global_logger.accum[:] = saved
+        global_logger.auto_print = echo
+        for (mod, fn, _), orig in zip(wraps, origs):
+            setattr(mod, fn, orig)
+    device_s = time.perf_counter() - t0
+    counts = {k: v for k, v in all_counts().items() if v}
+    text = path.read_text(encoding="utf-8")
+    golden = (root / CLI_GOLDEN.format(2026)).read_text(encoding="utf-8")
+    print(f"cli --device: {device_s:.2f} s, kernel launches {counts}")
+    if not text.startswith(golden + "\n"):
+        raise AssertionError("--device changed the exact sections' text")
+    device_text = text[len(golden) + 1:]
+    if (r"\section{Dávkový GPU řešič}" not in device_text
+            or "řešena na GPU" not in device_text):
+        raise AssertionError("--device does not name the GPU")
+    # the replay's systems, drawn as replay_solve_trace draws them
+    gen = torch.Generator(device=dev).manual_seed(0)
+    A = full_rank_batch(gen, 4, 3, lo=-5, hi=5, device=dev)
+    b = random_batch(gen, 4, 3, 1, device=dev)[:, :, 0]
+    aug = torch.cat([A, b[:, :, None]], dim=2)
+    res = rref_batched(aug, bar_col=3, tol=events.REPLAY_TOL)
+    matches = events.replay_matches_exact(
+        aug[0].cpu().numpy(), res.events[0].cpu().numpy(),
+        int(res.num_events[0]), bar_col=3)
+    dets = [int(x) for x in bareiss_batched(
+        torch.round(A).to(torch.int32)).det.cpu()]
+    exact = crt_det_batched(torch.round(A).to(torch.int64))
+    printed = re.search(r"přesně\): \$([^$]*)\$", device_text).group(1)
+    rows = [ln for ln in device_text.splitlines() if ln.startswith("$A_{")]
+    table_ok = len(rows) == 4 and all(
+        ln == f"$A_{{{k + 1}}}$" + CLI_TABLE_ROW for k, ln in enumerate(rows))
+    print(f"cli --device: replay equals the exact path's text: {matches}; "
+          f"Bareiss determinants {dets} (printed {printed}), CRT {exact}; "
+          f"spectral table exact: {table_ok} ({rows})")
+    if not matches:
+        raise AssertionError("the replayed derivation differs from the "
+                             "exact path's")
+    if dets != exact or printed != ", ".join(map(str, exact)):
+        raise AssertionError("the device determinants differ from the CRT "
+                             "determinants")
+    if not table_ok:
+        raise AssertionError("the spectral table is not the expected one")
+    if sorted(counts) != sorted(CLI_KERNELS) or any(
+            len(v) != counts[k] for k, v in launched.items()):
+        raise AssertionError(f"--device launched {counts}, not each of "
+                             f"{CLI_KERNELS}")
+    gen = torch.Generator(device=dev).manual_seed(2026)
+    spec_batch = diagonalizable_batch(gen, 4, [4.0, 1.0, 1.0, -2.0],
+                                      transform="orthogonal", device=dev)
+    err = hold_cli_launches(launched, spec_batch)
+    seconds_phase = time.perf_counter() - t_phase
+    print(f"cli phase: {seconds_phase:.2f} s")
+    return {"counts": counts, "seconds": seconds, "device_s": device_s,
+            "phase_s": seconds_phase, "err": err}
+
+
+def hold_cli_launches(launched, spec_batch):
+    """Every pivoted and fused-inverse launch of the CLI's ``--device`` run
+    against the plain version on the same (cloned) arguments, the first
+    bitwise (NaN-equal), the second within TOL_KERNEL with equal flags;
+    the chase (whose launches run inside the Schur sweep's CUDA graph) on
+    every launch of one eager outer sweep of the spectral subsection's
+    batch, bitwise (``hold_schur``).  Returns the max abs difference a
+    kernel."""
+    from linalg_solver_tpu_torch.ops.kernels import gauss_jordan as gj
+    from linalg_solver_tpu_torch.ops.kernels import inv_rbt
+
+    err = dict.fromkeys(("chase", *launched), 0.0)
+    err["chase"] = hold_schur(spec_batch, False, "on the CLI's spectral "
+                                                 "batch")[0]
+    for args, kwargs, res in launched["gauss_jordan"]:
+        p = gj.gauss_jordan_reference(*args, **kwargs)
+        if not (torch.equal(res.perm, p.perm)
+                and nan_equal(res.reduced, p.reduced)
+                and nan_equal(res.pivots, p.pivots)):
+            raise AssertionError(f"pivoted kernel on the CLI's "
+                                 f"{list(args[0].shape)} disagrees with its "
+                                 f"plain version")
+    for args, kwargs, (x, bad) in launched["inv_rbt"]:
+        x_ref, bad_ref = inv_rbt.inverse_rbt_fused_reference(*args, **kwargs)
+        # no level-3 matrix to add to the unflagged ones: slice(0, 0)
+        rel, abs_err, why = compare_inverse(x, bad, x_ref, bad_ref,
+                                            slice(0, 0))
+        if why is not None or not rel <= TOL_KERNEL:
+            raise AssertionError(f"inverse kernel on the CLI's "
+                                 f"{list(args[0].shape)} disagrees with its "
+                                 f"plain version: {why or rel}")
+        err["inv_rbt"] = max(err["inv_rbt"], abs_err)
+    shapes = {k: sorted({tuple(c[0][0].shape) for c in v})
+              for k, v in launched.items()}
+    held = ", ".join(f"{k} {len(v)} on {shapes[k]}"
+                     for k, v in launched.items())
+    print(f"cli --device: every pivoted and inverse launch held against "
+          f"its plain version ({held}): pivoted bitwise, fused inverse max "
+          f"abs diff {err['inv_rbt']:.3e}")
+    return err
+
+
+# ---------------------------------------------------------------------------
+# 55-57. The tridiagonal family: Sturm bisection (a kernel), the twisted
+# factorization's eigenvectors, cyclic reduction, the randomized SVD
+# ---------------------------------------------------------------------------
+
+STURM_B, STURM_N = 256, 4096   # examples/chip_session7.py:59-80
+STURM_CHECKS = ((16, 4096), (32, 512))
+GETVEC_B, GETVEC_N = 32, 512
+TOL_STURM = 1e-5       # lane 0 against float64 LAPACK, relative to |w|max
+TOL_GETVEC = 1e-5      # a vector's residual over ||T|| (the JAX test's)
+PCR_B, PCR_N = 256, 4096
+TOL_PCR = 1e-5         # worst relative residual, float64
+RSVD_B, RSVD_N, RSVD_R = 64, 1024, 32
+RSVD_NOISE = 1e-3
+TOL_RSVD = 1e-4        # sigma against the full SVD's, relative to sigma_1
+
+
+def tridiagonal_input(bsz, n, seed=0):
+    """Gaussian d [bsz, n] and e [bsz, n - 1] (f32, numpy), as
+    ``examples/chip_session7.py`` builds them."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    return (rng.randn(bsz, n).astype(np.float32),
+            rng.randn(bsz, n - 1).astype(np.float32))
+
+
+def sturm_work(bsz, n, steps):
+    """(bytes, operations) of a bisection call: d, e², the pivot floor and
+    the intervals read once and the intervals written once; each live
+    step's count runs n (sub, div, sub) for each of the bsz·n pairs."""
+    return 4 * (6 * bsz * n + bsz), 3.0 * steps * bsz * n * n
+
+
+def count_work(bsz, n, g):
+    """(bytes, operations) of a count call at g query points a lane: d, e²,
+    the pivot floor and the points read once, the counts written once;
+    n (sub, div, sub) for each of the bsz·g points."""
+    return 4 * (2 * bsz * n + bsz + 2 * bsz * g), 3.0 * bsz * g * n
+
+
+def drive_sturm(dev, card):
+    """Phase 55: ``eigh_tridiagonal_batched`` at [256, 4096] (the count
+    set to 0 just before, read just after: 64 launches, one a step), lane
+    0 against ``scipy.linalg.eigh_tridiagonal`` in float64; the bisection
+    kernel bitwise against its plain version on the card at [16, 4096]
+    and [32, 512] (both ``a`` and ``b`` and the live step count); the
+    count kernel through ``sturm_count_batched`` at the [16, 4096]
+    intervals' midpoints (the count set to 0 just before, read just
+    after: one launch), bitwise its plain version; each kernel's time
+    against its bound and the plain version's, and ``torch.linalg.eigvalsh``
+    on the [16, 4096] lanes' dense tridiagonals as the bisection's library
+    call."""
+    import numpy as np
+    import scipy.linalg
+
+    from linalg_solver_tpu_torch.ops import sturm
+    from linalg_solver_tpu_torch.ops.kernels import sturm as ks
+    from linalg_solver_tpu_torch.utils.benchmarking import cuda_time
+
+    t_phase = time.perf_counter()
+    dn, en = tridiagonal_input(STURM_B, STURM_N)
+    d, e = torch.from_numpy(dn).to(dev), torch.from_numpy(en).to(dev)
+    reset_all_counts()
+    res = sturm.eigh_tridiagonal_batched(d, e)
+    torch.cuda.synchronize()
+    launches = ks.LAUNCHES
+    steps_main = int(ks.LAST_STEPS)
+    others = {k: v for k, v in all_counts().items() if v and k != "sturm"}
+    w0 = res.w[0].double().cpu().numpy()
+    want = scipy.linalg.eigh_tridiagonal(dn[0].astype(np.float64),
+                                         en[0].astype(np.float64),
+                                         eigvals_only=True)
+    err0 = float(np.abs(w0 - want).max() / np.abs(want).max())
+    print(f"sturm-4096 eigh_tridiagonal_batched [{STURM_B}, {STURM_N}]: "
+          f"sturm launches {launches} ({steps_main} live steps), other "
+          f"kernels {others}, converged on "
+          f"{int(res.converged.sum())} of {STURM_B} lanes, lane 0 against "
+          f"float64 LAPACK {err0:.3e} (tol {TOL_STURM})")
+    if launches != ks.STEPS:
+        raise AssertionError(f"the bisection launched {launches} times, not "
+                             f"{ks.STEPS}")
+    if not bool(res.converged.all()) or not err0 <= TOL_STURM:
+        raise AssertionError("the Sturm eigenvalues are off")
+    if bool(torch.isnan(res.w).any()) or res.w.shape != d.shape:
+        raise AssertionError("the Sturm eigenvalues are not finite [B, n]")
+
+    shapes, err, count = [], 0.0, None
+    for bsz, n in STURM_CHECKS:
+        dc, ec = (torch.from_numpy(x).to(dev)
+                  for x in tridiagonal_input(bsz, n, seed=bsz + n))
+        args = sturm.bisect_operands(dc, ec)
+        a, b, steps = ks.bisect(*args)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ra, rb, rsteps = ks.bisect_reference(*args)
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+        same = (torch.equal(a, ra) and torch.equal(b, rb)
+                and int(steps) == int(rsteps))
+        err = max(err, float((a - ra).abs().max()), float((b - rb).abs().max()))
+        t = cuda_time(ks.bisect, *args, warmup=1, iters=5)
+        b_ms, b_by = bound(*sturm_work(bsz, n, int(steps)))
+        shapes.append({"shape": [bsz, n], "live_steps": int(steps),
+                       "ms": t * 1e3, "plain_ms": plain_s * 1e3,
+                       "bound_ms": b_ms, "bound_by": b_by})
+        print(f"sturm kernel vs plain [{bsz}, {n}]: bitwise {same} "
+              f"({int(steps)} live steps); kernel {t * 1e3:.4f} ms, plain "
+              f"{plain_s * 1e3:.1f} ms, bound {b_ms:.4f} ms ({b_by}) "
+              f"({card})")
+        if not same:
+            raise AssertionError(f"the Sturm kernel differs from its plain "
+                                 f"version at [{bsz}, {n}]")
+        if (bsz, n) != STURM_CHECKS[0]:
+            continue
+        dense = (torch.diag_embed(dc) + torch.diag_embed(ec, 1)
+                 + torch.diag_embed(ec, -1))
+        torch.cuda.synchronize()
+        t_lib = cuda_time(torch.linalg.eigvalsh, dense, warmup=1, iters=5)
+        lib_w = torch.linalg.eigvalsh(dense[:1]).double().cpu().numpy()
+        own = 0.5 * (a[:1] + b[:1]).double().cpu().numpy()
+        print(f"sturm library torch.linalg.eigvalsh on the [{bsz}, {n}] "
+              f"lanes' dense tridiagonals: {t_lib * 1e3:.1f} ms; its "
+              f"lane 0 against the kernel's "
+              f"{float(np.abs(lib_w - own).max()):.3e} ({card})")
+        shapes[-1]["library_ms"] = t_lib * 1e3
+        del dense
+        # the count kernel through its entry point, at the midpoints
+        m = 0.5 * (a + b)
+        reset_all_counts()
+        cnt = sturm.sturm_count_batched(dc, ec, m)
+        torch.cuda.synchronize()
+        c_launches = ks.LAUNCHES
+        c_others = {k: v for k, v in all_counts().items()
+                    if v and k != "sturm"}
+        t0 = time.perf_counter()
+        rcnt = ks.sturm_count_reference(*args[:3], m)
+        torch.cuda.synchronize()
+        c_plain_s = time.perf_counter() - t0
+        c_same = torch.equal(cnt, rcnt)
+        c_err = float((cnt - rcnt).abs().max())
+        t_c = cuda_time(ks.sturm_count, *args[:3], m, warmup=1, iters=5)
+        c_ms, c_by = bound(*count_work(bsz, n, n))
+        count = {"shape": [bsz, n, n], "launches": c_launches,
+                 "err": c_err, "ms": t_c * 1e3, "plain_ms": c_plain_s * 1e3,
+                 "bound_ms": c_ms, "bound_by": c_by}
+        print(f"sturm count kernel sturm_count_batched [{bsz}, {n}] at "
+              f"{n} midpoints a lane: launches {c_launches}, other kernels "
+              f"{c_others}, bitwise its plain version {c_same}; kernel "
+              f"{t_c * 1e3:.4f} ms, plain {c_plain_s * 1e3:.1f} ms, bound "
+              f"{c_ms:.4f} ms ({c_by}) ({card})")
+        if c_launches != 1 or c_others:
+            raise AssertionError(f"sturm_count_batched launched "
+                                 f"{c_launches} count kernels, others "
+                                 f"{c_others}")
+        if not c_same:
+            raise AssertionError("the Sturm count kernel differs from its "
+                                 "plain version")
+    t_main = cuda_time(ks.bisect, *sturm.bisect_operands(d, e), warmup=1,
+                       iters=3)
+    b_ms, b_by = bound(*sturm_work(STURM_B, STURM_N, steps_main))
+    shapes.insert(0, {"shape": [STURM_B, STURM_N], "live_steps": steps_main,
+                      "ms": t_main * 1e3, "bound_ms": b_ms,
+                      "bound_by": b_by})
+    t_call = cuda_time(sturm.eigh_tridiagonal_batched, d, e, warmup=0,
+                       iters=3)
+    print(f"time sturm-4096: kernel bisection {t_main * 1e3:.4f} ms "
+          f"(bound {b_ms:.4f} ms, {b_by}), eigh_tridiagonal_batched "
+          f"{t_call * 1e3:.4f} ms ({card})")
+    attrs = ks.attributes()
+    print(f"sturm kernel registers {attrs['registers']}, spill bytes "
+          f"{attrs['local_bytes']}")
+    seconds = time.perf_counter() - t_phase
+    print(f"sturm phase: {seconds:.2f} s")
+    return {"launches": launches, "err": err, "shapes": shapes,
+            "count": count, "call_ms": t_call * 1e3, "seconds": seconds}
+
+
+def drive_getvec(dev, card):
+    """Phase 56: ``tridiag_eigenvectors_batched`` (the twisted
+    factorization's four scans, plain torch) at [32, 512] on the Sturm
+    eigenvalues: every vector ``ok``, the residual's max and p99, the
+    call's time."""
+    import numpy as np
+
+    from linalg_solver_tpu_torch.ops import sturm
+    from linalg_solver_tpu_torch.utils.benchmarking import cuda_time
+
+    dn, en = tridiagonal_input(GETVEC_B, GETVEC_N, seed=1)
+    d, e = torch.from_numpy(dn).to(dev), torch.from_numpy(en).to(dev)
+    w = sturm.eigh_tridiagonal_batched(d, e).w
+    vec = sturm.tridiag_eigenvectors_batched(d, e, w)
+    resid = vec.resid.cpu().numpy()
+    ok = int(vec.ok.sum())
+    t = cuda_time(sturm.tridiag_eigenvectors_batched, d, e, w, warmup=1,
+                  iters=3)
+    print(f"getvec-512 [{GETVEC_B}, {GETVEC_N}]: resid max "
+          f"{resid.max():.3e}, p99 {np.percentile(resid, 99):.3e}, ok "
+          f"{ok} of {resid.size}; {t * 1e3:.2f} ms a call ({card})")
+    if ok != resid.size or not resid.max() <= TOL_GETVEC:
+        raise AssertionError("the twisted-factorization vectors are off")
+    return {"ms": t * 1e3, "resid_max": float(resid.max()),
+            "resid_p99": float(np.percentile(resid, 99))}
+
+
+def drive_tridiag_rsvd(dev, card):
+    """Phase 57: cyclic reduction at [256, 4096] with k = 1 on diagonally
+    dominant systems (``examples/solver_family.py:86-93``), the residual
+    in float64; ``randomized_svd_batched`` on [64, 1024, 1024] of rank 32
+    plus 1e-3 noise at k = 32, its σ against ``torch.linalg.svd``'s and
+    ``torch.svd_lowrank`` beside it, all timed."""
+    from linalg_solver_tpu_torch.ops.randomized import randomized_svd_batched
+    from linalg_solver_tpu_torch.ops.tridiag import tridiag_solve_batched
+    from linalg_solver_tpu_torch.utils.benchmarking import cuda_time
+
+    g = torch.Generator(device=dev).manual_seed(57)
+    dl = torch.randn(PCR_B, PCR_N, generator=g, device=dev)
+    du = torch.randn(PCR_B, PCR_N, generator=g, device=dev)
+    d = dl.abs() + du.abs() + 1
+    b = torch.randn(PCR_B, PCR_N, generator=g, device=dev)
+    res = tridiag_solve_batched(dl, d, du, b)
+    x = res.x.double()
+    r = d.double() * x - b.double()
+    r[:, 1:] += dl[:, 1:].double() * x[:, :-1]
+    r[:, :-1] += du[:, :-1].double() * x[:, 1:]
+    resid = float((r.abs().amax(dim=1) / b.abs().amax(dim=1)).max())
+    t_pcr = cuda_time(tridiag_solve_batched, dl, d, du, b, warmup=2, iters=10)
+    print(f"tridiag-4096 [{PCR_B}, {PCR_N}], k = 1: ok on "
+          f"{int(res.ok.sum())} of {PCR_B} lanes, worst residual "
+          f"{resid:.3e} (tol {TOL_PCR}); {t_pcr * 1e3:.4f} ms ({card})")
+    if not bool(res.ok.all()) or not resid <= TOL_PCR:
+        raise AssertionError("the cyclic reduction's solutions are off")
+
+    lhs = torch.randn(RSVD_B, RSVD_N, RSVD_R, generator=g, device=dev)
+    rhs = torch.randn(RSVD_B, RSVD_R, RSVD_N, generator=g, device=dev)
+    a = lhs @ rhs + RSVD_NOISE * torch.randn(RSVD_B, RSVD_N, RSVD_N,
+                                              generator=g, device=dev)
+    del lhs, rhs
+    rs = randomized_svd_batched(a, k=RSVD_R)
+    t_rs = cuda_time(lambda a_: randomized_svd_batched(a_, k=RSVD_R), a,
+                     warmup=1, iters=3)
+    t_full = cuda_time(lambda a_: torch.linalg.svd(a_, full_matrices=False),
+                       a, warmup=0, iters=1)
+    full_s = torch.linalg.svdvals(a[:4].double())[:, :RSVD_R]
+    t_low = cuda_time(lambda a_: torch.svd_lowrank(a_, q=RSVD_R + 8,
+                                                   niter=2), a,
+                      warmup=1, iters=3)
+    err = float(((rs.s[:4].double() - full_s).abs().amax(dim=1)
+                 / full_s[:, 0]).max())
+    rec = rs.U[:4] @ (rs.s[:4, :, None] * rs.V[:4].transpose(1, 2))
+    rec_err = float((rec - a[:4]).abs().max() / a[:4].abs().max())
+    print(f"rsvd-1024 [{RSVD_B}, {RSVD_N}, {RSVD_N}] rank {RSVD_R} + "
+          f"{RSVD_NOISE} noise, k = {RSVD_R}: ok {int(rs.ok.sum())}, valid "
+          f"{int(rs.valid.sum())} of {rs.valid.numel()}, sigma against the "
+          f"float64 SVD of 4 lanes {err:.3e} (tol {TOL_RSVD}), reconstruction "
+          f"{rec_err:.3e} of max|A|, resid_est max "
+          f"{float(rs.resid_est.max()):.3e}; randomized_svd_batched "
+          f"{t_rs * 1e3:.2f} ms, torch.svd_lowrank {t_low * 1e3:.2f} ms, "
+          f"torch.linalg.svd {t_full * 1e3:.2f} ms ({card})")
+    if not bool(rs.ok.all()) or not bool(rs.valid.all()) or not err <= TOL_RSVD:
+        raise AssertionError("the randomized SVD is off")
+    return {"pcr_ms": t_pcr * 1e3, "pcr_resid": resid, "rsvd_ms": t_rs * 1e3,
+            "svd_lowrank_ms": t_low * 1e3, "svd_ms": t_full * 1e3}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py: no CUDA device; there is no CPU path")
@@ -5315,6 +5825,21 @@ def main() -> None:
     # planner engines, the card's pivot events replayed into LaTeX
     drive_text(dev)
 
+    # 54. the CLI: its six exact sections on this host for three seeds,
+    # byte for byte the golden files, then --device on the card
+    cli_out = drive_cli(dev)
+
+    # 55-57. the tridiagonal family: the Sturm bisection kernel, the
+    # twisted factorization's vectors, cyclic reduction, randomized SVD
+    t0 = time.perf_counter()
+    st = drive_sturm(dev, card)
+    drive_getvec(dev, card)
+    drive_tridiag_rsvd(dev, card)
+    print(f"tridiagonal phase: {time.perf_counter() - t0:.2f} s")
+    cli_counts = {k: cli_out["counts"].get(k, 0)
+                  for k in ("inv_rbt", "gauss_jordan", "butterfly",
+                            "lu_nopivot", "chase", "schur_window")}
+
     # bounds from this run's shapes: bytes each input read and each output
     # written once; operations those the inputs need
     w = 2 * N_INV
@@ -5333,6 +5858,9 @@ def main() -> None:
                          window_shapes[0]["bound_by"]),
         "trsyl_masked": (trsyl_shapes[0]["bound_ms"],
                          trsyl_shapes[0]["bound_by"]),
+        "sturm_bisect": (st["shapes"][1]["bound_ms"],
+                         st["shapes"][1]["bound_by"]),
+        "sturm_count": (st["count"]["bound_ms"], st["count"]["bound_by"]),
     }
     rows = [{
         "name": "solve_fused_rbt",
@@ -5350,8 +5878,9 @@ def main() -> None:
         "source": "linalg_solver_tpu_torch/csrc/inv_rbt.cu",
         "replaces": "linalg_solver_tpu/ops/pallas/inv_rbt_kernel.py:125",
         "launches": (inv_launches + inv_large_launches
-                     + eig_counts["inv_rbt"]),
-        "max_abs_err": max(inv_errs["inv_rbt"], inv_large_err),
+                     + eig_counts["inv_rbt"] + cli_counts["inv_rbt"]),
+        "max_abs_err": max(inv_errs["inv_rbt"], inv_large_err,
+                           cli_out["err"]["inv_rbt"]),
         "ms": inv_times["kernel inverse_rbt_fused, device"] * 1e3,
         "host_ms": inv_times["kernel inverse_rbt_fused"] * 1e3,
         "plain_ms": inv_times["plain inverse_rbt_fused_reference"] * 1e3,
@@ -5364,8 +5893,10 @@ def main() -> None:
         "replaces": "linalg_solver_tpu/ops/pallas/gj_kernel.py:55",
         "launches": (gj_launches + gj_large_launches + big["launches"]
                      + grad_launches + serve_launches
-                     + eig_counts["gauss_jordan"]),
-        "max_abs_err": max(inv_errs["gauss_jordan"], gj_err, gj_large_err),
+                     + eig_counts["gauss_jordan"]
+                     + cli_counts["gauss_jordan"]),
+        "max_abs_err": max(inv_errs["gauss_jordan"], gj_err, gj_large_err,
+                           cli_out["err"]["gauss_jordan"]),
         "ms": inv_times["kernel gauss_jordan_tiled [A|I]"] * 1e3,
         "plain_ms": inv_times["plain gauss_jordan_reference [A|I]"] * 1e3,
         "library_ms": inv_times["torch.linalg.inv"] * 1e3,
@@ -5376,7 +5907,8 @@ def main() -> None:
         "source": "linalg_solver_tpu_torch/csrc/butterfly.cu",
         "replaces": "linalg_solver_tpu/ops/pallas/butterfly_kernel.py:91",
         "launches": (phase["butterfly_launches"] + large_launches
-                     + eig_counts["butterfly"] + mf["counts"]["butterfly"]),
+                     + eig_counts["butterfly"] + mf["counts"]["butterfly"]
+                     + cli_counts["butterfly"]),
         "max_abs_err": max(bf_err, phase["butterfly_err"], large_err,
                            spec_schur["bf_err"], mf["bf_err"]),
         "ms": ph_times["kernel butterfly_two_sided, device"] * 1e3,
@@ -5392,7 +5924,7 @@ def main() -> None:
         "source": "linalg_solver_tpu_torch/csrc/lu_nopivot.cu",
         "replaces": "linalg_solver_tpu/ops/pallas/lu_nopivot_kernel.py:41",
         "launches": (phase["panel_launches"] + eig_counts["lu_nopivot"]
-                     + mf["counts"]["lu_nopivot"]),
+                     + mf["counts"]["lu_nopivot"] + cli_counts["lu_nopivot"]),
         "max_abs_err": max(phase["panel_err"], spec_schur["panel_err"],
                            mf["panel_err"]),
         "ms": ph_times[
@@ -5426,9 +5958,10 @@ def main() -> None:
         # no Pallas kernel: the XLA scan of _chase_step (schur.py:869-891)
         "replaces": "linalg_solver_tpu/ops/schur.py:893",
         "launches": (schur_out["launches"] + spec_schur["chase"]
-                     + eigf["chase"] + mf["counts"]["chase"]),
+                     + eigf["chase"] + mf["counts"]["chase"]
+                     + cli_counts["chase"]),
         "max_abs_err": max(schur_out["err"], spec_schur["err"],
-                           eigf["err"]),
+                           eigf["err"], cli_out["err"]["chase"]),
         "ms": chase_shapes[0]["ms"],
         "plain_ms": chase_shapes[0]["plain_ms"],
         "library_ms": None,
@@ -5447,7 +5980,8 @@ def main() -> None:
         "replaces": "linalg_solver_tpu/ops/schur.py:586",
         "launches": (schur_out["window"]
                      + spec_schur["launches"]["schur_window"]
-                     + eigf["window"] + mf["counts"]["schur_window"]),
+                     + eigf["window"] + mf["counts"]["schur_window"]
+                     + cli_counts["schur_window"]),
         "max_abs_err": max(schur_out["err"], spec_schur["err"],
                            eigf["err"]),
         "ms": window_shapes[0]["ms"],
@@ -5474,6 +6008,32 @@ def main() -> None:
         "large_shapes": trsyl_shapes,
         "matfun_launches": {k: v["trsyl"] for k, v in mf["launches"].items()
                             if v["trsyl"]},
+    }, {
+        "name": "sturm_bisect",
+        "route": "cuda",
+        "source": "linalg_solver_tpu_torch/csrc/sturm.cu",
+        # no Pallas kernel: the XLA while loop of the bisection
+        # (sturm.py:113-123) around the scan of sturm_count_batched (:60-77)
+        "replaces": "linalg_solver_tpu/ops/sturm.py:87",
+        "launches": st["launches"],
+        "max_abs_err": st["err"],
+        "ms": st["shapes"][1]["ms"],
+        "plain_ms": st["shapes"][1]["plain_ms"],
+        "library_ms": st["shapes"][1]["library_ms"],
+        "large_shapes": st["shapes"],
+        "cli_launches": cli_out["counts"],
+    }, {
+        "name": "sturm_count",
+        "route": "cuda",
+        "source": "linalg_solver_tpu_torch/csrc/sturm.cu",
+        # no Pallas kernel: the XLA scan of the count (sturm.py:60-77)
+        "replaces": "linalg_solver_tpu/ops/sturm.py:41",
+        "launches": st["count"]["launches"],
+        "max_abs_err": st["count"]["err"],
+        "ms": st["count"]["ms"],
+        "plain_ms": st["count"]["plain_ms"],
+        "library_ms": None,
+        "shape": st["count"]["shape"],
     }]
     for row in rows:
         row["bound_ms"], row["bound_by"] = bounds[row["name"]]

@@ -39,5 +39,76 @@ Ported so far:
   Francis QR with aggressive early deflation, the Schur vectors and the
   real eigenvectors), behind ``eigvals_schur``, ``eig_real_batched`` and
   ``spectral_pipeline``'s ``"schur"``, ``"eig"`` and ``"auto"`` routes on
-  non-symmetric batches.
+  non-symmetric batches;
+- the exact host path (``exact``, ``planner``, ``trace``) with its LaTeX
+  derivations byte for byte the JAX package's, without sympy, the exact
+  eigen stack on rational and quadratic roots, and the CLI
+  (``python -m linalg_solver_tpu_torch``);
+- the tridiagonal family: ``ops.tridiag`` (cyclic reduction),
+  ``ops.sturm`` (Sturm bisection on a kernel, twisted-factorization
+  eigenvectors) and ``ops.randomized`` (randomized SVD, ID, CUR).
 """
+
+from .exact import (
+    AffineSubspace,
+    DiagonalizationResult,
+    Matrix,
+    NoSolution,
+    Permutation,
+    Polynomial,
+    RandomMatrixBuilder,
+    RowColPermutation,
+    gen_diagonalizable_matrix,
+    gen_jordan_matrix,
+    gen_matrix_with_jordan_blocks,
+    gen_matrix_with_rank,
+    gen_regular_matrix,
+    gen_unimodular_matrix,
+    raw_gen_rand_matrix,
+)
+from .utils import (
+    Logger,
+    capture_logs,
+    cformat,
+    global_logger,
+    ignore_log,
+    log,
+    make_latex_augmented_matrix,
+    make_latex_matrix,
+    make_latex_vector,
+    make_latex_vertical_augmented_matrix,
+    nest_appending_logger,
+    nest_logger,
+)
+
+__version__ = "0.1.0"
+
+__all__ = [
+    "Matrix",
+    "Polynomial",
+    "Permutation",
+    "RowColPermutation",
+    "AffineSubspace",
+    "NoSolution",
+    "DiagonalizationResult",
+    "RandomMatrixBuilder",
+    "raw_gen_rand_matrix",
+    "gen_regular_matrix",
+    "gen_matrix_with_rank",
+    "gen_jordan_matrix",
+    "gen_matrix_with_jordan_blocks",
+    "gen_diagonalizable_matrix",
+    "gen_unimodular_matrix",
+    "cformat",
+    "make_latex_matrix",
+    "make_latex_vector",
+    "make_latex_augmented_matrix",
+    "make_latex_vertical_augmented_matrix",
+    "log",
+    "Logger",
+    "global_logger",
+    "nest_logger",
+    "nest_appending_logger",
+    "ignore_log",
+    "capture_logs",
+]

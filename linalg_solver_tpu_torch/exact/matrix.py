@@ -16,8 +16,9 @@ sympy's parameter names ``tau0, tau1, …`` sorted as strings.
 
 This is the host-side path; the batched device path over CUDA tensors
 lives in ``linalg_solver_tpu_torch.ops``, whose ``ops.rref`` events
-``trace.events`` replays into the same text.  The eigen methods wait for
-the eigen slice (they raise).
+``trace.events`` replays into the same text.  The eigen methods take the
+roots of ``Polynomial.radical_roots`` (rationals and ``p + q·√d``); an
+eigenspace needs a rational eigenvalue.
 """
 
 from __future__ import annotations
@@ -39,6 +40,7 @@ from ..utils.trace import log, nest_appending_logger
 from . import elimination
 from .permutation import Permutation
 from .polynomial import Polynomial
+from .radicals import Surd
 
 
 class AffineSubspace:
@@ -666,30 +668,119 @@ class Matrix:
             _as_fractions(self.items), bar_col=self.cols)
         return len(pivots)
 
-    # -- eigen stack (the eigen slice) --------------------------------------
+    # -- eigen stack -------------------------------------------------------
     def eigenvalues(self, real_only: bool = False) -> Dict[Any, int]:
-        raise _eigen_not_ported("eigenvalues")
+        """Eigenvalues with algebraic multiplicities, via the characteristic
+        polynomial ``det(A - λI)`` computed by the full determinant machinery
+        over ``Polynomial`` entries; the roots are ``radical_roots``'
+        (rationals and ``p + q·√d``, in the JAX package's order)."""
+        if self.rows != self.cols:
+            raise ValueError("Eigenvalues require a square matrix")
+        n = self.rows
+        lam = Polynomial({1: 1}, var=r"\lambda")
+        lam_identity = Matrix.diagonal([lam for _ in range(n)])
+        setup_logs: List[str] = []
+        with nest_appending_logger(setup_logs):
+            char_matrix = self - lam_identity
+        log(
+            r"Výpočet charakteristické matice $A - \lambda I$: "
+            r"$$ A - \lambda I = %s - %s = %s $$",
+            self, lam_identity, char_matrix,
+        )
+
+        log(r"Výpočet charakteristického polynomu $\det(A - \lambda I)$:")
+        char_poly = char_matrix.determinant(log_permutation_details=True)
+        log(r"Charakteristický polynom je: $$ p(\lambda) = %s $$", char_poly)
+
+        roots = char_poly.radical_roots()
+        if real_only:
+            roots = {r: m for r, m in roots.items()
+                     if getattr(r, "is_real", True)}
+        if roots:
+            try:
+                factors_dict = char_poly.factor_roots(list(roots.items()))
+            except ValueError:
+                # as the JAX package: the eigenvalues stand without the
+                # factored display
+                factors_dict = None
+            if factors_dict is not None:
+                rendered = []
+                for factor, mult in factors_dict.items():
+                    if mult == 1:
+                        rendered.append(cformat(factor, arg_of="*"))
+                    else:
+                        rendered.append(
+                            r"%s^{%d}" % (cformat(factor, arg_of="^"), mult)
+                        )
+                log(
+                    r"Rozložený tvar: $$ p(\lambda) = %s $$",
+                    r" \cdot ".join(rendered),
+                )
+
+        summary = ", ".join(
+            f"${cformat(r)}$ (multiplicity {m})" for r, m in roots.items()
+        )
+        field = "R" if real_only else "C"
+        log(
+            r"Vlastní čísla (kořeny $p(\lambda)$ v $\mathbb{%s}$) s jejich "
+            r"algebraickými násobnostmi jsou: %s",
+            field, summary,
+        )
+        return roots
 
     def find_eigenspace(self, eigenvalue: Any) -> "AffineSubspace":
-        raise _eigen_not_ported("find_eigenspace")
+        """Nullspace of ``A - eigenvalue*I`` (a rational eigenvalue: the
+        exact elimination runs over ℚ)."""
+        if self.rows != self.cols:
+            raise ValueError("Matrix must be square to find eigenspace.")
+        if isinstance(eigenvalue, Surd):
+            raise NotImplementedError(
+                f"Matrix.find_eigenspace: the eigenspace of the non-rational "
+                f"eigenvalue {cformat(eigenvalue)} needs elimination over "
+                f"Q(sqrt d) with sympy's unsimplified radicals, which is not "
+                f"ported (ROADMAP.md queue 1 item 7)")
+        shifted = deepcopy(self)
+        for i in range(self.rows):
+            shifted.items[i][i] = shifted.items[i][i] - eigenvalue
+        return Matrix(shifted.items).kernel()
 
     def eigenvalues_with_geometric_multiplicities(
         self,
     ) -> Dict[Any, Tuple[int, int]]:
-        raise _eigen_not_ported("eigenvalues_with_geometric_multiplicities")
+        alg_mults = self.eigenvalues()
+        out: Dict[Any, Tuple[int, int]] = {}
+        for eig, alg in alg_mults.items():
+            space = self.find_eigenspace(eig)
+            geom = space.dim() if hasattr(space, "dim") else 0
+            out[eig] = (alg, geom)
+        return out
 
     def diagonalize(self) -> "DiagonalizationResult":
-        raise _eigen_not_ported("diagonalize")
+        """Attempt ``A = P D P^{-1}``; success iff n independent eigenvectors."""
+        if self.rows != self.cols:
+            raise ValueError("Matrix must be square to diagonalize.")
+        n = self.rows
+        eig_mults = self.eigenvalues_with_geometric_multiplicities()
+        basis_vectors: List[List[Any]] = []
+        for eig, (alg, geom) in eig_mults.items():
+            space = self.find_eigenspace(eig)
+            if hasattr(space, "basis"):
+                basis_vectors.extend(space.basis())
+        if len(basis_vectors) != n:
+            return DiagonalizationResult(eig_mults, False)
+        P = Matrix([list(col) for col in zip(*basis_vectors)])
+        P_inv = P.inverse()
+        D = P_inv * self * P
+        D.simplify()
+        P.simplify()
+        P_inv.simplify()
+        return DiagonalizationResult(eig_mults, True, P, P_inv, D)
 
     def simplify(self) -> "Matrix":
-        raise _eigen_not_ported("simplify")
-
-
-def _eigen_not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"Matrix.{what}: the exact eigen stack (the JAX package's radical "
-        f"roots and sympy.simplify) is not ported; ROADMAP.md queue 1 item 7 "
-        f"ports it in its eigen slice")
+        """The JAX package's ``sympy.simplify`` of every entry: the entries
+        here (ints, ``Fraction``, floats, ``Polynomial``, ``Surd``) are
+        already in the form it returns, so this is the identity."""
+        return self
 
 
 def from_reference_items(items) -> List[List[Any]]:

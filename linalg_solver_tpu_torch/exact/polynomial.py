@@ -8,8 +8,8 @@ whose final division is ``div_rem``'s exact long division).
 
 Coefficients are ints, ``Fraction`` or anything with ring arithmetic; a
 quotient of two ints is taken as a ``Fraction``, so division stays exact
-where the JAX package divides ``sympy.Rational``.  The radical roots wait
-for the eigen stack (``radical_roots`` raises).
+where the JAX package divides ``sympy.Rational``.  The roots in radicals
+(``radical_roots``) are those of ``radicals``: rationals and ``p + q·√d``.
 """
 
 from __future__ import annotations
@@ -19,6 +19,7 @@ from fractions import Fraction
 from typing import Any, Dict, List, Tuple
 
 from ..utils.fmt import cformat
+from . import radicals
 
 
 def _exact_div(a: Any, b: Any) -> Any:
@@ -164,11 +165,11 @@ class Polynomial:
         return {residual: 1} | factors
 
     def radical_roots(self) -> Dict[Any, int]:
-        """All roots expressible in radicals: {root: multiplicity}."""
-        raise NotImplementedError(
-            "Polynomial.radical_roots: the roots in radicals (the JAX "
-            "package's sympy.roots) are not ported; ROADMAP.md queue 1 "
-            "item 7 ports them with the eigen stack")
+        """All roots, exactly, as the JAX package's ``sympy.roots`` gives
+        them: {root: multiplicity} in sympy's order, each root a rational
+        or a ``radicals.Surd`` ``p + q·√d``.  A factor of degree ≥ 3 that
+        is irreducible over ℚ raises ``NotImplementedError``."""
+        return radicals.radical_roots(self.powers)
 
     # -- rendering --------------------------------------------------------
     def cformat(self, arg_of: str = None) -> str:

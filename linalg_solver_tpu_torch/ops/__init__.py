@@ -250,6 +250,25 @@ from .ordschur import (
     schur_reorder_batched,
     schur_sort_batched,
 )
+from .tridiag import (
+    TridiagResult,
+    tridiag_solve_batched,
+)
+from .sturm import (
+    TridiagEigResult,
+    TridiagEigVecResult,
+    eigh_tridiagonal_batched,
+    sturm_count_batched,
+    tridiag_eigenvectors_batched,
+)
+from .randomized import (
+    CURDecomposition,
+    InterpolativeDecomposition,
+    RandomizedSVD,
+    cur_batched,
+    interpolative_batched,
+    randomized_svd_batched,
+)
 
 __all__ = [
     "SchurResult", "SchurVectors", "SchurEigvals", "EigResult",
@@ -296,4 +315,11 @@ __all__ = [
     "OrderedSchur", "schur_reorder_batched", "schur_sort_batched",
     "InvariantSubspace", "invariant_subspace_batched",
     "ClusterCondition", "schur_cluster_cond_batched",
+    "TridiagResult", "tridiag_solve_batched",
+    "TridiagEigResult", "TridiagEigVecResult",
+    "eigh_tridiagonal_batched", "sturm_count_batched",
+    "tridiag_eigenvectors_batched",
+    "RandomizedSVD", "randomized_svd_batched",
+    "InterpolativeDecomposition", "interpolative_batched",
+    "CURDecomposition", "cur_batched",
 ]

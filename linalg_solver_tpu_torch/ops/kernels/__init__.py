@@ -17,6 +17,9 @@ version (counterpart of ``linalg_solver_tpu.ops.pallas``).
 - ``trsyl`` — the masked triangular Sylvester solve of the cluster
   condition numbers (``ops.ordschur``; no Pallas counterpart: the
   reference runs a nested XLA scan)
+- ``sturm`` — the Sturm-count bisection of the tridiagonal eigenvalues
+  (``ops.sturm``; no Pallas counterpart: the reference runs an XLA while
+  loop around a scan)
 
 The functions below are the facade ``ops.dispatch`` routes to, as the
 JAX package's ``ops.pallas`` is: ``inverse_batched`` takes the fused RBT

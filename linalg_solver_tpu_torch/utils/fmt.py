@@ -92,6 +92,44 @@ def latex_scalar(val: Any) -> str:
     return str(val)
 
 
+def _latex_radical_term(q: Fraction, d: int) -> str:
+    """``sympy.latex`` of the product ``q·√|d|`` (times ``i`` where d < 0),
+    q ≠ 0: the integer factors, then ``\\sqrt{|d|}``, then ``i``, over q's
+    denominator as one ``\\frac``; a negative q gives a ``- `` prefix."""
+    sign = "- " if q < 0 else ""
+    num, den = abs(q.numerator), q.denominator
+    parts = [str(num)] if num != 1 else []
+    if abs(d) != 1:
+        parts.append(r"\sqrt{%d}" % abs(d))
+    if d < 0:
+        parts.append("i")
+    top = " ".join(parts)
+    if den == 1:
+        return sign + top
+    return sign + r"\frac{%s}{%d}" % (top, den)
+
+
+def latex_surd(p: Fraction, q: Fraction, d: int) -> str:
+    """``sympy.latex`` of ``p + q·√d`` (q ≠ 0, d squarefree, d ≠ 0, 1; d < 0
+    is ``i·√|d|``), the number as sympy's ``roots`` builds it.
+
+    sympy orders an ``Add``'s terms by ``Expr.as_ordered_terms``: a
+    positive rational and a negative radical keep that order; otherwise a
+    real pair runs by value, ascending, and a complex pair puts the real
+    part first.  Each term after the first is written ``- t`` or ``+ t``."""
+    p, q = Fraction(p), Fraction(q)
+    term = _latex_radical_term(q, d)
+    if p == 0:
+        return term
+    radical_first = d > 0 and (
+        (p < 0 and q < 0 and q * q * d > p * p)
+        or (p > 0 and q > 0 and q * q * d < p * p))
+    if radical_first:
+        return term + (" - " if p < 0 else " + ") + latex_scalar(abs(p))
+    return (latex_scalar(p) + (" - " if q < 0 else " + ")
+            + _latex_radical_term(abs(q), d))
+
+
 def cformat(val: Any, arg_of: Optional[str] = None) -> str:
     """Render ``val`` to LaTeX in operator context ``arg_of``."""
     custom = getattr(val, "cformat", None)

@@ -1570,3 +1570,86 @@ def test_polar_on_the_card_sums_its_gram_in_float64(cuda):
     ref = polar_batched(ab)
     assert torch.equal(up, ref.up) and torch.equal(h, ref.H)
     assert probe.tls_probe(cuda, 4)["tls_batched"]["max"] <= 2e-4
+
+
+def _sturm_case(B, n, seed, dev, dtype=torch.float32):
+    from linalg_solver_tpu_torch.ops import sturm
+
+    rng = np.random.RandomState(seed)
+    d = torch.from_numpy(rng.randn(B, n)).to(dtype)
+    e = torch.from_numpy(rng.randn(B, n - 1)).to(dtype)
+    if n > 2:
+        e[0, n // 2] = 0.0                   # a split chain
+    e2 = torch.cat([torch.zeros(B, 1, dtype=dtype), e * e], dim=1)
+    return (d.to(dev), e.to(dev), e2.to(dev),
+            sturm._pivmin(e, dtype).to(dev))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 40, 300])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_sturm_kernel_matches_plain_version(cuda, n, dtype):
+    """The Sturm count and the 64-launch bisection against their plain
+    versions on the CPU, bitwise (the same IEEE operations in the same
+    order), with the same number of live steps; the enclosures are left
+    as they were."""
+    from linalg_solver_tpu_torch.ops.kernels import sturm as ks
+
+    d, e, e2, pm = _sturm_case(6, n, n, cuda, dtype)
+    x = torch.linspace(-3, 3, 17, dtype=dtype, device=cuda).expand(6, 17)
+    ks.LAUNCHES = 0
+    cnt = ks.sturm_count(d, e2, pm, x.contiguous())
+    assert ks.LAUNCHES == 1
+    assert torch.equal(cnt.cpu(), ks.sturm_count_reference(
+        d.cpu(), e2.cpu(), pm.cpu(), x.cpu()))
+    a = torch.full((6, n), -8.0, dtype=dtype, device=cuda)
+    b = torch.full((6, n), 8.0, dtype=dtype, device=cuda)
+    a1, b1, steps = ks.bisect(d, e2, pm, a, b)
+    torch.cuda.synchronize()
+    assert ks.LAUNCHES == 1 + ks.STEPS
+    ra, rb, rsteps = ks.bisect_reference(d.cpu(), e2.cpu(), pm.cpu(),
+                                         a.cpu(), b.cpu())
+    assert torch.equal(a1.cpu(), ra) and torch.equal(b1.cpu(), rb)
+    assert int(steps) == int(rsteps)
+    assert float(a.max()) == -8.0 and float(b.min()) == 8.0
+
+
+@pytest.mark.cuda
+def test_sturm_eigenvalues_on_the_card(cuda):
+    """``eigh_tridiagonal_batched`` on the card equals the plain path on
+    the CPU bit for bit and float64 LAPACK to 1e-5 of ‖T‖; past the
+    kernel's shared memory the wrapper raises."""
+    import scipy.linalg
+
+    from linalg_solver_tpu_torch.ops import sturm
+    from linalg_solver_tpu_torch.ops.kernels import sturm as ks
+
+    d, e, _, _ = _sturm_case(4, 512, 3, cuda)
+    got = sturm.eigh_tridiagonal_batched(d, e)
+    want = sturm.eigh_tridiagonal_batched(d.cpu(), e.cpu())
+    assert torch.equal(got.w.cpu(), want.w)
+    assert torch.equal(got.converged.cpu(), want.converged)
+    ref = scipy.linalg.eigh_tridiagonal(d[1].double().cpu().numpy(),
+                                        e[1].double().cpu().numpy(),
+                                        eigvals_only=True)
+    assert np.abs(got.w[1].double().cpu().numpy() - ref).max() < 1e-5 * (
+        np.abs(ref).max())
+    vec = sturm.tridiag_eigenvectors_batched(d, e, got.w)
+    assert float(vec.resid.max()) < 1e-4
+    big = torch.zeros(1, 40000, device=cuda)
+    with pytest.raises(ValueError, match="no kernel"):
+        ks.bisect(big, big, torch.ones(1, device=cuda), big, big + 1)
+
+
+@pytest.mark.cuda
+def test_cli_device_section_on_the_card(cuda, tmp_path):
+    """``--device`` on the card: the heading and the replay name the GPU,
+    the replayed derivation equals the exact path's, and the spectral
+    table says every matrix is diagonalizable."""
+    from linalg_solver_tpu_torch import cli
+    from linalg_solver_tpu_torch.utils import trace
+
+    text = trace.capture_logs(lambda: cli.device_section(2026))
+    assert r"\section{Dávkový GPU řešič}" in text
+    assert "řešena na GPU" in text
+    assert text.count(" & ano \\\\") == 4

@@ -31,6 +31,7 @@ from linalg_solver_tpu_torch.exact import NoSolution as TNoSolution
 from linalg_solver_tpu_torch.exact import Polynomial as TPoly
 from linalg_solver_tpu_torch.exact import from_reference_items
 from linalg_solver_tpu_torch.utils import trace as ttrace
+from linalg_solver_tpu_torch.utils.fmt import cformat
 
 from torch_text_cases import addrow_patterns, chunks, dm_patterns
 from torch_text_cases import fraction_rows, fuzz_patterns, same_value
@@ -242,9 +243,17 @@ def test_from_reference_items_and_eigen_raise():
     assert all(isinstance(x, Fraction) for r in rows for x in r)
     with pytest.raises(TypeError):
         from_reference_items([[0.5]])
+    # λ² − λ − 17/2: the eigenvalues (1 ± √35)/2 are found since the eigen
+    # slice, but an eigenspace over Q(√35) is not ported
     m = TMatrix(rows)
-    for call in (m.eigenvalues, m.diagonalize, m.simplify,
-                 m.eigenvalues_with_geometric_multiplicities,
-                 lambda: m.find_eigenspace(1)):
+    roots = []
+    ttrace.capture_logs(lambda: roots.extend(m.eigenvalues()))
+    assert [cformat(r) for r in roots] == [
+        r"\frac{1}{2} - \frac{\sqrt{35}}{2}",
+        r"\frac{1}{2} + \frac{\sqrt{35}}{2}"]
+    assert m.simplify() is m
+    assert m.find_eigenspace(1).dim() == 0
+    for call in (m.diagonalize, m.eigenvalues_with_geometric_multiplicities,
+                 lambda: m.find_eigenspace(roots[0])):
         with pytest.raises(NotImplementedError, match="queue 1 item 7"):
-            call()
+            ttrace.capture_logs(call)

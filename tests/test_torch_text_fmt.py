@@ -142,5 +142,9 @@ def test_polynomial_arithmetic_and_division():
         miss = max(roots) + 1
         with pytest.raises(ValueError):
             tp.remove_root(miss)
+    # roots in radicals: rational and quadratic ones since the eigen slice,
+    # an irreducible cubic still not (tests/test_torch_eigen_exact.py
+    # holds them against sympy)
+    assert TPoly({1: 1}).radical_roots() == {0: 1}
     with pytest.raises(NotImplementedError, match="queue 1 item 7"):
-        TPoly({1: 1}).radical_roots()
+        TPoly({3: 1, 1: 1, 0: 1}).radical_roots()
