@@ -305,14 +305,17 @@ order; any failure is an uncaught exception and a non-zero exit:
     equal to ``crt_det_batched``, the spectral table exact;
 55. sturm-4096 (``drive_sturm``): ``eigh_tridiagonal_batched`` on
     Gaussian [256, 4096] tridiagonals (``examples/chip_session7.py``'s
-    cell; the bisection kernel's 64 launches, one a step, counted), lane
-    0 against float64 LAPACK; the kernel bitwise against its plain
-    version on the card at [16, 4096] and [32, 512] (intervals and live
-    step count), their times against the bound and the plain version,
-    ``torch.linalg.eigvalsh`` on the [16, 4096] lanes' dense tridiagonals
-    as the library call; the count kernel through
-    ``sturm_count_batched`` at the [16, 4096] intervals' midpoints (its
-    one launch counted), bitwise its plain version, timed;
+    cell; the bisection's 129 launches, a count and a plan a step,
+    counted), lane 0 against float64 LAPACK, the midpoints each step
+    counted against the plain schedule model; the kernel bitwise against
+    its plain version on the card at [16, 4096] and [32, 512] in float32
+    and float64 (intervals and live step count) and against the schedule
+    model, their times against the bound (3·n operations a midpoint the
+    data needs) and the plain version, ``torch.linalg.eigvalsh`` on the
+    [16, 4096] lanes' dense tridiagonals as the library call; the count
+    kernel through ``sturm_count_batched`` at the [16, 4096] intervals'
+    midpoints (its one launch counted), bitwise its plain version in
+    float32 and float64, timed;
 56. getvec-512 (``drive_getvec``): the twisted factorization's vectors at
     [32, 512], every vector ``ok``, the residual's max and p99, timed;
 57. tridiag-4096 and rsvd-1024 (``drive_tridiag_rsvd``): cyclic reduction
@@ -5380,11 +5383,12 @@ def tridiagonal_input(bsz, n, seed=0):
             rng.randn(bsz, n - 1).astype(np.float32))
 
 
-def sturm_work(bsz, n, steps):
+def sturm_work(bsz, n, counted):
     """(bytes, operations) of a bisection call: d, e², the pivot floor and
-    the intervals read once and the intervals written once; each live
-    step's count runs n (sub, div, sub) for each of the bsz·n pairs."""
-    return 4 * (6 * bsz * n + bsz), 3.0 * steps * bsz * n * n
+    the intervals read once and the intervals written once; n (sub, div,
+    sub) for each midpoint counted: those the run's data needs (its
+    schedule's count), or steps·bsz·n where every pair counts every step."""
+    return 4 * (6 * bsz * n + bsz), 3.0 * counted * n
 
 
 def count_work(bsz, n, g):
@@ -5396,14 +5400,20 @@ def count_work(bsz, n, g):
 
 def drive_sturm(dev, card):
     """Phase 55: ``eigh_tridiagonal_batched`` at [256, 4096] (the count
-    set to 0 just before, read just after: 64 launches, one a step), lane
-    0 against ``scipy.linalg.eigh_tridiagonal`` in float64; the bisection
-    kernel bitwise against its plain version on the card at [16, 4096]
-    and [32, 512] (both ``a`` and ``b`` and the live step count); the
-    count kernel through ``sturm_count_batched`` at the [16, 4096]
-    intervals' midpoints (the count set to 0 just before, read just
-    after: one launch), bitwise its plain version; each kernel's time
-    against its bound and the plain version's, and ``torch.linalg.eigvalsh``
+    set to 0 just before, read just after: ``BISECT_LAUNCHES``), lane 0
+    against ``scipy.linalg.eigh_tridiagonal`` in float64, and the
+    midpoints each step counted (the kernel's device counter) against the
+    plain schedule model ``bisect_schedule_reference`` on the same
+    operands, its counts taken by the count kernel (held bitwise below);
+    the bisection kernel bitwise against its plain version on the card at
+    [16, 4096] and [32, 512], in float32 and float64 (both ``a`` and
+    ``b`` and the live step count), and against the schedule model with
+    its counted midpoints; the count kernel through ``sturm_count_batched``
+    at the [16, 4096] intervals' midpoints (the count set to 0 just
+    before, read just after: one launch), bitwise its plain version, and
+    in float64 too; each kernel's time against its bound (3·n operations
+    a midpoint the data needs; beside it the bound of every pair counted
+    every live step) and the plain version's, and ``torch.linalg.eigvalsh``
     on the [16, 4096] lanes' dense tridiagonals as the bisection's library
     call."""
     import numpy as np
@@ -5421,6 +5431,7 @@ def drive_sturm(dev, card):
     torch.cuda.synchronize()
     launches = ks.LAUNCHES
     steps_main = int(ks.LAST_STEPS)
+    counted_main = ks.LAST_COUNTED.clone()
     others = {k: v for k, v in all_counts().items() if v and k != "sturm"}
     w0 = res.w[0].double().cpu().numpy()
     want = scipy.linalg.eigh_tridiagonal(dn[0].astype(np.float64),
@@ -5432,99 +5443,143 @@ def drive_sturm(dev, card):
           f"kernels {others}, converged on "
           f"{int(res.converged.sum())} of {STURM_B} lanes, lane 0 against "
           f"float64 LAPACK {err0:.3e} (tol {TOL_STURM})")
-    if launches != ks.STEPS:
+    if launches != ks.BISECT_LAUNCHES:
         raise AssertionError(f"the bisection launched {launches} times, not "
-                             f"{ks.STEPS}")
+                             f"{ks.BISECT_LAUNCHES}")
     if not bool(res.converged.all()) or not err0 <= TOL_STURM:
         raise AssertionError("the Sturm eigenvalues are off")
     if bool(torch.isnan(res.w).any()) or res.w.shape != d.shape:
         raise AssertionError("the Sturm eigenvalues are not finite [B, n]")
+    ops_main = sturm.bisect_operands(d, e)
+    ma, mb, msteps, mcounted = ks.bisect_schedule_reference(
+        *ops_main, count=ks.sturm_count)
+    midpoints = int(counted_main.sum())
+    print(f"sturm-4096 schedule: {midpoints} midpoints counted of "
+          f"{steps_main * STURM_B * STURM_N} pairs over the live steps; "
+          f"the plain schedule model's the same each step "
+          f"{torch.equal(mcounted, counted_main)}, its eigenvalues bitwise "
+          f"{torch.equal(0.5 * (ma + mb), res.w)}")
+    if not (torch.equal(mcounted, counted_main) and int(msteps) == steps_main
+            and torch.equal(0.5 * (ma + mb), res.w)):
+        raise AssertionError("the bisection's schedule differs from its "
+                             "plain model at [256, 4096]")
 
     shapes, err, count = [], 0.0, None
-    for bsz, n in STURM_CHECKS:
-        dc, ec = (torch.from_numpy(x).to(dev)
-                  for x in tridiagonal_input(bsz, n, seed=bsz + n))
-        args = sturm.bisect_operands(dc, ec)
-        a, b, steps = ks.bisect(*args)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        ra, rb, rsteps = ks.bisect_reference(*args)
-        torch.cuda.synchronize()
-        plain_s = time.perf_counter() - t0
-        same = (torch.equal(a, ra) and torch.equal(b, rb)
-                and int(steps) == int(rsteps))
-        err = max(err, float((a - ra).abs().max()), float((b - rb).abs().max()))
-        t = cuda_time(ks.bisect, *args, warmup=1, iters=5)
-        b_ms, b_by = bound(*sturm_work(bsz, n, int(steps)))
-        shapes.append({"shape": [bsz, n], "live_steps": int(steps),
-                       "ms": t * 1e3, "plain_ms": plain_s * 1e3,
-                       "bound_ms": b_ms, "bound_by": b_by})
-        print(f"sturm kernel vs plain [{bsz}, {n}]: bitwise {same} "
-              f"({int(steps)} live steps); kernel {t * 1e3:.4f} ms, plain "
-              f"{plain_s * 1e3:.1f} ms, bound {b_ms:.4f} ms ({b_by}) "
-              f"({card})")
-        if not same:
-            raise AssertionError(f"the Sturm kernel differs from its plain "
-                                 f"version at [{bsz}, {n}]")
-        if (bsz, n) != STURM_CHECKS[0]:
-            continue
-        dense = (torch.diag_embed(dc) + torch.diag_embed(ec, 1)
-                 + torch.diag_embed(ec, -1))
-        torch.cuda.synchronize()
-        t_lib = cuda_time(torch.linalg.eigvalsh, dense, warmup=1, iters=5)
-        lib_w = torch.linalg.eigvalsh(dense[:1]).double().cpu().numpy()
-        own = 0.5 * (a[:1] + b[:1]).double().cpu().numpy()
-        print(f"sturm library torch.linalg.eigvalsh on the [{bsz}, {n}] "
-              f"lanes' dense tridiagonals: {t_lib * 1e3:.1f} ms; its "
-              f"lane 0 against the kernel's "
-              f"{float(np.abs(lib_w - own).max()):.3e} ({card})")
-        shapes[-1]["library_ms"] = t_lib * 1e3
-        del dense
-        # the count kernel through its entry point, at the midpoints
-        m = 0.5 * (a + b)
-        reset_all_counts()
-        cnt = sturm.sturm_count_batched(dc, ec, m)
-        torch.cuda.synchronize()
-        c_launches = ks.LAUNCHES
-        c_others = {k: v for k, v in all_counts().items()
-                    if v and k != "sturm"}
-        t0 = time.perf_counter()
-        rcnt = ks.sturm_count_reference(*args[:3], m)
-        torch.cuda.synchronize()
-        c_plain_s = time.perf_counter() - t0
-        c_same = torch.equal(cnt, rcnt)
-        c_err = float((cnt - rcnt).abs().max())
-        t_c = cuda_time(ks.sturm_count, *args[:3], m, warmup=1, iters=5)
-        c_ms, c_by = bound(*count_work(bsz, n, n))
-        count = {"shape": [bsz, n, n], "launches": c_launches,
-                 "err": c_err, "ms": t_c * 1e3, "plain_ms": c_plain_s * 1e3,
-                 "bound_ms": c_ms, "bound_by": c_by}
-        print(f"sturm count kernel sturm_count_batched [{bsz}, {n}] at "
-              f"{n} midpoints a lane: launches {c_launches}, other kernels "
-              f"{c_others}, bitwise its plain version {c_same}; kernel "
-              f"{t_c * 1e3:.4f} ms, plain {c_plain_s * 1e3:.1f} ms, bound "
-              f"{c_ms:.4f} ms ({c_by}) ({card})")
-        if c_launches != 1 or c_others:
-            raise AssertionError(f"sturm_count_batched launched "
-                                 f"{c_launches} count kernels, others "
-                                 f"{c_others}")
-        if not c_same:
-            raise AssertionError("the Sturm count kernel differs from its "
-                                 "plain version")
-    t_main = cuda_time(ks.bisect, *sturm.bisect_operands(d, e), warmup=1,
-                       iters=3)
-    b_ms, b_by = bound(*sturm_work(STURM_B, STURM_N, steps_main))
-    shapes.insert(0, {"shape": [STURM_B, STURM_N], "live_steps": steps_main,
+    for dtype in (torch.float32, torch.float64):
+        for bsz, n in STURM_CHECKS:
+            dc, ec = (torch.from_numpy(x).to(dev, dtype)
+                      for x in tridiagonal_input(bsz, n, seed=bsz + n))
+            args = sturm.bisect_operands(dc, ec)
+            a, b, steps = ks.bisect(*args)
+            counted = ks.LAST_COUNTED.clone()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ra, rb, rsteps = ks.bisect_reference(*args)
+            torch.cuda.synchronize()
+            plain_s = time.perf_counter() - t0
+            same = (torch.equal(a, ra) and torch.equal(b, rb)
+                    and int(steps) == int(rsteps))
+            sa, sb, _, scounted = ks.bisect_schedule_reference(
+                *args, count=ks.sturm_count)
+            model = (torch.equal(sa, a) and torch.equal(sb, b)
+                     and torch.equal(scounted, counted))
+            err = max(err, float((a - ra).abs().max()),
+                      float((b - rb).abs().max()))
+            t = cuda_time(ks.bisect, *args, warmup=1, iters=5)
+            entry = {"shape": [bsz, n], "dtype": str(dtype)[6:],
+                     "live_steps": int(steps),
+                     "midpoints": int(counted.sum()), "ms": t * 1e3,
+                     "plain_ms": plain_s * 1e3}
+            text = ""
+            if dtype == torch.float32:
+                b_ms, b_by = bound(*sturm_work(bsz, n, int(counted.sum())))
+                a_ms, _ = bound(*sturm_work(bsz, n, int(steps) * bsz * n))
+                entry.update(bound_ms=b_ms, bound_by=b_by,
+                             bound_ms_every_pair=a_ms)
+                text = (f", bound {b_ms:.4f} ms ({b_by}; {a_ms:.4f} for "
+                        f"every pair)")
+            shapes.append(entry)
+            print(f"sturm kernel vs plain [{bsz}, {n}] {entry['dtype']}: "
+                  f"bitwise {same}, the schedule model {model} "
+                  f"({int(steps)} live steps, {entry['midpoints']} midpoints "
+                  f"of {int(steps) * bsz * n}); kernel {t * 1e3:.4f} ms, "
+                  f"plain {plain_s * 1e3:.1f} ms{text} ({card})")
+            if not same or not model:
+                raise AssertionError(f"the Sturm kernel differs from its "
+                                     f"plain version or schedule at "
+                                     f"[{bsz}, {n}] in {dtype}")
+            if (bsz, n) != STURM_CHECKS[0]:
+                continue
+            if dtype == torch.float32:
+                dense = (torch.diag_embed(dc) + torch.diag_embed(ec, 1)
+                         + torch.diag_embed(ec, -1))
+                torch.cuda.synchronize()
+                t_lib = cuda_time(torch.linalg.eigvalsh, dense, warmup=1,
+                                  iters=5)
+                lib_w = torch.linalg.eigvalsh(dense[:1]).double().cpu().numpy()
+                own = 0.5 * (a[:1] + b[:1]).double().cpu().numpy()
+                print(f"sturm library torch.linalg.eigvalsh on the [{bsz}, "
+                      f"{n}] lanes' dense tridiagonals: {t_lib * 1e3:.1f} ms; "
+                      f"its lane 0 against the kernel's "
+                      f"{float(np.abs(lib_w - own).max()):.3e} ({card})")
+                shapes[-1]["library_ms"] = t_lib * 1e3
+                del dense
+            # the count kernel through its entry point, at the midpoints
+            m = 0.5 * (a + b)
+            reset_all_counts()
+            cnt = sturm.sturm_count_batched(dc, ec, m)
+            torch.cuda.synchronize()
+            c_launches = ks.LAUNCHES
+            c_others = {k: v for k, v in all_counts().items()
+                        if v and k != "sturm"}
+            t0 = time.perf_counter()
+            rcnt = ks.sturm_count_reference(*args[:3], m)
+            torch.cuda.synchronize()
+            c_plain_s = time.perf_counter() - t0
+            c_same = torch.equal(cnt, rcnt)
+            c_err = float((cnt - rcnt).abs().max())
+            t_c = cuda_time(ks.sturm_count, *args[:3], m, warmup=1, iters=5)
+            c_ms, c_by = bound(*count_work(bsz, n, n))
+            print(f"sturm count kernel sturm_count_batched [{bsz}, {n}] "
+                  f"{str(dtype)[6:]} at {n} midpoints a lane: launches "
+                  f"{c_launches}, other kernels {c_others}, bitwise its "
+                  f"plain version {c_same}; kernel {t_c * 1e3:.4f} ms, "
+                  f"plain {c_plain_s * 1e3:.1f} ms, bound {c_ms:.4f} ms "
+                  f"({c_by}) ({card})")
+            if c_launches != 1 or c_others:
+                raise AssertionError(f"sturm_count_batched launched "
+                                     f"{c_launches} count kernels, others "
+                                     f"{c_others}")
+            if not c_same:
+                raise AssertionError("the Sturm count kernel differs from "
+                                     "its plain version")
+            if dtype == torch.float32:
+                count = {"shape": [bsz, n, n], "launches": c_launches,
+                         "err": c_err, "ms": t_c * 1e3,
+                         "plain_ms": c_plain_s * 1e3, "bound_ms": c_ms,
+                         "bound_by": c_by}
+            else:
+                count["float64_ms"] = t_c * 1e3
+    t_main = cuda_time(ks.bisect, *ops_main, warmup=1, iters=3)
+    b_ms, b_by = bound(*sturm_work(STURM_B, STURM_N, midpoints))
+    a_ms, _ = bound(*sturm_work(STURM_B, STURM_N,
+                                steps_main * STURM_B * STURM_N))
+    shapes.insert(0, {"shape": [STURM_B, STURM_N], "dtype": "float32",
+                      "live_steps": steps_main, "midpoints": midpoints,
                       "ms": t_main * 1e3, "bound_ms": b_ms,
-                      "bound_by": b_by})
+                      "bound_by": b_by, "bound_ms_every_pair": a_ms})
     t_call = cuda_time(sturm.eigh_tridiagonal_batched, d, e, warmup=0,
                        iters=3)
     print(f"time sturm-4096: kernel bisection {t_main * 1e3:.4f} ms "
-          f"(bound {b_ms:.4f} ms, {b_by}), eigh_tridiagonal_batched "
-          f"{t_call * 1e3:.4f} ms ({card})")
-    attrs = ks.attributes()
-    print(f"sturm kernel registers {attrs['registers']}, spill bytes "
-          f"{attrs['local_bytes']}")
+          f"(bound {b_ms:.4f} ms, {b_by}, for the {midpoints} midpoints "
+          f"counted; {a_ms:.4f} ms for every pair every live step), "
+          f"eigh_tridiagonal_batched {t_call * 1e3:.4f} ms ({card})")
+    for dtype in (torch.float32, torch.float64):
+        attrs = ks.attributes(dtype)
+        print(f"sturm kernels {str(dtype)[6:]}: count registers "
+              f"{attrs['registers']}, spill bytes {attrs['local_bytes']}; "
+              f"plan registers {attrs['plan_registers']}, spill bytes "
+              f"{attrs['plan_local_bytes']}")
     seconds = time.perf_counter() - t_phase
     print(f"sturm phase: {seconds:.2f} s")
     return {"launches": launches, "err": err, "shapes": shapes,
@@ -6034,6 +6089,7 @@ def main() -> None:
         "plain_ms": st["count"]["plain_ms"],
         "library_ms": None,
         "shape": st["count"]["shape"],
+        "float64_ms": st["count"]["float64_ms"],
     }]
     for row in rows:
         row["bound_ms"], row["bound_by"] = bounds[row["name"]]

@@ -65,7 +65,7 @@ _SIGNATURES = {
     "trsyl_masked": (_I, [_P] * 9 + [_I] * 4 + [_P]),
     "trsyl_attributes": (_I, [_I] * 3 + [_P]),
     "sturm_count": (_I, [_P] * 5 + [_I] * 4 + [_P]),
-    "sturm_bisect": (_I, [_P] * 6 + [_I] * 3 + [_P]),
+    "sturm_bisect": (_I, [_P] * 10 + [_I] * 3 + [_P]),
     "sturm_smem_bytes": (ctypes.c_size_t, [_I, _I]),
     "sturm_attributes": (_I, [_I, _P]),
     "kernels_error_string": (ctypes.c_char_p, [_I]),

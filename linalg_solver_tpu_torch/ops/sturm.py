@@ -6,8 +6,9 @@ The Sturm sequence of ``T − xI``'s LDLᵀ factorization counts the
 eigenvalues below x in one O(n) recurrence (dstebz's core), and all B·n
 eigenvalues bisect on that count at once from the Gershgorin enclosure.
 On the card the bisection is ``csrc/sturm.cu`` (``ops.kernels.sturm``:
-one launch a step, a thread a (lane, index) pair, no host read inside
-the loop); on the CPU its plain version.
+a step counts one midpoint for each run of bit-identical live intervals,
+packed into full warps, and no host read sits inside the loop); on the
+CPU its plain version.
 
 Eigenvectors come from Fernando's twisted factorization (the MRRR
 ``getvec`` kernel): the LDLᵀ pivot recurrence forward and backward on

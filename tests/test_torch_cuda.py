@@ -1606,12 +1606,51 @@ def test_sturm_kernel_matches_plain_version(cuda, n, dtype):
     b = torch.full((6, n), 8.0, dtype=dtype, device=cuda)
     a1, b1, steps = ks.bisect(d, e2, pm, a, b)
     torch.cuda.synchronize()
-    assert ks.LAUNCHES == 1 + ks.STEPS
+    assert ks.LAUNCHES == 1 + ks.BISECT_LAUNCHES
     ra, rb, rsteps = ks.bisect_reference(d.cpu(), e2.cpu(), pm.cpu(),
                                          a.cpu(), b.cpu())
     assert torch.equal(a1.cpu(), ra) and torch.equal(b1.cpu(), rb)
     assert int(steps) == int(rsteps)
     assert float(a.max()) == -8.0 and float(b.min()) == 8.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_sturm_kernel_counts_what_the_schedule_needs(cuda, dtype):
+    """On the schedule's cases (``tests/torch_sturm_cases.py``: repeated
+    eigenvalues of a split matrix, a NaN lane, a lane converged on entry,
+    an eigenvalue at 0, pivots past the fast float32 division's range,
+    n = 1) the bisection kernel is bitwise its plain version on the card
+    (NaN where it is NaN), with the same live steps, and so is the count
+    kernel at the final midpoints; the midpoints each step counted, read
+    from its device counter, equal the plain model's; and ``bisect`` reads
+    nothing to the host."""
+    from torch_sturm_cases import CASES, nan_equal
+
+    from linalg_solver_tpu_torch.ops import sturm
+    from linalg_solver_tpu_torch.ops.kernels import sturm as ks
+
+    for name, case in CASES.items():
+        d, e = (torch.from_numpy(x).to(dtype).to(cuda) for x in case())
+        ops = sturm.bisect_operands(d, e)
+        torch.cuda.synchronize()
+        ks.LAUNCHES = 0
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            a, b, steps = ks.bisect(*ops)
+            counted = ks.LAST_COUNTED
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        assert ks.LAUNCHES == ks.BISECT_LAUNCHES, name
+        pa, pb, psteps = ks.bisect_reference(*ops)
+        assert nan_equal(a, pa) and nan_equal(b, pb), name
+        assert int(steps) == int(psteps), name
+        ma, mb, msteps, want = ks.bisect_schedule_reference(*ops)
+        assert nan_equal(ma, pa) and nan_equal(mb, pb), name
+        assert torch.equal(counted, want), name
+        m = 0.5 * (a + b)
+        assert torch.equal(ks.sturm_count(*ops[:3], m),
+                           ks.sturm_count_reference(*ops[:3], m)), name
 
 
 @pytest.mark.cuda

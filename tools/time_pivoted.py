@@ -5,6 +5,7 @@ for comparing two versions of the package.
                                   [--dump FILE.pt]
                                   [--grid | --grid-inv | --big]
                                   [--trsyl-form FILE.cu ...]
+    python3 tools/time_pivoted.py --sturm-form FILE.cu ...
     python3 tools/time_pivoted.py --compare A.pt B.pt
 
 Run on a machine with an NVIDIA H100 (or another sm_90a card) and nvcc,
@@ -67,7 +68,16 @@ device time (the kernel's own entries).  ``--trsyl-form`` (with
 its C entry point ``trsyl_masked``, with the package's ``nvcc`` flags
 into the package's build directory, checks that it agrees with the
 package's kernel to the bit on those operands, and times it in turns
-with the package's kernel, three rounds each way.
+with the package's kernel, three rounds each way.  ``--sturm-form``
+alone builds each given source, a form of ``csrc/sturm.cu`` with its C
+entry points ``sturm_bisect`` and ``sturm_count`` (e.g.
+``tools/sturm_step.cu``, the one-launch-a-step form), holds its
+bisection to the bit against the package's at ``chip_smoke.py``'s
+phase-55 shapes ([256, 4096], [16, 4096], [32, 512], their live steps
+too) and its count at the [16, 4096] midpoints, 4096 a lane, and times
+each in turns with the package's kernel, three rounds each way (package
+first in rounds 0 and 2); then the package's bisection as device time
+of its count and of its plan kernels.
 
 Uses only the wrappers' public calls, so it times any version of the
 package that has them.  Prints one JSON object with the card's name and
@@ -115,6 +125,7 @@ def main() -> None:
     ap.add_argument("--grid-inv", action="store_true")
     ap.add_argument("--big", action="store_true")
     ap.add_argument("--trsyl-form", nargs="+", default=[])
+    ap.add_argument("--sturm-form", nargs="+", default=[])
     args = ap.parse_args()
     if args.compare:
         compare(*args.compare)
@@ -167,6 +178,11 @@ def main() -> None:
                        f"device"] = device_time(
                         lambda *x, v=v: inv_rbt.inverse_rbt_fused(*x, v=v),
                         a, *d) * 1e3
+        _emit(res, args.out)
+        return
+    if args.sturm_form:
+        for path in args.sturm_form:
+            _sturm_form(path, cs, dev, ms, device_time)
         _emit(res, args.out)
         return
     if args.big:
@@ -339,25 +355,10 @@ def _big(cs, dev, t, ms, device_time) -> None:
 def _trsyl_form(path: str, dev, ms) -> None:
     """``--trsyl-form``: the form of the trsyl kernel in ``path``, built
     and held against the package's kernel, then timed in turns with it."""
-    import ctypes
-    import hashlib
-    import subprocess
-
-    from linalg_solver_tpu_torch.ops.kernels import _build, trsyl
+    from linalg_solver_tpu_torch.ops.kernels import trsyl
     from linalg_solver_tpu_torch.utils.benchmarking import cuda_time
 
-    src = os.path.abspath(path)
-    h = hashlib.sha256(open(src, "rb").read()).hexdigest()[:16]
-    lib_path = _build.BUILD_DIR / f"trsyl_form_{h}.so"
-    if not lib_path.exists():
-        _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-shared",
-                        f"-I{_build.CSRC}", "-o", str(lib_path), src],
-                       check=True)
-    lib = ctypes.CDLL(str(lib_path))
-    lib.trsyl_masked.restype = ctypes.c_int
-    lib.trsyl_masked.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 \
-        + [ctypes.c_void_p]
+    lib = _form_library(path, ("trsyl_masked",))
     t_re, t_im, m, c_re, c_im = trsyl_input(dev)
     name = os.path.basename(path)
     mm = m.to(torch.int32).contiguous()
@@ -389,6 +390,78 @@ def _trsyl_form(path: str, dev, ms) -> None:
                 package, warmup=2, iters=10) * 1e3
             ms[f"{key}, {name}, round {r}"] = cuda_time(
                 form, warmup=2, iters=10) * 1e3
+
+
+def _form_library(path: str, names):
+    """The source at ``path`` built with the package's ``nvcc`` flags into
+    the package's build directory, loaded, its entry points ``names``
+    given the package's C signatures."""
+    import ctypes
+    import hashlib
+    import subprocess
+
+    from linalg_solver_tpu_torch.ops.kernels import _build
+
+    src = os.path.abspath(path)
+    h = hashlib.sha256(open(src, "rb").read()).hexdigest()[:16]
+    stem = os.path.splitext(os.path.basename(src))[0]
+    lib_path = _build.BUILD_DIR / f"form_{stem}_{h}.so"
+    if not lib_path.exists():
+        _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-shared",
+                        f"-I{_build.CSRC}", "-o", str(lib_path), src],
+                       check=True)
+    lib = ctypes.CDLL(str(lib_path))
+    for fn in names:
+        getattr(lib, fn).restype, getattr(lib, fn).argtypes = \
+            _build._SIGNATURES[fn]
+    return lib
+
+
+def _sturm_form(path: str, cs, dev, ms, device_time) -> None:
+    """``--sturm-form``: the form of the Sturm kernels in ``path``, built,
+    held to the bit against the package's at phase 55's shapes, then
+    timed in turns with it; the package's bisection also as device time
+    by kernel (its count and plan kernels)."""
+    from linalg_solver_tpu_torch.ops import sturm
+    from linalg_solver_tpu_torch.ops.kernels import sturm as ks
+    from linalg_solver_tpu_torch.utils.benchmarking import cuda_time
+
+    lib = _form_library(path, ("sturm_bisect", "sturm_count"))
+    name = os.path.basename(path)
+    shapes = [(cs.STURM_B, cs.STURM_N, 0)] + [
+        (bsz, n, bsz + n) for bsz, n in cs.STURM_CHECKS]
+    for bsz, n, seed in shapes:
+        d, e = (torch.from_numpy(x).to(dev)
+                for x in cs.tridiagonal_input(bsz, n, seed=seed))
+        ops = sturm.bisect_operands(d, e)
+        calls = {"package": lambda: ks._launch_bisect(*ops)[:3],
+                 name: lambda: ks._launch_bisect(*ops, lib=lib)[:3]}
+        if (bsz, n) == cs.STURM_CHECKS[0]:
+            a, b, _ = calls["package"]()
+            m = 0.5 * (a + b)
+            calls = {**calls, **{
+                f"count {k}": (lambda lib_=lib_: ks._launch_count(
+                    *ops[:3], m, lib=lib_))
+                for k, lib_ in (("package", None), (name, lib))}}
+        outs = {k: fn() for k, fn in calls.items()}
+        for k in (name, f"count {name}"):
+            if k in outs:
+                ref = outs[k.replace(name, "package")]
+                if not all(_bitwise(x, y) for x, y in zip(
+                        _tensors(outs[k]), _tensors(ref))):
+                    raise AssertionError(f"{k} disagrees with the package's "
+                                         f"kernel at [{bsz}, {n}]")
+        ms[f"sturm [{bsz}, {n}] {name}: bitwise, live steps"] = int(
+            outs[name][2])
+        for r in range(3):
+            order = list(calls) if r % 2 == 0 else list(calls)[::-1]
+            for k in order:
+                ms[f"sturm [{bsz}, {n}] {k}, round {r}"] = cuda_time(
+                    calls[k], warmup=1, iters=3 if bsz > 32 else 10) * 1e3
+        for kernel in ("step_count_kernel", "plan_kernel"):
+            ms[f"sturm [{bsz}, {n}] package, device, {kernel}"] = device_time(
+                calls["package"], warmup=1, iters=3, match=kernel) * 1e3
 
 
 def _cold_events(fn, flush, iters: int = 20) -> float:
