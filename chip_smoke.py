@@ -8,8 +8,10 @@ solver with the spectral pipeline's Schur routes,
 integer determinant, and the eigenvector family built on the Schur
 kernels (eigenvectors and their condition, polynomial roots, the matrix
 sign, Sylvester, Lyapunov, Stein and Riccati equations, generalized and
-quadratic eigenproblems), the matrix functions, and BASELINE config 1's
-exact LaTeX derivation with the card's pivot events replayed into it.
+quadratic eigenproblems), the matrix functions, BASELINE config 1's
+exact LaTeX derivation with the card's pivot events replayed into it,
+the CLI, the tridiagonal family, the f64-class layer in float64, the
+complex layer and the ``numpy.linalg``-shaped namespace.
 
     python3 chip_smoke.py
 
@@ -322,9 +324,32 @@ order; any failure is an uncaught exception and a non-zero exit:
     at [256, 4096], k = 1, on diagonally dominant systems, its float64
     residual; ``randomized_svd_batched`` on [64, 1024, 1024] of rank 32
     plus 1e-3 noise at k = 32, its σ against the float64 SVD, beside
-    ``torch.svd_lowrank`` and ``torch.linalg.svd``, timed.
+    ``torch.svd_lowrank`` and ``torch.linalg.svd``, timed;
+58. dd (``drive_dd``): ``solve_dd_batched`` and ``solve_batched(backend=
+    "dd")`` at B=N=256 on orthogonal factors around logspace(0, -4) (kappa
+    1e4; panel kernel 6 four times, each launch held bitwise against its
+    plain version), the float64 residual under the reference's 1e-12
+    target and the forward error within 1e-10 of numpy's float64 solve;
+    ``inverse_dd_batched`` at B=1024, N=64 (kernel 2 once, max|I - AX| ≤
+    1e-12); ``eig_dd_batched`` on schur-gauss-256's batch (the Schur
+    kernels; the median error within 1e-10 of max|A|, every eigenvalue
+    within 10x its err_bound); ``eigh_dd`` at [32, 128] and ``lstsq_dd`` at
+    [64, 384, 128]; each timed beside its float64 ``torch.linalg`` call;
+59. complex (``drive_complex``): ``solve_complex_batched`` at B=256,
+    n=128 (kernel 1 on the [256, 256, 256] embedding), ``inverse_complex_
+    batched`` at B=1024, n=32 (kernel 2), ``eig_complex_batched`` at
+    B=32, n=128 (the Schur kernels), each against numpy complex128;
+    ``det_complex_batched`` and ``slogdet_complex_batched`` at B=256,
+    n=128 and 192 (the complex elimination kernel, ``csrc/complex_
+    gauss.cu``, in shared and in device memory, held bitwise against its
+    plain version on every call, a singular lane 0 and -inf), each timed
+    beside its ``torch.linalg`` complex64 call;
+60. linalg (``drive_linalg``): every entry point of the ``numpy.linalg``-
+    shaped namespace at leading dims (), (3,) and (2, 2), real and
+    complex, against numpy float64 / complex128, and a numpy argument
+    that must land on the card.
 
-The line before the last is a JSON summary of the eleven kernels, each with
+The line before the last is a JSON summary of the twelve kernels, each with
 its bound (the larger of its bytes over 3.35 TB/s and its operations
 over the 67 TFLOP/s FP32 rate, counted from this run's inputs) and the
 time of the one library call that computes the same function, where
@@ -342,7 +367,10 @@ the XLA while loop of ``eigh_tridiagonal_batched``, its row at
 [16, 4096] beside its library call and its [256, 4096] and [32, 512]
 shapes with their live steps; the Sturm count kernel, which replaces the
 XLA scan of ``sturm_count_batched``, its [16, 4096] lanes at 4096 points
-each); the last line is
+each; the complex elimination kernel, which replaces the XLA fori loop of
+``_gauss_pivots_complex``, its shared- and device-memory shapes beside
+``torch.linalg.det`` complex64; each earlier kernel's launches on phases
+58-60 under ``dd_complex_linalg_launches``); the last line is
 ``{"ok": true, "device": {...}}``.
 Imports nothing of JAX.
 """
@@ -5159,17 +5187,19 @@ CLI_KERNELS = ("chase", "gauss_jordan", "inv_rbt")
 
 def all_counts():
     """Launches of every kernel since ``reset_all_counts``."""
+    from linalg_solver_tpu_torch.ops.kernels import complex_gauss
     from linalg_solver_tpu_torch.ops.kernels import schur_chase, sturm, trsyl
 
     return {**phase_counts(), "chase": schur_chase.LAUNCHES,
-            "trsyl": trsyl.LAUNCHES, "sturm": sturm.LAUNCHES}
+            "trsyl": trsyl.LAUNCHES, "sturm": sturm.LAUNCHES,
+            "complex_gauss": complex_gauss.LAUNCHES}
 
 
 def reset_all_counts():
-    from linalg_solver_tpu_torch.ops.kernels import sturm, trsyl
+    from linalg_solver_tpu_torch.ops.kernels import complex_gauss, sturm, trsyl
 
     reset_counts()
-    trsyl.LAUNCHES = sturm.LAUNCHES = 0
+    trsyl.LAUNCHES = sturm.LAUNCHES = complex_gauss.LAUNCHES = 0
 
 
 def drive_cli(dev):
@@ -5673,6 +5703,524 @@ def drive_tridiag_rsvd(dev, card):
             "svd_lowrank_ms": t_low * 1e3, "svd_ms": t_full * 1e3}
 
 
+DD_KAPPA = 1e4         # phase 58's solve: orthogonal factors around
+#                        logspace(0, -4)
+TOL_DD_FWD = 1e-10     # forward error of x_hi + x_lo, relative, float64
+TOL_DD_INV = 1e-12     # max|I - A X| of the refined inverse, float64
+TOL_DD_EIG = 1e-10     # median eigenvalue error over max|A| (eigh, eig)
+DD_EIGH_B, DD_EIGH_N = 32, 128
+DD_LSQ_B, DD_LSQ_M, DD_LSQ_N = 64, 384, 128
+CX_SOLVE_B, CX_SOLVE_N = 256, 128   # the embedding is [256, 256, 256]
+CX_INV_B, CX_INV_N = 1024, 32      # [1024, 64, 64]: kernel 2
+CX_EIG_B, CX_EIG_N = 32, 128       # [32, 256, 256]: the Schur kernels
+CX_DET_B = 256
+CX_DET_NS = (128, 192)             # shared memory, device memory
+TOL_CX = 1e-5          # complex solve residual, inverse max|AX - I|/...
+TOL_CX_DET = 1e-3      # det and exp(logabs) against complex128, relative
+TOL_LINALG = 1e-4      # the namespace against numpy float64, relative
+
+
+def _f64_host(t):
+    return t.detach().double().cpu().numpy() if not t.is_complex() else \
+        t.detach().cpu().numpy().astype("complex128")
+
+
+def _matched(got, want):
+    """Per lane, the distances of a one-to-one matching (linear_sum_
+    assignment) of the spectra ``got`` and ``want`` [B, n] (host)."""
+    import numpy as np
+    from scipy.optimize import linear_sum_assignment
+
+    out = []
+    for g_l, w_l in zip(got, want):
+        cost = np.abs(g_l[:, None] - w_l[None, :])
+        r, c = linear_sum_assignment(cost)
+        d = np.empty(len(g_l))
+        d[r] = cost[r, c]
+        out.append(d)
+    return np.array(out)
+
+
+def conditioned_batch(bsz, n, kappa, seed, dev):
+    """Seeded orthogonal factors around logspace(0, -log10 kappa), built in
+    float64 on the card, rounded to f32; b Gaussian."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    u, _ = torch.linalg.qr(torch.randn(bsz, n, n, generator=g, device=dev,
+                                       dtype=torch.float64))
+    v, _ = torch.linalg.qr(torch.randn(bsz, n, n, generator=g, device=dev,
+                                       dtype=torch.float64))
+    s = torch.logspace(0, -torch.log10(torch.tensor(kappa)).item(), n,
+                       dtype=torch.float64, device=dev)
+    a = ((u * s) @ v.transpose(1, 2)).float()
+    return a, torch.randn(bsz, n, generator=g, device=dev)
+
+
+def drive_dd(dev, card):
+    """Phase 58: the f64-class layer.  ``solve_dd_batched`` and
+    ``solve_batched(backend="dd")`` at B=N=256, kappa = 1e4 (panel kernel
+    6: four launches, each held bitwise against its plain version), the
+    float64 residual under the reference's target and the forward error
+    against numpy's float64 solve; ``inverse_dd_batched`` at B=1024,
+    N=64 (kernel 2 once); ``eig_dd_batched`` on schur-gauss-256's batch
+    (the Schur kernels); ``eigh_dd`` at [32, 128] and ``lstsq_dd`` at
+    [64, 384, 128]; each checked on the host in float64 and timed beside
+    the float64 ``torch.linalg`` call."""
+    import numpy as np
+
+    from linalg_solver_tpu_torch.ops import dd, dispatch
+    from linalg_solver_tpu_torch.ops.kernels import lu_panel
+    from linalg_solver_tpu_torch.utils.benchmarking import cuda_time
+
+    out = {"counts": {}, "ms": {}, "lib_ms": {}}
+    a, b = conditioned_batch(B, N, DD_KAPPA, 58, dev)
+    calls, off = record(lu_panel, "panel_factor_masked")
+    reset_all_counts()
+    r = dd.solve_dd_batched(a, b)
+    torch.cuda.synchronize()
+    counts = all_counts()
+    off()
+    x = r.x_hi.double() + r.x_lo.double()
+    a64, b64 = a.double().cpu().numpy(), b.double().cpu().numpy()
+    x64 = np.linalg.solve(a64, b64[:, :, None])[:, :, 0]
+    xh = x.cpu().numpy()
+    fwd = float((np.abs(xh - x64).max(axis=1)
+                 / np.abs(x64).max(axis=1)).max())
+    res = np.abs(b64 - np.einsum("bij,bj->bi", a64, xh)).max(axis=1)
+    target = 1e-12 * np.maximum(np.abs(a64).max(axis=(1, 2))
+                                * np.abs(xh).max(axis=1),
+                                np.abs(b64).max(axis=1))
+    k6_err = hold_masked(calls, "on the dd solve path")
+    print(f"dd-256 solve_dd_batched B={B} N={N} kappa {DD_KAPPA:g}: launches "
+          f"{counts}, ok {int(r.ok.sum())} of {B}, float64 residual max "
+          f"{res.max():.3e} (target 1e-12 scale: every lane under it "
+          f"{bool((res <= target).all())}), forward error {fwd:.3e} (tol "
+          f"{TOL_DD_FWD}), reported resid max {float(r.resid.max()):.3e}")
+    if counts["lu_panel"] != N // 64 or len(calls) != N // 64:
+        raise AssertionError("the dd solve did not run panel kernel 6 once a "
+                             "phase")
+    if not bool(r.ok.all()) or not (res <= target).all():
+        raise AssertionError("the dd solve missed the reference's target")
+    if not fwd <= TOL_DD_FWD:
+        raise AssertionError(f"dd solve forward error {fwd}")
+    out["counts"]["solve"] = counts
+    out["k6_err"] = k6_err
+    reset_all_counts()
+    xd = dispatch.solve_batched(a, b, backend="dd")
+    torch.cuda.synchronize()
+    c2 = all_counts()
+    same = torch.equal(xd, r.x_hi + r.x_lo)
+    print(f"dd-256 solve_batched(backend='dd'): launches {c2}, equal to "
+          f"x_hi + x_lo of the call above {same}")
+    if not same or c2["lu_panel"] != N // 64:
+        raise AssertionError("backend='dd' is not solve_dd_batched collapsed")
+    out["counts"]["backend_dd"] = c2
+    out["ms"]["solve"] = cuda_time(dd.solve_dd_batched, a, b, warmup=1,
+                                   iters=5) * 1e3
+    ad, bd = a.double(), b.double()[:, :, None]
+    out["lib_ms"]["solve"] = cuda_time(torch.linalg.solve, ad, bd, warmup=1,
+                                       iters=5) * 1e3
+
+    ai = inverse_batch(B_INV, N_INV, 58, dev)
+    reset_all_counts()
+    ri = dd.inverse_dd_batched(ai)
+    torch.cuda.synchronize()
+    ci = all_counts()
+    xi = (ri.x_hi.double() + ri.x_lo.double()).cpu().numpy()
+    ai64 = ai.double().cpu().numpy()
+    inv_res = float(np.abs(ai64 @ xi - np.eye(N_INV)).max())
+    print(f"dd-inverse-64 inverse_dd_batched B={B_INV} N={N_INV}: launches "
+          f"{ci}, ok {int(ri.ok.sum())} of {B_INV}, float64 max|AX - I| "
+          f"{inv_res:.3e} (tol {TOL_DD_INV})")
+    if ci["inv_rbt"] != 1 or not bool(ri.ok.all()) or \
+            not inv_res <= TOL_DD_INV:
+        raise AssertionError("the dd inverse is off")
+    out["counts"]["inverse"] = ci
+    out["ms"]["inverse"] = cuda_time(dd.inverse_dd_batched, ai, warmup=1,
+                                     iters=5) * 1e3
+    out["lib_ms"]["inverse"] = cuda_time(torch.linalg.inv, ai.double(),
+                                         warmup=1, iters=5) * 1e3
+
+    ag = gaussian_input(dev)
+    reset_all_counts()
+    re_ = dd.eig_dd_batched(ag)
+    torch.cuda.synchronize()
+    ce = all_counts()
+    lam = (re_.lam_re.double() + re_.lam_re_lo.double()).cpu().numpy() + 1j * (
+        re_.lam_im.double() + re_.lam_im_lo.double()).cpu().numpy()
+    want = np.linalg.eigvals(ag.double().cpu().numpy())
+    anorm = ag.abs().amax(dim=(1, 2)).double().cpu().numpy()[:, None]
+    err = _matched(lam, want) / anorm
+    bound = re_.err_bound.double().cpu().numpy() / anorm
+    honest = bool((err <= np.maximum(10 * bound, 1e-9)).all())
+    f32_err = _matched(_f64_host(torch.complex(re_.lam_re, re_.lam_im)),
+                       want) / anorm
+    print(f"dd-eig-256 eig_dd_batched B={B_SPEC} n={N_SPEC}: launches {ce}, "
+          f"converged {int(re_.converged.sum())}, valid "
+          f"{int(re_.valid.sum())} of {re_.valid.numel()}; error over "
+          f"max|A| against numpy float64: median {np.median(err):.3e} (tol "
+          f"{TOL_DD_EIG}), p99 {np.quantile(err, 0.99):.3e}, max "
+          f"{err.max():.3e}; within max(10 err_bound, 1e-9) everywhere "
+          f"{honest}; the f32 Schur eigenvalues' median "
+          f"{np.median(f32_err):.3e}")
+    if not bool(re_.converged.all()) or not np.median(err) <= TOL_DD_EIG \
+            or not honest or ce["chase"] < 1 or ce["schur_window"] < 1:
+        raise AssertionError("the dd eigenvalues are off")
+    out["counts"]["eig"] = ce
+    out["ms"]["eig"] = cuda_time(dd.eig_dd_batched, ag, warmup=0,
+                                 iters=2) * 1e3
+    out["lib_ms"]["eig"] = cuda_time(torch.linalg.eigvals, ag.double(),
+                                     warmup=0, iters=2) * 1e3
+
+    g = torch.Generator(device=dev).manual_seed(59)
+    s = torch.randn(DD_EIGH_B, DD_EIGH_N, DD_EIGH_N, generator=g, device=dev)
+    s = s + s.transpose(1, 2)
+    rh = dd.eigh_dd_batched(s)
+    wh = (rh.w.double() + rh.w_lo.double()).cpu().numpy()
+    wh64 = np.linalg.eigvalsh(s.double().cpu().numpy())
+    snorm = s.abs().amax(dim=(1, 2)).double().cpu().numpy()[:, None]
+    eh = np.abs(wh - wh64) / snorm
+    al = torch.randn(DD_LSQ_B, DD_LSQ_M, DD_LSQ_N, generator=g, device=dev)
+    bl = torch.randn(DD_LSQ_B, DD_LSQ_M, generator=g, device=dev)
+    rl = dd.lstsq_dd_batched(al, bl)
+    xl = (rl.x_hi.double() + rl.x_lo.double()).cpu().numpy()
+    al64, bl64 = al.double().cpu().numpy(), bl.double().cpu().numpy()
+    xl64 = np.stack([np.linalg.lstsq(m, v, rcond=None)[0]
+                     for m, v in zip(al64, bl64)])
+    el = float((np.abs(xl - xl64).max(axis=1)
+                / np.abs(xl64).max(axis=1)).max())
+    print(f"dd-eigh-128 eigh_dd_batched [{DD_EIGH_B}, {DD_EIGH_N}]: error "
+          f"over max|A| median {np.median(eh):.3e}, max {eh.max():.3e} (tol "
+          f"{TOL_DD_EIG} median); dd-lstsq-384x128 lstsq_dd_batched "
+          f"[{DD_LSQ_B}, {DD_LSQ_M}, {DD_LSQ_N}]: ok {int(rl.ok.sum())} of "
+          f"{DD_LSQ_B}, forward error {el:.3e} (tol {TOL_DD_FWD})")
+    if not np.median(eh) <= TOL_DD_EIG or not bool(rl.ok.all()) or \
+            not el <= TOL_DD_FWD:
+        raise AssertionError("eigh_dd or lstsq_dd is off")
+    out["ms"]["eigh"] = cuda_time(dd.eigh_dd_batched, s, warmup=1,
+                                  iters=3) * 1e3
+    out["lib_ms"]["eigh"] = cuda_time(torch.linalg.eigvalsh, s.double(),
+                                      warmup=1, iters=3) * 1e3
+    out["ms"]["lstsq"] = cuda_time(dd.lstsq_dd_batched, al, bl, warmup=1,
+                                   iters=3) * 1e3
+    out["lib_ms"]["lstsq"] = cuda_time(
+        lambda m, v: torch.linalg.lstsq(m, v[:, :, None]), al.double(),
+        bl.double(), warmup=1, iters=3) * 1e3
+    for k in out["ms"]:
+        print(f"time dd {k}: {out['ms'][k]:.4f} ms, torch.linalg float64 "
+              f"{out['lib_ms'][k]:.4f} ms ({card})")
+    return out
+
+
+def complex_batch(bsz, n, seed, dev, shift=1.0):
+    """(re, im) of ``shift·I + (G_re + i G_im)/sqrt(2n)`` from a seeded
+    generator on the card (the spectrum a disk of radius ~1 around
+    ``shift``: E log|det| ~ 0 at shift 1)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    re = torch.randn(bsz, n, n, generator=g, device=dev) / (2 * n) ** 0.5
+    im = torch.randn(bsz, n, n, generator=g, device=dev) / (2 * n) ** 0.5
+    return re + shift * torch.eye(n, device=dev), im
+
+
+def gauss_work(bsz, n):
+    """(bytes, operations) of the pivoted complex elimination: the planes
+    read once, the pivots, sign and flags written once; per step k the
+    magnitudes (3 (n-k)), the factors (8 (n-k-1) + 2 divisions) and the
+    update (8 (n-k-1)^2)."""
+    ops = sum(3 * (n - k) + 10 * (n - k - 1) + 8 * (n - k - 1) ** 2
+              for k in range(n))
+    return 4 * (2 * bsz * n * n + 2 * bsz * n + bsz) + bsz, bsz * ops
+
+
+def drive_complex(dev, card):
+    """Phase 59: the complex layer on the real kernels.
+    ``solve_complex_batched`` at B=256, n=128 (the [256, 256, 256]
+    embedding: kernel 1), ``inverse_complex_batched`` at B=1024, n=32
+    (kernel 2), ``eig_complex_batched`` at B=32, n=128 (the Schur
+    kernels), ``det_complex_batched`` and ``slogdet_complex_batched`` at
+    B=256, n=128 and 192 (the complex elimination kernel in shared and in
+    device memory, held bitwise against its plain version on what each
+    call gave it), each checked on the host in complex128 and timed
+    beside the ``torch.linalg`` complex64 call."""
+    import numpy as np
+
+    from linalg_solver_tpu_torch.ops import complexlin as cx
+    from linalg_solver_tpu_torch.ops.kernels import complex_gauss as cg
+    from linalg_solver_tpu_torch.utils.benchmarking import cuda_time
+
+    out = {"counts": {}, "ms": {}, "lib_ms": {}, "shapes": []}
+    a_re, a_im = complex_batch(CX_SOLVE_B, CX_SOLVE_N, 59, dev, shift=3.0)
+    g = torch.Generator(device=dev).manual_seed(60)
+    b_re, b_im = (torch.randn(CX_SOLVE_B, CX_SOLVE_N, generator=g,
+                              device=dev) for _ in range(2))
+    reset_all_counts()
+    x_re, x_im = cx.solve_complex_batched(a_re, a_im, b_re, b_im)
+    torch.cuda.synchronize()
+    cs = all_counts()
+    A = _f64_host(torch.complex(a_re, a_im))
+    bb = _f64_host(torch.complex(b_re, b_im))
+    xx = _f64_host(torch.complex(x_re, x_im))
+    res = np.abs(np.einsum("bij,bj->bi", A, xx) - bb).max(axis=1) / (
+        np.abs(A).max(axis=(1, 2)) * np.abs(xx).max(axis=1))
+    print(f"complex-128 solve_complex_batched B={CX_SOLVE_B} n={CX_SOLVE_N}: "
+          f"launches {cs}, worst relative residual {res.max():.3e} (tol "
+          f"{TOL_CX})")
+    if cs["fused"] < 1 or not res.max() <= TOL_CX:
+        raise AssertionError("the complex solve did not run kernel 1 or is "
+                             "off")
+    out["counts"]["solve"] = cs
+    out["ms"]["solve"] = cuda_time(cx.solve_complex_batched, a_re, a_im,
+                                   b_re, b_im, warmup=2, iters=10) * 1e3
+    ac, bc = torch.complex(a_re, a_im), torch.complex(b_re, b_im)[:, :, None]
+    out["lib_ms"]["solve"] = cuda_time(torch.linalg.solve, ac, bc, warmup=2,
+                                       iters=10) * 1e3
+
+    i_re, i_im = complex_batch(CX_INV_B, CX_INV_N, 61, dev, shift=3.0)
+    reset_all_counts()
+    v_re, v_im = cx.inverse_complex_batched(i_re, i_im)
+    torch.cuda.synchronize()
+    ci = all_counts()
+    Ai = _f64_host(torch.complex(i_re, i_im))
+    Xi = _f64_host(torch.complex(v_re, v_im))
+    ires = float(np.abs(Ai @ Xi - np.eye(CX_INV_N)).max())
+    print(f"complex-inverse-32 inverse_complex_batched B={CX_INV_B} "
+          f"n={CX_INV_N}: launches {ci}, max|AX - I| {ires:.3e} (tol "
+          f"{TOL_INV})")
+    if ci["inv_rbt"] < 1 or not ires <= TOL_INV:
+        raise AssertionError("the complex inverse did not run kernel 2 or "
+                             "is off")
+    out["counts"]["inverse"] = ci
+    out["ms"]["inverse"] = cuda_time(cx.inverse_complex_batched, i_re, i_im,
+                                     warmup=2, iters=10) * 1e3
+    out["lib_ms"]["inverse"] = cuda_time(
+        torch.linalg.inv, torch.complex(i_re, i_im), warmup=2,
+        iters=10) * 1e3
+
+    e_re, e_im = complex_batch(CX_EIG_B, CX_EIG_N, 62, dev, shift=0.0)
+    reset_all_counts()
+    re_ = cx.eig_complex_batched(e_re, e_im)
+    torch.cuda.synchronize()
+    ce = all_counts()
+    Ae = _f64_host(torch.complex(e_re, e_im))
+    want = np.linalg.eigvals(Ae)
+    got = _f64_host(torch.complex(re_.real, re_.imag))
+    norm_e = np.abs(Ae).max(axis=(1, 2))[:, None]
+    dev_e = _matched(got, want) / norm_e
+    print(f"complex-eig-128 eig_complex_batched B={CX_EIG_B} n={CX_EIG_N}: "
+          f"launches {ce}, ok {int(re_.ok.sum())} of {CX_EIG_B}, valid "
+          f"{int(re_.valid.sum())} of {re_.valid.numel()}, spectra against "
+          f"numpy complex128 (matched) max {dev_e.max():.3e} of max|A| (tol "
+          f"{TOL_SCHUR_EIG})")
+    if ce["chase"] < 1 or ce["schur_window"] < 1 or not bool(re_.ok.all()) \
+            or not dev_e.max() <= TOL_SCHUR_EIG:
+        raise AssertionError("the complex eig did not run the Schur kernels "
+                             "or is off")
+    out["counts"]["eig"] = ce
+    out["ms"]["eig"] = cuda_time(cx.eig_complex_batched, e_re, e_im,
+                                 warmup=0, iters=2) * 1e3
+    out["lib_ms"]["eig"] = cuda_time(torch.linalg.eigvals,
+                                     torch.complex(e_re, e_im), warmup=0,
+                                     iters=2) * 1e3
+
+    out["det_launches"], out["err"] = 0, 0.0
+    for n in CX_DET_NS:
+        d_re, d_im = complex_batch(CX_DET_B, n, 63 + n, dev)
+        d_re[1, :, 0] = 0.0           # no pivot at step 0: ok False
+        d_im[1, :, 0] = 0.0
+        calls, off = record(cg, "gauss_pivots_complex")
+        reset_all_counts()
+        det_re, det_im = cx.det_complex_batched(d_re, d_im)
+        s_re, s_im, logabs = cx.slogdet_complex_batched(d_re, d_im)
+        torch.cuda.synchronize()
+        cd = all_counts()
+        off()
+        for args, got_ in calls:
+            ref = cg.gauss_pivots_complex_reference(*args)
+            if not all(nan_equal(x, y) for x, y in zip(got_, ref)):
+                raise AssertionError(f"the complex elimination kernel "
+                                     f"disagrees with its plain version at "
+                                     f"n = {n}")
+            out["err"] = max(out["err"], abs_diff(got_[0], ref[0]),
+                             abs_diff(got_[1], ref[1]))
+        Ad = _f64_host(torch.complex(d_re, d_im))
+        sign64, log64 = np.linalg.slogdet(Ad)
+        keep = np.arange(CX_DET_B) != 1
+        det = _f64_host(torch.complex(det_re, det_im))[keep]
+        det64 = (sign64 * np.exp(log64))[keep]
+        det_err = float((np.abs(det - det64) / np.abs(det64)).max())
+        sgn = _f64_host(torch.complex(s_re, s_im))[keep]
+        log_err = float(np.abs(logabs.double().cpu().numpy()[keep]
+                               - log64[keep]).max())
+        sgn_err = float(np.abs(sgn - sign64[keep]).max())
+        flags = (float(det_re[1]) == 0.0 and float(det_im[1]) == 0.0
+                 and float(logabs[1]) == float("-inf"))
+        print(f"complex-det-{n} det/slogdet_complex_batched B={CX_DET_B} "
+              f"n={n} (variant {cg.variant(n, torch.float32)}): launches "
+              f"{cd}, the kernel bitwise its plain version on "
+              f"{len(calls)} calls; det against complex128 {det_err:.3e}, "
+              f"sign {sgn_err:.3e}, log|det| {log_err:.3e} (tol "
+              f"{TOL_CX_DET}); the singular lane 0 and -inf {flags}")
+        if cd["complex_gauss"] != 2 or len(calls) != 2 or not flags or \
+                not max(det_err, sgn_err) <= TOL_CX_DET or \
+                not log_err <= TOL_CX_DET * n:
+            raise AssertionError(f"the complex determinant at n = {n} is off")
+        out["det_launches"] += cd["complex_gauss"]
+        t_k = cuda_time(cg.gauss_pivots_complex, d_re, d_im, warmup=2,
+                        iters=10)
+        t_p = cuda_time(cg.gauss_pivots_complex_reference, d_re, d_im,
+                        warmup=1, iters=2)
+        dc = torch.complex(d_re, d_im)
+        t_det = cuda_time(cx.det_complex_batched, d_re, d_im, warmup=2,
+                          iters=10)
+        t_lib = cuda_time(torch.linalg.det, dc, warmup=2, iters=10)
+        t_sl = cuda_time(cx.slogdet_complex_batched, d_re, d_im, warmup=2,
+                         iters=10)
+        t_sl_lib = cuda_time(torch.linalg.slogdet, dc, warmup=2, iters=10)
+        bms, by = bound(*gauss_work(CX_DET_B, n))
+        out["shapes"].append({
+            "shape": [CX_DET_B, n, n], "variant": cg.variant(n, torch.float32),
+            "ms": t_k * 1e3, "plain_ms": t_p * 1e3, "bound_ms": bms,
+            "bound_by": by, "library_ms": t_lib * 1e3,
+            "det_ms": t_det * 1e3, "slogdet_ms": t_sl * 1e3,
+            "slogdet_library_ms": t_sl_lib * 1e3,
+            "attributes": cg.attributes(n, torch.float32)})
+        print(f"time complex elimination [{CX_DET_B}, {n}, {n}]: kernel "
+              f"{t_k * 1e3:.4f} ms, plain {t_p * 1e3:.2f} ms, bound "
+              f"{bms:.4f} ms ({by}); det_complex_batched {t_det * 1e3:.4f} "
+              f"ms, torch.linalg.det complex64 {t_lib * 1e3:.4f} ms; "
+              f"slogdet {t_sl * 1e3:.4f} ms, torch.linalg.slogdet "
+              f"{t_sl_lib * 1e3:.4f} ms; attributes "
+              f"{out['shapes'][-1]['attributes']} ({card})")
+    for k in out["ms"]:
+        print(f"time complex {k}: {out['ms'][k]:.4f} ms, torch.linalg "
+              f"complex64 {out['lib_ms'][k]:.4f} ms ({card})")
+    return out
+
+
+LINALG_N = 16
+LINALG_LEADS = ((), (3,), (2, 2))
+
+
+def _linalg_input(lead, cplx, seed, dev, m=None, shift=3.0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    n, m = LINALG_N, m or LINALG_N
+    a = torch.randn(*lead, n, m, generator=g, device=dev)
+    if cplx:
+        a = torch.complex(a, torch.randn(*lead, n, m, generator=g,
+                                         device=dev))
+    if n == m:
+        a = a + shift * n ** 0.5 * torch.eye(n, device=dev)
+    return a
+
+
+def drive_linalg(dev, card):
+    """Phase 60: the ``numpy.linalg``-shaped namespace on the card, every
+    entry point at leading batch dims (), (3,) and (2, 2), real and
+    complex, against numpy in float64 / complex128 on the host; one call
+    on a numpy array (it must land on the card).  Returns the seconds and
+    the kernel launches of the whole phase."""
+    import numpy as np
+
+    from linalg_solver_tpu_torch import linalg as tla
+
+    def close(name, got, want, tol=TOL_LINALG):
+        got = _f64_host(got)
+        want = np.asarray(want)
+        err = np.abs(got - want).max() / max(np.abs(want).max(), 1e-30)
+        if got.shape != want.shape or not err <= tol:
+            raise AssertionError(f"linalg.{name}: {got.shape} against "
+                                 f"{want.shape}, relative error {err}")
+        return err
+
+    t0 = time.perf_counter()
+    reset_all_counts()
+    worst = {}
+    for cplx in (False, True):
+        for lead in LINALG_LEADS:
+            tag = f"{'complex' if cplx else 'real'} {lead}"
+            a = _linalg_input(lead, cplx, 70, dev)
+            an = _f64_host(a)
+            b = _linalg_input(lead, False, 71, dev)[..., 0]
+            bm = _linalg_input(lead, False, 72, dev)[..., :3]
+            t = _linalg_input(lead, cplx, 73, dev, m=8)
+            tn = _f64_host(t)
+            errs = {
+                "solve": close("solve", tla.solve(a, b), np.linalg.solve(
+                    an, _f64_host(b)[..., None])[..., 0]),
+                "solve_matrix": close("solve", tla.solve(a, bm),
+                                      np.linalg.solve(an, _f64_host(bm))),
+                "inv": close("inv", tla.inv(a), np.linalg.inv(an)),
+                "det": close("det", tla.det(a), np.linalg.det(an)),
+                "slogdet": close("slogdet", tla.slogdet(a)[1],
+                                 np.linalg.slogdet(an)[1]),
+                "eigvals": float(np.max(_matched(
+                    _f64_host(tla.eigvals(a)).reshape(-1, LINALG_N),
+                    np.linalg.eigvals(an).reshape(-1, LINALG_N)))
+                    / np.abs(an).max()),
+                "eigvalsh": close("eigvalsh", tla.eigvalsh(
+                    (a + a.mH) / 2), np.linalg.eigvalsh((an + np.conj(
+                        np.swapaxes(an, -1, -2))) / 2)),
+                "svdvals": close("svdvals", tla.svdvals(t), np.linalg.svd(
+                    tn, compute_uv=False)),
+                "pinv": close("pinv", tla.pinv(t), np.linalg.pinv(tn)),
+                "lstsq": close("lstsq", tla.lstsq(t, b), np.stack([
+                    np.linalg.lstsq(m_, v_, rcond=None)[0] for m_, v_ in zip(
+                        tn.reshape(-1, LINALG_N, 8),
+                        _f64_host(b).reshape(-1, LINALG_N))]).reshape(
+                            lead + (8,))),
+                "cond": close("cond", tla.cond(a, p=1), np.linalg.cond(
+                    an, p=1)),
+                "matrix_power": close("matrix_power", tla.matrix_power(
+                    a / (4 * LINALG_N), 3), np.linalg.matrix_power(
+                        an / (4 * LINALG_N), 3)),
+                "matrix_rank": float(np.abs(
+                    _f64_host(tla.matrix_rank(t))
+                    - np.linalg.matrix_rank(tn)).max()),
+            }
+            w, v = tla.eig(a)
+            res = np.abs(an @ _f64_host(v) - _f64_host(v) * _f64_host(w)[
+                ..., None, :]).max() / np.abs(an).max()
+            h = (a + a.mH) / 2
+            wh, vh = tla.eigh(h)
+            hn = _f64_host(h)
+            res_h = np.abs(hn @ _f64_host(vh) - _f64_host(vh) * _f64_host(
+                wh)[..., None, :]).max() / np.abs(hn).max()
+            u, s, vh_ = tla.svd(t)
+            rec = np.abs((_f64_host(u) * _f64_host(s)[..., None, :])
+                         @ _f64_host(vh_) - tn).max() / np.abs(tn).max()
+            q, r = tla.qr(t)
+            qr_err = np.abs(_f64_host(q) @ _f64_host(r) - tn).max() / \
+                np.abs(tn).max()
+            gram = t.mH @ t + torch.eye(8, device=dev)
+            lc = tla.cholesky(gram)
+            ch_err = np.abs(_f64_host(lc) @ np.conj(np.swapaxes(
+                _f64_host(lc), -1, -2)) - _f64_host(gram)).max() / np.abs(
+                    _f64_host(gram)).max()
+            errs.update({"eig": res, "eigh": res_h, "svd": rec, "qr": qr_err,
+                         "cholesky": ch_err})
+            bad = {k: e for k, e in errs.items() if not e <= TOL_LINALG}
+            if bad:
+                raise AssertionError(f"linalg {tag}: {bad}")
+            for k, e in errs.items():
+                worst[k] = max(worst.get(k, 0.0), float(e))
+    an = np.random.RandomState(74).randn(4, LINALG_N, LINALG_N) \
+        + 3 * LINALG_N ** 0.5 * np.eye(LINALG_N)
+    d = tla.det(an)
+    if d.device.type != "cuda":
+        raise AssertionError("a numpy argument did not land on the card")
+    close("det (numpy input)", d, np.linalg.det(an.astype(np.float32)
+                                                .astype(np.float64)))
+    torch.cuda.synchronize()
+    counts = all_counts()
+    secs = time.perf_counter() - t0
+    print(f"linalg namespace: every entry point at leading dims "
+          f"{list(LINALG_LEADS)}, real and complex, n = {LINALG_N}, within "
+          f"{TOL_LINALG} of numpy float64 (worst "
+          f"{json.dumps({k: float(f'{v:.3e}') for k, v in worst.items()})}); "
+          f"a numpy input ran on {d.device}; launches {counts}; "
+          f"{secs:.2f} s ({card})")
+    return {"seconds": secs, "counts": counts, "worst": worst}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py: no CUDA device; there is no CPU path")
@@ -5895,6 +6443,20 @@ def main() -> None:
                   for k in ("inv_rbt", "gauss_jordan", "butterfly",
                             "lu_nopivot", "chase", "schur_window")}
 
+    # 58-60. the f64-class layer in float64, the complex layer on the real
+    # kernels (the complex elimination kernel), the linalg namespace
+    t0 = time.perf_counter()
+    ddo = drive_dd(dev, card)
+    cxo = drive_complex(dev, card)
+    lao = drive_linalg(dev, card)
+    print(f"dd, complex and linalg phases: {time.perf_counter() - t0:.2f} s")
+    slice_counts = {}
+    for c in (*ddo["counts"].values(), *cxo["counts"].values(),
+              lao["counts"]):
+        for k, v in c.items():
+            slice_counts[k] = slice_counts.get(k, 0) + v
+    slice_counts["complex_gauss"] += cxo["det_launches"]
+
     # bounds from this run's shapes: bytes each input read and each output
     # written once; operations those the inputs need
     w = 2 * N_INV
@@ -5916,6 +6478,8 @@ def main() -> None:
         "sturm_bisect": (st["shapes"][1]["bound_ms"],
                          st["shapes"][1]["bound_by"]),
         "sturm_count": (st["count"]["bound_ms"], st["count"]["bound_by"]),
+        "gauss_pivots_complex": (cxo["shapes"][0]["bound_ms"],
+                                 cxo["shapes"][0]["bound_by"]),
     }
     rows = [{
         "name": "solve_fused_rbt",
@@ -6090,7 +6654,34 @@ def main() -> None:
         "library_ms": None,
         "shape": st["count"]["shape"],
         "float64_ms": st["count"]["float64_ms"],
+    }, {
+        "name": "gauss_pivots_complex",
+        "route": "cuda",
+        "source": "linalg_solver_tpu_torch/csrc/complex_gauss.cu",
+        # no Pallas kernel: the XLA fori_loop of _gauss_pivots_complex
+        # (complexlin.py:73-132)
+        "replaces": "linalg_solver_tpu/ops/complexlin.py:61",
+        "launches": slice_counts["complex_gauss"],
+        "max_abs_err": cxo["err"],
+        "ms": cxo["shapes"][0]["ms"],
+        "plain_ms": cxo["shapes"][0]["plain_ms"],
+        "library_ms": cxo["shapes"][0]["library_ms"],
+        "large_shapes": cxo["shapes"],
     }]
+    # the launches of phases 58-60 on the kernels of earlier slices
+    for row, key in (("solve_fused_rbt", "fused"),
+                     ("inverse_rbt_fused", "inv_rbt"),
+                     ("gauss_jordan_tiled", "gauss_jordan"),
+                     ("butterfly_two_sided", "butterfly"),
+                     ("panel_factor_nopivot", "lu_nopivot"),
+                     ("panel_factor_masked", "lu_panel"),
+                     ("francis_chase", "chase"),
+                     ("window_schur", "schur_window")):
+        r = next(x for x in rows if x["name"] == row)
+        r["launches"] += slice_counts[key]
+        r["dd_complex_linalg_launches"] = slice_counts[key]
+    k6 = next(x for x in rows if x["name"] == "panel_factor_masked")
+    k6["max_abs_err"] = max(k6["max_abs_err"], ddo["k6_err"])
     for row in rows:
         row["bound_ms"], row["bound_by"] = bounds[row["name"]]
     print(json.dumps({"kernels": rows}))

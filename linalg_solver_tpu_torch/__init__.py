@@ -46,7 +46,12 @@ Ported so far:
   (``python -m linalg_solver_tpu_torch``);
 - the tridiagonal family: ``ops.tridiag`` (cyclic reduction),
   ``ops.sturm`` (Sturm bisection on a kernel, twisted-factorization
-  eigenvectors) and ``ops.randomized`` (randomized SVD, ID, CUR).
+  eigenvectors) and ``ops.randomized`` (randomized SVD, ID, CUR);
+- the f64-class layer ``ops.dd`` in native float64 (the ``"dd"`` backend
+  of the solve and the inverse), the complex layer ``ops.complexlin`` on
+  the real kernels through the 2n embedding, with the complex
+  determinant's pivoted elimination on a kernel, the ``numpy.linalg``-
+  shaped namespace ``linalg`` and ``utils.checkpoint``.
 """
 
 from .exact import (

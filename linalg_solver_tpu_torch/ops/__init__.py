@@ -63,6 +63,14 @@
 - ``nearness`` — nearest PSD, correlation and orthogonal matrices
 - ``fitting`` — ridge, total least squares, Procrustes and principal
   angles
+- ``dd`` — f64-class solve, inverse, least squares and eigenvalues:
+  float32 factorizations on the kernels, refinement with float64
+  residuals (the ``"dd"`` backend of ``dispatch``)
+- ``complexlin`` — complex solve, inverse, determinant (the pivoted
+  complex elimination on ``kernels.complex_gauss``), eigh, eig, Cholesky,
+  QR, SVD, pseudoinverse, least squares, matrix functions and equations,
+  generalized eigenproblems and roots, on (re, im) pairs through the real
+  embedding
 - ``exact_int`` — Bareiss elimination in int32 and CRT reconstruction:
   exact integer determinants, ranks and solutions (not re-exported, as
   in the reference)
@@ -229,6 +237,11 @@ from .quadeig import (
     polyeig_batched,
     quadeig_batched,
 )
+from .complexlin import (
+    det_complex_batched,
+    inverse_complex_batched,
+    solve_complex_batched,
+)
 from .roots import (
     RootsResult,
     roots_batched,
@@ -308,6 +321,8 @@ __all__ = [
     "RidgeResult", "ridge_batched", "TLSResult", "tls_batched",
     "ProcrustesResult", "procrustes_batched",
     "SubspaceAngles", "subspace_angles_batched",
+    "solve_complex_batched", "inverse_complex_batched",
+    "det_complex_batched",
     "RootsResult", "roots_batched",
     "SignResult", "sign_batched", "eig_count_left_batched",
     "spectral_projector_batched",

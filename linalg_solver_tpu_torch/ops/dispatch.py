@@ -27,7 +27,10 @@ Solve backends:
   shape: the correctness oracle.
 - ``"xla"``  — the library's ``torch.linalg.solve``: the named baseline
   (the JAX package's ``"xla"`` is ``jnp.linalg.solve``).
-- ``"dd"`` — not ported (ROADMAP.md queue 1 item 6): it raises.
+- ``"dd"`` — f64-class backward error: ``dd.solve_dd_batched`` (one f32
+  LU on panel kernel 6 or the LU loop, refinement with float64
+  residuals), vector RHS; returns ``x_hi + x_lo`` collapsed to f32, as
+  the reference does.
 - ``"auto"`` — ``"rbt"`` where the fused kernel reaches, and where the
   phase engine does (N a multiple of 8 below 1024).  This departs from
   the reference at even N < 256: the reference takes Gauss–Jordan there
@@ -62,7 +65,9 @@ Inverse, determinant and rank backends (the reference's names):
   counting (rank).
 - ``"xla"``    — the library's ``torch.linalg.inv`` / ``det`` /
   ``matrix_rank``.
-- ``"dd"`` — (inverse) not ported (ROADMAP.md queue 1 item 6).
+- ``"dd"`` — (inverse) ``dd.inverse_dd_batched`` (the ``"auto"``
+  inverse, then Newton–Schulz rounds with float64 residuals), collapsed
+  to f32.
 - ``"auto"``   — ``"pallas"`` where the kernels reach; past that the
   inverse goes to the phase engine (``ops.rbt.inverse_rbt_batched``)
   where N is a multiple of 8 below 1024, as the reference routes it to
@@ -103,6 +108,7 @@ from typing import Optional
 
 import torch
 
+from . import dd as _dd
 from . import kernels as _kernels
 from . import lu as _lu
 from . import lu_blocked as _lub
@@ -143,13 +149,6 @@ BLOCKED_RREF_MIN_N = 256
 #: the Gauss–Jordan inverse's pivot threshold on the loop route
 #: (``dispatch.py:338``)
 LOOP_INVERSE_TOL = 1e-30
-
-
-def _no_dd(what: str):
-    return NotImplementedError(
-        f"backend='dd' ({what}): the reference's f64-class solve and inverse "
-        f"(ops/dd.py) are not ported; ROADMAP.md queue 1 item 6 ports them "
-        f"as native float64")
 
 
 def phase_reaches(n: int) -> bool:
@@ -235,7 +234,10 @@ def _solve_impl(a: torch.Tensor, b: torch.Tensor, backend: str):
     n = a.shape[-1]
     be = _resolve(backend, n, k, vector_rhs)
     if be == "dd":
-        raise _no_dd("solve")
+        if not vector_rhs:
+            raise ValueError("backend='dd' solves a vector RHS [B, N]")
+        r = _dd.solve_dd_batched(a, b)
+        return r.x_hi + r.x_lo
     if be == "rbt":
         return _rbt.solve_rbt_batched(a, b)
     if be == "mixed":
@@ -320,7 +322,8 @@ def _inverse_impl(a: torch.Tensor, backend: str) -> torch.Tensor:
     n = a.shape[-1]
     be = _resolve_facade(backend, "inverse", n)
     if be == "dd":
-        raise _no_dd("inverse")
+        r = _dd.inverse_dd_batched(a)
+        return r.x_hi + r.x_lo
     if be == "pallas":
         return _kernels.inverse_batched(a)
     if be == "rbt":

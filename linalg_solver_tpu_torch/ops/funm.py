@@ -321,21 +321,6 @@ class FunmResult(NamedTuple):
     ok: torch.Tensor        # [B]
 
 
-def _inverse_complex(v: torch.Tensor) -> torch.Tensor:
-    """``V⁻¹`` of a complex batch ``[B, n, n]``: the real embedding
-    ``[[X, −Y], [Y, X]]`` (an algebra isomorphism) inverted by
-    ``dispatch.inverse_batched`` (``"auto"``), its blocks read off.  At
-    n = 256 the 512 × 512 inverse runs the RBT phase engine on the
-    butterfly and no-pivot panel kernels."""
-    from . import dispatch
-
-    n = v.shape[-1]
-    x, y = v.real, v.imag
-    inv = dispatch.inverse_batched(torch.cat(
-        [torch.cat([x, -y], dim=2), torch.cat([y, x], dim=2)], dim=1))
-    return torch.complex(inv[:, :n, :n], inv[:, n:, :n])
-
-
 @f32_matmuls()
 def funm_batched(a: torch.Tensor, f) -> FunmResult:
     """Apply an analytic scalar function to a batched general real matrix
@@ -343,6 +328,7 @@ def funm_batched(a: torch.Tensor, f) -> FunmResult:
     V f(Λ) V⁻¹``.  ``f`` takes a complex torch tensor ``[B, n]`` of
     eigenvalues and must be analytic on the spectrum; near-defective input
     should use the specialised routines (``resid`` shows it)."""
+    from .complexlin import inverse_complex_batched
     from .schur import eig_batched
 
     a = _f32(a)
@@ -351,7 +337,10 @@ def funm_batched(a: torch.Tensor, f) -> FunmResult:
     lam = torch.complex(r.real, r.imag)
     V = torch.complex(r.vectors_real, r.vectors_imag)
     fd = torch.as_tensor(f(lam), device=a.device).to(V.dtype)
-    Vinv = _inverse_complex(V)
+    # V⁻¹ through the real embedding on dispatch.inverse_batched (at n =
+    # 256 the 512 × 512 inverse runs the RBT phase engine's kernels)
+    Vinv = torch.complex(*inverse_complex_batched(r.vectors_real,
+                                                  r.vectors_imag))
     Fc = (V * fd[:, None, :]) @ Vinv
     # the reconstruction with the same V, V⁻¹: f = identity
     Ac = (V * lam[:, None, :]) @ Vinv

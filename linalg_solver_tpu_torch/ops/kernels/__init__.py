@@ -20,6 +20,9 @@ version (counterpart of ``linalg_solver_tpu.ops.pallas``).
 - ``sturm`` — the Sturm-count bisection of the tridiagonal eigenvalues
   (``ops.sturm``; no Pallas counterpart: the reference runs an XLA while
   loop around a scan)
+- ``complex_gauss`` — the pivoted complex Gauss elimination of the
+  complex determinant (``ops.complexlin``; no Pallas counterpart: the
+  reference runs an XLA fori loop)
 
 The functions below are the facade ``ops.dispatch`` routes to, as the
 JAX package's ``ops.pallas`` is: ``inverse_batched`` takes the fused RBT

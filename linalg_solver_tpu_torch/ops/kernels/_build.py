@@ -68,6 +68,10 @@ _SIGNATURES = {
     "sturm_bisect": (_I, [_P] * 10 + [_I] * 3 + [_P]),
     "sturm_smem_bytes": (ctypes.c_size_t, [_I, _I]),
     "sturm_attributes": (_I, [_I, _P]),
+    "complex_gauss": (_I, [_P] * 7 + [_I] * 3 + [_P]),
+    "complex_gauss_variant": (_I, [_I, _I]),
+    "complex_gauss_smem_bytes": (ctypes.c_size_t, [_I, _I]),
+    "complex_gauss_attributes": (_I, [_I, _I, _P]),
     "kernels_error_string": (ctypes.c_char_p, [_I]),
 }
 

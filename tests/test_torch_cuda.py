@@ -1692,3 +1692,97 @@ def test_cli_device_section_on_the_card(cuda, tmp_path):
     assert r"\section{Dávkový GPU řešič}" in text
     assert "řešena na GPU" in text
     assert text.count(" & ano \\\\") == 4
+
+
+def _complex_lanes(B, n, seed, dtype=torch.float32):
+    """Gaussian (re, im) lanes on the host; lane 1 has a zero first column
+    (no pivot at step 0: ok False), lane 2 is scaled by 1e-3."""
+    rng = np.random.RandomState(seed)
+    re = rng.randn(B, n, n)
+    im = rng.randn(B, n, n)
+    re[1, :, 0] = im[1, :, 0] = 0.0
+    re[2] *= 1e-3
+    im[2] *= 1e-3
+    return (torch.from_numpy(re).to(dtype), torch.from_numpy(im).to(dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,dtype", [(128, torch.float32),
+                                     (192, torch.float32),
+                                     (96, torch.float64),
+                                     (130, torch.float64)])
+def test_complex_gauss_kernel_matches_plain_version(cuda, n, dtype):
+    """Bitwise on the pivots, the sign and ok, in shared memory (variant
+    0: f32 to n = 170, f64 to 120) and in device memory (variant 1)."""
+    from linalg_solver_tpu_torch.ops.kernels import complex_gauss as cg
+
+    re, im = (t.to(cuda) for t in _complex_lanes(8, n, n, dtype))
+    before = cg.LAUNCHES
+    got = cg.gauss_pivots_complex(re, im)
+    torch.cuda.synchronize()
+    assert cg.LAUNCHES == before + 1
+    want = cg.gauss_pivots_complex_reference(re, im)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert not bool(got[3][1]) and bool(got[3][[0, 2, 3]].all())
+    assert cg.variant(n, dtype) == (0 if n <= (170 if dtype == torch.float32
+                                               else 120) else 1)
+
+
+@pytest.mark.cuda
+def test_complex_det_on_the_card(cuda):
+    """``det_complex_batched`` and ``slogdet_complex_batched`` launch the
+    kernel once each and agree with ``torch.linalg.det`` / ``slogdet`` on
+    complex128 to 1e-4 relative; the singular lane (a zero first column)
+    gives 0 and −inf."""
+    from linalg_solver_tpu_torch.ops import complexlin as cx
+    from linalg_solver_tpu_torch.ops.kernels import complex_gauss as cg
+
+    # I + G/sqrt(2n): |det| of order 1, inside float32's range
+    re, im = _complex_lanes(8, 64, 3)
+    re, im = re / 128 ** 0.5 + torch.eye(64), im / 128 ** 0.5
+    re[1, :, 0] = im[1, :, 0] = 0.0
+    re, im = re.to(cuda), im.to(cuda)
+    before = cg.LAUNCHES
+    d_re, d_im = cx.det_complex_batched(re, im)
+    s_re, s_im, logabs = cx.slogdet_complex_batched(re, im)
+    torch.cuda.synchronize()
+    assert cg.LAUNCHES == before + 2
+    a = torch.complex(re.double(), im.double())
+    sign, ref = torch.linalg.slogdet(a)
+    keep = [0, 2, 3, 4, 5, 6, 7]
+    got = torch.complex(s_re, s_im).to(torch.complex128)
+    assert float((got[keep] - sign[keep]).abs().max()) <= 1e-4
+    assert float(((logabs.double() - ref)[keep]).abs().max()) <= 1e-4 * 64
+    det = torch.complex(d_re, d_im).to(torch.complex128)[keep]
+    want = torch.linalg.det(a)[keep]
+    assert float(((det - want).abs() / want.abs()).max()) <= 1e-4
+    assert float(d_re[1]) == 0.0 and float(logabs[1]) == float("-inf")
+
+
+@pytest.mark.cuda
+def test_dd_solve_on_the_card(cuda):
+    """``solve_dd_batched`` at B = 16, N = 256 on panel kernel 6 (four
+    launches of a 64-wide phase): every lane ok, the forward error within
+    1e-10 of ‖x‖ against a float64 solve at κ = 1e4."""
+    from linalg_solver_tpu_torch.ops import dd
+    from linalg_solver_tpu_torch.ops.kernels import lu_panel
+
+    g = torch.Generator().manual_seed(0)
+    n = 256
+    u, _ = torch.linalg.qr(torch.randn(16, n, n, generator=g,
+                                       dtype=torch.float64))
+    v, _ = torch.linalg.qr(torch.randn(16, n, n, generator=g,
+                                       dtype=torch.float64))
+    s = torch.logspace(0, -4, n, dtype=torch.float64)
+    a = ((u * s) @ v.mT).float()
+    b = torch.randn(16, n, generator=g)
+    before = lu_panel.LAUNCHES
+    r = dd.solve_dd_batched(a.to(cuda), b.to(cuda))
+    torch.cuda.synchronize()
+    assert lu_panel.LAUNCHES - before == 4
+    assert bool(r.ok.all())
+    x = r.x_hi.double().cpu() + r.x_lo.double().cpu()
+    x64 = torch.linalg.solve(a.double(), b.double())
+    err = (x - x64).abs().amax(dim=1) / x64.abs().amax(dim=1)
+    assert float(err.max()) <= 1e-10
