@@ -191,9 +191,13 @@ order; any failure is an uncaught exception and a non-zero exit:
 31. time one outer sweep eagerly and as a CUDA-graph replay, the four
     cells (median of 3) beside ``torch.linalg.eigvals`` / ``eig``, the
     window kernel alone on an AED round (f32, float64) beside its plain
-    version, the eager per-sweep loop it replaced and its bound, and the
-    chase kernel alone at the main sweep's shape (without Q, with Q,
-    float64) in both variants beside its plain version and bound.
+    version, the eager per-sweep loop it replaced and its bound (on the
+    steps its dead-step rule runs, and on every step), after holding it
+    on that round, on a NaN lane with converged lanes and on a lane
+    scaled past the rule's bound, its device count of the steps it ran
+    against ``window_schedule_reference``'s, and the chase kernel alone
+    at the main sweep's shape (without Q, with Q, float64) in both
+    variants beside its plain version and bound.
 
 32. serving on one GPU, ``BatchedSolver()`` on inputs built on the card
     from seeded generators: ``rcond`` at B=256, N=256 (Gaussian +
@@ -341,9 +345,11 @@ order; any failure is an uncaught exception and a non-zero exit:
     B=32, n=128 (the Schur kernels), each against numpy complex128;
     ``det_complex_batched`` and ``slogdet_complex_batched`` at B=256,
     n=128 and 192 (the complex elimination kernel, ``csrc/complex_
-    gauss.cu``, in shared and in device memory, held bitwise against its
-    plain version on every call, a singular lane 0 and -inf), each timed
-    beside its ``torch.linalg`` complex64 call;
+    gauss.cu``, its register variant, held bitwise against its plain
+    version on every call, a singular lane 0 and -inf), each timed beside
+    its ``torch.linalg`` complex64 call; the kernel also held at those n
+    in f32 and float64 (float64 at 192: the device-memory variant) with a
+    singular, a NaN and an Inf lane;
 60. linalg (``drive_linalg``): every entry point of the ``numpy.linalg``-
     shaped namespace at leading dims (), (3,) and (2, 2), real and
     complex, against numpy float64 / complex128, and a numpy argument
@@ -1665,9 +1671,14 @@ def variant_attributes():
     """Registers a thread, spill bytes and resident blocks an SM of every
     variant of kernels 1, 2, 3 (variant 3 at the affine [256, 257] and the
     rank's [424, 424], with its blocks a cluster and the clusters resident
-    at once), 5 and 6, at a shape each takes, and the trsyl kernel's
-    registers, spills and shared memory at the matrix-function width."""
+    at once), 5 and 6, at a shape each takes, the trsyl kernel's
+    registers, spills and shared memory at the matrix-function width, and
+    the complex elimination kernel's (each row count of its register
+    variant, then variant 1) and the window kernel's (each positions-a-
+    lane count) registers, spills, shared memory and blocks an SM."""
+    from linalg_solver_tpu_torch.ops.kernels import complex_gauss as cg
     from linalg_solver_tpu_torch.ops.kernels import gauss_jordan as gj
+    from linalg_solver_tpu_torch.ops.kernels import schur_window as sw
     from linalg_solver_tpu_torch.ops.kernels import inv_rbt, lu_nopivot
     from linalg_solver_tpu_torch.ops.kernels import lu_panel, solve_fused
     from linalg_solver_tpu_torch.ops.kernels import trsyl
@@ -1687,6 +1698,15 @@ def variant_attributes():
         "trsyl": {f"n={MF_N} {dt} adjoint={adj}": trsyl.attributes(
             MF_N, getattr(torch, dt), adj)
             for dt in ("float32", "float64") for adj in (False, True)},
+        "complex_gauss": {
+            f"n={n} {dt} variant {cg.variant(n, getattr(torch, dt))}":
+            cg.attributes(n, getattr(torch, dt))
+            for dt, ns in (("float32", (32, 64, 96, 128, 160, 192, 193)),
+                           ("float64", (32, 64, 96, 128, 129)))
+            for n in ns},
+        "schur_window": {f"w={w} {dt}": sw.attributes(w, getattr(torch, dt))
+                         for w in (31, 32, 64, 100)
+                         for dt in ("float32", "float64")},
     }
 
 
@@ -2728,21 +2748,70 @@ def window_sweeps(Hw, Qw, hw, an, *_):
     return torch.where((hw < 1) & live0, 1, count)
 
 
-def window_work(Hw, Qw, hw, an, *_):
+def window_work(Hw, Qw, hw, an, beta, hi_w0, n, live, sweeps):
     """(bytes, operations) of one window-kernel launch: the windows and
     their Q read and written once, hw, the norms, beta and the trailing
-    run's ends; each lane's sweeps (``window_sweeps``: what these inputs
-    need) of ``w - 1`` chase steps (11 operations a column of the row
-    update, 11 a row of H and Q in the column update, ~30 for the
-    reflector) and ~45 operations a position of deflation, shifts and
-    bulge starts, and ~15 a row of the trailing run."""
+    run's ends; ``live`` chase steps (those these inputs need: the steps
+    the dead-step rule does not skip) at 11 operations a column of the
+    row update, 11 a row of H and Q in the column update, ~30 for the
+    reflector; ``sweeps`` (``window_sweeps``' sum) at ~45 operations a
+    position of deflation, shifts and bulge starts; ~15 a row of the
+    trailing run."""
     B, npad, _ = Hw.shape
     w = npad - 1
     e = Hw.element_size()
     nbytes = B * (2 * e * (npad * npad + w * npad) + 2 * e + 40)
-    sweeps = int(window_sweeps(Hw, Qw, hw, an).sum())
-    per = (w - 1) * (11 * npad + 11 * (npad + w) + 30) + 45 * npad
-    return nbytes, sweeps * per + B * 15 * w
+    per = 11 * npad + 11 * (npad + w) + 30
+    return nbytes, live * per + sweeps * 45 * npad + B * 15 * w
+
+
+def hold_window_cases(args, what, card):
+    """The window kernel on the card against its plain version on
+    ``args`` and on two variants of it (a NaN lane with lanes converged
+    on entry; lane 1 scaled by 1e19 in f32, 1e155 in float64, so that its
+    dead steps' sums overflow), and the kernel's device count of the
+    steps it ran against ``window_schedule_reference``'s.  Returns
+    ``{"live_steps", "all_steps", "model_steps", "sweeps"}`` of ``args``
+    (``all_steps``: every step of each sweep a lane runs)."""
+    from linalg_solver_tpu_torch.ops.kernels import schur_window as sw
+
+    Hw, Qw, hw, an, *rest = args
+    w = Qw.shape[1]
+    Hn, hn = Hw.clone(), hw.clone()
+    Hn[0, 3, 5] = float("nan")
+    hn[1], hn[2] = 0, -1
+    Hs, ans = Hw.clone(), an.clone()
+    s = 1e19 if Hw.dtype == torch.float32 else 1e155
+    Hs[1] *= s
+    ans[1] *= s
+    out = {}
+    for name, case in (("as given", args), ("NaN and converged lanes",
+                                            (Hn, Qw, hn, an, *rest)),
+                       ("lane 1 scaled", (Hs, Qw, hw, ans, *rest))):
+        sw.reset_live_steps(Hw.device)
+        got = sw.window_schur(*case)
+        ran = int(sw.live_steps(Hw.device))
+        model = sw.window_schedule_reference(*case)
+        live = int(model[5].sum())
+        ref = sw.window_schur_reference(*case)
+        if not all(nan_equal(x, y) for x, y in zip(got, ref)) or not all(
+                nan_equal(x, y) for x, y in zip(got, model[:5])):
+            raise AssertionError(f"window kernel {what} ({name}) disagrees "
+                                 f"with its plain version")
+        if ran != live:
+            raise AssertionError(f"window kernel {what} ({name}) ran {ran} "
+                                 f"steps, its plain model {live}")
+        every = ""
+        if name == "as given":
+            sweeps = int(window_sweeps(*case).sum())
+            out = {"live_steps": ran, "all_steps": sweeps * (w - 1),
+                   "model_steps": live, "sweeps": sweeps}
+            every = (f" of {sweeps * (w - 1)} "
+                     f"({ran / max(sweeps * (w - 1), 1):.4f})")
+        print(f"window kernel vs plain {what} ({name}, {list(Hw.shape)} "
+              f"{Hw.dtype}): bitwise equal (NaN-equal); steps run on the "
+              f"device {ran}, the plain model's {live}{every} ({card})")
+    return out
 
 
 def hold_schur(a, with_q, what, balance=True, nshift_pairs=0, aed_w=-1):
@@ -3085,19 +3154,26 @@ def time_schur_paths(dev, card, schur_out, spec_out):
     wrows = []
     for args, what in ((schur_out["win"], "AED round, f32"),
                        (schur_out["win64"], "AED round, float64")):
+        steps = hold_window_cases(args, what, card)
         t_k = cuda_time(sw.window_schur, *args, warmup=1, iters=5)
         t_p = cuda_time(sw.window_schur_reference, *args, warmup=0, iters=1)
         t_loop = cuda_time(lambda: schur._window_schur(
             *args, chase=sc.francis_chase), warmup=0, iters=1)
-        b_ms, b_by = bound(*window_work(*args))
+        b_ms, b_by = bound(*window_work(*args, live=steps["live_steps"],
+                                        sweeps=steps["sweeps"]))
+        b_all, _ = bound(*window_work(*args, live=steps["all_steps"],
+                                      sweeps=steps["sweeps"]))
         print(f"time window kernel {what} {list(args[0].shape)}: kernel "
               f"{t_k * 1e3:.4f} ms, plain {t_p * 1e3:.4f} ms, the per-sweep "
               f"loop on the chase kernel (eager) {t_loop * 1e3:.4f} ms, "
-              f"library none, bound {b_ms:.4f} ms {b_by} ({card})")
+              f"library none, bound {b_ms:.4f} ms {b_by} on the "
+              f"{steps['live_steps']} steps run ({b_all:.4f} ms on all "
+              f"{steps['all_steps']}) ({card})")
         wrows.append({"shape": list(args[0].shape), "op": what,
                       "ms": t_k * 1e3, "plain_ms": t_p * 1e3,
                       "loop_ms": t_loop * 1e3, "bound_ms": b_ms,
-                      "bound_by": b_by, "library_ms": None})
+                      "bound_by": b_by, "bound_ms_all_steps": b_all,
+                      "library_ms": None, **steps})
     rows = []
     for args, what in ((schur_out["main"], "main sweep"),
                        (spec_out["main_q"], "main sweep with Q"),
@@ -5714,7 +5790,7 @@ CX_SOLVE_B, CX_SOLVE_N = 256, 128   # the embedding is [256, 256, 256]
 CX_INV_B, CX_INV_N = 1024, 32      # [1024, 64, 64]: kernel 2
 CX_EIG_B, CX_EIG_N = 32, 128       # [32, 256, 256]: the Schur kernels
 CX_DET_B = 256
-CX_DET_NS = (128, 192)             # shared memory, device memory
+CX_DET_NS = (128, 192)             # the register variant, R = 4 and 6
 TOL_CX = 1e-5          # complex solve residual, inverse max|AX - I|/...
 TOL_CX_DET = 1e-3      # det and exp(logabs) against complex128, relative
 TOL_LINALG = 1e-4      # the namespace against numpy float64, relative
@@ -5921,14 +5997,40 @@ def complex_batch(bsz, n, seed, dev, shift=1.0):
     return re + shift * torch.eye(n, device=dev), im
 
 
-def gauss_work(bsz, n):
-    """(bytes, operations) of the pivoted complex elimination: the planes
-    read once, the pivots, sign and flags written once; per step k the
-    magnitudes (3 (n-k)), the factors (8 (n-k-1) + 2 divisions) and the
-    update (8 (n-k-1)^2)."""
+def gauss_work(bsz, n, dtype=torch.float32):
+    """(bytes, operations) of the pivoted complex elimination in
+    ``dtype``: the planes read once, the pivots, sign and flags written
+    once; per step k the magnitudes (3 (n-k)), the factors (8 (n-k-1) + 2
+    divisions) and the update (8 (n-k-1)^2)."""
+    e = torch.empty((), dtype=dtype).element_size()
     ops = sum(3 * (n - k) + 10 * (n - k - 1) + 8 * (n - k - 1) ** 2
               for k in range(n))
-    return 4 * (2 * bsz * n * n + 2 * bsz * n + bsz) + bsz, bsz * ops
+    return e * (2 * bsz * n * n + 2 * bsz * n + bsz) + bsz, bsz * ops
+
+
+def hold_gauss_cases(n, dev):
+    """The complex elimination kernel against its plain version at
+    [CX_DET_B, n, n] in f32 and float64, with a singular lane (a zero
+    first column), a NaN lane and an Inf lane: pivots, sign and ok
+    NaN-equal.  Returns the largest difference (0) and the variants."""
+    from linalg_solver_tpu_torch.ops.kernels import complex_gauss as cg
+
+    err, variants = 0.0, {}
+    for dtype in (torch.float32, torch.float64):
+        re, im = (x.to(dtype) for x in complex_batch(CX_DET_B, n, 70 + n,
+                                                      dev))
+        re[1, :, 0] = im[1, :, 0] = 0.0
+        re[2, n // 2, 1] = float("nan")
+        im[3, 0, n - 1] = float("inf")
+        got = cg.gauss_pivots_complex(re, im)
+        ref = cg.gauss_pivots_complex_reference(re, im)
+        if not all(nan_equal(x, y) for x, y in zip(got, ref)):
+            raise AssertionError(f"the complex elimination kernel disagrees "
+                                 f"with its plain version at n = {n} in "
+                                 f"{dtype} (NaN, Inf and singular lanes)")
+        err = max(err, abs_diff(got[0], ref[0]), abs_diff(got[1], ref[1]))
+        variants[str(dtype).replace("torch.", "")] = cg.variant(n, dtype)
+    return err, variants
 
 
 def drive_complex(dev, card):
@@ -5937,10 +6039,11 @@ def drive_complex(dev, card):
     embedding: kernel 1), ``inverse_complex_batched`` at B=1024, n=32
     (kernel 2), ``eig_complex_batched`` at B=32, n=128 (the Schur
     kernels), ``det_complex_batched`` and ``slogdet_complex_batched`` at
-    B=256, n=128 and 192 (the complex elimination kernel in shared and in
-    device memory, held bitwise against its plain version on what each
-    call gave it), each checked on the host in complex128 and timed
-    beside the ``torch.linalg`` complex64 call."""
+    B=256, n=128 and 192 (the complex elimination kernel's register
+    variant, held bitwise against its plain version on what each call
+    gave it, then on f32 and float64 lanes with a singular, a NaN and an
+    Inf lane: ``hold_gauss_cases``), each checked on the host in
+    complex128 and timed beside the ``torch.linalg`` complex64 call."""
     import numpy as np
 
     from linalg_solver_tpu_torch.ops import complexlin as cx
@@ -6075,7 +6178,12 @@ def drive_complex(dev, card):
         t_sl = cuda_time(cx.slogdet_complex_batched, d_re, d_im, warmup=2,
                          iters=10)
         t_sl_lib = cuda_time(torch.linalg.slogdet, dc, warmup=2, iters=10)
-        bms, by = bound(*gauss_work(CX_DET_B, n))
+        bms, by = bound(*gauss_work(CX_DET_B, n, d_re.dtype))
+        h_err, h_var = hold_gauss_cases(n, dev)
+        out["err"] = max(out["err"], h_err)
+        print(f"complex elimination kernel vs plain at [{CX_DET_B}, {n}, "
+              f"{n}] with singular, NaN and Inf lanes: bitwise equal in "
+              f"f32 and float64 (variants {h_var})")
         out["shapes"].append({
             "shape": [CX_DET_B, n, n], "variant": cg.variant(n, torch.float32),
             "ms": t_k * 1e3, "plain_ms": t_p * 1e3, "bound_ms": bms,
@@ -6606,6 +6714,11 @@ def main() -> None:
         "ms": window_shapes[0]["ms"],
         "plain_ms": window_shapes[0]["plain_ms"],
         "library_ms": None,
+        # the bound counts the steps the dead-step rule leaves to run; the
+        # bound on every step of every sweep beside it
+        "live_steps": window_shapes[0]["live_steps"],
+        "all_steps": window_shapes[0]["all_steps"],
+        "bound_ms_all_steps": window_shapes[0]["bound_ms_all_steps"],
         "large_shapes": window_shapes,
         "eig_family_launches": {k: v["window"]
                                 for k, v in eigf["launches"].items()},

@@ -62,6 +62,9 @@ _SIGNATURES = {
     "chase_clusters": (_I, [_I] * 2),
     "schur_window": (_I, [_P] * 8 + [_I] * 4 + [_P]),
     "schur_window_smem_bytes": (ctypes.c_size_t, [_I, _I]),
+    "schur_window_attributes": (_I, [_I, _I, _P]),
+    "schur_window_live_steps": (_I, [_P, _P]),
+    "schur_window_live_reset": (_I, [_P]),
     "trsyl_masked": (_I, [_P] * 9 + [_I] * 4 + [_P]),
     "trsyl_attributes": (_I, [_I] * 3 + [_P]),
     "sturm_count": (_I, [_P] * 5 + [_I] * 4 + [_P]),

@@ -995,6 +995,35 @@ def test_schur_window_kernel_matches_plain_version(cuda, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_schur_window_dead_steps_on_the_card(cuda, dtype):
+    """The window kernel's device count of the steps it ran equals
+    ``window_schedule_reference``'s on the AED round of one outer sweep at
+    [32, 256, 256], and the kernel equals its plain version (NaN-equal)
+    there and with lane 1 scaled past the dead-step rule's bound (1e19 in
+    f32, 1e155 in float64: its dead steps' sums overflow)."""
+    from linalg_solver_tpu_torch.ops.kernels import schur_window as sw
+
+    _, state = _schur_state(32, 256, cuda, False, dtype)
+    wins, _ = _record_sweep(state)
+    (Hw, Qw, hw, an, *rest), _ = wins[0]
+    Hs, ans = Hw.clone(), an.clone()
+    s = 1e19 if dtype == torch.float32 else 1e155
+    Hs[1] *= s
+    ans[1] *= s
+    for args in ((Hw, Qw, hw, an, *rest), (Hs, Qw, hw, ans, *rest)):
+        sw.reset_live_steps(cuda)
+        got = sw.window_schur(*args)
+        ran = int(sw.live_steps(cuda))
+        model = sw.window_schedule_reference(*args)
+        want = sw.window_schur_reference(*args)
+        assert ran == int(model[5].sum())
+        for g, m, w in zip(got, model, want):
+            assert _nan_equal(g, w) and _nan_equal(m, w)
+    assert bool(torch.isnan(got[0][1]).any())
+
+
+@pytest.mark.cuda
 def test_schur_kernel_mirrors_match_their_c_formulas(cuda):
     """The Python mirrors of the chase's variant rule and cluster shape and
     of the window kernel's shared memory agree with the C entry points."""
@@ -1708,25 +1737,48 @@ def _complex_lanes(B, n, seed, dtype=torch.float32):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("n,dtype", [(128, torch.float32),
+                                     (170, torch.float32),
+                                     (171, torch.float32),
                                      (192, torch.float32),
                                      (96, torch.float64),
+                                     (128, torch.float64),
                                      (130, torch.float64)])
 def test_complex_gauss_kernel_matches_plain_version(cuda, n, dtype):
-    """Bitwise on the pivots, the sign and ok, in shared memory (variant
-    0: f32 to n = 170, f64 to 120) and in device memory (variant 1)."""
+    """Bitwise (NaN-equal) on the pivots, the sign and ok, with a singular,
+    a NaN and an Inf lane, in the register variant (2: f32 to n = 192,
+    f64 to 128) and in device memory (variant 1)."""
     from linalg_solver_tpu_torch.ops.kernels import complex_gauss as cg
 
-    re, im = (t.to(cuda) for t in _complex_lanes(8, n, n, dtype))
+    re, im = _complex_lanes(8, n, n, dtype)
+    re[5, n // 2, 1] = float("nan")
+    im[6, 0, n - 1] = float("inf")
+    re, im = re.to(cuda), im.to(cuda)
     before = cg.LAUNCHES
     got = cg.gauss_pivots_complex(re, im)
     torch.cuda.synchronize()
     assert cg.LAUNCHES == before + 1
     want = cg.gauss_pivots_complex_reference(re, im)
     for g, w in zip(got, want):
-        assert torch.equal(g, w)
+        assert _nan_equal(g, w)
     assert not bool(got[3][1]) and bool(got[3][[0, 2, 3]].all())
-    assert cg.variant(n, dtype) == (0 if n <= (170 if dtype == torch.float32
-                                               else 120) else 1)
+    assert cg.variant(n, dtype) == (2 if n <= (192 if dtype == torch.float32
+                                               else 128) else 1)
+
+
+@pytest.mark.cuda
+def test_complex_gauss_mirrors_match_their_c_formulas(cuda):
+    """The Python mirrors of the complex elimination kernel's variant rule
+    and shared memory agree with the C entry points."""
+    from linalg_solver_tpu_torch.ops.kernels import _build
+    from linalg_solver_tpu_torch.ops.kernels import complex_gauss as cg
+
+    lib = _build.load()
+    for dtype, f64 in ((torch.float32, 0), (torch.float64, 1)):
+        for n in (1, 31, 32, 33, 64, 96, 97, 128, 129, 160, 170, 192, 193,
+                  256):
+            assert lib.complex_gauss_variant(n, f64) == cg.variant(n, dtype)
+            assert lib.complex_gauss_smem_bytes(n, f64) == cg.smem_bytes(
+                n, dtype), (n, dtype)
 
 
 @pytest.mark.cuda

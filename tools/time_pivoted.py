@@ -6,6 +6,7 @@ for comparing two versions of the package.
                                   [--grid | --grid-inv | --big]
                                   [--trsyl-form FILE.cu ...]
     python3 tools/time_pivoted.py --sturm-form FILE.cu ...
+    python3 tools/time_pivoted.py --complex-gauss-form FILE.cu ...
     python3 tools/time_pivoted.py --compare A.pt B.pt
 
 Run on a machine with an NVIDIA H100 (or another sm_90a card) and nvcc,
@@ -77,7 +78,16 @@ phase-55 shapes ([256, 4096], [16, 4096], [32, 512], their live steps
 too) and its count at the [16, 4096] midpoints, 4096 a lane, and times
 each in turns with the package's kernel, three rounds each way (package
 first in rounds 0 and 2); then the package's bisection as device time
-of its count and of its plan kernels.
+of its count and of its plan kernels.  ``--complex-gauss-form`` alone
+builds each given source, a form of ``csrc/complex_gauss.cu`` with its C
+entry points ``complex_gauss`` and ``complex_gauss_variant`` (e.g.
+``tools/complex_gauss_simple.cu``, the first form), holds it to the bit
+(NaN-equal, flags included) against the package's kernel on phase 59's
+determinant inputs ([256, n, n] at n = 128 and 192, a singular, a NaN
+and an Inf lane) in f32 and at n = 128 in float64, and times the two in
+turns, three rounds each way (package first in rounds 0 and 2), beside
+``torch.linalg.det`` on the same lanes in complex64 (complex128 for
+float64) in every round.
 
 Uses only the wrappers' public calls, so it times any version of the
 package that has them.  Prints one JSON object with the card's name and
@@ -126,6 +136,7 @@ def main() -> None:
     ap.add_argument("--big", action="store_true")
     ap.add_argument("--trsyl-form", nargs="+", default=[])
     ap.add_argument("--sturm-form", nargs="+", default=[])
+    ap.add_argument("--complex-gauss-form", nargs="+", default=[])
     args = ap.parse_args()
     if args.compare:
         compare(*args.compare)
@@ -183,6 +194,11 @@ def main() -> None:
     if args.sturm_form:
         for path in args.sturm_form:
             _sturm_form(path, cs, dev, ms, device_time)
+        _emit(res, args.out)
+        return
+    if args.complex_gauss_form:
+        for path in args.complex_gauss_form:
+            _complex_gauss_form(path, cs, dev, ms)
         _emit(res, args.out)
         return
     if args.big:
@@ -462,6 +478,62 @@ def _sturm_form(path: str, cs, dev, ms, device_time) -> None:
         for kernel in ("step_count_kernel", "plan_kernel"):
             ms[f"sturm [{bsz}, {n}] package, device, {kernel}"] = device_time(
                 calls["package"], warmup=1, iters=3, match=kernel) * 1e3
+
+
+def _complex_gauss_form(path: str, cs, dev, ms) -> None:
+    """``--complex-gauss-form``: the form of the complex elimination kernel
+    in ``path``, built, held to the bit against the package's kernel, then
+    timed in turns with it beside ``torch.linalg.det``."""
+    from linalg_solver_tpu_torch.ops.kernels import complex_gauss as cg
+    from linalg_solver_tpu_torch.utils.benchmarking import cuda_time
+
+    lib = _form_library(path, ("complex_gauss", "complex_gauss_variant"))
+    name = os.path.basename(path)
+    for n, dtype in ((128, torch.float32), (192, torch.float32),
+                     (128, torch.float64)):
+        re, im = (x.to(dtype) for x in cs.complex_batch(cs.CX_DET_B, n,
+                                                         63 + n, dev))
+        re[1, :, 0] = im[1, :, 0] = 0.0
+        re[2, n // 2, 1] = float("nan")
+        im[3, 0, n - 1] = float("inf")
+        f64 = int(dtype == torch.float64)
+        B = re.shape[0]
+        work = None
+        if lib.complex_gauss_variant(n, f64) == 1:
+            work = torch.empty(B * 2 * n * (n | 1), dtype=dtype, device=dev)
+
+        def form(re=re, im=im, work=work, f64=f64):
+            pr = torch.empty(B, n, dtype=dtype, device=dev)
+            pi = torch.empty_like(pr)
+            sg = torch.empty(B, dtype=dtype, device=dev)
+            ok = torch.empty(B, dtype=torch.bool, device=dev)
+            err = lib.complex_gauss(
+                re.data_ptr(), im.data_ptr(),
+                None if work is None else work.data_ptr(), pr.data_ptr(),
+                pi.data_ptr(), sg.data_ptr(), ok.data_ptr(), B, n, f64,
+                torch.cuda.current_stream(dev).cuda_stream)
+            if err:
+                raise RuntimeError(f"{name}: CUDA error {err}")
+            return pr, pi, sg, ok
+
+        calls = {"package": lambda re=re, im=im: cg.gauss_pivots_complex(
+                     re, im), name: form}
+        ref = cg.gauss_pivots_complex_reference(re, im)
+        for k, fn in calls.items():
+            if not all(_bitwise(x, y) for x, y in zip(fn(), ref)):
+                raise AssertionError(f"{k} disagrees with the plain version "
+                                     f"at [{B}, {n}, {n}] {dtype}")
+        a = torch.complex(re, im)
+        key = f"complex elimination [{B}, {n}, {n}] {dtype}"
+        ms[f"{key}: variants (package, {name})"] = [
+            cg.variant(n, dtype), lib.complex_gauss_variant(n, f64)]
+        for r in range(3):
+            order = list(calls) if r % 2 == 0 else list(calls)[::-1]
+            for k in order:
+                ms[f"{key} {k}, round {r}"] = cuda_time(
+                    calls[k], warmup=2, iters=10) * 1e3
+            ms[f"{key} torch.linalg.det, round {r}"] = cuda_time(
+                torch.linalg.det, a, warmup=2, iters=10) * 1e3
 
 
 def _cold_events(fn, flush, iters: int = 20) -> float:

@@ -4,6 +4,7 @@ comparing two versions of the package.
     python3 tools/time_schur.py [--label NAME] [--out FILE.json]
                                 [--dump FILE.pt]
     python3 tools/time_schur.py --compare A.pt B.pt
+    python3 tools/time_schur.py --window-form FILE.cu ...
 
 Run on a machine with an NVIDIA H100 (or another sm_90a card) and nvcc,
 with the package to time on ``PYTHONPATH`` (the checkout's root by
@@ -36,8 +37,15 @@ this script's ``tools/`` (so both versions get the same inputs).  Times
 Uses only functions both versions have.  Prints one JSON object with the
 card's name and power limit, and writes it to ``--out`` when given.
 ``--dump`` saves every cell's output; ``--compare`` reports whether two
-such dumps are equal to the bit (NaN where the other is NaN).  Needs a
-card (but ``--compare``).  Imports nothing of JAX.
+such dumps are equal to the bit (NaN where the other is NaN).
+``--window-form`` alone builds each given source, a form of
+``csrc/schur_window.cu`` with its C entry point ``schur_window`` (e.g.
+``tools/schur_window_warp.cu``, the first form), holds it to the
+bit (NaN-equal) against the package's kernel on the first AED round's
+windows of schur-gauss-256 ([32, 33, 33], f32 and float64, as
+``chip_smoke.hold_schur`` records them), and times the two in turns,
+three rounds each way (package first in rounds 0 and 2).  Needs a card
+(but ``--compare``).  Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -118,6 +126,7 @@ def main() -> None:
     ap.add_argument("--out")
     ap.add_argument("--dump")
     ap.add_argument("--compare", nargs=2)
+    ap.add_argument("--window-form", nargs="+", default=[])
     args = ap.parse_args()
     if args.compare:
         compare(*args.compare)
@@ -144,6 +153,14 @@ def main() -> None:
            "package": os.path.dirname(os.path.dirname(
                os.path.abspath(schur.__file__))), "ms": {}}
     ms = out["ms"]
+    if args.window_form:
+        for path in args.window_form:
+            _window_form(path, smoke, a, ms)
+        print(json.dumps(out))
+        if args.out:
+            with open(args.out, "w") as f:
+                json.dump(out, f, indent=1)
+        return
 
     graph = _aed_graph(a)
     ms["AED round, CUDA graph"] = cuda_time(graph.replay, warmup=2,
@@ -182,6 +199,49 @@ def main() -> None:
             json.dump(out, f, indent=1)
     if args.dump:
         torch.save(dump, args.dump)
+
+
+def _window_form(path: str, smoke, a, ms) -> None:
+    """``--window-form``: the form of the window kernel in ``path``, built,
+    held to the bit against the package's kernel on the first AED round's
+    windows, then timed in turns with it."""
+    from linalg_solver_tpu_torch.ops.kernels import schur_window as sw
+    from linalg_solver_tpu_torch.utils.benchmarking import cuda_time
+
+    lib = _load("tools/time_pivoted.py", "_time_pivoted")._form_library(
+        path, ("schur_window",))
+    name = os.path.basename(path)
+    for x in (a, a.double()):
+        _, _, args = smoke.hold_schur(x, False, f"for {name}")
+        Hw, Qw, hw, an, beta, hi_w0, n = args
+        B, npad, _ = Hw.shape
+
+        def form():
+            H, Q = Hw.clone(), Qw.clone()
+            h, p = hw.clone(), hi_w0.clone()
+            nd = torch.zeros_like(p)
+            live = (hw >= 1).any()
+            err = lib.schur_window(
+                H.data_ptr(), Q.data_ptr(), h.data_ptr(), an.data_ptr(),
+                beta.data_ptr(), p.data_ptr(), nd.data_ptr(),
+                live.data_ptr(), B, npad - 1, n,
+                int(Hw.dtype == torch.float64),
+                torch.cuda.current_stream().cuda_stream)
+            if err:
+                raise RuntimeError(f"{name}: CUDA error {err}")
+            return H, Q, h, nd, p
+
+        calls = {"package": lambda: sw.window_schur(*args), name: form}
+        got = [calls[k]() for k in calls]
+        if not all(_bitwise(u, v) for u, v in zip(*got)):
+            raise AssertionError(f"{name} disagrees with the package's window "
+                                 f"kernel on {list(Hw.shape)} {Hw.dtype}")
+        key = f"window kernel {list(Hw.shape)} {Hw.dtype}"
+        for r in range(3):
+            order = list(calls) if r % 2 == 0 else list(calls)[::-1]
+            for k in order:
+                ms[f"{key} {k}, round {r}"] = cuda_time(
+                    calls[k], warmup=2, iters=10) * 1e3
 
 
 def _bitwise(x: torch.Tensor, y: torch.Tensor) -> bool:
