@@ -11,7 +11,10 @@ sign, Sylvester, Lyapunov, Stein and Riccati equations, generalized and
 quadratic eigenproblems), the matrix functions, BASELINE config 1's
 exact LaTeX derivation with the card's pivot events replayed into it,
 the CLI, the tridiagonal family, the f64-class layer in float64, the
-complex layer and the ``numpy.linalg``-shaped namespace.
+complex layer, the ``numpy.linalg``-shaped namespace, the LU family's
+hybrid and recursive engines, the flagship step's twin, and the Krylov,
+LOBPCG, Arnoldi, structured, banded, block-sparse and Kronecker
+modules.
 
     python3 chip_smoke.py
 
@@ -353,7 +356,44 @@ order; any failure is an uncaught exception and a non-zero exit:
 60. linalg (``drive_linalg``): every entry point of the ``numpy.linalg``-
     shaped namespace at leading dims (), (3,) and (2, 2), real and
     complex, against numpy float64 / complex128, and a numpy argument
-    that must land on the card.
+    that must land on the card;
+61. the LU family's other engines (``drive_rbt_engines``):
+    ``solve_rbt_batched`` (k = 1 and 16) and ``inverse_rbt_batched`` with
+    ``engine="hybrid"`` and ``"recursive"`` at B = N = 256, every launch
+    of kernels 4 and 5 held bitwise against its plain version on the
+    arrays the path gave it; ``fallback="pivoted"`` and ``False`` on a
+    batch with one zero pivot under the main draw (the other systems
+    bitwise the clean run's; any launch of kernel 6 by the pivoted
+    rescue held against its plain version); ``lu_large.large_solve_rbt(diag_engine=
+    "pivoted")`` at B = 16, N = 1024; float64 residuals; times beside
+    ``torch.linalg.solve`` / ``inv``;
+62. the flagship step's twin (``drive_graft``): ``graft_entry.entry()``'s
+    forward at B = 8, N = 64, one kernel-1 launch held against its plain
+    version, timed beside ``torch.linalg.solve``;
+63. Krylov (``drive_krylov``): CG (SPD, κ ≈ 5), BiCGSTAB, GMRES(32) and
+    MINRES at B = 8, n = 1024, LSQR at [8, 2048, 1024]: converged, the
+    float64 residual within 4·tol, the host reads a call against
+    ⌈iters / chunk⌉ + 1, the device's busy share, times beside the
+    library's dense solve / lstsq;
+64. LOBPCG (``drive_lobpcg``), k = 8 smallest of 16 SPD 512 x 512: every
+    lane converged, its eigenvalues against float64 ``eigvalsh``, host reads,
+    timed beside ``torch.lobpcg``;
+65. Arnoldi (``drive_arnoldi``): Krylov–Schur, 6 eigenpairs (3 complex
+    pairs) of 8 general 1024 x 1024 at m = 32, Ritz residuals by true
+    matvecs in float64, one host read a restart, both Schur kernels held
+    bitwise on its first Rayleigh matrix; the shift-invert mode at n = 512;
+66-67. the structured and banded solves (``drive_structured``): Toeplitz
+    (Strang-preconditioned GMRES), circulant and Hankel at B = 16,
+    n = 4096, Björck–Pereyra at n = 32 (primal and dual), banded at
+    N = 4096, kb = 4: float64 residuals, flags, busy shares, times
+    beside ``torch.linalg.solve`` on the dense operator;
+68-69. block-sparse and Kronecker (``drive_blocksparse_kron``): GMRES and
+    Krylov–Schur on a symmetric 2048 x 2048 operator with 5 % of its
+    64-wide blocks (B = 8), the top 3 eigenvalues against float64
+    ``eigvalsh``, the block matvec repeatable bitwise; ``kron_solve``,
+    ``kronsum_solve`` (the Schur kernels, held bitwise) and
+    ``kron_lstsq`` at B = 16, m = n = 64 ([96, 64] ⊗ [96, 64]); residuals
+    in float64; times beside the library on the dense operator.
 
 The line before the last is a JSON summary of the twelve kernels, each with
 its bound (the larger of its bytes over 3.35 TB/s and its operations
@@ -376,7 +416,8 @@ XLA scan of ``sturm_count_batched``, its [16, 4096] lanes at 4096 points
 each; the complex elimination kernel, which replaces the XLA fori loop of
 ``_gauss_pivots_complex``, its shared- and device-memory shapes beside
 ``torch.linalg.det`` complex64; each earlier kernel's launches on phases
-58-60 under ``dd_complex_linalg_launches``); the last line is
+58-60 under ``dd_complex_linalg_launches`` and on phases 61-69 under
+``phases_61_69_launches``); the last line is
 ``{"ok": true, "device": {...}}``.
 Imports nothing of JAX.
 """
@@ -384,6 +425,7 @@ Imports nothing of JAX.
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import time
 
@@ -6329,6 +6371,801 @@ def drive_linalg(dev, card):
     return {"seconds": secs, "counts": counts, "worst": worst}
 
 
+# --- phases 61-69: the rest of the LU family, the flagship step's twin,
+# the iterative, structured and Kronecker modules ------------------------
+
+KRY_B, KRY_N, LSQR_M = 8, 1024, 2048   # README: 1024x1024 SPD CG, B=8
+TOL_KRY = 1e-5          # the solvers' tol; the float64 residual within 4x
+LOB_B, LOB_N, LOB_K = 16, 512, 8        # README: LOBPCG k=8 smallest, B=16
+TOL_LOB = 1e-4
+ARN_B, ARN_N, ARN_K, ARN_M, ARN_SHIFT_N = 8, 1024, 6, 32, 512
+ARN_SIGMA = 1.234
+STRUCT_B, STRUCT_N = 16, 4096
+VDM_B, VDM_N = 16, 32
+BAND_B, BAND_N, BAND_KB = 16, 4096, 4
+BSP_B, BSP_N, BSP_BS, BSP_PAIRS = 8, 2048, 64, 10   # 32 + 20 of 1024
+KRON_B, KRON_M, KRON_LSQ = 16, 64, (96, 64)
+LARGE_PIV_B, LARGE_PIV_N = 16, 1024    # README: 1024x1024 solve, B=16
+TOL_STRUCT = 1e-4       # float64 residual, relative, of the structured solves
+TOL_BSP_EIG = 2e-3 * 20  # block-sparse top-3 eigenvalues (the JAX test's)
+
+
+def _time_pair(what, card, fn, lib, warmup=1, iters=3, lib_name="",
+               lib_runs=None):
+    """CUDA-event times of ``fn()`` and of the library call ``lib()``
+    (None: no library counterpart; ``lib_runs`` its (warmup, iters), by
+    default one warmup and ``iters``), printed with the card; returns
+    (ms, lib_ms)."""
+    from linalg_solver_tpu_torch.utils.benchmarking import cuda_time
+
+    ms = cuda_time(fn, warmup=warmup, iters=iters) * 1e3
+    lib_w, lib_i = lib_runs or (min(warmup, 1), iters)
+    lib_ms = None if lib is None else cuda_time(
+        lib, warmup=lib_w, iters=lib_i) * 1e3
+    print(f"time {what}: {ms:.4f} ms" + (
+        "" if lib is None else f", {lib_name} {lib_ms:.4f} ms") + f" ({card})")
+    return ms, lib_ms
+
+
+def _busy(what, fn, ms):
+    """The device's busy share of one call of ``fn``: its device time
+    (``device_time``) over its CUDA-event time ``ms``; printed.  One
+    profiled call: ``fn`` was warmed up when ``ms`` was taken, and the
+    profiler's processing of a host-bound call's thousands of launches
+    costs several times the call."""
+    from linalg_solver_tpu_torch.utils.benchmarking import device_time
+
+    dev_ms = device_time(fn, warmup=0, iters=1) * 1e3
+    print(f"device time {what}: {dev_ms:.4f} ms of {ms:.4f} ms a call, busy "
+          f"share {dev_ms / ms:.3f}")
+    return dev_ms
+
+
+def _held_run(fn, *modules):
+    """``fn()`` with every kernel count set to 0 just before and read just
+    after, and the kernel wrappers ``modules`` ((module, name) pairs)
+    recorded.  Returns (result, counts, recorded calls a module)."""
+    recs = [record(m, n) for m, n in modules]
+    reset_all_counts()
+    try:
+        out = fn()
+        torch.cuda.synchronize()
+        counts = all_counts()
+    finally:
+        for _, off in recs:
+            off()
+    return out, counts, [c for c, _ in recs]
+
+
+def drive_rbt_engines(dev, card):
+    """Phase 61: ``solve_rbt_batched`` and ``inverse_rbt_batched`` with
+    ``engine="hybrid"`` and ``"recursive"`` at B = N = 256 (the solve at
+    k = 1 and 16), every kernel-4 and kernel-5 launch held bitwise against
+    its plain version on the arrays the path gave it; the direct pivoted
+    rescue and the gate-free form on a batch with one zero pivot under the
+    main draw; ``lu_large.large_solve_rbt(diag_engine="pivoted")`` at
+    B = 16, N = 1024; float64 residuals; times beside ``torch.linalg``."""
+    from linalg_solver_tpu_torch.ops import lu_large, rbt
+    from linalg_solver_tpu_torch.ops.kernels import (
+        butterfly, lu_nopivot, lu_panel)
+    from linalg_solver_tpu_torch.utils import systems
+
+    kmods = ((butterfly, "butterfly_two_sided"),
+             (lu_nopivot, "panel_factor_nopivot"))
+    out = {"counts": {}, "ms": {}, "lib_ms": {}, "bf_err": 0.0,
+           "panel_err": 0.0, "k6_err": 0.0}
+    a = inverse_batch(B, N, 61, dev)
+    g = torch.Generator(device=dev).manual_seed(61)
+    rhs = {1: torch.randn(B, N, generator=g, device=dev),
+           16: torch.randn(B, N, 16, generator=g, device=dev)}
+    nb_solve, nb_inv = (rbt.phase_nb(N, None, rbt.SOLVE_NB_SMALL),
+                        rbt.phase_nb(N, None, rbt.INVERSE_NB))
+    clean = {}
+    for engine in ("hybrid", "recursive"):
+        panels = N // nb_solve if engine == "hybrid" else 0
+        for k, b in rhs.items():
+            key = f"solve-{engine}-k{k}"
+            x, c, (bf, pn) = _held_run(
+                lambda: rbt.solve_rbt_batched(a, b, engine=engine), *kmods)
+            res = float(worst_resid(a, b, x).max())
+            print(f"{key} B={B} N={N}: launches {c}, worst residual "
+                  f"{res:.3e} (tol {TOL_RESID})")
+            if (c["butterfly"], c["lu_nopivot"]) != (1, panels) or \
+                    c["fused"] or not res <= TOL_RESID:
+                raise AssertionError(f"{key}: launches {c} or residual "
+                                     f"{res} off")
+            out["bf_err"] = max(out["bf_err"], hold_butterflies(bf, key))
+            if pn:
+                out["panel_err"] = max(out["panel_err"],
+                                       hold_panels(pn, key)[0])
+            out["counts"][key] = c
+            clean[key] = x
+        key = f"inverse-{engine}"
+        panels = N // nb_inv if engine == "hybrid" else 0
+        x, c, (bf, pn) = _held_run(
+            lambda: rbt.inverse_rbt_batched(a, engine=engine), *kmods)
+        res = float(inverse_resid(a, x).max())
+        print(f"{key} B={B} N={N}: launches {c}, worst max|AX - I| "
+              f"{res:.3e} (tol {TOL_INV})")
+        if (c["butterfly"], c["lu_nopivot"]) != (2, panels) or \
+                not res <= TOL_INV:
+            raise AssertionError(f"{key}: launches {c} or residual {res}")
+        out["bf_err"] = max(out["bf_err"], hold_butterflies(bf, key))
+        if pn:
+            out["panel_err"] = max(out["panel_err"], hold_panels(pn, key)[0])
+        out["counts"][key] = c
+
+    # one zero pivot under the main draw (system 3)
+    a2 = a.clone()
+    a2[3] = systems.pivot_system(
+        a[3], *rbt.default_diags(N, rbt.MAIN_SEEDS, str(dev)), 0.0)
+    b1 = rhs[1]
+    # the rescue's pivoted solve (``lu_blocked.blocked_solve_batched``) is
+    # the library's LU: kernel 6 is recorded and held should it launch
+    x, c, (bf, pn, k6) = _held_run(lambda: rbt.solve_rbt_batched(
+        a2, b1, engine="hybrid", fallback="pivoted"), *kmods,
+        (lu_panel, "panel_factor_masked"))
+    r = worst_resid(a2, b1, x)
+    same = all(torch.equal(x[i], clean["solve-hybrid-k1"][i])
+               for i in range(B) if i != 3)
+    print(f"solve-hybrid-k1 fallback='pivoted', system 3 a zero pivot: "
+          f"launches {c}, its residual {float(r[3]):.3e}, worst "
+          f"{float(r.max()):.3e}, the other systems bitwise the clean "
+          f"run's {same}")
+    if not float(r.max()) <= TOL_RESID or not same or \
+            c["lu_nopivot"] != N // nb_solve or len(k6) != c["lu_panel"]:
+        raise AssertionError("the pivoted rescue did not solve system 3 "
+                             "alone")
+    key = "solve-hybrid-k1-pivoted"
+    out["bf_err"] = max(out["bf_err"], hold_butterflies(bf, key))
+    out["panel_err"] = max(out["panel_err"], hold_panels(pn, key)[0])
+    if k6:
+        out["k6_err"] = hold_masked(k6, f"on {key}")
+    out["counts"]["solve-hybrid-k1-pivoted"] = c
+    x, c, (bf,) = _held_run(lambda: rbt.solve_rbt_batched(
+        a2, b1, engine="recursive", fallback=False), kmods[0])
+    same = all(torch.equal(x[i], clean["solve-recursive-k1"][i])
+               for i in range(B) if i != 3)
+    print(f"solve-recursive-k1 fallback=False: launches {c}, the unflagged "
+          f"systems bitwise the clean run's {same}")
+    if not same or c["butterfly"] != 1:
+        raise AssertionError("fallback=False changed another system")
+    out["bf_err"] = max(out["bf_err"], hold_butterflies(
+        bf, "solve-recursive-k1-nofallback"))
+    out["counts"]["solve-recursive-k1-nofallback"] = c
+
+    al = inverse_batch(LARGE_PIV_B, LARGE_PIV_N, 62, dev)
+    bl = torch.randn(LARGE_PIV_B, LARGE_PIV_N, generator=g, device=dev)
+    x, c, (bf,) = _held_run(lambda: lu_large.large_solve_rbt(
+        al, bl, diag_engine="pivoted"), kmods[0])
+    res = float(worst_resid(al, bl, x).max())
+    print(f"large-pivoted large_solve_rbt(diag_engine='pivoted') "
+          f"B={LARGE_PIV_B} N={LARGE_PIV_N}: launches {c}, worst residual "
+          f"{res:.3e} (tol {TOL_RESID})")
+    if c["butterfly"] != 1 or not res <= TOL_RESID:
+        raise AssertionError("the large-N pivoted diagonal engine is off")
+    out["bf_err"] = max(out["bf_err"], hold_butterflies(bf, "large-pivoted"))
+    out["counts"]["large-pivoted"] = c
+
+    solve_lib = {k: (lambda b_: lambda: torch.linalg.solve(
+        a, b_ if b_.dim() == 3 else b_[:, :, None]))(b)
+        for k, b in rhs.items()}
+    for engine in ("hybrid", "recursive"):
+        for k, b in rhs.items():
+            key = f"solve-{engine}-k{k}"
+            out["ms"][key], out["lib_ms"][key] = _time_pair(
+                f"{key} B={B} N={N}", card,
+                (lambda e, b_: lambda: rbt.solve_rbt_batched(
+                    a, b_, engine=e))(engine, b), solve_lib[k],
+                warmup=2, iters=10, lib_name="torch.linalg.solve")
+        key = f"inverse-{engine}"
+        out["ms"][key], out["lib_ms"][key] = _time_pair(
+            f"{key} B={B} N={N}", card,
+            (lambda e: lambda: rbt.inverse_rbt_batched(a, engine=e))(engine),
+            lambda: torch.linalg.inv(a), warmup=2, iters=10,
+            lib_name="torch.linalg.inv")
+    out["ms"]["large-pivoted"], out["lib_ms"]["large-pivoted"] = _time_pair(
+        f"large-pivoted B={LARGE_PIV_B} N={LARGE_PIV_N}", card,
+        lambda: lu_large.large_solve_rbt(al, bl, diag_engine="pivoted"),
+        lambda: torch.linalg.solve(al, bl[:, :, None]), warmup=2, iters=5,
+        lib_name="torch.linalg.solve")
+    out["ms"]["large-recursive"], _ = _time_pair(
+        f"large-recursive (the default engine, beside it) B={LARGE_PIV_B} "
+        f"N={LARGE_PIV_N}", card, lambda: lu_large.large_solve_rbt(al, bl),
+        None, warmup=2, iters=5)
+    return out
+
+
+def drive_graft(dev, card):
+    """Phase 62: the flagship step's twin, ``graft_entry.entry()`` (B = 8,
+    N = 64): its forward takes kernel 1 once, held against the kernel's
+    plain version on the arrays the forward gave it (TOL_KERNEL), the
+    residual in float64, and its time beside ``torch.linalg.solve``."""
+    from linalg_solver_tpu_torch import graft_entry
+    from linalg_solver_tpu_torch.ops.kernels import solve_fused as sf
+
+    fwd, (a, b) = graft_entry.entry()
+    x, c, (calls,) = _held_run(lambda: fwd(a, b), (sf, "solve_fused_rbt"))
+    (args, (xk, badk)), = calls
+    x_ref, bad_ref = sf.solve_fused_rbt_reference(*args)
+    rel, _, abs_err, why = compare(xk, badk, x_ref, bad_ref)
+    res = float(worst_resid(a, b, x).max())
+    print(f"graft twin entry() B={a.shape[0]} N={a.shape[1]}: launches {c}, "
+          f"kernel vs plain max rel diff {rel:.3e} (tol {TOL_KERNEL}), "
+          f"flagged {badk.nonzero().flatten().tolist()}, worst residual "
+          f"{res:.3e} (tol {TOL_RESID})")
+    if c["fused"] != 1 or why is not None or not rel <= TOL_KERNEL or \
+            bool(badk.any()) or not res <= TOL_RESID:
+        raise AssertionError(f"the graft twin is off: {why or c}")
+    ms, lib_ms = _time_pair(
+        "graft twin forward B=8 N=64", card, lambda: fwd(a, b),
+        lambda: torch.linalg.solve(a, b[:, :, None]), warmup=3, iters=20,
+        lib_name="torch.linalg.solve")
+    return {"launches": c["fused"], "err": abs_err, "ms": ms,
+            "lib_ms": lib_ms}
+
+
+def _spd_gram(bsz, n, shift, g, dev, m=None):
+    """G Gᵀ + shift·I with G [bsz, n, m or n] Gaussian over √n (the repo's
+    SPD bench class: eigenvalues in [shift, shift + 4] at m = n)."""
+    G = torch.randn(bsz, n, m or n, generator=g, device=dev) / n ** 0.5
+    return G @ G.transpose(1, 2) + shift * torch.eye(n, device=dev)
+
+
+def _check_reads(what, reads, iters, chunk):
+    bound_ = math.ceil(iters / chunk) + 1
+    print(f"host reads {what}: {reads} for {iters} iterations (chunk "
+          f"{chunk}; bound ceil(iters/chunk) + 1 = {bound_})")
+    if reads > bound_:
+        raise AssertionError(f"{what} read the host {reads} times")
+
+
+def _rel_resid64(a, b, x):
+    """max over lanes of ‖b − A x‖ / ‖b‖ in float64 (``a [B, m, n]``)."""
+    r = b.double() - (a.double() @ x.double()[:, :, None])[:, :, 0]
+    return float((r.norm(dim=1) / b.double().norm(dim=1)).max())
+
+
+def drive_krylov(dev, card):
+    """Phase 63: CG (SPD, κ ≈ 5), BiCGSTAB, GMRES(32) and MINRES at B = 8,
+    n = 1024, LSQR at [8, 2048, 1024]: every lane converged, the float64
+    residual (LSQR: the normal equations' residual) within 4·tol, the
+    host reads a call against its iterations, the device's busy share,
+    and times beside ``torch.linalg.solve`` / ``lstsq``."""
+    from linalg_solver_tpu_torch.ops import krylov
+
+    g = torch.Generator(device=dev).manual_seed(63)
+    n = KRY_N
+    spd = _spd_gram(KRY_B, n, 1.0, g, dev)
+    gen = torch.randn(KRY_B, n, n, generator=g, device=dev) / n ** 0.5 \
+        + 4.0 * torch.eye(n, device=dev)
+    Q, _ = torch.linalg.qr(torch.randn(KRY_B, n, n, generator=g, device=dev))
+    lam = torch.cat([-torch.logspace(0, math.log10(3), n // 2, device=dev),
+                     torch.logspace(0, math.log10(3), n // 2, device=dev)])
+    sym = (Q * lam) @ Q.transpose(1, 2)
+    tall = torch.randn(KRY_B, LSQR_M, n, generator=g, device=dev)
+    b = torch.randn(KRY_B, n, generator=g, device=dev)
+    bt = torch.randn(KRY_B, LSQR_M, generator=g, device=dev)
+    cases = {
+        "cg": (krylov.cg_batched, spd, b, krylov.CHUNK),
+        "bicgstab": (krylov.bicgstab_batched, gen, b, krylov.CHUNK),
+        "gmres": (krylov.gmres_batched, gen, b, krylov.GMRES_CHUNK),
+        "minres": (krylov.minres_batched, sym, b, krylov.CHUNK),
+        "lsqr": (krylov.lsqr_batched, tall, bt, krylov.CHUNK),
+    }
+    out = {"ms": {}, "lib_ms": {}, "dev_ms": {}, "reads": {}, "iters": {}}
+    for name, (fn, a, rhs, chunk) in cases.items():
+        krylov.reset_host_reads()
+        r, c, _ = _held_run(lambda: fn(a, rhs, tol=TOL_KRY))
+        reads, iters = krylov.HOST_READS, int(r.iters)
+        if name == "gmres":
+            iters //= 32          # restarts: one host read each
+        if name == "lsqr":
+            at = a.transpose(1, 2).double()
+            rr = rhs.double() - (a.double() @ r.x.double()[:, :, None])[..., 0]
+            ne = float(((at @ rr[:, :, None])[..., 0].norm(dim=1) / (
+                torch.linalg.matrix_norm(a.double()) * rr.norm(dim=1)
+            )).max())
+            what = f"normal-equations residual {ne:.3e}"
+            ok = ne <= 4 * TOL_KRY
+        else:
+            ne = _rel_resid64(a, rhs, r.x)
+            what = f"float64 residual {ne:.3e}"
+            ok = ne <= 4 * TOL_KRY
+        print(f"krylov {name} [{a.shape[0]}, {a.shape[1]}, {a.shape[2]}]: "
+              f"converged {int(r.converged.sum())} of {a.shape[0]}, iters "
+              f"{int(r.iters)}, {what} (tol 4 x {TOL_KRY}), launches "
+              f"{sum(c.values())}")
+        if not bool(r.converged.all()) or not ok:
+            raise AssertionError(f"krylov {name} did not converge")
+        _check_reads(f"krylov {name}", reads, iters, chunk)
+        out["reads"][name], out["iters"][name] = reads, int(r.iters)
+        lib = (lambda a_, b_: lambda: torch.linalg.lstsq(
+            a_, b_[:, :, None]))(a, rhs) if name == "lsqr" else \
+            (lambda a_, b_: lambda: torch.linalg.solve(
+                a_, b_[:, :, None]))(a, rhs)
+        call = (lambda f_, a_, b_: lambda: f_(a_, b_, tol=TOL_KRY))(
+            fn, a, rhs)
+        out["ms"][name], out["lib_ms"][name] = _time_pair(
+            f"krylov {name}", card, call, lib, lib_name=(
+                "torch.linalg.lstsq" if name == "lsqr"
+                else "torch.linalg.solve"))
+        out["dev_ms"][name] = _busy(f"krylov {name}", call, out["ms"][name])
+    return out
+
+
+def drive_lobpcg(dev, card):
+    """Phase 64: LOBPCG, the 8 smallest eigenpairs of 16 SPD 512 x 512
+    matrices (G Gᵀ + 0.1 I, the repo's LOBPCG bench class): every lane
+    converged, the eigenvalues against float64 ``eigvalsh`` on the card,
+    their residuals, the host reads against the iterations, the busy share, and
+    the time beside ``torch.lobpcg``."""
+    from linalg_solver_tpu_torch.ops import krylov, lobpcg
+
+    g = torch.Generator(device=dev).manual_seed(64)
+    s = _spd_gram(LOB_B, LOB_N, 0.1, g, dev)
+    krylov.reset_host_reads()
+    r, c, _ = _held_run(lambda: lobpcg.lobpcg_batched(s, LOB_K, tol=TOL_LOB))
+    reads, iters = krylov.HOST_READS, int(r.iters)
+    want = torch.linalg.eigvalsh(s.double())[:, :LOB_K]
+    conv = r.converged
+    # a residual of rn·‖A‖ bounds each eigenvalue's error (symmetric A)
+    anorm = s.double().abs().sum(dim=2).amax(dim=1)
+    err = float(((r.w.double() - want).abs().amax(dim=1) / anorm).max())
+    print(f"lobpcg [{LOB_B}, {LOB_N}] k={LOB_K}: converged {int(conv.sum())} "
+          f"of {LOB_B}, iters {iters}, eigenvalue error over ||A||_inf "
+          f"{err:.3e} (bound 4 tol = {4 * TOL_LOB}), resnorm max "
+          f"{float(r.resnorm.max()):.3e}, launches {sum(c.values())}")
+    if not bool(conv.all()) or not err <= 4 * TOL_LOB or \
+            not float(r.resnorm.max()) <= 4 * TOL_LOB:
+        raise AssertionError("lobpcg is off")
+    _check_reads("lobpcg", reads, iters, lobpcg.CHUNK)
+
+    from linalg_solver_tpu_torch.utils.benchmarking import cuda_time
+
+    def lib():
+        return torch.lobpcg(s, k=LOB_K, largest=False, tol=TOL_LOB)
+
+    # one library call (≈ 13–19 s on the H100), timed as it is tried
+    try:
+        lib_ms = cuda_time(lib, warmup=0, iters=1) * 1e3
+        lib_name = "torch.lobpcg (batched)"
+    except Exception as e:      # the library's lobpcg may refuse a batch
+        print(f"torch.lobpcg on the batch raised {type(e).__name__}: "
+              f"{str(e)[:120]}; timed one lane at a time")
+
+        def lib():
+            return [torch.lobpcg(s[i], k=LOB_K, largest=False, tol=TOL_LOB)
+                    for i in range(LOB_B)]
+        lib_ms = cuda_time(lib, warmup=0, iters=1) * 1e3
+        lib_name = "torch.lobpcg (a lane at a time)"
+    call = (lambda: lobpcg.lobpcg_batched(s, LOB_K, tol=TOL_LOB))
+    ms, _ = _time_pair(f"lobpcg [{LOB_B}, {LOB_N}] k={LOB_K}", card, call,
+                       None, warmup=1, iters=3)
+    print(f"time {lib_name} [{LOB_B}, {LOB_N}] k={LOB_K}: {lib_ms:.4f} ms "
+          f"({card})")
+    return {"ms": ms, "lib_ms": lib_ms, "dev_ms": _busy("lobpcg", call, ms),
+            "reads": reads, "iters": iters, "converged": int(conv.sum())}
+
+
+def _rotation_batch(bsz, n, g, dev):
+    """P diag(R₁₂, R₉, R₇, tail) P⁻¹: three dominant complex pairs (radii
+    12, 9, 7) over a real tail in [0, 5], scrambled by P = I + G/2."""
+    blocks = torch.zeros(bsz, n, n, device=dev)
+    for i, (rad, th) in enumerate(((12.0, 0.4), (9.0, 1.1), (7.0, 2.0))):
+        cth, sth = math.cos(th), math.sin(th)
+        blocks[:, 2 * i:2 * i + 2, 2 * i:2 * i + 2] = rad * torch.tensor(
+            [[cth, -sth], [sth, cth]], device=dev)
+    tail = torch.rand(bsz, n - 6, generator=g, device=dev) * 5
+    blocks[:, 6:, 6:] = torch.diag_embed(tail)
+    P = torch.eye(n, device=dev) + 0.5 * torch.randn(
+        bsz, n, n, generator=g, device=dev) / n ** 0.5
+    return (P.double() @ blocks.double() @ torch.linalg.inv(P.double())
+            ).float()
+
+
+def drive_arnoldi(dev, card):
+    """Phase 65: Krylov–Schur, the 6 largest-magnitude eigenpairs (three
+    complex pairs) of 8 general 1024 x 1024 matrices at m = 32, and the
+    shift-invert mode (4 nearest σ = 1.234) at n = 512: converged, the
+    eigenvalues against the planted ones, the Ritz residuals from true
+    matvecs in float64; both Schur kernels held bitwise (``hold_schur``)
+    on the first Rayleigh matrix the path gave ``eig_batched``; times."""
+    from linalg_solver_tpu_torch.ops import arnoldi, krylov, schur
+
+    g = torch.Generator(device=dev).manual_seed(65)
+    a = _rotation_batch(ARN_B, ARN_N, g, dev)
+    krylov.reset_host_reads()
+    r, c, (eigs,) = _held_run(lambda: arnoldi.eigs_arnoldi_batched(
+        a, ARN_K, m=ARN_M, max_restarts=30), (schur, "eig_batched"))
+    lam = torch.complex(r.real.double(), r.imag.double())
+    mags = lam.abs().sort(dim=1).values
+    want = torch.tensor([7.0, 7.0, 9.0, 9.0, 12.0, 12.0], device=dev,
+                        dtype=torch.float64)
+    lam_err = float((mags - want).abs().max())
+    V = torch.complex(r.vectors_real.double(), r.vectors_imag.double())
+    res64 = float(((a.to(torch.complex128) @ V - V * lam[:, None, :])
+                   .norm(dim=1) / 12.0).max())
+    print(f"arnoldi [{ARN_B}, {ARN_N}] k={ARN_K} m={ARN_M}: restarts "
+          f"{r.restarts} ({krylov.HOST_READS} host reads), converged "
+          f"{int(r.converged.sum())} of {r.converged.numel()}, |lambda| "
+          f"error {lam_err:.3e}, float64 Ritz residual over 12 {res64:.3e}, "
+          f"launches {c}")
+    if not bool(r.converged.all()) or not lam_err <= 1e-3 or \
+            not res64 <= 1e-4 or c["chase"] < 1:
+        raise AssertionError("arnoldi is off")
+    if krylov.HOST_READS != r.restarts:
+        raise AssertionError("arnoldi read the host more than once a restart")
+    (sargs, _), = eigs[:1]
+    err, _, _ = hold_schur(sargs[0], True, f"on arnoldi's first Rayleigh "
+                           f"matrix {list(sargs[0].shape)}")
+
+    rng = torch.Generator(device=dev).manual_seed(66)
+    n2 = ARN_SHIFT_N
+    lams = torch.sort(torch.rand(ARN_B, n2, generator=rng, device=dev)
+                      * 20 - 10, dim=1).values
+    Q, _ = torch.linalg.qr(torch.randn(ARN_B, n2, n2, generator=rng,
+                                       device=dev))
+    s = (Q * lams[:, None, :]) @ Q.transpose(1, 2)
+    rs, cs, _ = _held_run(lambda: arnoldi.eigs_arnoldi_shifted_batched(
+        s, 4, ARN_SIGMA, max_restarts=30))
+    near = torch.gather(lams, 1, (lams - ARN_SIGMA).abs().argsort(dim=1)
+                        [:, :4]).sort(dim=1).values
+    s_err = float((rs.real.sort(dim=1).values - near).abs().max())
+    print(f"arnoldi shift-invert [{ARN_B}, {n2}] k=4 sigma={ARN_SIGMA}: "
+          f"restarts {rs.restarts}, converged {int(rs.converged.sum())} of "
+          f"{rs.converged.numel()}, error against the planted eigenvalues "
+          f"{s_err:.3e} (tol 1e-3), launches {cs}")
+    if not bool(rs.converged.all()) or not s_err <= 1e-3:
+        raise AssertionError("shift-invert arnoldi is off")
+    ms, lib_ms = _time_pair(
+        f"arnoldi [{ARN_B}, {ARN_N}] k={ARN_K}", card,
+        lambda: arnoldi.eigs_arnoldi_batched(a, ARN_K, m=ARN_M,
+                                             max_restarts=30),
+        lambda: torch.linalg.eigvals(a), warmup=1, iters=2,
+        lib_name="torch.linalg.eigvals (all n)")
+    ms_s, lib_s = _time_pair(
+        f"arnoldi shift-invert [{ARN_B}, {n2}] k=4", card,
+        lambda: arnoldi.eigs_arnoldi_shifted_batched(s, 4, ARN_SIGMA,
+                                                     max_restarts=30),
+        lambda: torch.linalg.eigvalsh(s), warmup=1, iters=2,
+        lib_name="torch.linalg.eigvalsh (all n)")
+    return {"chase": c["chase"] + cs["chase"],
+            "window": c["schur_window"] + cs["schur_window"], "err": err,
+            "counts": {"plain": c, "shifted": cs}, "ms": ms,
+            "lib_ms": lib_ms, "shift_ms": ms_s, "shift_lib_ms": lib_s,
+            "restarts": r.restarts}
+
+
+def _band_matvec64(ab, x, kb):
+    """``A x`` in float64 from ``solve_banded`` storage (``A[i, i+d] =
+    ab[kb − d, i + d]``)."""
+    ab, x = ab.double(), x.double()
+    n = x.shape[1]
+    y = torch.zeros_like(x)
+    for d in range(-kb, kb + 1):
+        lo, hi = max(0, -d), min(n, n - d)
+        y[:, lo:hi] += ab[:, kb - d, lo + d:hi + d] * x[:, lo + d:hi + d]
+    return y
+
+
+def drive_structured(dev, card):
+    """Phases 66-67: the Toeplitz (Strang-preconditioned GMRES),
+    circulant and Hankel solves at B = 16, n = 4096, Björck–Pereyra at
+    n = 32 (primal on smooth data, dual on moments), the banded solve at
+    N = 4096, kb = 4: float64 residuals, flags, host reads, busy shares,
+    and times beside ``torch.linalg.solve`` on the dense operator."""
+    from linalg_solver_tpu_torch.ops import banded, krylov, structured
+    from linalg_solver_tpu_torch.ops import toeplitz
+
+    g = torch.Generator(device=dev).manual_seed(66)
+    bsz, n = STRUCT_B, STRUCT_N
+    decay = torch.exp(-0.5 * torch.arange(n, device=dev))
+    c = torch.randn(bsz, n, generator=g, device=dev) * decay
+    r = torch.randn(bsz, n, generator=g, device=dev) * decay
+    c[:, 0] += 4.0
+    r[:, 0] = c[:, 0]
+    b = torch.randn(bsz, n, generator=g, device=dev)
+    out = {"ms": {}, "lib_ms": {}, "dev_ms": {}}
+
+    def held(name, fn, dense, rhs, check):
+        krylov.reset_host_reads()
+        res, cnt, _ = _held_run(fn)
+        x = res.x
+        rel = float(((dense.double() @ x.double()[:, :, None])[..., 0]
+                     - rhs.double()).norm(dim=1).div(
+                         rhs.double().norm(dim=1)).max())
+        flags = res.converged if hasattr(res, "converged") else res.ok
+        extra = (f", iters {int(res.iters)}, host reads {krylov.HOST_READS}"
+                 if hasattr(res, "iters") else "")
+        print(f"{name} [{rhs.shape[0]}, {rhs.shape[1]}]: ok "
+              f"{int(flags.sum())} of {flags.numel()}{extra}, float64 "
+              f"residual {rel:.3e} (tol {check}), launches "
+              f"{sum(cnt.values())}")
+        if not bool(flags.all()) or not rel <= check:
+            raise AssertionError(f"{name} is off")
+        if hasattr(res, "iters"):
+            _check_reads(name, krylov.HOST_READS, int(res.iters) // 32,
+                         krylov.GMRES_CHUNK)
+        call = fn
+        out["ms"][name], out["lib_ms"][name] = _time_pair(
+            name, card, call, lambda: torch.linalg.solve(
+                dense, rhs[:, :, None]), lib_name="torch.linalg.solve "
+            "(dense)")
+        out["dev_ms"][name] = _busy(name, call, out["ms"][name])
+
+    T = toeplitz.toeplitz_dense_batched(c, r)
+    held("toeplitz", lambda: toeplitz.toeplitz_solve_batched(c, r, b), T, b,
+         4 * TOL_KRY)
+    del T
+    cc = torch.randn(bsz, n, generator=g, device=dev) * decay
+    cc[:, 0] += 3.0
+    held("circulant", lambda: structured.circulant_solve_batched(cc, b),
+         structured.circulant_dense_batched(cc), b, TOL_STRUCT)
+    # H = T J for the Toeplitz T above: its first column is T's first
+    # column, its last row T's first row reversed
+    hc, hr = r.flip(1).contiguous(), c.contiguous()
+    held("hankel", lambda: structured.hankel_solve_batched(hc, hr, b),
+         structured.hankel_dense_batched(hc, hr), b, 4 * TOL_KRY)
+
+    out["vandermonde"] = drive_vandermonde(dev, card, g)
+
+    kb, nb_ = BAND_KB, BAND_N
+    ab = torch.randn(BAND_B, 2 * kb + 1, nb_, generator=g, device=dev)
+    ab[:, kb] += 4.0 * (2 * kb + 1)
+    bb = torch.randn(BAND_B, nb_, generator=g, device=dev)
+    rb, cb, _ = _held_run(lambda: banded.banded_solve_batched(ab, bb))
+    rel = float((_band_matvec64(ab, rb.x, kb) - bb.double()).norm(dim=1)
+                .div(bb.double().norm(dim=1)).max())
+    print(f"banded [{BAND_B}, {nb_}] kb={kb}: ok {int(rb.ok.sum())} of "
+          f"{BAND_B}, float64 residual {rel:.3e} (tol {TOL_STRUCT}), "
+          f"launches {sum(cb.values())}")
+    if not bool(rb.ok.all()) or not rel <= TOL_STRUCT:
+        raise AssertionError("the banded solve is off")
+    idx = torch.arange(nb_, device=dev)
+    dcol = idx[None, :] - idx[:, None]            # j − i
+    band = (dcol.abs() <= kb)
+    dense = torch.zeros(BAND_B, nb_, nb_, device=dev)
+    rows_, cols_ = band.nonzero(as_tuple=True)
+    dense[:, rows_, cols_] = ab[:, kb - (cols_ - rows_), cols_]
+    out["ms"]["banded"], out["lib_ms"]["banded"] = _time_pair(
+        f"banded [{BAND_B}, {nb_}] kb={kb}", card,
+        lambda: banded.banded_solve_batched(ab, bb),
+        lambda: torch.linalg.solve(dense, bb[:, :, None]),
+        lib_name="torch.linalg.solve (dense)")
+    out["dev_ms"]["banded"] = _busy(
+        "banded", lambda: banded.banded_solve_batched(ab, bb),
+        out["ms"]["banded"])
+    return out
+
+
+def _vdm_nodes(bsz, n, g, dev):
+    """Chebyshev points of [-1, 1] with a small per-lane jitter, ordered
+    (the JAX tests' nodes)."""
+    base = torch.cos(math.pi * (torch.arange(n, device=dev) + 0.5) / n)
+    return torch.sort(base[None] + 0.05 * torch.randn(
+        bsz, n, generator=g, device=dev) / n, dim=1).values
+
+
+def drive_vandermonde(dev, card, g):
+    """Björck–Pereyra, primal (interpolation of exp(x)) and dual (a moment
+    problem), at [16, 32].  Monomial interpolation at n = 32 is past f32's
+    reach (cond V ≈ 1e13 and more: the float64 run of the same recurrences
+    leaves residuals of 1e-10 … 1e-8, the f32 one of order 1, the JAX
+    package's too), so there the card's result is held NaN-equal bitwise
+    against the same recurrences on the host (each step an IEEE-rounded
+    elementwise op) and its flags must be clean; accuracy is held at
+    n = 10, the JAX tests' size, against numpy's float64 dense solve
+    (2e-3, the JAX tests' tolerance).  Times beside ``torch.linalg.solve``
+    on the dense matrix."""
+    import numpy as np
+
+    from linalg_solver_tpu_torch.ops import structured
+
+    out = {}
+    for n in (VDM_N, 10):
+        xs = _vdm_nodes(VDM_B, n, g, dev)
+        V = structured.vandermonde_dense_batched(xs.double())
+        f = torch.exp(xs) if n == VDM_N else torch.randn(
+            VDM_B, n, generator=g, device=dev)
+        w = torch.rand(VDM_B, n, generator=g, device=dev)
+        mom = (V.transpose(1, 2) @ w.double()[:, :, None])[..., 0].float()
+        for dual, rhs in ((False, f), (True, mom)):
+            fn = (structured.vandermonde_solve_t_batched if dual
+                  else structured.vandermonde_solve_batched)
+            name = f"vandermonde{'-dual' if dual else ''}-{n}"
+            r, c, _ = _held_run(lambda: fn(xs, rhs))
+            if n == VDM_N:
+                rh = fn(xs.cpu(), rhs.cpu())
+                same = nan_equal(r.x.cpu(), rh.x) and torch.equal(
+                    r.ok.cpu(), rh.ok)
+                print(f"{name} [{VDM_B}, {n}]: ok {int(r.ok.sum())} of "
+                      f"{VDM_B}, bitwise the host's run of the same "
+                      f"recurrences {same}, launches {sum(c.values())}")
+                if not same or not bool(r.ok.all()):
+                    raise AssertionError(f"{name} differs from the host")
+                M = V.transpose(1, 2) if dual else V
+                out[name] = _time_pair(
+                    f"{name} [{VDM_B}, {n}]", card, lambda: fn(xs, rhs),
+                    lambda: torch.linalg.solve(M.float(), rhs[:, :, None]),
+                    warmup=2, iters=10, lib_name="torch.linalg.solve "
+                    "(dense)")
+                out[name + "-dev_ms"] = _busy(name, lambda: fn(xs, rhs),
+                                              out[name][0])
+                continue
+            M = (V.transpose(1, 2) if dual else V).cpu().numpy()
+            want = np.linalg.solve(M, rhs.double().cpu().numpy()[:, :, None]
+                                   )[:, :, 0]
+            # the JAX tests' elementwise rtol = atol = 2e-3
+            err = float((np.abs(r.x.double().cpu().numpy() - want)
+                         / (1.0 + np.abs(want))).max())
+            print(f"{name} [{VDM_B}, {n}]: ok {int(r.ok.sum())} of {VDM_B}, "
+                  f"max |x - x64| / (1 + |x64|) {err:.3e} (tol 2e-3)")
+            if not bool(r.ok.all()) or not err <= 2e-3:
+                raise AssertionError(f"{name} is off")
+    return out
+
+
+def drive_blocksparse_kron(dev, card):
+    """Phases 68-69: a symmetric block-sparse operator (n = 2048, 64-wide
+    blocks, 5 % of them: the diagonal and 10 pairs off it) solved by GMRES
+    with block Jacobi and its 3 largest eigenpairs by Krylov–Schur, B = 8,
+    held against float64 ``eigvalsh`` of the dense operator; the
+    Kronecker solve, sum and least squares at B = 16, m = n = 64
+    ([96, 64] ⊗ [96, 64]), both Schur kernels held on the Kronecker sum's
+    first Schur input; residuals in float64; times beside the library on
+    the dense operator."""
+    import numpy as np
+
+    from linalg_solver_tpu_torch.ops import blocksparse, kron, krylov, schur
+
+    rng = np.random.RandomState(68)
+    nbk, bs = BSP_N // BSP_BS, BSP_BS
+    A = np.zeros((BSP_N, BSP_N), np.float32)
+    pairs = set()
+    while len(pairs) < BSP_PAIRS:
+        i, j = sorted(int(v) for v in rng.randint(nbk, size=2))
+        if i != j:
+            pairs.add((i, j))
+    # symmetric, as a stiffness matrix is: the pattern and the values
+    for i, j in [(i, i) for i in range(nbk)] + sorted(pairs):
+        blk = rng.randn(bs, bs) * 0.3
+        if i == j:
+            blk = (blk + blk.T) / 2
+        A[i * bs:(i + 1) * bs, j * bs:(j + 1) * bs] = blk
+        A[j * bs:(j + 1) * bs, i * bs:(i + 1) * bs] = blk.T
+    A += 8.0 * np.eye(BSP_N, dtype=np.float32)
+    A[:bs, :bs] += np.diag([20.0, 15.0, 11.0] + [0.0] * (bs - 3)
+                           ).astype(np.float32)
+    op = blocksparse.blocksparse_from_dense(A, bs, device=dev)
+    dense = torch.from_numpy(A).to(dev).expand(BSP_B, BSP_N, BSP_N)
+    g = torch.Generator(device=dev).manual_seed(68)
+    b = torch.randn(BSP_B, BSP_N, generator=g, device=dev)
+    krylov.reset_host_reads()
+    r, c, _ = _held_run(lambda: blocksparse.blocksparse_solve(op, b,
+                                                              tol=TOL_KRY))
+    rel = _rel_resid64(dense, b, r.x)
+    print(f"blocksparse gmres n={BSP_N} bs={bs} ({op.blocks.shape[0]} of "
+          f"{nbk * nbk} blocks) B={BSP_B}: converged {int(r.converged.sum())}"
+          f", iters {int(r.iters)}, host reads {krylov.HOST_READS}, float64 "
+          f"residual {rel:.3e} (tol {4 * TOL_KRY}), launches "
+          f"{sum(c.values())}")
+    if not bool(r.converged.all()) or not rel <= 4 * TOL_KRY:
+        raise AssertionError("the block-sparse solve is off")
+    _check_reads("blocksparse gmres", krylov.HOST_READS, int(r.iters) // 32,
+                 krylov.GMRES_CHUNK)
+    mv = blocksparse.make_blocksparse_matvec(op)
+    y1, y2 = mv(b), mv(b)
+    if not torch.equal(y1, y2):
+        raise AssertionError("the block matvec is not repeatable")
+    out = {"ms": {}, "lib_ms": {}, "dev_ms": {}}
+    out["ms"]["blocksparse"], out["lib_ms"]["blocksparse"] = _time_pair(
+        f"blocksparse gmres n={BSP_N} B={BSP_B}", card,
+        lambda: blocksparse.blocksparse_solve(op, b, tol=TOL_KRY),
+        lambda: torch.linalg.solve(dense, b[:, :, None]),
+        lib_name="torch.linalg.solve (dense)")
+    out["dev_ms"]["blocksparse"] = _busy(
+        "blocksparse gmres", lambda: blocksparse.blocksparse_solve(
+            op, b, tol=TOL_KRY), out["ms"]["blocksparse"])
+    out["ms"]["matvec"], _ = _time_pair(
+        f"blocksparse matvec B={BSP_B}", card, lambda: mv(b), None,
+        warmup=3, iters=20)
+    re_, ce, _ = _held_run(lambda: blocksparse.blocksparse_eigs(
+        op, 3, batch=BSP_B, m=32, max_restarts=60))
+    top = re_.real.sort(dim=1, descending=True).values
+    want = torch.linalg.eigvalsh(dense[0].double()).flip(0)[:3]
+    lam_err = float((top.double() - want).abs().max())
+    print(f"blocksparse eigs k=3 m=32 batch={BSP_B}: restarts {re_.restarts}, "
+          f"converged {int(re_.converged.sum())} of {re_.converged.numel()}, "
+          f"resid max {float(re_.resid.max()):.3e}, largest eigenvalues "
+          f"{top[0].tolist()}, against float64 eigvalsh {want.tolist()}: "
+          f"max error {lam_err:.3e} (tol {TOL_BSP_EIG}), imaginary parts "
+          f"max {float(re_.imag.abs().max()):.3e}, launches {ce}")
+    if not bool(re_.converged.all()) or not lam_err <= TOL_BSP_EIG:
+        raise AssertionError("block-sparse eigenpairs are off")
+
+    gk = torch.Generator(device=dev).manual_seed(69)
+    m = KRON_M
+    ka = torch.randn(KRON_B, m, m, generator=gk, device=dev) + m ** 0.5 * 2 \
+        * torch.eye(m, device=dev)
+    kbm = torch.randn(KRON_B, m, m, generator=gk, device=dev) + m ** 0.5 * 2 \
+        * torch.eye(m, device=dev)
+    kc = torch.randn(KRON_B, m * m, generator=gk, device=dev)
+    K = kron.kron_batched(ka, kbm)
+    x, c1, _ = _held_run(lambda: kron.kron_solve_batched(ka, kbm, kc))
+    rel = _rel_resid64(K, kc, x)
+    print(f"kron_solve [{KRON_B}, {m}x{m} (x) {m}x{m}]: float64 residual "
+          f"{rel:.3e} (tol {TOL_STRUCT}), launches {sum(c1.values())}")
+    if not rel <= TOL_STRUCT:
+        raise AssertionError("kron_solve is off")
+    out["ms"]["kron_solve"], out["lib_ms"]["kron_solve"] = _time_pair(
+        "kron_solve", card, lambda: kron.kron_solve_batched(ka, kbm, kc),
+        lambda: torch.linalg.solve(K, kc[:, :, None]),
+        lib_name="torch.linalg.solve (dense)")
+    del K
+    sa = torch.randn(KRON_B, m, m, generator=gk, device=dev) + m * \
+        torch.eye(m, device=dev)
+    sb = torch.randn(KRON_B, m, m, generator=gk, device=dev) + m * \
+        torch.eye(m, device=dev)
+    run_schur, seen = schur._run_schur, []
+
+    def run_rec(a_, *rest):
+        seen.append((a_.clone(), rest))
+        return run_schur(a_, *rest)
+
+    schur._run_schur = run_rec
+    try:
+        rs, cs, _ = _held_run(lambda: kron.kronsum_solve_batched(sa, sb, kc))
+    finally:
+        schur._run_schur = run_schur
+    eye = torch.eye(m, device=dev)
+    Ks = (torch.einsum("bij,kl->bikjl", sa, eye)
+          + torch.einsum("ij,bkl->bikjl", eye, sb)).reshape(KRON_B, m * m,
+                                                            m * m)
+    rel = _rel_resid64(Ks, kc, rs.x)
+    print(f"kronsum_solve [{KRON_B}, {m} (+) {m}]: ok {int(rs.ok.sum())} of "
+          f"{KRON_B}, float64 residual {rel:.3e} (tol 1e-3), launches {cs}")
+    if not bool(rs.ok.all()) or not rel <= 1e-3 or cs["chase"] < 1:
+        raise AssertionError("kronsum_solve is off")
+    a0, rest = seen[0]
+    err, _, _ = hold_schur(a0, rest[3], "on kronsum's first Schur input "
+                           f"{list(a0.shape)}", rest[2], *rest[4:])
+    out["ms"]["kronsum"], out["lib_ms"]["kronsum"] = _time_pair(
+        "kronsum_solve", card, lambda: kron.kronsum_solve_batched(sa, sb, kc),
+        lambda: torch.linalg.solve(Ks, kc[:, :, None]),
+        lib_name="torch.linalg.solve (dense)")
+    del Ks
+    ma, na = KRON_LSQ
+    la = torch.randn(KRON_B, ma, na, generator=gk, device=dev)
+    lb = torch.randn(KRON_B, ma, na, generator=gk, device=dev)
+    lc = torch.randn(KRON_B, ma * ma, generator=gk, device=dev)
+    (xl, okl), cl, _ = _held_run(lambda: kron.kron_lstsq_batched(la, lb, lc))
+    # optimality through the factors in float64: Kᵀ(c − K x) against
+    # ‖K‖_F ‖c − K x‖, ‖K‖_F = ‖A‖_F ‖B‖_F
+    l64, b64 = la.double(), lb.double()
+    rr = lc.double() - kron.kron_matvec_batched(l64, b64, xl.double())
+    ne = kron.kron_matvec_batched(l64.transpose(1, 2), b64.transpose(1, 2),
+                                  rr).norm(dim=1) / (
+        l64.norm(dim=(1, 2)) * b64.norm(dim=(1, 2)) * rr.norm(dim=1))
+    ne = float(ne.max())
+    print(f"kron_lstsq [{KRON_B}, {ma}x{na} (x) {ma}x{na}]: ok "
+          f"{int(okl.sum())} of {KRON_B}, normal-equations residual in "
+          f"float64 {ne:.3e} (tol 1e-5), launches {sum(cl.values())}")
+    if not bool(okl.all()) or not ne <= 1e-5:
+        raise AssertionError("kron_lstsq is off")
+    KL = kron.kron_batched(la, lb)
+    out["ms"]["kron_lstsq"], out["lib_ms"]["kron_lstsq"] = _time_pair(
+        "kron_lstsq", card, lambda: kron.kron_lstsq_batched(la, lb, lc),
+        lambda: torch.linalg.lstsq(KL, lc[:, :, None]),
+        lib_name="torch.linalg.lstsq (dense)", lib_runs=(1, 2))
+    del KL
+    out["chase"] = ce["chase"] + cs["chase"]
+    out["window"] = ce["schur_window"] + cs["schur_window"]
+    out["err"] = err
+    out["counts"] = {"eigs": ce, "kronsum": cs}
+    return out
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py: no CUDA device; there is no CPU path")
@@ -6565,6 +7402,44 @@ def main() -> None:
             slice_counts[k] = slice_counts.get(k, 0) + v
     slice_counts["complex_gauss"] += cxo["det_launches"]
 
+    # 61-69: the rest of the LU family (the hybrid and recursive engines,
+    # the pivoted rescue, lu_large's pivoted diagonal engine), the flagship
+    # step's twin, the Krylov solvers, LOBPCG, Arnoldi, the structured,
+    # banded, block-sparse and Kronecker solves
+    t0 = time.perf_counter()
+    lu21 = drive_rbt_engines(dev, card)
+    graft = drive_graft(dev, card)
+    kry = drive_krylov(dev, card)
+    lob = drive_lobpcg(dev, card)
+    arn = drive_arnoldi(dev, card)
+    st21 = drive_structured(dev, card)
+    bk = drive_blocksparse_kron(dev, card)
+    print(f"phases 61-69: {time.perf_counter() - t0:.2f} s")
+    print("phases 61-69 times (ms; lib_ms the library call beside each; "
+          "dev_ms the device's share): " + json.dumps({
+              "lu_family": {"ms": lu21["ms"], "lib_ms": lu21["lib_ms"]},
+              "graft": {"ms": graft["ms"], "lib_ms": graft["lib_ms"]},
+              "krylov": {k: kry[k] for k in ("ms", "lib_ms", "dev_ms",
+                                             "reads", "iters")},
+              "lobpcg": lob,
+              "arnoldi": {k: arn[k] for k in ("ms", "lib_ms", "shift_ms",
+                                              "shift_lib_ms", "restarts")},
+              "structured": st21,
+              "blocksparse_kron": {k: bk[k] for k in ("ms", "lib_ms",
+                                                      "dev_ms")}}))
+    new_counts = {
+        "fused": graft["launches"],
+        "butterfly": sum(c["butterfly"] for c in lu21["counts"].values()),
+        "lu_nopivot": sum(c["lu_nopivot"] for c in lu21["counts"].values()),
+        "lu_panel": sum(c["lu_panel"] for c in lu21["counts"].values()),
+        "chase": arn["chase"] + bk["chase"],
+        "schur_window": arn["window"] + bk["window"],
+    }
+    new_err = {"fused": graft["err"], "butterfly": lu21["bf_err"],
+               "lu_nopivot": lu21["panel_err"], "lu_panel": lu21["k6_err"],
+               "chase": max(arn["err"], bk["err"]),
+               "schur_window": max(arn["err"], bk["err"])}
+
     # bounds from this run's shapes: bytes each input read and each output
     # written once; operations those the inputs need
     w = 2 * N_INV
@@ -6793,6 +7668,17 @@ def main() -> None:
         r = next(x for x in rows if x["name"] == row)
         r["launches"] += slice_counts[key]
         r["dd_complex_linalg_launches"] = slice_counts[key]
+    # the launches of phases 61-69 on the kernels they run
+    for row, key in (("solve_fused_rbt", "fused"),
+                     ("butterfly_two_sided", "butterfly"),
+                     ("panel_factor_nopivot", "lu_nopivot"),
+                     ("panel_factor_masked", "lu_panel"),
+                     ("francis_chase", "chase"),
+                     ("window_schur", "schur_window")):
+        r = next(x for x in rows if x["name"] == row)
+        r["launches"] += new_counts[key]
+        r["phases_61_69_launches"] = new_counts[key]
+        r["max_abs_err"] = max(r["max_abs_err"], new_err[key])
     k6 = next(x for x in rows if x["name"] == "panel_factor_masked")
     k6["max_abs_err"] = max(k6["max_abs_err"], ddo["k6_err"])
     for row in rows:

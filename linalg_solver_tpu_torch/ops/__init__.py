@@ -71,6 +71,21 @@
   QR, SVD, pseudoinverse, least squares, matrix functions and equations,
   generalized eigenproblems and roots, on (re, im) pairs through the real
   embedding
+- ``krylov`` — CG, BiCGSTAB, GMRES(m), MINRES and LSQR, dense and
+  matrix-free, their loops run in chunks with one host read a chunk
+- ``toeplitz`` — FFT Toeplitz matvec, Strang's preconditioner, the
+  Krylov solve
+- ``structured`` — circulant (FFT), Hankel (through Toeplitz) and
+  Vandermonde (Björck–Pereyra) families
+- ``banded`` — block-tridiagonal and banded solves by block cyclic
+  reduction
+- ``lobpcg`` — extreme eigenpairs of SPD matrices
+- ``arnoldi`` — Krylov–Schur eigenpairs of general operators, plain and
+  shift-invert, on ``schur.eig_batched``
+- ``blocksparse`` — block-sparse operators: a deterministic block matvec,
+  iterative solves and eigenpairs
+- ``kron`` — Kronecker products and sums: matvec, solve, least squares,
+  and the Kronecker-sum solve on the Sylvester equation
 - ``exact_int`` — Bareiss elimination in int32 and CRT reconstruction:
   exact integer determinants, ranks and solutions (not re-exported, as
   in the reference)
@@ -274,6 +289,66 @@ from .sturm import (
     sturm_count_batched,
     tridiag_eigenvectors_batched,
 )
+from .banded import (
+    BlockTridiagResult,
+    banded_solve_batched,
+    block_tridiag_solve_batched,
+)
+from .kron import (
+    KronSumResult,
+    kron_batched,
+    kron_lstsq_batched,
+    kron_matvec_batched,
+    kron_solve_batched,
+    kronsum_solve_batched,
+)
+from .krylov import (
+    KrylovResult,
+    bicgstab_batched,
+    bicgstab_matvec,
+    cg_batched,
+    cg_matvec,
+    gmres_batched,
+    gmres_matvec,
+)
+from .toeplitz import (
+    make_toeplitz_matvec,
+    strang_precond,
+    toeplitz_dense_batched,
+    toeplitz_matvec_batched,
+    toeplitz_solve_batched,
+)
+from .lobpcg import (
+    LOBPCGResult,
+    lobpcg_batched,
+)
+from .arnoldi import (
+    ArnoldiEigs,
+    eigs_arnoldi_batched,
+    eigs_arnoldi_matvec,
+    eigs_arnoldi_shifted_batched,
+)
+from .blocksparse import (
+    BlockSparse,
+    blocksparse_eigs,
+    blocksparse_from_dense,
+    blocksparse_solve,
+    blocksparse_to_dense,
+    make_blocksparse_matvec,
+)
+from .structured import (
+    CirculantSolve,
+    VandermondeSolve,
+    circulant_dense_batched,
+    circulant_matvec_batched,
+    circulant_solve_batched,
+    hankel_dense_batched,
+    hankel_matvec_batched,
+    hankel_solve_batched,
+    vandermonde_dense_batched,
+    vandermonde_solve_batched,
+    vandermonde_solve_t_batched,
+)
 from .randomized import (
     CURDecomposition,
     InterpolativeDecomposition,
@@ -284,9 +359,9 @@ from .randomized import (
 )
 
 __all__ = [
-    "SchurResult", "SchurVectors", "SchurEigvals", "EigResult",
-    "hessenberg", "real_schur", "eigvals_schur", "real_schur_vectors",
-    "eig_real_batched",
+    "SchurResult", "SchurEigvals", "SchurVectors", "EigResult",
+    "hessenberg", "real_schur", "eigvals_schur",
+    "real_schur_vectors", "eig_real_batched",
     "EigFullResult", "eig_batched",
     "EighResult", "eigh_batched", "is_symmetric_batched",
     "symmetry_defect_batched",
@@ -308,9 +383,18 @@ __all__ = [
     "CholeskyResult", "cholesky_batched", "cholesky_solve_batched",
     "cholesky_inverse_batched", "logdet_spd_batched",
     "PivotedCholesky", "pivoted_cholesky_batched",
+    "TridiagResult", "tridiag_solve_batched",
+    "BlockTridiagResult", "block_tridiag_solve_batched",
+    "banded_solve_batched",
     "GeneralizedEighResult", "eigh_generalized_batched",
     "GeneralizedEigResult", "eig_generalized_batched",
     "GeneralizedEigShifted", "eig_generalized_shifted_batched",
+    "KronSumResult", "kron_batched", "kron_lstsq_batched",
+    "kron_matvec_batched", "kron_solve_batched",
+    "kronsum_solve_batched",
+    "TridiagEigResult", "TridiagEigVecResult",
+    "eigh_tridiagonal_batched", "sturm_count_batched",
+    "tridiag_eigenvectors_batched",
     "NearestCorrResult", "NearestPSDResult",
     "nearest_correlation_batched", "nearest_orthogonal_batched",
     "nearest_psd_batched",
@@ -324,17 +408,39 @@ __all__ = [
     "solve_complex_batched", "inverse_complex_batched",
     "det_complex_batched",
     "RootsResult", "roots_batched",
+    "RandomizedSVD", "randomized_svd_batched",
+    "InterpolativeDecomposition", "interpolative_batched",
+    "CURDecomposition", "cur_batched",
+    "KrylovResult", "cg_batched", "bicgstab_batched", "gmres_batched",
+    "cg_matvec", "bicgstab_matvec", "gmres_matvec",
+    "toeplitz_solve_batched", "toeplitz_matvec_batched",
+    "toeplitz_dense_batched", "make_toeplitz_matvec", "strang_precond",
+    "LOBPCGResult", "lobpcg_batched",
+    "ArnoldiEigs", "eigs_arnoldi_batched", "eigs_arnoldi_matvec",
+    "eigs_arnoldi_shifted_batched",
+    "BlockSparse", "blocksparse_from_dense", "blocksparse_to_dense",
+    "make_blocksparse_matvec", "blocksparse_solve", "blocksparse_eigs",
+    "CirculantSolve", "circulant_dense_batched",
+    "circulant_matvec_batched", "circulant_solve_batched",
+    "hankel_dense_batched", "hankel_matvec_batched",
+    "hankel_solve_batched",
+    "VandermondeSolve", "vandermonde_dense_batched",
+    "vandermonde_solve_batched", "vandermonde_solve_t_batched",
     "SignResult", "sign_batched", "eig_count_left_batched",
     "spectral_projector_batched",
     "ComplexSchur", "rsf2csf_batched",
     "OrderedSchur", "schur_reorder_batched", "schur_sort_batched",
     "InvariantSubspace", "invariant_subspace_batched",
     "ClusterCondition", "schur_cluster_cond_batched",
-    "TridiagResult", "tridiag_solve_batched",
-    "TridiagEigResult", "TridiagEigVecResult",
-    "eigh_tridiagonal_batched", "sturm_count_batched",
-    "tridiag_eigenvectors_batched",
-    "RandomizedSVD", "randomized_svd_batched",
-    "InterpolativeDecomposition", "interpolative_batched",
-    "CURDecomposition", "cur_batched",
+    "BlockedRREF", "rref_blocked", "solve_affine_blocked_batched",
+    "rank_blocked_batched",
+    "RREFResult", "rref", "rref_batched",
+    "EV_SWAP", "EV_NORM", "EV_ELIM_BELOW", "EV_ELIM_ABOVE", "EVENT_NAMES",
+    "BatchedAffineSubspace", "InverseResult",
+    "solve", "solve_batched", "nullspace", "nullspace_batched",
+    "inverse", "inverse_batched", "rank", "rank_batched",
+    "det_gj", "det_gj_batched",
+    "LUResult", "lu_factor", "lu_factor_batched",
+    "lu_solve", "lu_solve_batched", "det_lu", "det_lu_batched",
+    "solve_lu", "solve_lu_batched",
 ]

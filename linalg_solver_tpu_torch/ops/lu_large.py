@@ -7,7 +7,8 @@ useful panel:
 - ``large_solve_rbt``: two-sided random butterflies (kernel 4, through
   ``rbt._butterfly_two_sided_fast``), then block elimination without
   pivoting: each ``nb×nb`` diagonal block inverted by the pivot-free Schur
-  recursion (``ops.lu_recursive``), the off-diagonal blocks and the
+  recursion (``ops.lu_recursive``) or, with ``diag_engine="pivoted"``,
+  by the library's pivoted inverse, the off-diagonal blocks and the
   trailing updates as batched products, ``ir_steps`` rounds of f32
   refinement against the original system and the RBT gate; the flagged
   systems go to ``large_solve_mixed``, compacted.
@@ -156,19 +157,42 @@ class LargeRBT(NamedTuple):
     ok: torch.Tensor           # [B] every leaf pivot nonzero, D⁻¹ finite
 
 
-def _rbt_block_factor(a_p: torch.Tensor, nb: int) -> LargeRBT:
+#: the ``diag_engine`` values of the reference's ``large_solve_rbt``
+DIAG_ENGINES = ("recursive", "pivoted")
+
+
+def _pivoted_block_inverse(d: torch.Tensor) -> torch.Tensor:
+    """The library's pivoted inverse of ``d [B, nb, nb]`` (``jnp.linalg.
+    inv`` in the reference), NaN where a block is exactly singular, as
+    the reference's comes back non-finite; nothing raises."""
+    inv, info = torch.linalg.inv_ex(d)
+    return torch.where((info == 0)[:, None, None], inv,
+                       torch.full_like(inv, float("nan")))
+
+
+def _rbt_block_factor(a_p: torch.Tensor, nb: int,
+                      diag_engine: str = "recursive") -> LargeRBT:
     """Block elimination without pivoting of ``a_p [B, N, N]``; each
     diagonal block (a Schur complement of a leading minor, nonsingular
     with probability 1 after the butterflies) inverted by the Schur
-    recursion with 16-wide leaves, the reference's default
-    ``diag_engine="recursive"``."""
+    recursion with 16-wide leaves (``diag_engine="recursive"``, the
+    reference's default) or by the library's pivoted inverse
+    (``"pivoted"``).  A system is flagged where a leaf pivot is zero or a
+    block inverse is not finite."""
+    if diag_engine not in DIAG_ENGINES:
+        raise ValueError(f"diag_engine {diag_engine!r}; one of "
+                         f"{DIAG_ENGINES}")
     B, n, _ = a_p.shape
     A = a_p
     dinvs, l21hs, a12s = [], [], []
     ok = torch.ones(B, dtype=torch.bool, device=a_p.device)
     for _ in range(n // nb):
-        dinv, dok = inverse_nopivot_recursive(A[:, :nb, :nb], leaf=16)
-        ok = ok & dok & torch.isfinite(dinv).all(dim=2).all(dim=1)
+        if diag_engine == "recursive":
+            dinv, dok = inverse_nopivot_recursive(A[:, :nb, :nb], leaf=16)
+            ok = ok & dok
+        else:
+            dinv = _pivoted_block_inverse(A[:, :nb, :nb])
+        ok = ok & torch.isfinite(dinv).all(dim=2).all(dim=1)
         dinvs.append(dinv)
         if A.shape[1] > nb:
             a12 = A[:, :nb, nb:]
@@ -209,11 +233,13 @@ def large_solve_rbt(
     ir_steps: int = 2,
     fallback: bool = True,
     diags: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+    diag_engine: str = "recursive",
 ) -> torch.Tensor:
     """Solve ``a [B, N, N] @ x = b [B, N]`` (N divisible by ``nb`` and by
     4) by RBT block elimination: butterflies ``UᵀAV`` at depth
     ``shrink_depth(N)`` (``diags``: a ``[2, N]`` (U, V) pair, by default
-    the seeded draw ``rbt.MAIN_SEEDS``), ``_rbt_block_factor``, the block
+    the seeded draw ``rbt.MAIN_SEEDS``), ``_rbt_block_factor`` (its
+    ``diag_engine``: ``"recursive"`` or ``"pivoted"``), the block
     solve, ``ir_steps`` rounds of f32 refinement against the original
     system, and (``fallback``) the RBT gate (``rbt.refinement_gate``: a
     leaf pivot zero or a block inverse non-finite, the last correction
@@ -235,7 +261,8 @@ def large_solve_rbt(
         return rbt.butterfly_apply(v[:, :, None], levels, trans=trans)[:, :, 0]
 
     fac = _rbt_block_factor(
-        rbt._butterfly_two_sided_fast(a32, *diags, trans=True), nb)
+        rbt._butterfly_two_sided_fast(a32, *diags, trans=True), nb,
+        diag_engine)
     x = bf(_rbt_block_solve(fac, bf(b32, du, True), nb), dv, False)
     rmax = xmax = zcmax = None
     for step in range(ir_steps):

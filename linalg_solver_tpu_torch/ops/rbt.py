@@ -6,7 +6,7 @@ construction) makes LU without pivoting stable for generic input with
 probability ~1.  Refinement runs against the original system, and a
 per-system gate sends the systems the probabilistic argument fails to a
 rescue: the same pipeline with a second butterfly draw, then the
-pivoted ``lu_blocked`` solve or inverse.  Two engines:
+pivoted ``lu_blocked`` solve or inverse.  Four engines:
 
 - ``"fused"``: the solve in one launch of the fused kernel
   (``ops.kernels.solve_fused``), where ``solve_fused.fits(N, k)``;
@@ -15,7 +15,16 @@ pivoted ``lu_blocked`` solve or inverse.  Two engines:
   kernel (``ops.kernels.lu_nopivot``) per ``nb``-wide phase, with the
   triangular inverses, substitutions and trailing updates as batched
   products.  It serves a matrix RHS wider than the fused kernel takes,
-  N past its reach, and the inverse (``inverse_rbt_batched``).
+  N past its reach, and the inverse (``inverse_rbt_batched``);
+- ``"hybrid"``: the phase engine's panels, then the explicit
+  preconditioned inverse assembled from the phase artifacts by block
+  substitution (``_preconditioned_inverse``), so that the first
+  solve and every refinement round is one batched product;
+- ``"recursive"``: the butterfly kernel, then the pivot-free Schur
+  recursion (``ops.lu_recursive``) on the whole butterflied matrix.
+
+``auto`` takes ``"fused"`` or ``"kernel"`` as before; ``"hybrid"`` and
+``"recursive"`` run only where asked for, as in the reference.
 
 Butterfly diagonals are ``[depth, N]`` tensors (``rbt_diags``) or, as
 the kernel takes them, ``[2, N]`` (``pad_diags``).  They are drawn on a
@@ -43,9 +52,13 @@ MAIN_SEEDS = (17, 29)
 RESCUE_SEEDS = (101, 103)
 
 
-def shrink_depth(n: int) -> int:
-    """Largest butterfly depth ≤ 2 whose segments stay even for ``n``."""
-    d = 2
+def shrink_depth(n: int, depth: int = 2) -> int:
+    """Largest butterfly depth ≤ ``depth`` (1 or 2: kernel 4's reach)
+    whose segments stay even for ``n``."""
+    if depth not in (1, 2):
+        raise ValueError(f"depth must be 1 or 2 (the butterfly kernel's "
+                         f"reach), got {depth}")
+    d = depth
     while d > 1 and (n >> (d - 1)) % 2:
         d -= 1
     return d
@@ -86,12 +99,12 @@ def diags_from_numpy(
 
 @functools.lru_cache(maxsize=16)
 def default_diags(
-    n: int, seeds: Tuple[int, int], device: str
+    n: int, seeds: Tuple[int, int], device: str, depth: int = 2
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The seeded (U, V) draw at depth ``shrink_depth(n)``, ``[2, n]``
-    each.  Cached: a draw costs a host-to-device copy, and callers never
-    write to the returned tensors."""
-    d = shrink_depth(n)
+    """The seeded (U, V) draw at depth ``shrink_depth(n, depth)``,
+    ``[2, n]`` each.  Cached: a draw costs a host-to-device copy, and
+    callers never write to the returned tensors."""
+    d = shrink_depth(n, depth)
     return tuple(
         pad_diags(rbt_diags(n, d, torch.Generator().manual_seed(s), device))
         for s in seeds
@@ -241,17 +254,17 @@ def phase_nb(n: int, nb: Optional[int], prefs: Sequence[int]) -> int:
 
 def _butterfly_two_sided_fast(
     a: torch.Tensor, diags_rows: torch.Tensor, diags_cols: torch.Tensor,
-    trans: bool,
+    trans: bool, depth: int = 2,
 ) -> torch.Tensor:
     """Two-sided butterfly of ``[B, N, N]`` by the one-pass kernel at depth
-    ``shrink_depth(N)``: ``trans=True`` is the preconditioning ``UᵀAV``
-    (diagonals (u, v)), ``trans=False`` the reconstruction ``V X Uᵀ``
-    (diagonals (v, u)).  The kernel takes every even N, so the reference's
-    per-level fallback is not needed."""
+    ``shrink_depth(N, depth)``: ``trans=True`` is the preconditioning
+    ``UᵀAV`` (diagonals (u, v)), ``trans=False`` the reconstruction
+    ``V X Uᵀ`` (diagonals (v, u)).  The kernel takes every even N, so the
+    reference's per-level fallback is not needed."""
     from .kernels.butterfly import butterfly_two_sided
 
     return butterfly_two_sided(a, diags_rows, diags_cols,
-                               shrink_depth(a.shape[-1]), trans, trans)
+                               shrink_depth(a.shape[-1], depth), trans, trans)
 
 
 class _NoPivotPhases(NamedTuple):
@@ -315,24 +328,54 @@ def _nopivot_solve(ph: _NoPivotPhases, b3: torch.Tensor, m: int, nb: int):
     return lu_blocked._phases_backward(ph, ys, m, nb)
 
 
+def _preconditioned_inverse(a_p: torch.Tensor, nb: int, engine: str,
+                            leaf: int):
+    """``(inv_p, ok)``: the inverse of the butterflied ``a_p``, by the
+    Schur recursion (``"recursive"``,
+    ``lu_recursive.inverse_nopivot_recursive``) or, for the phase and
+    ``"hybrid"`` engines, by carrying the identity through the no-pivot
+    phases as their right-hand side and substituting back (the
+    reference's ``_explicit_inverse_from_phases``)."""
+    if engine == "recursive":
+        from .lu_recursive import inverse_nopivot_recursive
+
+        return inverse_nopivot_recursive(a_p, leaf=leaf)
+    B, n, _ = a_p.shape
+    if nb == n:
+        ph = _nopivot_lu_phases(a_p, nb)
+        return ph.u11s_inv[0] @ ph.l11s_inv[0], ph.ok
+    eye = torch.eye(n, dtype=a_p.dtype, device=a_p.device)
+    ph = _nopivot_lu_phases(a_p, nb, rhs=eye.expand(B, n, n))
+    return lu_blocked._phases_backward(ph, ph.ys, n // nb, nb), ph.ok
+
+
 def _solve_core(
     a32: torch.Tensor, b3: torch.Tensor, diags: Tuple[torch.Tensor, ...],
-    nb: int, ir_steps: int, factor_precision: str,
+    nb: int, ir_steps: int, factor_precision: str, engine: str = "kernel",
+    leaf: int = 16, depth: int = 2, gate: bool = True,
 ):
-    """One rescue-free pass of the phase-engine solve of ``a32 [B, N, N]``
-    against ``b3 [B, N, K]`` (f32): butterflies, no-pivot phases,
-    substitution, ``ir_steps`` refinement rounds against the original
-    system.  Returns ``(x, bad)``."""
+    """One rescue-free pass of the solve of ``a32 [B, N, N]`` against
+    ``b3 [B, N, K]`` (f32) by the phase engine (``"kernel"``) or, with
+    ``engine="hybrid"`` / ``"recursive"``, the explicit preconditioned
+    inverse: butterflies, factor, substitution, ``ir_steps`` refinement
+    rounds against the original system.  Returns ``(x, bad)``; ``bad`` is
+    None without ``gate``."""
     n = a32.shape[-1]
     m = n // nb
-    d = shrink_depth(n)
+    d = shrink_depth(n, depth)
     du, dv = diags[0][:d], diags[1][:d]
+    explicit = engine in ("hybrid", "recursive")
     with factor_matmuls(factor_precision):
-        a_p = _butterfly_two_sided_fast(a32, *diags, trans=True)
+        a_p = _butterfly_two_sided_fast(a32, *diags, trans=True, depth=d)
         b_p = butterfly_apply(b3, du, trans=True)
-        ph = _nopivot_lu_phases(a_p, nb, rhs=b_p)
-        x = butterfly_apply(lu_blocked._phases_backward(ph, ph.ys, m, nb),
-                            dv, trans=False)
+        if explicit:
+            inv_p, ok = _preconditioned_inverse(a_p, nb, engine, leaf)
+            y = inv_p @ b_p
+        else:
+            ph = _nopivot_lu_phases(a_p, nb, rhs=b_p)
+            ok = ph.ok
+            y = lu_blocked._phases_backward(ph, ph.ys, m, nb)
+        x = butterfly_apply(y, dv, trans=False)
     rmax = xmax = zcmax = None
     for step in range(ir_steps):
         last = step == ir_steps - 1
@@ -341,37 +384,36 @@ def _solve_core(
         if last:
             rmax, xmax = _absmax(resid), _absmax(x)
         with factor_matmuls(factor_precision):
-            z = _nopivot_solve(ph, butterfly_apply(resid, du, trans=True),
-                               m, nb)
+            rp = butterfly_apply(resid, du, trans=True)
+            z = inv_p @ rp if explicit else _nopivot_solve(ph, rp, m, nb)
         zc = butterfly_apply(z, dv, trans=False)
         if last:
             zcmax = _absmax(zc)
         x = x + zc
-    return x, refinement_gate(~ph.ok, ir_steps, a32, b3, x, _absmax(a32),
+    if not gate:
+        return x, None
+    return x, refinement_gate(~ok, ir_steps, a32, b3, x, _absmax(a32),
                               _absmax(b3), rmax, xmax, zcmax)
 
 
 def _inverse_core(
     a32: torch.Tensor, diags: Tuple[torch.Tensor, ...], nb: int,
-    ns_steps: int, factor_precision: str,
+    ns_steps: int, factor_precision: str, engine: str = "kernel",
+    leaf: int = 16, depth: int = 2, gate: bool = True,
 ):
-    """One rescue-free pass of the phase-engine inverse ``A⁻¹ = V
-    (UᵀAV)⁻¹ Uᵀ`` of ``a32 [B, N, N]`` (f32), then ``ns_steps``
+    """One rescue-free pass of the inverse ``A⁻¹ = V (UᵀAV)⁻¹ Uᵀ`` of
+    ``a32 [B, N, N]`` (f32) by the phase engine (``"kernel"``), the
+    ``"hybrid"`` or the ``"recursive"`` engine, then ``ns_steps``
     Newton–Schulz rounds against the original matrix.  Returns ``(X,
     bad)``: a zero pivot, or the last residual ``max|I − A X|`` above
-    1e-2 (NaN-proof)."""
-    B, n, _ = a32.shape
-    m = n // nb
+    1e-2 (NaN-proof); ``bad`` is None without ``gate``."""
+    n = a32.shape[-1]
+    d = shrink_depth(n, depth)
     with factor_matmuls(factor_precision):
-        a_p = _butterfly_two_sided_fast(a32, *diags, trans=True)
-        if m == 1:
-            ph = _nopivot_lu_phases(a_p, nb)
-            inv_p = ph.u11s_inv[0] @ ph.l11s_inv[0]
-        else:
-            eye = torch.eye(n, dtype=a32.dtype, device=a32.device)
-            ph = _nopivot_lu_phases(a_p, nb, rhs=eye.expand(B, n, n))
-            inv_p = lu_blocked._phases_backward(ph, ph.ys, m, nb)
-        x = _butterfly_two_sided_fast(inv_p, diags[1], diags[0], trans=False)
+        a_p = _butterfly_two_sided_fast(a32, *diags, trans=True, depth=d)
+        inv_p, ok = _preconditioned_inverse(a_p, nb, engine, leaf)
+        x = _butterfly_two_sided_fast(inv_p, diags[1], diags[0], trans=False,
+                                      depth=d)
     eye = torch.eye(n, dtype=a32.dtype, device=a32.device)
     rmax = None
     with f32_matmuls():
@@ -379,9 +421,11 @@ def _inverse_core(
             r = eye - a32 @ x
             rmax = _absmax(r)
             x = x + x @ r
+        if not gate:
+            return x, None
         if rmax is None:
             rmax = _absmax(eye - a32 @ x)
-    return x, ~ph.ok | ~(rmax <= 1e-2)
+    return x, ~ok | ~(rmax <= 1e-2)
 
 
 def _pivoted_inverse(a32: torch.Tensor) -> torch.Tensor:
@@ -396,6 +440,40 @@ def _pivoted_inverse(a32: torch.Tensor) -> torch.Tensor:
     return lu_blocked.blocked_inverse_batched(a32)
 
 
+#: the ``engine`` values of the reference's solve and inverse
+ENGINES = ("auto", "fused", "kernel", "hybrid", "recursive")
+
+
+def _options(engine: str, fallback, depth: int) -> Optional[str]:
+    """Checks ``engine`` and ``depth``; returns the rescue mode:
+    ``"redraw"`` (also for ``True``), ``"pivoted"``, or None for
+    ``False`` (no gate)."""
+    if engine not in ENGINES:
+        raise ValueError(f"engine {engine!r}; one of {ENGINES}")
+    shrink_depth(2, depth)
+    if fallback is True:
+        return "redraw"
+    if fallback is False or fallback is None:
+        return None
+    if fallback not in ("redraw", "pivoted"):
+        raise ValueError(f"fallback {fallback!r}; 'redraw', 'pivoted', "
+                         f"True or False")
+    return fallback
+
+
+def _rescue(mode: Optional[str], core2: Callable, pivoted: Callable,
+            x: torch.Tensor, bad: Optional[torch.Tensor],
+            *operands: torch.Tensor) -> torch.Tensor:
+    """The flagged systems of ``x`` solved again: through the rescue draw
+    and then ``pivoted`` (``"redraw"``), through ``pivoted`` directly
+    (``"pivoted"``), or not at all (None)."""
+    if mode == "redraw":
+        return _compacted_rescue(core2, pivoted, x, bad, *operands)
+    if mode == "pivoted":
+        return lu_blocked.rescue_flagged(x, bad, pivoted, *operands)
+    return x
+
+
 def inverse_rbt_batched(
     a: torch.Tensor,
     nb: Optional[int] = None,
@@ -403,29 +481,47 @@ def inverse_rbt_batched(
     factor_precision: str = "float32",
     diags: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
     rescue_diags: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+    engine: str = "kernel",
+    fallback="redraw",
+    depth: int = 2,
+    leaf: int = 16,
+    lookahead: int = 8,
 ) -> torch.Tensor:
-    """Batched inverse of ``a [B, N, N]`` (N even) by the phase engine:
-    ``A⁻¹ = V (UᵀAV)⁻¹ Uᵀ`` with ``ns_steps`` Newton–Schulz rounds against
-    the original matrix; the counterpart of ``pallas_inverse_rbt_batched``
-    (``engine="kernel"``, ``fallback="redraw"``).  The flagged matrices
-    (zero pivot, or ``max|I − A X|`` above 1e-2) go through the rescue
-    draw and then the pivoted inverse, compacted.  ``nb`` defaults to the
-    first of ``INVERSE_NB`` that divides N and fits the panel kernel.
-    Computes in f32 and returns the input's floating dtype."""
+    """Batched inverse of ``a [B, N, N]`` (N even): ``A⁻¹ = V (UᵀAV)⁻¹ Uᵀ``
+    with ``ns_steps`` Newton–Schulz rounds against the original matrix;
+    the counterpart of ``pallas_inverse_rbt_batched``.
+
+    ``engine``: ``"kernel"`` (the default; ``"auto"`` and ``"fused"`` take
+    it too, as in the reference) runs the phase engine, ``"hybrid"`` the
+    phases and then the explicit inverse from their artifacts,
+    ``"recursive"`` the Schur recursion with ``leaf``-wide leaves.
+    ``fallback``: ``"redraw"`` sends the flagged matrices (zero pivot, or
+    ``max|I − A X|`` above 1e-2) through the rescue draw and then the
+    pivoted inverse, compacted; ``"pivoted"`` straight to the pivoted
+    inverse; ``False`` computes no flags.  ``nb`` defaults to the first of
+    ``INVERSE_NB`` that divides N and fits the panel kernel.  ``depth``
+    (1 or 2) is the butterfly depth.  ``lookahead`` is taken for the
+    reference's signature and changes nothing: kernel 5 does not port the
+    TPU's panel fold, whose results are bitwise the same on finite
+    panels.  Computes in f32 and returns the input's floating dtype."""
     if a.dim() != 3 or a.shape[1] != a.shape[2]:
         raise ValueError(f"a must be [B, N, N]; got {tuple(a.shape)}")
     if ns_steps < 0:
         raise ValueError(f"ns_steps must be >= 0, got {ns_steps}")
+    mode = _options(engine, fallback, depth)
     n = a.shape[-1]
-    nb = phase_nb(n, nb, INVERSE_NB)
+    # the recursive engine factors no panels
+    nb = n if engine == "recursive" else phase_nb(n, nb, INVERSE_NB)
     a32 = a.to(torch.float32).contiguous()
     dev = str(a32.device)
     core = functools.partial(_inverse_core, nb=nb, ns_steps=ns_steps,
-                             factor_precision=factor_precision)
-    x, bad = core(a32, diags or default_diags(n, MAIN_SEEDS, dev))
-    redraw = rescue_diags or default_diags(n, RESCUE_SEEDS, dev)
-    x = _compacted_rescue(lambda s: core(s, redraw), _pivoted_inverse, x,
-                          bad, a32)
+                             factor_precision=factor_precision,
+                             engine=engine, leaf=leaf, depth=depth)
+    x, bad = core(a32, diags or default_diags(n, MAIN_SEEDS, dev, depth),
+                  gate=mode is not None)
+    redraw = rescue_diags or default_diags(n, RESCUE_SEEDS, dev, depth)
+    x = _rescue(mode, lambda s: core(s, redraw), _pivoted_inverse, x, bad,
+                a32)
     return x.to(a.dtype) if a.is_floating_point() else x
 
 
@@ -437,42 +533,67 @@ def solve_rbt_batched(
     rescue_diags: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
     nb: Optional[int] = None,
     factor_precision: str = "bfloat16",
+    engine: str = "auto",
+    fallback="redraw",
+    depth: int = 2,
+    leaf: int = 16,
+    lookahead: int = 32,
 ) -> torch.Tensor:
     """Solve ``a @ x = b`` for ``a [B, N, N]`` and ``b [B, N]`` or
-    ``[B, N, k]`` (N even) with the lane-compacted rescue; the
-    counterpart of ``pallas_solve_rbt_batched``.
+    ``[B, N, k]`` (N even); the counterpart of
+    ``pallas_solve_rbt_batched``.
 
-    The engine is chosen as the reference's ``engine="auto"`` chooses it:
-    the fused kernel where ``solve_fused.fits(N, k)``, the phase engine
-    (``"kernel"``) elsewhere.  ``nb`` and ``factor_precision`` are the
-    phase engine's: the panel width (by default the first of
-    ``SOLVE_NB_SMALL`` / ``SOLVE_NB_LARGE`` that divides N and fits the
-    panel kernel) and the precision of its glue products (``"bfloat16"``:
-    TF32 on the card).  ``diags`` /
-    ``rescue_diags`` are ``[2, N]`` (U, V) pairs; by default the seeded
-    draws ``MAIN_SEEDS`` / ``RESCUE_SEEDS``.  Returns f32, shaped like
-    ``b``."""
+    ``engine``: ``"auto"`` takes the fused kernel where
+    ``solve_fused.fits(N, k)`` (at depth 2, the kernel's), the phase
+    engine (``"kernel"``) elsewhere; ``"fused"`` raises where the kernel
+    does not fit; ``"hybrid"`` and ``"recursive"`` solve against the
+    explicit preconditioned inverse (see the module docstring; ``leaf``
+    is the recursion's leaf width).  ``fallback``: ``"redraw"`` re-solves
+    the flagged systems with the rescue draw and then the pivoted solve,
+    compacted; ``"pivoted"`` with the pivoted solve directly; ``False``
+    computes no flags.  ``nb`` and ``factor_precision`` are the phase
+    engines': the panel width (by default the first of ``SOLVE_NB_SMALL``
+    / ``SOLVE_NB_LARGE`` that divides N and fits the panel kernel) and the
+    precision of the glue products (``"bfloat16"``: TF32 on the card).
+    ``diags`` / ``rescue_diags`` are ``[2, N]`` (U, V) pairs; by default
+    the seeded draws ``MAIN_SEEDS`` / ``RESCUE_SEEDS``.  ``depth`` (1 or
+    2) is the butterfly depth.  ``lookahead`` is taken for the reference's
+    signature and changes nothing (see ``inverse_rbt_batched``).  Returns
+    f32, shaped like ``b``."""
     from .kernels.solve_fused import fits, solve_fused_rbt
 
+    mode = _options(engine, fallback, depth)
     n = a.shape[-1]
     vector_input = b.dim() == 2
     b3 = b.unsqueeze(-1) if vector_input else b
     a32 = a.to(torch.float32).contiguous()
     b3 = b3.to(torch.float32).contiguous()
     dev = str(a32.device)
-    diags = diags or default_diags(n, MAIN_SEEDS, dev)
-    redraw = rescue_diags or default_diags(n, RESCUE_SEEDS, dev)
-    if fits(n, b3.shape[-1]):
-        def core(a_s, b_s, d):
-            return solve_fused_rbt(a_s, b_s, *d, ir_steps=ir_steps)
+    diags = diags or default_diags(n, MAIN_SEEDS, dev, depth)
+    redraw = rescue_diags or default_diags(n, RESCUE_SEEDS, dev, depth)
+    fused_ok = fits(n, b3.shape[-1]) and shrink_depth(n, depth) == \
+        shrink_depth(n)
+    if engine == "auto":
+        engine = "fused" if fused_ok else "kernel"
+    if engine == "fused" and not fused_ok:
+        raise ValueError(f"engine='fused' does not take N={n}, "
+                         f"k={b3.shape[-1]}, depth={depth}; use "
+                         f"engine='auto' or 'kernel'")
+    prefs = SOLVE_NB_SMALL if n <= 384 else SOLVE_NB_LARGE
+    if engine == "fused":
+        def core(a_s, b_s, d, gate=True):
+            # the fused kernel computes its flags whatever ``gate`` says
+            x_s, bad_s = solve_fused_rbt(a_s, b_s, *d, ir_steps=ir_steps)
+            return x_s, bad_s if gate else None
     else:
-        prefs = SOLVE_NB_SMALL if n <= 384 else SOLVE_NB_LARGE
         core = functools.partial(
-            _solve_core, nb=phase_nb(n, nb, prefs), ir_steps=ir_steps,
-            factor_precision=factor_precision)
-    x, bad = core(a32, b3, diags)
-    x = _compacted_rescue(
-        lambda a_s, b_s: core(a_s, b_s, redraw),
+            _solve_core,
+            nb=n if engine == "recursive" else phase_nb(n, nb, prefs),
+            ir_steps=ir_steps, factor_precision=factor_precision,
+            engine=engine, leaf=leaf, depth=depth)
+    x, bad = core(a32, b3, diags, gate=mode is not None)
+    x = _rescue(
+        mode, lambda a_s, b_s: core(a_s, b_s, redraw),
         lambda a_s, b_s: lu_blocked.blocked_solve_batched(a_s, b_s,
                                                       ir_steps=2),
         x, bad, a32, b3,

@@ -1,5 +1,6 @@
-"""Utilities for the port: matmul precision control, CUDA timing, and the
-exact path's LaTeX layer (``fmt``) and trace logger (``trace``)."""
+"""Utilities for the port: matmul precision control, CUDA timing and
+profiling, checkpoints, and the exact path's LaTeX layer (``fmt``) and
+trace logger (``trace``)."""
 
 from .fmt import (
     cformat,
@@ -17,6 +18,8 @@ from .fmt import (
     prod,
     scalar_mul,
 )
+from .benchmarking import chained_time, profiler_trace
+from .checkpoint import load_plan, load_pytree, save_plan, save_pytree
 from .trace import (
     Logger,
     TraceStack,
@@ -38,6 +41,8 @@ __all__ = [
     "make_latex_vertical_augmented_matrix",
     "multi_add", "multi_add_vargs", "multi_mul", "prod", "scalar_mul",
     "linear_comb",
+    "chained_time", "profiler_trace",
+    "save_pytree", "load_pytree", "save_plan", "load_plan",
     "Logger", "TraceStack", "global_logger", "current_logger",
     "push_logger", "pop_logger", "log", "raw_log",
     "nest_logger", "nest_appending_logger", "ignore_log", "capture_logs",

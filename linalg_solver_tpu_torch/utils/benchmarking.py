@@ -1,5 +1,7 @@
-"""CUDA-event timing (counterpart of ``device_slope_time`` in
-``linalg_solver_tpu.utils.benchmarking``).
+"""CUDA-event timing and profiling (counterpart of
+``linalg_solver_tpu.utils.benchmarking``: ``cuda_time`` for its
+``device_slope_time``, ``chained_time`` and ``profiler_trace`` under
+their own names).
 
 PyTorch returns from a CUDA call before the device has finished, so a
 host clock without a synchronise measures the enqueue.  ``cuda_time``
@@ -13,6 +15,7 @@ wrong.
 
 from __future__ import annotations
 
+import contextlib
 import statistics
 from typing import Callable
 
@@ -74,3 +77,55 @@ def device_time(fn: Callable, *args, warmup: int = 3, iters: int = 5,
         per_call = round(e.count / iters)
         total += t * per_call / e.count if per_call else t / iters
     return total / 1e6
+
+
+def chained_time(fn: Callable, *args, iters: int = 15,
+                 repeats: int = 2) -> float:
+    """Mean seconds per call of ``fn(*args)`` over a chain of ``iters``
+    calls on the current CUDA device, each call's first input nudged by
+    ``1e-12`` times a scalar of the previous output (so the calls run in
+    order and none can be skipped), bracketed by one pair of CUDA events;
+    the best of ``repeats`` chains (the first is shorter and warms up)."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("chained_time needs a CUDA device")
+
+    def leaf(out):
+        while isinstance(out, (tuple, list)):
+            out = out[0]
+        return out.reshape(-1)[0]
+
+    def run(k: int) -> float:
+        out = fn(*args)
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        chained = args[0]
+        start.record()
+        for _ in range(k):
+            out = fn(chained, *args[1:])
+            chained = args[0] + 1e-12 * leaf(out)
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / 1e3 / k
+
+    return min(run(iters if r else max(iters // 3, 2))
+               for r in range(repeats))
+
+
+@contextlib.contextmanager
+def profiler_trace(log_dir: str):
+    """Profile a block's CUDA activity with ``torch.profiler`` and write a
+    Chrome trace into ``log_dir`` (the reference's ``trace`` context on
+    ``jax.profiler``)."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("profiler_trace needs a CUDA device")
+    import os
+
+    from torch.profiler import ProfilerActivity, profile
+
+    os.makedirs(log_dir, exist_ok=True)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        yield prof
+        torch.cuda.synchronize()
+    prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
