@@ -12,9 +12,9 @@ quadratic eigenproblems), the matrix functions, BASELINE config 1's
 exact LaTeX derivation with the card's pivot events replayed into it,
 the CLI, the tridiagonal family, the f64-class layer in float64, the
 complex layer, the ``numpy.linalg``-shaped namespace, the LU family's
-hybrid and recursive engines, the flagship step's twin, and the Krylov,
+hybrid and recursive engines, the flagship step's twin, the Krylov,
 LOBPCG, Arnoldi, structured, banded, block-sparse and Kronecker
-modules.
+modules, and the mesh layer on a 1-rank NCCL world.
 
     python3 chip_smoke.py
 
@@ -279,13 +279,15 @@ order; any failure is an uncaught exception and a non-zero exit:
     rotation, principal angles).  The limits are ``MF_LIMITS``, or 1.5x
     the JAX package's figure in ``MF_JAX`` where it misses one on the same
     input.  Then the trsyl kernel held bitwise against its plain version on
-    every launch of the cluster-cond path (the plain version on the CPU,
-    each direction's launches stacked into one call), and the butterfly
+    every launch of the cluster-cond path (the plain version on the CPU on
+    every 4th lane of each launch, each direction's launches stacked into
+    one call), and the butterfly
     and panel kernels on every launch of the funm path;
-52. time each entry point (median of 5 after the check's call) beside its
+52. time each entry point (median of 3 after the check's call) beside its
     library call where one computes the same function
-    (``torch.linalg.matrix_exp``, ``svdvals`` of the stacked A - zI,
-    ``svd`` of [A | b] and of B A^T), and the trsyl kernel alone on the
+    (``torch.linalg.matrix_exp``, ``svdvals`` of the stacked A - zI at
+    128 of the grid's 1,024 points, ``svd`` of [A | b] and of B A^T), and
+    the trsyl kernel alone on the
     first forward and adjoint launch beside its plain version (a launch's
     share of the CPU hold) and bound;
 53. BASELINE config 1's exact text path on this host, which has no sympy
@@ -317,9 +319,10 @@ order; any failure is an uncaught exception and a non-zero exit:
     cell; the bisection's 129 launches, a count and a plan a step,
     counted), lane 0 against float64 LAPACK, the midpoints each step
     counted against the plain schedule model; the kernel bitwise against
-    its plain version on the card at [16, 4096] and [32, 512] in float32
-    and float64 (intervals and live step count) and against the schedule
-    model, their times against the bound (3·n operations a midpoint the
+    its plain version at [16, 4096] (two of its lanes, on the host's CPU,
+    for the kernel's steps: the intervals) and on the card at [32, 512]
+    in float32 and float64 (intervals and live step count) and against the
+    schedule model (intervals, live steps, counted midpoints), their times against the bound (3·n operations a midpoint the
     data needs) and the plain version, ``torch.linalg.eigvalsh`` on the
     [16, 4096] lanes' dense tridiagonals as the library call; the count
     kernel through ``sturm_count_batched`` at the [16, 4096] intervals'
@@ -393,7 +396,30 @@ order; any failure is an uncaught exception and a non-zero exit:
     ``eigvalsh``, the block matvec repeatable bitwise; ``kron_solve``,
     ``kronsum_solve`` (the Schur kernels, held bitwise) and
     ``kron_lstsq`` at B = 16, m = n = 64 ([96, 64] ⊗ [96, 64]); residuals
-    in float64; times beside the library on the dense operator.
+    in float64; times beside the library on the dense operator;
+70-77. the mesh layer (``drive_mesh``) on a 1-rank NCCL world started
+    here (``init_process_group("nccl", store=HashStore(), rank=0,
+    world_size=1)``, no launcher) with a ("dp", "tp") = (1, 1) mesh,
+    closed at the end: ``BatchedSolver(mesh=...)``'s solve (B = N = 256),
+    inverse (B = 1024, N = 64), det and rank (B = N = 256), each with no
+    collective, bitwise the unsharded call, its kernel held against its
+    plain version on the arrays it was given; three training steps at
+    B = N = 256 (the loss falls, the first step within 1e-4 of the
+    float64 step); ``distributed_solve``, ``distributed_det`` and
+    ``distributed_solve_dd`` on one N = 2048 system at nb = 128 (float32
+    residual ≤ 1e-5, dd ≤ 1e-10, collectives equal to
+    ``comm.model_lu_solve``); ``distributed_lstsq`` and
+    ``distributed_svd_tall`` on [16384, 256], ``distributed_randomized_svd``
+    (k = 16) on [16384, 1024], held to float64 numpy; the distributed
+    CG, BiCGSTAB and GMRES at n = 1024; ``distributed_eigh`` and
+    ``distributed_svd_jacobi`` at n = 256 against float64, the eigh's
+    collectives equal to ``comm.model_eigh_adaptive``;
+    ``spectral_pipeline_sharded`` at B = 32, n = 64 bitwise the unsharded
+    pipeline, the Schur kernels and kernel 3 held; then
+    ``graft_entry.dryrun_multichip(1)``, its kernel 1 launches held
+    against the plain version; times beside the library or the unsharded
+    call (the sharded and unsharded inverse's device times, with the
+    host's axes-and-slice bookkeeping timed alone).
 
 The line before the last is a JSON summary of the twelve kernels, each with
 its bound (the larger of its bytes over 3.35 TB/s and its operations
@@ -416,8 +442,9 @@ XLA scan of ``sturm_count_batched``, its [16, 4096] lanes at 4096 points
 each; the complex elimination kernel, which replaces the XLA fori loop of
 ``_gauss_pivots_complex``, its shared- and device-memory shapes beside
 ``torch.linalg.det`` complex64; each earlier kernel's launches on phases
-58-60 under ``dd_complex_linalg_launches`` and on phases 61-69 under
-``phases_61_69_launches``); the last line is
+58-60 under ``dd_complex_linalg_launches``, on phases 61-69 under
+``phases_61_69_launches`` and on phases 70-77 under ``mesh_launches``);
+the last line is
 ``{"ok": true, "device": {...}}``.
 Imports nothing of JAX.
 """
@@ -2322,7 +2349,8 @@ def time_new_paths(dev, card, big, loops):
             lib = None
         else:
             path = cuda_time(dispatch.rank_batched, arr, warmup=1, iters=5)
-            lib = cuda_time(torch.linalg.matrix_rank, arr, warmup=1, iters=5)
+            # matrix_rank of [256, 424, 424] takes seconds: one call
+            lib = cuda_time(torch.linalg.matrix_rank, arr, warmup=0, iters=1)
         t_k = cuda_time(gj.gauss_jordan_tiled, arr, tol, warmup=1, iters=5)
         t_p = cuda_time(gj.gauss_jordan_reference, arr, tol, warmup=0,
                         iters=1)
@@ -2639,7 +2667,8 @@ def drive_defective(dev, jordan):
 
 
 def time_eigen_paths(dev, card, jordan, spec):
-    """Phase 26: the eigen stack's paths (CUDA events, median of 3) —
+    """Phase 26: the eigen stack's paths (CUDA events, median of 3 after
+    a warm-up; ``jordan_analysis(svd)`` and ``torch.linalg.eig`` one call) —
     ``jordan_analysis`` with both methods, the spectral core at both
     ``max_distinct``, the eigh pipeline, and ``torch.linalg.eig`` on the
     config-4 batch as a reference point; kernel 3 inside each path as
@@ -2668,9 +2697,13 @@ def time_eigen_paths(dev, card, jordan, spec):
         "torch.linalg.eig (reference point)": (
             lambda: torch.linalg.eig(a4), False),
     }
+    # torch.linalg.svd of [96, 256, 256] (the "svd" method) and
+    # torch.linalg.eig of the batch take seconds a call: one call each
+    once = ("jordan_analysis(svd)", "torch.linalg.eig (reference point)")
     times = {}
     for what, (fn, has_gj) in paths.items():
-        t = cuda_time(fn, warmup=1, iters=3)
+        t = cuda_time(fn, warmup=int(what not in once),
+                      iters=1 if what in once else 3)
         k3 = (device_time(fn, warmup=0, iters=1,
                           match="gj_cluster_kernel")
               if has_gj else None)
@@ -3181,7 +3214,9 @@ def time_schur_paths(dev, card, schur_out, spec_out):
     }
     times = {"sweep eager": t_eager, "sweep graph": t_graph}
     for what, fn in cells.items():
-        times[what] = cuda_time(fn, warmup=0, iters=3)
+        # the library's reference points take seconds a call: one each
+        times[what] = cuda_time(fn, warmup=0, iters=1 if "reference point"
+                                in what else 3)
         print(f"time {what} B={B_SPEC} n={N_SPEC}: "
               f"{times[what] * 1e3:.4f} ms ({card})")
 
@@ -4140,9 +4175,11 @@ def drive_eig_family(dev):
 
 
 def time_eig_family(dev, card, fam):
-    """Phase 45: each entry point as the median of 5 calls after the
+    """Phase 45: each entry point as the median of 3 calls after the
     check's call (its warm-up), beside the one library call that computes
-    the same function where there is one (after one warm-up of its own);
+    the same function where there is one (after one warm-up of its own;
+    ``torch.linalg.eig`` and ``eigvals``, seconds a call, once without
+    one);
     ``eig_condition_batched`` (its Schur form and back-substitutions in
     float64) beside the same in float32, the reference's arithmetic
     (after one warm-up), and that form's s against scipy's;
@@ -4214,8 +4251,13 @@ def time_eig_family(dev, card, fam):
     )
     out = {}
     for cell, fn, args, lib_name, lib, lib_args in cells:
-        t = cuda_time(fn, *args, warmup=int(cell == f32_form), iters=5)
-        tl = (cuda_time(lib, *lib_args, warmup=1, iters=5)
+        t = cuda_time(fn, *args, warmup=int(cell == f32_form), iters=3)
+        # the library's eig and eigvals of [32, 256, 256] and of the
+        # companions take seconds: one call
+        once = lib_name is not None and ("linalg.eig(" in lib_name + "("
+                                         or "linalg.eigvals(" in lib_name)
+        tl = (cuda_time(lib, *lib_args, warmup=int(not once),
+                        iters=1 if once else 5)
               if lib is not None else None)
         out[cell] = {"ms": t * 1e3, "library": lib_name or "none",
                      "library_ms": None if tl is None else tl * 1e3}
@@ -4251,7 +4293,9 @@ def time_eig_family(dev, card, fam):
 
 MF_B, MF_N = EIGF_B, EIGF_N    # ordschur-256, cluster-cond-256, expm/funm-256
 SEP_ITERS = 5
+TRSYL_HOLD_STEP = 4            # the trsyl hold takes every 4th lane a launch
 PS_B, PS_N, PS_G, PS_ITERS = 8, 128, 32, 20   # pseudo-128
+PS_SVD_POINTS = 128            # grid points of the library's timed svdvals
 PS_POINTS = 64                 # grid points held against float64 on the host
 FN_B, FN_N = 32, 128           # funm-128, frechet-128
 NEAR_B, NEAR_N, NEAR_K = 64, 128, 40          # nearness-128
@@ -4849,29 +4893,33 @@ def trsyl_work(t_re, m, esize):
 def hold_trsyl(calls, what):
     """The trsyl kernel's results on every recorded launch against its
     plain version on the same arguments: X bitwise (NaN where the other is
-    NaN) and pert equal.  The plain version runs on the CPU (the same
-    IEEE operations, one rounding each, so the same bits as on the card;
-    its ~10^5 small operations a call take a fraction of the card's launch
-    time), the launches of one direction stacked into one call (lanes are
+    NaN) and pert equal, on every TRSYL_HOLD_STEP-th lane of each launch.
+    The plain version runs on the CPU (the same IEEE operations, one
+    rounding each, so the same bits as on the card; its ~10^5 small
+    operations a call take a fraction of the card's launch time), the
+    launches of one direction stacked into one call (lanes are
     independent).  Returns (max abs diff, {adjoint: (plain seconds of the
     stacked call, launches)})."""
     from linalg_solver_tpu_torch.ops.kernels import trsyl
 
     err, secs = 0.0, {}
+    k = TRSYL_HOLD_STEP
     for adjoint in (False, True):
         group = [c for c in calls if c[0][1].get("adjoint", False) == adjoint]
         if not group:
             continue
-        args = [torch.cat([c[0][0][i] for c in group]).cpu()
+        args = [torch.cat([c[0][0][i][::k] for c in group]).cpu()
                 for i in range(5)]
-        got = [torch.cat([c[1][i] for c in group]).cpu() for i in range(3)]
+        got = [torch.cat([c[1][i][::k] for c in group]).cpu()
+               for i in range(3)]
         t0 = time.perf_counter()
         rr, ri, rp = trsyl.trsyl_masked_reference(*args, adjoint=adjoint)
         secs[adjoint] = (time.perf_counter() - t0, len(group))
         err = max(err, abs_diff(got[0], rr), abs_diff(got[1], ri))
         same = nan_equal(got[0], rr) and nan_equal(got[1], ri)
         print(f"trsyl kernel vs plain (CPU) {what}: {len(group)} launches of "
-              f"{list(group[0][1][0].shape)} adjoint={adjoint}, stacked: "
+              f"{list(group[0][1][0].shape)} adjoint={adjoint}, every {k}-th "
+              f"lane held, stacked: "
               f"bitwise {same}, max abs diff {err:.3e}, pert equal "
               f"{torch.equal(got[2], rp)} (lanes flagged "
               f"{int(got[2].sum())}), plain {secs[adjoint][0]:.2f} s")
@@ -4968,12 +5016,13 @@ def drive_matfun(dev):
 
 
 def time_matfun(dev, card, mf):
-    """Phase 52: each entry point as the median of 5 calls after the
+    """Phase 52: each entry point as the median of 3 calls after the
     check's call (its warm-up), beside the one library call that computes
     the same function where there is one (after one warm-up of its own):
     ``torch.linalg.matrix_exp`` for expm and funm(exp), ``svdvals`` of the
-    stacked A - zI for the grid (one call: it takes ~31 s), ``svd`` for
-    Procrustes and TLS; then the
+    stacked A - zI at PS_SVD_POINTS of the grid's points for the grid (one
+    call: on all 1,024 points it took ~31 s), ``svd`` for Procrustes and
+    TLS; then the
     trsyl kernel alone on the first recorded forward and adjoint launches
     (median of 5 after one warm-up), its plain version (a launch's share
     of the hold's stacked call on the CPU) and its bound."""
@@ -4993,8 +5042,11 @@ def time_matfun(dev, card, mf):
     ps = to(x["pseudo"])
     re, im = (to(t) for t in x["grid"])
     zz = torch.complex(*torch.meshgrid(re, im, indexing="xy"))
+    # the library's svdvals on PS_SVD_POINTS of the grid's points (every
+    # lane): on all PS_G² it took ~31 s a call on the H100
+    pts = zz.reshape(-1)[:PS_SVD_POINTS]
     stacked = (ps.to(torch.complex64)[:, None, :, :]
-               - zz.reshape(-1)[None, :, None, None] * torch.eye(
+               - pts[None, :, None, None] * torch.eye(
                    PS_N, dtype=torch.complex64, device=dev))
     af, ae = to(x["funm"]), to(x["expm"][0])
     ge = to(x["expm"][1])
@@ -5020,8 +5072,8 @@ def time_matfun(dev, card, mf):
          None),
         ("pseudo-128 pseudospectrum_grid_batched",
          ops.pseudospectrum_grid_batched, (ps, re, im),
-         "torch.linalg.svdvals(A - zI, stacked)", torch.linalg.svdvals,
-         (stacked,)),
+         f"torch.linalg.svdvals(A - zI, stacked), {PS_SVD_POINTS} of the "
+         f"{PS_G * PS_G} points", torch.linalg.svdvals, (stacked,)),
         ("funm-128 sqrtm_batched", ops.sqrtm_batched, (af,), None, None,
          None),
         ("funm-128 logm_batched", ops.logm_batched, (af,), None, None, None),
@@ -5063,9 +5115,9 @@ def time_matfun(dev, card, mf):
     )
     out = {}
     for cell, fn, args, lib_name, lib, lib_args in cells:
-        t = cuda_time(fn, *args, warmup=0, iters=5)
-        # svdvals of the 8,192 stacked 128 x 128 complex matrices takes
-        # ~31 s a call on the H100: one call, without a warm-up
+        t = cuda_time(fn, *args, warmup=0, iters=3)
+        # svdvals of the stacked 128 x 128 complex matrices takes seconds
+        # a call on the H100: one call, without a warm-up
         once = cell.startswith("pseudo-128")
         tl = (cuda_time(lib, *lib_args, warmup=int(not once),
                         iters=1 if once else 5)
@@ -5085,7 +5137,8 @@ def time_matfun(dev, card, mf):
         plain_s, count = mf["plain_s"][adjoint]
         shapes.append({"shape": list(args[0].shape), "adjoint": adjoint,
                        "ms": t * 1e3, "plain_ms": plain_s / count * 1e3,
-                       "plain_on": "cpu", "bound_ms": b_ms,
+                       "plain_on": f"cpu, every {TRSYL_HOLD_STEP}-th lane",
+                       "bound_ms": b_ms,
                        "bound_by": b_by})
         print(f"time trsyl kernel {shapes[-1]} ({card})")
     return out, shapes
@@ -5511,6 +5564,7 @@ def hold_cli_launches(launched, spec_batch):
 
 STURM_B, STURM_N = 256, 4096   # examples/chip_session7.py:59-80
 STURM_CHECKS = ((16, 4096), (32, 512))
+STURM_PLAIN_LANES = 2  # lanes of [16, 4096] the plain version runs, on the CPU
 GETVEC_B, GETVEC_N = 32, 512
 TOL_STURM = 1e-5       # lane 0 against float64 LAPACK, relative to |w|max
 TOL_GETVEC = 1e-5      # a vector's residual over ||T|| (the JAX test's)
@@ -5553,10 +5607,12 @@ def drive_sturm(dev, card):
     midpoints each step counted (the kernel's device counter) against the
     plain schedule model ``bisect_schedule_reference`` on the same
     operands, its counts taken by the count kernel (held bitwise below);
-    the bisection kernel bitwise against its plain version on the card at
-    [16, 4096] and [32, 512], in float32 and float64 (both ``a`` and
-    ``b`` and the live step count), and against the schedule model with
-    its counted midpoints; the count kernel through ``sturm_count_batched``
+    the bisection kernel bitwise against its plain version at [16, 4096]
+    (on STURM_PLAIN_LANES of its lanes, on the host's CPU, for the
+    kernel's live steps: both ``a`` and ``b``) and on the card at
+    [32, 512] (both ``a`` and ``b`` and the live step count), in float32
+    and float64, and against the schedule model with its live steps and
+    counted midpoints; the count kernel through ``sturm_count_batched``
     at the [16, 4096] intervals' midpoints (the count set to 0 just
     before, read just after: one launch), bitwise its plain version, and
     in float64 too; each kernel's time against its bound (3·n operations
@@ -5621,23 +5677,40 @@ def drive_sturm(dev, card):
             a, b, steps = ks.bisect(*args)
             counted = ks.LAST_COUNTED.clone()
             torch.cuda.synchronize()
+            # at n = 4096 the plain version (a launch an operation, n of
+            # them a count) runs on the host's CPU on STURM_PLAIN_LANES
+            # lanes for the kernel's steps, held against those lanes
+            few = n == STURM_CHECKS[0][1]
             t0 = time.perf_counter()
-            ra, rb, rsteps = ks.bisect_reference(*args)
+            if few:
+                ra, rb, rsteps = ks.bisect_reference(
+                    *(x[:STURM_PLAIN_LANES].cpu() for x in args),
+                    steps_run=int(steps))
+                ka, kb = a[:STURM_PLAIN_LANES].cpu(), b[:STURM_PLAIN_LANES].cpu()
+            else:
+                ra, rb, rsteps = ks.bisect_reference(*args)
+                ka, kb = a, b
             torch.cuda.synchronize()
             plain_s = time.perf_counter() - t0
-            same = (torch.equal(a, ra) and torch.equal(b, rb)
-                    and int(steps) == int(rsteps))
-            sa, sb, _, scounted = ks.bisect_schedule_reference(
+            # at [16, 4096] the plain version runs the kernel's step count,
+            # so there only the intervals are held against it; the steps
+            # are held against the schedule model's at every shape
+            same = (torch.equal(ka, ra) and torch.equal(kb, rb)
+                    and (few or int(steps) == int(rsteps)))
+            sa, sb, ssteps, scounted = ks.bisect_schedule_reference(
                 *args, count=ks.sturm_count)
             model = (torch.equal(sa, a) and torch.equal(sb, b)
+                     and int(ssteps) == int(steps)
                      and torch.equal(scounted, counted))
-            err = max(err, float((a - ra).abs().max()),
-                      float((b - rb).abs().max()))
+            err = max(err, float((ka - ra).abs().max()),
+                      float((kb - rb).abs().max()))
             t = cuda_time(ks.bisect, *args, warmup=1, iters=5)
             entry = {"shape": [bsz, n], "dtype": str(dtype)[6:],
                      "live_steps": int(steps),
                      "midpoints": int(counted.sum()), "ms": t * 1e3,
                      "plain_ms": plain_s * 1e3}
+            if few:
+                entry["plain_on"] = f"cpu, {STURM_PLAIN_LANES} of {bsz} lanes"
             text = ""
             if dtype == torch.float32:
                 b_ms, b_by = bound(*sturm_work(bsz, n, int(counted.sum())))
@@ -5647,7 +5720,8 @@ def drive_sturm(dev, card):
                 text = (f", bound {b_ms:.4f} ms ({b_by}; {a_ms:.4f} for "
                         f"every pair)")
             shapes.append(entry)
-            print(f"sturm kernel vs plain [{bsz}, {n}] {entry['dtype']}: "
+            print(f"sturm kernel vs plain [{bsz}, {n}] {entry['dtype']} "
+                  f"({entry.get('plain_on', 'card, every lane')}): "
                   f"bitwise {same}, the schedule model {model} "
                   f"({int(steps)} live steps, {entry['midpoints']} midpoints "
                   f"of {int(steps) * bsz * n}); kernel {t * 1e3:.4f} ms, "
@@ -7166,6 +7240,525 @@ def drive_blocksparse_kron(dev, card):
     return out
 
 
+
+# ---------------------------------------------------------------------------
+# 70-77. the mesh layer on a 1-rank NCCL world: the batch-sharded
+# BatchedSolver, the training step, the distributed LU, dd, tall, Krylov
+# and eigh families, the sharded spectral pipeline, dryrun_multichip
+# ---------------------------------------------------------------------------
+
+MESH_LU_N, MESH_LU_NB = 2048, 128      # one system, the panel width
+MESH_TALL = (16384, 256)               # lstsq and the tall SVD
+MESH_RSVD = (16384, 1024, 16)          # the randomized SVD: [M, n], rank k
+MESH_KRY_N = 1024
+MESH_EIG_N = 256
+MESH_SPEC = (32, 64)                   # spectral_pipeline_sharded B, n
+TOL_MESH_LU = 1e-5                     # float32 LU: max|Ax - b| / max|b|
+TOL_MESH_DD = 1e-10                    # dd: the same, float64 residual
+TOL_MESH_TALL = 1e-4                   # against float64 numpy, relative
+TOL_MESH_EIG = 1e-5                    # eigenvalues / sigma, relative
+TOL_MESH_TRAIN = 1e-4                  # the first step against float64
+
+
+def _record_kw(module, name):
+    """Wrap ``module.name``: every call's positional and keyword arguments
+    and its result are kept.  Returns (calls, off)."""
+    calls = []
+    orig = getattr(module, name)
+
+    def wrapped(*args, **kwargs):
+        out = orig(*args, **kwargs)
+        calls.append((args, kwargs, out))
+        return out
+
+    setattr(module, name, wrapped)
+    return calls, lambda: setattr(module, name, orig)
+
+
+def _event_ms(fn, warmup=1, iters=3):
+    """CUDA-event ms of ``fn()`` (median of ``iters`` after ``warmup``)."""
+    from linalg_solver_tpu_torch.utils.benchmarking import cuda_time
+
+    return cuda_time(fn, warmup=warmup, iters=iters) * 1e3
+
+
+def start_world(dev):
+    """A 1-rank NCCL world on the card (no launcher, no environment
+    variables: a HashStore) and its (1, 1) ("dp", "tp") mesh."""
+    import torch.distributed as dist
+
+    from linalg_solver_tpu_torch.parallel.mesh import make_mesh
+
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1, device_id=torch.device(
+                                "cuda", torch.cuda.current_device()))
+    mesh = make_mesh(dp=1, tp=1)
+    print(f"mesh: NCCL world of {dist.get_world_size()} rank, backend "
+          f"{dist.get_backend()}, mesh {mesh.mesh.tolist()} "
+          f"{mesh.mesh_dim_names}")
+    return mesh
+
+
+def drive_mesh_batch(dev, card, mesh):
+    """Phase 70: ``BatchedSolver(mesh=...)`` on the (1, 1) mesh: solve at
+    B = N = 256 (kernel 1), inverse at B = 1024, N = 64 (kernel 2), det
+    (kernel 6) and rank (kernel 3) at B = N = 256 (``det_batch``), each
+    under a ``CommMeter`` (no collective), bitwise the unsharded call, its
+    kernel launches counted (set to 0 just before, read just after) and
+    held against the kernel's plain version on the arrays the path gave
+    it; times beside the unsharded call, and for the inverse the device
+    time of 20 profiled calls of each and the host's time for the axes
+    and the slice alone."""
+    from linalg_solver_tpu_torch.models.solver import (BatchedSolver,
+                                                       batch_shard_axes)
+    from linalg_solver_tpu_torch.ops.kernels import inv_rbt, lu_panel
+    from linalg_solver_tpu_torch.ops.kernels import solve_fused as sf
+    from linalg_solver_tpu_torch.parallel import comm
+    from linalg_solver_tpu_torch.parallel.mesh import shard
+    from linalg_solver_tpu_torch.utils.benchmarking import device_time
+
+    sharded, plain = BatchedSolver(mesh=mesh), BatchedSolver()
+    a, b = bench_batch(dev)
+    ai = inverse_batch(B_INV, N_INV, 70, dev)
+    ad = det_batch(dev)
+    cases = (("solve", (a, b), (sf, "solve_fused_rbt"), "fused"),
+             ("inverse", (ai,), (inv_rbt, "inverse_rbt_fused"), "inv_rbt"),
+             ("det", (ad,), (lu_panel, "panel_factor_masked"), "lu_panel"),
+             ("rank", (ad,), None, "gauss_jordan"))
+    counts, err, ms = {}, {}, {}
+    for op, args, wrap, key in cases:
+        # kernel 3's launches keep their held lanes (record_gj)
+        rec, off = _record_kw(*wrap) if wrap else record_gj()
+        reset_all_counts()
+        try:
+            with comm.CommMeter() as meter:
+                got = getattr(sharded, op)(*args)
+            torch.cuda.synchronize()
+            c = all_counts()
+        finally:
+            off()
+        want = getattr(plain, op)(*args)
+        same = nan_equal(got, want) if got.is_floating_point() else \
+            torch.equal(got, want)
+        launched = {k: v for k, v in c.items() if v}
+        print(f"mesh BatchedSolver(mesh).{op} {list(args[0].shape)}: "
+              f"collectives {meter.as_dict()}, bitwise the unsharded call "
+              f"{same}, launches {launched}")
+        if meter.as_dict() != {"calls": {}, "bytes": {}} or not same \
+                or c[key] < 1:
+            raise AssertionError(f"the sharded {op} is off: {launched}")
+        counts[key] = c[key]
+        if key == "gauss_jordan":
+            hold_gj_launches(rec, f"on the sharded rank {list(ad.shape)}")
+            err[key] = 0.0
+        elif key == "lu_panel":
+            err[key] = hold_masked([(a_, o_) for a_, _, o_ in rec],
+                                   "on the sharded det")
+        else:
+            e = 0.0
+            for a_, kw_, out_ in rec:
+                ref = (sf.solve_fused_rbt_reference(*a_, **kw_)
+                       if key == "fused" else
+                       inv_rbt.inverse_rbt_fused_reference(*a_, **kw_))
+                rel, *rest = (compare(*out_, *ref) if key == "fused" else
+                              compare_inverse(*out_, *ref, slice(0, 0)))
+                why = rest[-1]
+                if why is not None or not rel <= TOL_KERNEL:
+                    raise AssertionError(f"kernel {key} on the sharded {op} "
+                                         f"disagrees with its plain version")
+                e = max(e, rest[-2])
+            err[key] = e
+            print(f"kernel {key} vs plain on the sharded {op}: {len(rec)} "
+                  f"launches held (tol {TOL_KERNEL}, max abs diff {e:.3e})")
+        t_sh = _event_ms(lambda: getattr(sharded, op)(*args))
+        t_pl = _event_ms(lambda: getattr(plain, op)(*args))
+        ms[op] = {"sharded_ms": t_sh, "unsharded_ms": t_pl}
+        print(f"time mesh {op} {list(args[0].shape)}: sharded {t_sh:.4f} ms, "
+              f"unsharded {t_pl:.4f} ms ({card})")
+        if op == "inverse":
+            # where the sharded call's extra time goes: the device time of
+            # each (20 profiled calls: late in this process the profiler
+            # can drop a lone call's one kernel record) and the host's
+            # bookkeeping (the axes and the slice) alone
+            for side, sv, t_ev in (("sharded", sharded, t_sh),
+                                   ("unsharded", plain, t_pl)):
+                d_ms = device_time(sv.inverse, ai, warmup=1, iters=20) * 1e3
+                ms[op][f"{side}_device_ms"] = d_ms if d_ms > 0 else None
+                print(f"device time mesh {side} {op}: " + (
+                    f"{d_ms:.4f} ms of {t_ev:.4f} ms a call, busy share "
+                    f"{d_ms / t_ev:.3f}" if d_ms > 0 else
+                    "not measured (the profiler recorded no device entry)"))
+            t0 = time.perf_counter()
+            for _ in range(1000):
+                shard(ai, mesh, batch_shard_axes(mesh, ai.shape[0]))
+            ms[op]["bookkeeping_ms"] = time.perf_counter() - t0
+            print(f"time mesh {op}: the sharded call's axes and slice on the "
+                  f"host {ms[op]['bookkeeping_ms']:.4f} ms a call ({card})")
+    return {"counts": counts, "err": err, "ms": ms}
+
+
+def drive_mesh_train(dev, card, mesh):
+    """Phase 71: three training steps at B = N = 256 on the (1, 1) mesh:
+    the loss falls, and the first step's parameters equal the float64
+    step M₀ − lr·mean_b A_bᵀ r_b b_bᵀ computed on the host within
+    TOL_MESH_TRAIN of the step's length."""
+    import numpy as np
+
+    from linalg_solver_tpu_torch.models.solver import (init_train_state,
+                                                       make_training_step)
+
+    g = torch.Generator(device=dev).manual_seed(71)
+    a = torch.randn(B, N, N, generator=g, device=dev) / N ** 0.5 \
+        + torch.eye(N, device=dev)
+    b = torch.randn(B, N, generator=g, device=dev)
+    lr = 1e-2
+    step = make_training_step(mesh, lr=lr)
+    state = init_train_state(N, device=dev)
+    losses, states = [], []
+    for _ in range(3):
+        state, loss = step(state, a, b)
+        losses.append(float(loss))
+        states.append(state.params.clone())
+    a64, b64 = a.double().cpu().numpy(), b.double().cpu().numpy()
+    r = np.einsum("bij,bj->bi", a64, b64) - b64
+    grad = np.einsum("bji,bj,bk->ik", a64, r, b64) / B
+    exact = np.eye(N) - lr * grad
+    rel = float(np.abs(states[0].double().cpu().numpy() - exact).max()
+                / np.abs(exact - np.eye(N)).max())
+    print(f"mesh training 3 steps B={B} N={N}: losses {losses}, step "
+          f"{int(state.step)}; the first step against float64 {rel:.3e} of "
+          f"its length (tol {TOL_MESH_TRAIN})")
+    if not (losses[0] > losses[1] > losses[2]) or not rel <= TOL_MESH_TRAIN \
+            or int(state.step) != 3:
+        raise AssertionError("the training step is off")
+    ms = _event_ms(lambda: step(state, a, b))
+    print(f"time mesh training step B={B} N={N}: {ms:.4f} ms ({card})")
+    return {"losses": losses, "rel": rel, "ms": ms}
+
+
+def drive_mesh_lu(dev, card, mesh):
+    """Phase 72: ``distributed_solve``, ``distributed_det`` and
+    ``distributed_solve_dd`` on one N = 2048 system (Gaussian + 4√N·I),
+    nb = 128, on the (1, 1) mesh's tp axis: residuals (float32 ≤
+    TOL_MESH_LU, dd ≤ TOL_MESH_DD, max|Ax − b| / max|b| in float64), the
+    solve's collectives equal to ``comm.model_lu_solve``, det against
+    float64 ``slogdet``; times beside ``torch.linalg.solve`` / ``det``."""
+    import numpy as np
+
+    from linalg_solver_tpu_torch.parallel import comm
+    from linalg_solver_tpu_torch.parallel.distributed_dd import (
+        distributed_solve_dd)
+    from linalg_solver_tpu_torch.parallel.distributed_lu import (
+        distributed_det, distributed_solve)
+
+    n, nb = MESH_LU_N, MESH_LU_NB
+    g = torch.Generator(device=dev).manual_seed(72)
+    a = torch.randn(n, n, generator=g, device=dev) + 4.0 * n ** 0.5 * \
+        torch.eye(n, device=dev)
+    b = torch.randn(n, generator=g, device=dev)
+    reset_all_counts()
+    with comm.CommMeter() as meter:
+        x = distributed_solve(a, b, mesh, axis="tp", nb=nb)
+    torch.cuda.synchronize()
+    launched = {k: v for k, v in all_counts().items() if v}
+
+    def resid(x_):
+        r = a.double() @ x_.double() - b.double()
+        return float(r.abs().max() / b.double().abs().max())
+
+    model = comm.model_lu_solve(n, nb)
+    r32 = resid(x)
+    dd = distributed_solve_dd(a, b, mesh, axis="tp", nb=nb)
+    rdd = resid(dd.x_hi.double() + dd.x_lo.double())
+    det = distributed_det(a / (4.0 * n ** 0.5), mesh, axis="tp", nb=nb)
+    sgn, logdet = np.linalg.slogdet((a / (4.0 * n ** 0.5)).double().cpu()
+                                    .numpy())
+    det_rel = float(abs(float(det) - sgn * np.exp(logdet))
+                    / np.exp(logdet))
+    print(f"mesh distributed LU N={n} nb={nb}: solve residual {r32:.3e} "
+          f"(tol {TOL_MESH_LU}), collectives {meter.as_dict()} (model "
+          f"{model}), kernels {launched}; dd residual {rdd:.3e} (tol "
+          f"{TOL_MESH_DD}), ok {bool(dd.ok)}; det of A/(4 sqrt N) against "
+          f"float64 slogdet {det_rel:.3e} (tol {TOL_DET})")
+    if not r32 <= TOL_MESH_LU or meter.as_dict() != model \
+            or not rdd <= TOL_MESH_DD or not bool(dd.ok) \
+            or not det_rel <= TOL_DET:
+        raise AssertionError("the distributed LU family is off")
+    ms = {
+        "distributed_solve": _event_ms(
+            lambda: distributed_solve(a, b, mesh, axis="tp", nb=nb), 0, 1),
+        "torch.linalg.solve": _event_ms(
+            lambda: torch.linalg.solve(a, b), 1, 3),
+        "distributed_det": _event_ms(
+            lambda: distributed_det(a, mesh, axis="tp", nb=nb), 0, 1),
+        "torch.linalg.det": _event_ms(lambda: torch.linalg.det(a), 1, 3),
+        "distributed_solve_dd": _event_ms(
+            lambda: distributed_solve_dd(a, b, mesh, axis="tp", nb=nb), 0, 1),
+        "torch.linalg.solve float64": _event_ms(
+            lambda: torch.linalg.solve(a.double(), b.double()), 1, 3),
+    }
+    print(f"time mesh distributed LU N={n} nb={nb} (ms): {json.dumps(ms)} "
+          f"({card})")
+    return {"ms": ms, "resid": r32, "dd_resid": rdd, "det_rel": det_rel,
+            "collectives": meter.as_dict()}
+
+
+def drive_mesh_tall(dev, card, mesh):
+    """Phase 73: ``distributed_lstsq`` and ``distributed_svd_tall`` on a
+    Gaussian [16384, 256], ``distributed_randomized_svd`` (k = 16) on a
+    [16384, 1024] of rank 16 with σ = 1 … 1e-2 built in float64 on the
+    host: x against numpy's float64 ``lstsq``, σ against numpy's float64
+    ``svd`` (the rank-16 matrix's σ are its construction's), relative
+    TOL_MESH_TALL; times beside ``torch.linalg.lstsq`` / ``svd``."""
+    import numpy as np
+
+    from linalg_solver_tpu_torch.parallel.distributed_tall import (
+        distributed_lstsq, distributed_randomized_svd, distributed_svd_tall)
+
+    M, n = MESH_TALL
+    rng = np.random.RandomState(73)
+    a64 = rng.randn(M, n)
+    b64 = rng.randn(M)
+    a, b = (torch.from_numpy(t).float().to(dev) for t in (a64, b64))
+    x = distributed_lstsq(a, b, mesh, axis="dp")
+    x64 = np.linalg.lstsq(a.double().cpu().numpy(),
+                          b.double().cpu().numpy(), rcond=None)[0]
+    x_rel = float(np.abs(x.double().cpu().numpy() - x64).max()
+                  / np.abs(x64).max())
+    svd = distributed_svd_tall(a, mesh, axis="dp")
+    s64 = np.linalg.svd(a.double().cpu().numpy(), compute_uv=False)
+    s_rel = float(np.abs(svd.s.double().cpu().numpy() - s64).max() / s64[0])
+    rec = float(((svd.U * svd.s) @ svd.V.T - a).abs().max() / a.abs().max())
+    Mr, nr, k = MESH_RSVD
+    U, _ = np.linalg.qr(rng.randn(Mr, k))
+    V, _ = np.linalg.qr(rng.randn(nr, k))
+    sk = np.logspace(0, -2, k)
+    ar = torch.from_numpy((U * sk) @ V.T).float().to(dev)
+    rs = distributed_randomized_svd(ar, mesh, k=k, axis="dp")
+    r_rel = float(np.abs(rs.s.double().cpu().numpy() - sk).max() / sk[0])
+    print(f"mesh tall [{M}, {n}]: lstsq x against float64 {x_rel:.3e}, "
+          f"svd_tall sigma {s_rel:.3e}, reconstruction {rec:.3e}, ok "
+          f"{bool(svd.ok)}; randomized_svd k={k} of [{Mr}, {nr}] sigma "
+          f"{r_rel:.3e}, valid {int(rs.valid.sum())} of {k}, ok "
+          f"{bool(rs.ok)} (tol {TOL_MESH_TALL})")
+    if max(x_rel, s_rel, rec, r_rel) > TOL_MESH_TALL or not bool(svd.ok) \
+            or not bool(rs.ok) or not bool(rs.valid.all()):
+        raise AssertionError("the tall family is off")
+    ms = {
+        "distributed_lstsq": _event_ms(
+            lambda: distributed_lstsq(a, b, mesh, axis="dp")),
+        "torch.linalg.lstsq": _event_ms(
+            lambda: torch.linalg.lstsq(a, b[:, None])),
+        "distributed_svd_tall": _event_ms(
+            lambda: distributed_svd_tall(a, mesh, axis="dp")),
+        "torch.linalg.svd": _event_ms(
+            lambda: torch.linalg.svd(a, full_matrices=False)),
+        "distributed_randomized_svd": _event_ms(
+            lambda: distributed_randomized_svd(ar, mesh, k=k, axis="dp")),
+        "torch.svd_lowrank": _event_ms(
+            lambda: torch.svd_lowrank(ar, q=k + 8, niter=2)),
+    }
+    print(f"time mesh tall (ms): {json.dumps(ms)} ({card})")
+    return {"ms": ms}
+
+
+def drive_mesh_krylov(dev, card, mesh):
+    """Phase 74: ``distributed_cg`` (G Gᵀ/n + 4I), ``distributed_bicgstab``
+    and ``distributed_gmres`` (Gaussian + 4√n·I) at n = 1024 on the mesh's
+    dp axis: converged, the float64 residual within 4·tol, one all-gather
+    a matvec (the meter's bytes 4·n each); times beside
+    ``torch.linalg.solve``."""
+    from linalg_solver_tpu_torch.parallel import comm
+    from linalg_solver_tpu_torch.parallel import distributed_krylov as dk
+
+    n = MESH_KRY_N
+    g = torch.Generator(device=dev).manual_seed(74)
+    G = torch.randn(n, n, generator=g, device=dev)
+    spd = G @ G.T / n + 4.0 * torch.eye(n, device=dev)
+    gen = torch.randn(n, n, generator=g, device=dev) + 4.0 * n ** 0.5 * \
+        torch.eye(n, device=dev)
+    b = torch.randn(n, generator=g, device=dev)
+    out = {}
+    for name, a in (("distributed_cg", spd), ("distributed_bicgstab", gen),
+                    ("distributed_gmres", gen)):
+        fn = getattr(dk, name)
+        with comm.CommMeter() as meter:
+            r = fn(a, b, mesh, axis="dp", tol=TOL_KRY)
+        res = _rel_resid64(a[None], b[None], r.x[None])
+        m = meter.as_dict()
+        print(f"mesh {name} n={n}: converged {bool(r.converged)}, iters "
+              f"{int(r.iters)}, float64 residual {res:.3e} (tol 4 x "
+              f"{TOL_KRY}), collectives {m}")
+        if not bool(r.converged) or not res <= 4 * TOL_KRY or \
+                set(m["calls"]) != {"all_gather"} or \
+                m["bytes"]["all_gather"] != 4 * n * m["calls"]["all_gather"]:
+            raise AssertionError(f"{name} is off")
+        out[name] = {"iters": int(r.iters), "all_gathers":
+                     m["calls"]["all_gather"], "ms": _event_ms(
+                         lambda: fn(a, b, mesh, axis="dp", tol=TOL_KRY))}
+    lib = _event_ms(lambda: torch.linalg.solve(gen, b))
+    print(f"time mesh krylov n={n} (ms): {json.dumps(out)}, "
+          f"torch.linalg.solve {lib:.4f} ({card})")
+    out["torch.linalg.solve"] = lib
+    return out
+
+
+def drive_mesh_eigh(dev, card, mesh):
+    """Phase 75: ``distributed_eigh`` of a symmetric Gaussian n = 256 and
+    ``distributed_svd_jacobi`` of a Gaussian [256, 256] on the mesh's tp
+    axis: eigenvalues and σ (sorted) against float64 ``eigvalsh`` /
+    ``svdvals`` within TOL_MESH_EIG of the largest, converged, the eigh's
+    collectives equal to ``comm.model_eigh_adaptive`` at its sweeps;
+    times beside ``torch.linalg.eigh`` / ``svd``."""
+    from linalg_solver_tpu_torch.parallel import comm
+    from linalg_solver_tpu_torch.parallel.distributed_eigh import (
+        distributed_eigh, distributed_svd_jacobi)
+
+    n = MESH_EIG_N
+    g = torch.Generator(device=dev).manual_seed(75)
+    G = torch.randn(n, n, generator=g, device=dev)
+    s = (G + G.T) / 2
+    with comm.CommMeter() as meter:
+        e = distributed_eigh(s, mesh, axis="tp")
+    k = int(e.sweeps_used)
+    w64 = torch.linalg.eigvalsh(s.double())
+    w_rel = float((torch.sort(e.w.double()).values - w64).abs().max()
+                  / w64.abs().max())
+    model = comm.model_eigh_adaptive(n, 1, n // 2, k)
+    sv = distributed_svd_jacobi(G, mesh, axis="tp")
+    s64 = torch.linalg.svdvals(G.double())
+    s_rel = float((torch.sort(sv.s.double(), descending=True).values - s64)
+                  .abs().max() / s64[0])
+    print(f"mesh distributed_eigh n={n}: sweeps_used {k}, converged "
+          f"{bool(e.converged)} (offnorm {float(e.offnorm):.3e}), eigenvalues "
+          f"against float64 {w_rel:.3e} (tol {TOL_MESH_EIG}), collectives "
+          f"{meter.as_dict()} (model {model}); distributed_svd_jacobi "
+          f"sweeps_used {int(sv.sweeps_used)}, converged "
+          f"{bool(sv.converged)}, sigma against float64 {s_rel:.3e}")
+    if not bool(e.converged) or not w_rel <= TOL_MESH_EIG or \
+            meter.as_dict() != model or not bool(sv.converged) or \
+            not s_rel <= TOL_MESH_EIG:
+        raise AssertionError("the distributed eigen family is off")
+    ms = {"distributed_eigh": _event_ms(
+              lambda: distributed_eigh(s, mesh, axis="tp")),
+          "torch.linalg.eigh": _event_ms(lambda: torch.linalg.eigh(s)),
+          "distributed_svd_jacobi": _event_ms(
+              lambda: distributed_svd_jacobi(G, mesh, axis="tp")),
+          "torch.linalg.svd": _event_ms(lambda: torch.linalg.svd(G))}
+    print(f"time mesh eigen n={n} (ms): {json.dumps(ms)} ({card})")
+    return {"ms": ms, "sweeps": k, "svd_sweeps": int(sv.sweeps_used)}
+
+
+def drive_mesh_spectral(dev, card, mesh):
+    """Phase 76: ``spectral_pipeline_sharded`` at B = 32, n = 64
+    (``spectral_input``'s class at n = 64: ``P diag(λ) P⁻¹`` with λ = 1,
+    2, 5): no collective, bitwise ``spectral_pipeline(method="schur")`` on
+    the same batch, its kernels counted, the Schur kernels held on one
+    eager sweep of the batch (``hold_schur``) and kernel 3's launches on
+    their kept lanes; time beside the unsharded pipeline."""
+    from linalg_solver_tpu_torch.models import spectral
+    from linalg_solver_tpu_torch.parallel import comm
+
+    bsz, n = MESH_SPEC
+    eigs = (1.0,) * (n - 2 * (n // 3)) + (2.0,) * (n // 3) + (5.0,) * (n // 3)
+    a = spectral_input(dev, eigs=eigs, seed=76)[:bsz]
+    kept, off = record_gj()
+    reset_all_counts()
+    try:
+        with comm.CommMeter() as meter:
+            rep = spectral.spectral_pipeline_sharded(a, mesh, tol=TOL_SPEC)
+        torch.cuda.synchronize()
+        c = all_counts()
+    finally:
+        off()
+    ref = spectral.spectral_pipeline(a, tol=TOL_SPEC)
+    same = all(nan_equal(x, y) if x.is_floating_point() else torch.equal(x, y)
+               for x, y in zip(rep, ref))
+    launched = {k: v for k, v in c.items() if v}
+    print(f"mesh spectral_pipeline_sharded B={bsz} n={n}: collectives "
+          f"{meter.as_dict()}, bitwise the unsharded pipeline {same}, "
+          f"diagonalizable {int(rep.diagonalizable.sum())} of {bsz}, "
+          f"launches {launched}")
+    if meter.as_dict() != {"calls": {}, "bytes": {}} or not same or \
+            not bool(rep.diagonalizable.all()) or not c["chase"] or \
+            not c["gauss_jordan"]:
+        raise AssertionError("the sharded spectral pipeline is off")
+    hold_gj_launches(kept, "on the sharded spectral core")
+    err = hold_schur(a, False, "on the sharded spectral batch")[0]
+    ms = {"sharded": _event_ms(lambda: spectral.spectral_pipeline_sharded(
+              a, mesh, tol=TOL_SPEC)),
+          "unsharded": _event_ms(lambda: spectral.spectral_pipeline(
+              a, tol=TOL_SPEC))}
+    print(f"time mesh spectral B={bsz} n={n} (ms): {json.dumps(ms)} ({card})")
+    return {"counts": {k: c[k] for k in ("chase", "schur_window",
+                                         "gauss_jordan", "inv_rbt",
+                                         "butterfly", "lu_nopivot")},
+            "err": err, "ms": ms}
+
+
+def drive_mesh(dev, card):
+    """Phases 70-77 on a 1-rank NCCL world (``start_world``), closed at
+    the end; phase 77 is ``graft_entry.dryrun_multichip(1)``, its kernel
+    launches counted and each held against its plain version (it must
+    launch kernel 1 only).  Returns each phase's figures and the kernel
+    launches of the whole block."""
+    import torch.distributed as dist
+
+    from linalg_solver_tpu_torch import graft_entry
+    from linalg_solver_tpu_torch.ops.kernels import solve_fused as sf
+
+    t0 = time.perf_counter()
+    mesh = start_world(dev)
+    try:
+        out = {"batch": drive_mesh_batch(dev, card, mesh),
+               "train": drive_mesh_train(dev, card, mesh),
+               "lu": drive_mesh_lu(dev, card, mesh),
+               "tall": drive_mesh_tall(dev, card, mesh),
+               "krylov": drive_mesh_krylov(dev, card, mesh),
+               "eigh": drive_mesh_eigh(dev, card, mesh),
+               "spectral": drive_mesh_spectral(dev, card, mesh)}
+        rec, off = _record_kw(sf, "solve_fused_rbt")
+        reset_all_counts()
+        try:
+            fig = graft_entry.dryrun_multichip(1)
+            torch.cuda.synchronize()
+            c = all_counts()
+        finally:
+            off()
+        out["dryrun"] = {"figures": fig, "counts": {
+            k: v for k, v in c.items() if v}}
+        print(f"mesh dryrun_multichip(1): {json.dumps(out['dryrun'])}")
+        # every launch of the dryrun is held against its plain version
+        if set(out["dryrun"]["counts"]) - {"fused"} \
+                or len(rec) != c["fused"]:
+            raise AssertionError(f"the dryrun launched kernels it does not "
+                                 f"hold: {out['dryrun']['counts']}, "
+                                 f"{len(rec)} fused calls recorded")
+        e = 0.0
+        for a_, kw_, out_ in rec:
+            rel, *rest = compare(*out_,
+                                 *sf.solve_fused_rbt_reference(*a_, **kw_))
+            if rest[-1] is not None or not rel <= TOL_KERNEL:
+                raise AssertionError("kernel fused on the dryrun disagrees "
+                                     "with its plain version")
+            e = max(e, rest[-2])
+        out["dryrun"]["fused_err"] = e
+        print(f"kernel fused vs plain on the dryrun: {len(rec)} launches "
+              f"held (tol {TOL_KERNEL}, max abs diff {e:.3e})")
+    finally:
+        dist.destroy_process_group()
+    counts = dict.fromkeys(all_counts(), 0)
+    for src in (out["batch"]["counts"], out["spectral"]["counts"],
+                out["dryrun"]["counts"]):
+        for k, v in src.items():
+            counts[k] += v
+    out["counts"] = counts
+    out["seconds"] = time.perf_counter() - t0
+    print(f"mesh phases 70-77: {out['seconds']:.2f} s, kernel launches "
+          f"{ {k: v for k, v in counts.items() if v} }")
+    return out
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py: no CUDA device; there is no CPU path")
@@ -7427,6 +8020,14 @@ def main() -> None:
               "structured": st21,
               "blocksparse_kron": {k: bk[k] for k in ("ms", "lib_ms",
                                                       "dev_ms")}}))
+    # 70-77: the mesh layer on a 1-rank NCCL world
+    mesh = drive_mesh(dev, card)
+    print("phases 70-77 times (ms; the card's, beside the library or the "
+          "unsharded call): " + json.dumps({
+              "batch": mesh["batch"]["ms"], "train": mesh["train"]["ms"],
+              "lu": mesh["lu"]["ms"], "tall": mesh["tall"]["ms"],
+              "krylov": mesh["krylov"], "eigh": mesh["eigh"]["ms"],
+              "spectral": mesh["spectral"]["ms"]}))
     new_counts = {
         "fused": graft["launches"],
         "butterfly": sum(c["butterfly"] for c in lu21["counts"].values()),
@@ -7679,6 +8280,22 @@ def main() -> None:
         r["launches"] += new_counts[key]
         r["phases_61_69_launches"] = new_counts[key]
         r["max_abs_err"] = max(r["max_abs_err"], new_err[key])
+    # the launches of phases 70-77 (the mesh) on the kernels they run
+    mesh_err = {**mesh["batch"]["err"], "chase": mesh["spectral"]["err"],
+                "schur_window": mesh["spectral"]["err"]}
+    mesh_err["fused"] = max(mesh_err["fused"], mesh["dryrun"]["fused_err"])
+    for row, key in (("solve_fused_rbt", "fused"),
+                     ("inverse_rbt_fused", "inv_rbt"),
+                     ("gauss_jordan_tiled", "gauss_jordan"),
+                     ("butterfly_two_sided", "butterfly"),
+                     ("panel_factor_nopivot", "lu_nopivot"),
+                     ("panel_factor_masked", "lu_panel"),
+                     ("francis_chase", "chase"),
+                     ("window_schur", "schur_window")):
+        r = next(x for x in rows if x["name"] == row)
+        r["launches"] += mesh["counts"][key]
+        r["mesh_launches"] = mesh["counts"][key]
+        r["max_abs_err"] = max(r["max_abs_err"], mesh_err.get(key, 0.0))
     k6 = next(x for x in rows if x["name"] == "panel_factor_masked")
     k6["max_abs_err"] = max(k6["max_abs_err"], ddo["k6_err"])
     for row in rows:

@@ -10,10 +10,8 @@ batch that is not symmetric), from it with its eigenvectors
 (``method="eig"``), from the symmetric direct solver (``method="eigh"``,
 and ``"auto"`` on a symmetric batch) or from the legacy unreduced QR
 iteration (``method="qr"``); ``_spectral_core`` takes eigenvalues
-computed elsewhere.
-
-Not ported, and refused rather than run on one device: the device mesh
-of ``spectral_pipeline_sharded`` (ROADMAP.md queue 1 item 13).
+computed elsewhere.  ``spectral_pipeline_sharded`` runs the Schur route
+on each rank's slice of the batch over a device mesh's dp axis.
 """
 
 from __future__ import annotations
@@ -143,8 +141,25 @@ def _spectral_pipeline_qr(a: torch.Tensor, iters: int = 100,
 def spectral_pipeline_sharded(a: torch.Tensor, mesh, tol: float = 1e-3,
                               max_distinct: Optional[int] = None
                               ) -> SpectralReport:
-    """The reference's ``spectral_pipeline`` over a device mesh: not
-    ported (one GPU; ROADMAP.md queue 1 item 13)."""
-    raise NotImplementedError(
-        "spectral_pipeline_sharded (the batch over a device mesh) is not "
-        "ported yet (ROADMAP.md queue 1 item 13)")
+    """``spectral_pipeline`` over a ``("dp", "tp")`` device mesh with the
+    batch sharded over dp: every rank takes its slice of the global
+    ``a [B, n, n]`` (the same on every rank), runs the Schur eigenvalues
+    (``eigvals_schur``: the chase and window kernels) and the
+    multiplicities and diagonalization core (``_spectral_core``) on it,
+    with no collective, and returns the report of its slice.  ``B`` must
+    divide by the dp axis."""
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from ..parallel.mesh import axis_size, shard_batch
+
+    if not isinstance(mesh, DeviceMesh):
+        raise TypeError(f"mesh must be a torch DeviceMesh "
+                        f"(parallel.mesh.make_mesh), not "
+                        f"{type(mesh).__name__}")
+    B = a.shape[0]
+    dp = axis_size(mesh, "dp")
+    if B % dp:
+        raise ValueError(f"batch {B} not divisible by dp={dp}")
+    a = shard_batch(a, mesh)
+    ev = eigvals_schur(a)
+    return _spectral_core(a, ev.real, ev.imag, tol, max_distinct=max_distinct)

@@ -143,13 +143,17 @@ def bisect(d, e2, pivmin, a, b):
     return a, b, steps
 
 
-def bisect_reference(d, e2, pivmin, a, b):
+def bisect_reference(d, e2, pivmin, a, b, steps_run=None):
     """Plain-PyTorch version of the bisection: the reference's loop, the
-    stopping test read to the host once a step."""
+    stopping test read to the host once a step.  With ``steps_run`` it
+    runs exactly that many steps: a wider batch's count, so that some of
+    its lanes (each lane's steps are independent of the others') run
+    alone give its intervals there."""
     _check(d, e2, pivmin)
     k = torch.arange(d.shape[1], device=d.device)[None, :]
     steps = 0
-    while steps < STEPS and bool(((b - a) > tolerance(a, b)).any()):
+    while (steps < STEPS and bool(((b - a) > tolerance(a, b)).any())
+           if steps_run is None else steps < steps_run):
         m = 0.5 * (a + b)
         below = sturm_count_reference(d, e2, pivmin, m) <= k
         a = torch.where(below, m, a)

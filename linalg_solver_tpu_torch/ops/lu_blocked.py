@@ -154,6 +154,54 @@ def invert_upper(up: torch.Tensor) -> torch.Tensor:
     return torch.cat([top, bottom], dim=-2)
 
 
+def _panel_factor(panel: torch.Tensor, k0: int, nb: int,
+                  row_idx: torch.Tensor, tol):
+    """Factor one ``[B, N, nb]`` panel whose column ``jj`` is global column
+    ``k0 + jj`` (the reference's XLA panel loop, in plain torch; the
+    distributed LU factors its broadcast panel with it).  Step ``jj``
+    pivots on the first maximum of ``|col|`` over the rows ``≥ k0 + jj``
+    (``jnp.argmax``'s rule, so ties pick the same row), swaps it into
+    place, writes the multipliers below the diagonal and updates the
+    columns right of ``jj``.  Returns the factored panel, the panel-local
+    permutation ``[B, N]`` int32 (row i of the factored panel is row
+    ``local_perm[i]`` of the input), the parity ``[B]`` and ``ok [B]``
+    (every pivot above ``tol``)."""
+    from .kernels.gauss_jordan import _first_argmax
+
+    B, N, w = panel.shape
+    dev = panel.device
+    panel = panel.clone()
+    bi = torch.arange(B, device=dev)
+    local_perm = row_idx.to(torch.int32).expand(B, N).clone()
+    sign = torch.ones(B, dtype=panel.dtype, device=dev)
+    ok = torch.ones(B, dtype=torch.bool, device=dev)
+    cols = torch.arange(w, device=dev)
+    for jj in range(nb):
+        j = k0 + jj
+        col = panel[:, :, jj]
+        masked = torch.where(row_idx[None, :] >= j, col.abs(), -torch.inf)
+        p = _first_argmax(masked)
+        has = masked.gather(1, p[:, None])[:, 0] > tol
+        do_swap = has & (p != j)
+        src = torch.where(do_swap, p, j)
+        row_j, row_p = panel[:, j, :].clone(), panel[bi, src, :]
+        panel[bi, src, :] = row_j
+        panel[:, j, :] = row_p
+        lp_j, lp_p = local_perm[:, j].clone(), local_perm[bi, src]
+        local_perm[bi, src] = lp_j
+        local_perm[:, j] = lp_p
+        sign = torch.where(do_swap, -sign, sign)
+        col = panel[:, :, jj]
+        safe = torch.where(has, panel[:, j, jj], 1.0)
+        below = row_idx[None, :] > j
+        factors = torch.where(below & has[:, None], col / safe[:, None], 0.0)
+        right = (cols > jj).to(panel.dtype)
+        panel = panel - factors[:, :, None] * panel[:, j, None, :] * right
+        panel[:, :, jj] = torch.where(below, factors, col)
+        ok = ok & has
+    return panel, local_perm, sign, ok
+
+
 def rescue_flagged(x: torch.Tensor, bad: torch.Tensor, solve,
                    *operands: torch.Tensor) -> torch.Tensor:
     """``x`` with the systems flagged in ``bad`` replaced by ``solve`` of

@@ -1838,3 +1838,28 @@ def test_dd_solve_on_the_card(cuda):
     x64 = torch.linalg.solve(a.double(), b.double())
     err = (x - x64).abs().amax(dim=1) / x64.abs().amax(dim=1)
     assert float(err.max()) <= 1e-10
+
+
+@pytest.mark.cuda
+def test_sharded_solve_on_a_one_rank_nccl_world(cuda):
+    """The batch-sharded ``BatchedSolver`` on a 1-rank NCCL world, the
+    mesh (1, 1): bitwise the unsharded solve, with no collective."""
+    import torch.distributed as dist
+
+    from linalg_solver_tpu_torch.models.solver import BatchedSolver
+    from linalg_solver_tpu_torch.parallel import comm
+    from linalg_solver_tpu_torch.parallel.mesh import make_mesh
+
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1, device_id=torch.device(
+                                "cuda", torch.cuda.current_device()))
+    try:
+        mesh = make_mesh(dp=1, tp=1)
+        a, b = _batch(16, 64, 3, dev=cuda)
+        with comm.CommMeter() as m:
+            x = BatchedSolver(mesh=mesh).solve(a, b)
+        torch.cuda.synchronize()
+        assert m.as_dict() == {"calls": {}, "bytes": {}}
+        assert torch.equal(x, BatchedSolver().solve(a, b))
+    finally:
+        dist.destroy_process_group()

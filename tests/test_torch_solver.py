@@ -162,5 +162,8 @@ def test_serving_methods_match_jax(method):
 
 
 def test_mesh_raises_and_names_its_item():
-    with pytest.raises(NotImplementedError, match="queue 1 item 13"):
+    """A mesh is a ``DeviceMesh`` (``parallel.mesh.make_mesh``); anything
+    else is refused by name (the sharded methods are held against the JAX
+    package in ``test_torch_models_parallel.py``)."""
+    with pytest.raises(TypeError, match="DeviceMesh"):
         BatchedSolver(mesh=object())

@@ -119,7 +119,9 @@ def nonsymmetric_batch():
 
 
 def test_sharded_pipeline_raises_naming_its_item():
-    with pytest.raises(NotImplementedError, match="queue 1 item 13"):
+    """Without a ``DeviceMesh`` the sharded pipeline refuses by name (it
+    is held against the JAX package in ``test_torch_models_parallel.py``)."""
+    with pytest.raises(TypeError, match="DeviceMesh"):
         tspec.spectral_pipeline_sharded(torch.zeros(2, 4, 4), mesh=None)
 
 

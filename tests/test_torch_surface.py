@@ -2,9 +2,11 @@
 has the same names, each resolving to an object defined in the port's
 counterpart of the JAX package's defining module (``ops.solve_batched``
 is ``ops.solve``'s loop there and here, not ``dispatch``'s); the event
-codes are equal; ``utils.__all__`` covers the JAX package's; and the only
-names of ``models.__all__`` the port lacks are the ones that need a
-device mesh (``DELIBERATELY_ABSENT``, ROADMAP queue 1 item 13)."""
+codes are equal; ``utils.__all__`` covers the JAX package's;
+``models.__all__`` lacks none of the JAX package's names
+(``DELIBERATELY_ABSENT`` is empty since the mesh layer was ported); and
+``parallel.__all__`` is the JAX package's, each name from the port's
+counterpart of its defining module."""
 
 import importlib
 
@@ -13,14 +15,15 @@ import torch
 
 import linalg_solver_tpu.models as jmodels
 import linalg_solver_tpu.ops as jops
+import linalg_solver_tpu.parallel as jparallel
 import linalg_solver_tpu.utils as jutils
 import linalg_solver_tpu_torch.models as models
 import linalg_solver_tpu_torch.ops as ops
+import linalg_solver_tpu_torch.parallel as parallel
 import linalg_solver_tpu_torch.utils as utils
 
-#: JAX-package names the port leaves out on purpose: the training step
-#: over a mesh of devices (one H100 is the port's target)
-DELIBERATELY_ABSENT = {"TrainState", "init_train_state", "make_training_step"}
+#: JAX-package names of ``models`` the port leaves out on purpose: none
+DELIBERATELY_ABSENT = set()
 
 
 def _port_module(name: str) -> str:
@@ -41,6 +44,13 @@ def test_ops_names_and_their_modules():
     for name in ("solve_batched", "inverse_batched", "rank_batched",
                  "nullspace_batched"):
         assert getattr(ops, name) is getattr(solve, name)
+
+
+def test_parallel_names_and_their_modules():
+    assert parallel.__all__ == jparallel.__all__
+    for name in jparallel.__all__:
+        got, want = getattr(parallel, name), getattr(jparallel, name)
+        assert got.__module__ == _port_module(want.__module__), name
 
 
 def test_utils_and_models_surface():
