@@ -419,7 +419,17 @@ order; any failure is an uncaught exception and a non-zero exit:
     ``graft_entry.dryrun_multichip(1)``, its kernel 1 launches held
     against the plain version; times beside the library or the unsharded
     call (the sharded and unsharded inverse's device times, with the
-    host's axes-and-slice bookkeeping timed alone).
+    host's axes-and-slice bookkeeping timed alone);
+78. the exact eigen stack's radicals on this host, with no sympy (the
+    port imports none; ``drive_radicals``): for the eight matrices of
+    ``RADICAL_MATRICES`` (ℚ(√33), ℚ(√3) beside a rational root, ℚ(√-3),
+    the companions of λ³ − 2, λ³ − 3λ + 1 and λ⁵ − λ − 1, an irreducible
+    cubic, two √33 blocks with two-dimensional eigenspaces)
+    ``eigenvalues()``, ``eigenvalues(real_only=True)``, the geometric
+    multiplicities and, where the port writes it, ``diagonalize()``'s
+    result, byte for byte against ``tests/data_torch/eigen_radicals.tex``
+    (which a CPU test holds the JAX package to), with its seconds; no
+    kernel.
 
 The line before the last is a JSON summary of the twelve kernels, each with
 its bound (the larger of its bytes over 3.35 TB/s and its operations
@@ -7759,6 +7769,109 @@ def drive_mesh(dev, card):
     return out
 
 
+# 78. the exact eigen stack's radicals on the card's host, with no sympy
+RADICAL_GOLDEN = "tests/data_torch/eigen_radicals.tex"
+#: (name, integer rows, the sections written): eigenvalues, eigenvalues
+#: over R, the geometric multiplicities, and diagonalize where the port
+#: writes its result (not for a successful one with cubic radicals)
+RADICAL_MATRICES = [
+    ("real-quadratic", [[1, 2], [3, 4]], ("eig", "real", "geom", "diag")),
+    ("rational-and-sqrt3", [[2, 1, 1], [1, 3, 0], [1, 0, 1]],
+     ("eig", "real", "geom", "diag")),
+    ("complex-quadratic", [[1, 1], [-1, 2]], ("eig", "real", "geom", "diag")),
+    ("companion-x3-2", [[0, 0, 2], [1, 0, 0], [0, 1, 0]],
+     ("eig", "real", "geom")),
+    ("companion-x3-3x+1", [[0, 0, -1], [1, 0, 3], [0, 1, 0]],
+     ("eig", "real", "geom")),
+    ("companion-x5-x-1", [[0, 0, 0, 0, 1], [1, 0, 0, 0, 1], [0, 1, 0, 0, 0],
+                          [0, 0, 1, 0, 0], [0, 0, 0, 1, 0]],
+     ("eig", "real", "geom", "diag")),
+    ("irreducible-cubic", [[1, -2, -2], [3, 1, 0], [2, 1, 3]],
+     ("eig", "real", "geom")),
+    ("two-sqrt33-blocks", [[1, 2, 0, 0], [3, 4, 0, 0], [0, 0, 1, 2],
+                           [0, 0, 3, 4]], ("eig", "real", "geom", "diag")),
+]
+
+
+def radical_section(Matrix, capture, log, cformat, exact, rows, part):
+    """One section of a matrix's eigen text through a package's ``Matrix``
+    (``capture``/``log``/``cformat`` that package's; ``exact`` makes an
+    integer its exact number): ``eig`` and ``real`` the logs of
+    ``eigenvalues()`` and ``eigenvalues(real_only=True)``, ``geom`` one
+    line ``eigenvalue & algebraic & geometric`` a root, ``diag`` the text
+    of ``diagonalize()``'s result."""
+    def make():
+        return Matrix([[exact(x) for x in row] for row in rows])
+
+    if part in ("eig", "real"):
+        return capture(lambda: make().eigenvalues(real_only=part == "real"))
+    box = []
+    if part == "geom":
+        capture(lambda: box.append(
+            make().eigenvalues_with_geometric_multiplicities()))
+        return "\n".join(r"%s & %d & %d \\" % (cformat(e), alg, geom)
+                         for e, (alg, geom) in box[0].items())
+    capture(lambda: box.append(make().diagonalize()))
+    return capture(lambda: log(r"%s", box[0]))
+
+
+def radical_text(Matrix, capture, log, cformat, exact):
+    """The golden file's text: every section of ``RADICAL_MATRICES``, each
+    under a ``%% name part`` line."""
+    out = []
+    for name, rows, parts in RADICAL_MATRICES:
+        for part in parts:
+            out.append(f"%% {name} {part}")
+            out.append(radical_section(Matrix, capture, log, cformat, exact,
+                                       rows, part))
+    return "\n".join(out) + "\n"
+
+
+def drive_radicals():
+    """Phase 78: the exact eigen stack's cubic and binomial radicals, the
+    empty root set of a quintic, eigenspaces and diagonalizations over
+    Q(sqrt d) and geometric multiplicities over Q[t]/(f), written by the
+    port (which imports no sympy) on this host with the Python planner
+    engine and held byte for byte against ``RADICAL_GOLDEN``, which a CPU
+    test holds the JAX package to.  Launches no kernel.  Returns the
+    seconds."""
+    import os
+    import pathlib
+    from fractions import Fraction
+
+    from linalg_solver_tpu_torch.exact import Matrix
+    from linalg_solver_tpu_torch.utils.fmt import cformat
+    from linalg_solver_tpu_torch.utils.trace import capture_logs, log
+
+    t0 = time.perf_counter()
+    saved = os.environ.get("LINALG_TPU_NATIVE")
+    os.environ["LINALG_TPU_NATIVE"] = "0"
+    try:
+        text = radical_text(Matrix, capture_logs, log, cformat, Fraction)
+    finally:
+        if saved is None:
+            os.environ.pop("LINALG_TPU_NATIVE", None)
+        else:
+            os.environ["LINALG_TPU_NATIVE"] = saved
+    golden = (pathlib.Path(__file__).resolve().parent / RADICAL_GOLDEN
+              ).read_text(encoding="utf-8")
+    seconds = time.perf_counter() - t0
+    same = text == golden
+    print(f"radicals phase 78: {len(RADICAL_MATRICES)} matrices, "
+          f"{text.count('%% ')} sections, equal to {RADICAL_GOLDEN} byte "
+          f"for byte: {same}, {seconds:.3f} s")
+    if not same:
+        got, want = text.splitlines(), golden.splitlines()
+        for i, (a, b) in enumerate(zip(got, want)):
+            if a != b:
+                print(f"radicals: first difference at line {i + 1}:\n"
+                      f"  port:   {a[:300]}\n  golden: {b[:300]}")
+                break
+        raise AssertionError(f"the radical eigen text differs from "
+                             f"{RADICAL_GOLDEN}")
+    return seconds
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py: no CUDA device; there is no CPU path")
@@ -8028,6 +8141,9 @@ def main() -> None:
               "lu": mesh["lu"]["ms"], "tall": mesh["tall"]["ms"],
               "krylov": mesh["krylov"], "eigh": mesh["eigh"]["ms"],
               "spectral": mesh["spectral"]["ms"]}))
+    # 78: the exact eigen stack's radicals, on the host
+    radicals_s = drive_radicals()
+    print(f"phase 78 time: {radicals_s:.3f} s")
     new_counts = {
         "fused": graft["launches"],
         "butterfly": sum(c["butterfly"] for c in lu21["counts"].values()),

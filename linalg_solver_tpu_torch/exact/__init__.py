@@ -11,6 +11,7 @@ from .matrix import (
 )
 from .permutation import Permutation, RowColPermutation
 from .polynomial import Polynomial
+from .radexpr import Radical
 from .radicals import Surd
 from .random_matrix import (
     RandomMatrixBuilder,
@@ -32,6 +33,7 @@ __all__ = [
     "RowColPermutation",
     "Polynomial",
     "Surd",
+    "Radical",
     "from_reference_items",
     "RandomMatrixBuilder",
     "raw_gen_rand_matrix",

@@ -17,8 +17,12 @@ sympy's parameter names ``tau0, tau1, …`` sorted as strings.
 This is the host-side path; the batched device path over CUDA tensors
 lives in ``linalg_solver_tpu_torch.ops``, whose ``ops.rref`` events
 ``trace.events`` replays into the same text.  The eigen methods take the
-roots of ``Polynomial.radical_roots`` (rationals and ``p + q·√d``); an
-eigenspace needs a rational eigenvalue.
+roots of ``Polynomial.radical_roots``: eigenspaces and diagonalizations
+are exact over ℚ and over ℚ(√d) (``Surd`` arithmetic; with eigenvalues
+in several fields P⁻¹ is built a field at a time), and a cubic or
+binomial radical's geometric multiplicity is a rank over ℚ[t]/(f).
+Where sympy's ``simplify`` leaves a quotient (d < 0, several fields) the
+port writes the same number in canonical ``p + q·√d`` form.
 """
 
 from __future__ import annotations
@@ -37,9 +41,10 @@ from ..utils.fmt import (
     multi_mul,
 )
 from ..utils.trace import log, nest_appending_logger
-from . import elimination
+from . import elimination, radicals
 from .permutation import Permutation
-from .polynomial import Polynomial
+from .polynomial import LoneRootQuotient, Polynomial
+from .radexpr import Radical
 from .radicals import Surd
 
 
@@ -703,6 +708,10 @@ class Matrix:
                 # as the JAX package: the eigenvalues stand without the
                 # factored display
                 factors_dict = None
+            except LoneRootQuotient:
+                # the JAX package writes the EX-domain quotient here, which
+                # is not ported (ROADMAP.md queue 1 item 7)
+                factors_dict = None
             if factors_dict is not None:
                 rendered = []
                 for factor, mult in factors_dict.items():
@@ -729,16 +738,18 @@ class Matrix:
         return roots
 
     def find_eigenspace(self, eigenvalue: Any) -> "AffineSubspace":
-        """Nullspace of ``A - eigenvalue*I`` (a rational eigenvalue: the
-        exact elimination runs over ℚ)."""
+        """Nullspace of ``A - eigenvalue*I``: exact elimination over ℚ, or
+        over ℚ(√d) in ``Surd`` arithmetic for an eigenvalue ``p + q·√d``
+        (``sympy.linsolve``'s basis: each free variable 1, in ``tau``
+        order).  A cubic or binomial radical's basis is not ported."""
         if self.rows != self.cols:
             raise ValueError("Matrix must be square to find eigenspace.")
-        if isinstance(eigenvalue, Surd):
+        if isinstance(eigenvalue, Radical):
             raise NotImplementedError(
-                f"Matrix.find_eigenspace: the eigenspace of the non-rational "
-                f"eigenvalue {cformat(eigenvalue)} needs elimination over "
-                f"Q(sqrt d) with sympy's unsimplified radicals, which is not "
-                f"ported (ROADMAP.md queue 1 item 7)")
+                f"Matrix.find_eigenspace: the eigenspace basis of the "
+                f"eigenvalue {cformat(eigenvalue)} is written by sympy's "
+                f"linsolve in unsimplified radicals, which is not ported "
+                f"(ROADMAP.md queue 1 item 7)")
         shifted = deepcopy(self)
         for i in range(self.rows):
             shifted.items[i][i] = shifted.items[i][i] - eigenvalue
@@ -747,29 +758,52 @@ class Matrix:
     def eigenvalues_with_geometric_multiplicities(
         self,
     ) -> Dict[Any, Tuple[int, int]]:
+        """``{eigenvalue: (algebraic, geometric multiplicity)}``; for a
+        root of an irreducible factor f of degree ≥ 3 the geometric
+        multiplicity is n − rank(A − tI) over ℚ[t]/(f)."""
         alg_mults = self.eigenvalues()
         out: Dict[Any, Tuple[int, int]] = {}
         for eig, alg in alg_mults.items():
-            space = self.find_eigenspace(eig)
-            geom = space.dim() if hasattr(space, "dim") else 0
+            if isinstance(eig, Radical):
+                geom = self.rows - radicals.rank_over_field(
+                    self.items, eig.minpoly)
+            else:
+                space = self.find_eigenspace(eig)
+                geom = space.dim() if hasattr(space, "dim") else 0
             out[eig] = (alg, geom)
         return out
 
     def diagonalize(self) -> "DiagonalizationResult":
-        """Attempt ``A = P D P^{-1}``; success iff n independent eigenvectors."""
+        """Attempt ``A = P D P^{-1}``; success iff n independent eigenvectors.
+
+        Over one field (ℚ or one ℚ(√d)) P⁻¹ is Gauss–Jordan in that field;
+        with eigenvalues in several fields each row block of P⁻¹ is built
+        in its eigenvalue's field from the left eigenvectors."""
         if self.rows != self.cols:
             raise ValueError("Matrix must be square to diagonalize.")
         n = self.rows
         eig_mults = self.eigenvalues_with_geometric_multiplicities()
-        basis_vectors: List[List[Any]] = []
+        if any(isinstance(e, Radical) for e in eig_mults):
+            if sum(g for _, g in eig_mults.values()) != n:
+                return DiagonalizationResult(eig_mults, False)
+            raise NotImplementedError(
+                "Matrix.diagonalize: P, P^-1 and D with cubic or binomial "
+                "radical eigenvalues are sympy.simplify forms, which are "
+                "not ported (ROADMAP.md queue 1 item 7)")
+        blocks: List[Tuple[Any, List[List[Any]]]] = []
         for eig, (alg, geom) in eig_mults.items():
             space = self.find_eigenspace(eig)
             if hasattr(space, "basis"):
-                basis_vectors.extend(space.basis())
+                blocks.append((eig, space.basis()))
+        basis_vectors = [v for _, vs in blocks for v in vs]
         if len(basis_vectors) != n:
             return DiagonalizationResult(eig_mults, False)
         P = Matrix([list(col) for col in zip(*basis_vectors)])
-        P_inv = P.inverse()
+        fields = {e.d for e in eig_mults if isinstance(e, Surd)}
+        if len(fields) <= 1:
+            P_inv = P.inverse()
+        else:
+            P_inv = Matrix(_inverse_by_blocks(self, blocks))
         D = P_inv * self * P
         D.simplify()
         P.simplify()
@@ -779,7 +813,9 @@ class Matrix:
     def simplify(self) -> "Matrix":
         """The JAX package's ``sympy.simplify`` of every entry: the entries
         here (ints, ``Fraction``, floats, ``Polynomial``, ``Surd``) are
-        already in the form it returns, so this is the identity."""
+        already canonical, so this is the identity (where sympy leaves a
+        quotient over ℚ(√d) with d < 0 or over several fields, the port's
+        canonical ``p + q·√d`` is the same number)."""
         return self
 
 
@@ -836,6 +872,28 @@ def _quiet_preimage(matrix: Matrix, vec: List[Any]):
     gen_mat = Matrix([list(col) for col in
                       zip(*(generators[k] for k in order))])
     return AffineSubspace(particular, gen_mat)
+
+
+def _inverse_by_blocks(matrix: Matrix,
+                       blocks: List[Tuple[Any, List[List[Any]]]]
+                       ) -> List[List[Any]]:
+    """Rows of P⁻¹ for P = [V₁ | V₂ | …] (Vₖ the eigenspace basis of λₖ):
+    each block is G⁻¹·W with W the left null basis of A − λₖI and
+    G = W·Vₖ, so every product stays in λₖ's field."""
+    rows: List[List[Any]] = []
+    for eig, vs in blocks:
+        shifted = matrix.transpose()
+        for i in range(shifted.rows):
+            shifted.items[i][i] = shifted.items[i][i] - eig
+        W = _quiet_preimage(shifted, [0] * shifted.rows).basis()
+        G = [[sum((w[t] * v[t] for t in range(len(w))), 0) for v in vs]
+             for w in W]
+        G_inv = _quiet_inverse(Matrix(G)).items
+        for i in range(len(W)):
+            rows.append([
+                sum((G_inv[i][k] * W[k][j] for k in range(len(W))), 0)
+                for j in range(matrix.cols)])
+    return rows
 
 
 def _quiet_inverse(matrix: Matrix):

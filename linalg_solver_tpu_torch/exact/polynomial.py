@@ -9,17 +9,19 @@ whose final division is ``div_rem``'s exact long division).
 Coefficients are ints, ``Fraction`` or anything with ring arithmetic; a
 quotient of two ints is taken as a ``Fraction``, so division stays exact
 where the JAX package divides ``sympy.Rational``.  The roots in radicals
-(``radical_roots``) are those of ``radicals``: rationals and ``p + q·√d``.
+(``radical_roots``) are those of ``radicals``: rationals, ``p + q·√d`` and
+the cubic and binomial radicals of ``radexpr``.
 """
 
 from __future__ import annotations
 
 import numbers
+from decimal import Decimal, localcontext
 from fractions import Fraction
 from typing import Any, Dict, List, Tuple
 
 from ..utils.fmt import cformat
-from . import radicals
+from . import radexpr, radicals
 
 
 def _exact_div(a: Any, b: Any) -> Any:
@@ -27,6 +29,13 @@ def _exact_div(a: Any, b: Any) -> Any:
     if isinstance(a, numbers.Integral) and isinstance(b, numbers.Integral):
         return Fraction(int(a), int(b))
     return a / b
+
+
+class LoneRootQuotient(NotImplementedError):
+    """``factor_roots`` given one root of an irreducible factor but not
+    the others (a cubic-formula root alone, as ``real_only`` keeps it):
+    the quotient is sympy's EX-domain form, which is not ported
+    (ROADMAP.md queue 1 item 7)."""
 
 
 class Polynomial:
@@ -152,11 +161,40 @@ class Polynomial:
         self, roots: List[Tuple[Any, int]]
     ) -> Dict["Polynomial", int]:
         """Factor out ``(x - r)^mult`` for each known root, returning
-        ``{linear_factor: multiplicity}`` plus any nontrivial residual."""
+        ``{linear_factor: multiplicity}`` plus any nontrivial residual.
+
+        Rationals and ``p + q·√d`` divide exactly, one root at a time.  The
+        roots of an irreducible factor f of degree ≥ 3 (``radexpr.Radical``,
+        ``minpoly`` f) divide together, by f/lc(f) over ℚ, once
+        ∏(x − rᵢ) = f/lc(f) is checked at 40 digits.  Where only some of
+        f's roots are given (``real_only``), single-term roots (binomial
+        roots such as ∛2) divide one at a time in expanded arithmetic; a
+        longer radical raises ``LoneRootQuotient``.  A radical root that
+        fails the check or leaves a remainder raises ``ArithmeticError``."""
         residual = self
+        groups: Dict[Tuple[int, ...], List[Tuple[Any, int]]] = {}
         for root, mult in roots:
+            if isinstance(root, radexpr.Radical):
+                groups.setdefault(root.minpoly, []).append((root, mult))
+                continue
             for _ in range(mult):
                 residual = residual.remove_root(root)
+        for f, members in groups.items():
+            mults = {m for _, m in members}
+            if f is not None and len(members) == len(f) - 1 \
+                    and len(mults) == 1:
+                residual = residual._divide_by_factor(
+                    f, [r for r, _ in members], mults.pop())
+                continue
+            for root, mult in members:
+                if len(root.terms) != 1:
+                    raise LoneRootQuotient(
+                        f"{root} is one of several roots of an irreducible "
+                        f"factor; the quotient by it alone is written in "
+                        f"sympy's EX-domain forms, which are not ported "
+                        f"(ROADMAP.md queue 1 item 7)")
+                for _ in range(mult):
+                    residual = residual._remove_radical_root(root)
         factors = {
             Polynomial({0: -root, 1: 1}, self.var): mult for root, mult in roots
         }
@@ -164,11 +202,66 @@ class Polynomial:
             return factors
         return {residual: 1} | factors
 
+    def _divide_by_factor(self, f: Tuple[int, ...], members: List[Any],
+                          mult: int) -> "Polynomial":
+        """Divide by (f/lc f)^mult, where ``members`` are all of f's roots:
+        ∏(x − rᵢ) is checked against f/lc(f) at 40 digits first."""
+        monic = [Fraction(x, f[0]) for x in f]
+        with localcontext() as ctx:
+            ctx.prec = 50
+            prod = [(Decimal(1), Decimal(0))]
+            for r in members:
+                re_, im_ = r.value(50)
+                nxt = prod + [(Decimal(0), Decimal(0))]
+                for i, (a, b) in enumerate(prod):
+                    nxt[i + 1] = (nxt[i + 1][0] - (a * re_ - b * im_),
+                                  nxt[i + 1][1] - (a * im_ + b * re_))
+                prod = nxt
+            scale = max(abs(Decimal(x.numerator) / x.denominator)
+                        for x in monic)
+            for (a, b), want in zip(prod, monic):
+                w = Decimal(want.numerator) / want.denominator
+                if abs(a - w) + abs(b) > Decimal(10) ** -40 * (1 + scale):
+                    raise ArithmeticError(
+                        f"the radical roots do not multiply to the factor "
+                        f"{list(f)}")
+        deg = len(f) - 1
+        divisor = Polynomial({deg - i: c for i, c in enumerate(monic)},
+                             self.var)
+        out = self
+        for _ in range(mult):
+            out, rem = out.div_rem(divisor)
+            if rem.powers:
+                raise ArithmeticError(
+                    f"the factor {list(f)} does not divide the polynomial")
+        return out
+
+    def _remove_radical_root(self, root: Any) -> "Polynomial":
+        """Synthetic division by ``(x - root)`` with every product expanded,
+        as the JAX package's EX domain leaves a single-term radical's
+        quotient; raises where the remainder is not zero."""
+        deg = self.degree()
+        quot: Dict[int, Any] = {}
+        carry: Any = 0
+        for e in range(deg, -1, -1):
+            carry = radexpr.add(self.powers.get(e, 0),
+                                radexpr.expand_mul(root, carry))
+            if e:
+                quot[e - 1] = carry
+        if carry != 0:
+            raise ArithmeticError(
+                f"{root} is not a root of the polynomial, division resulted "
+                f"in remainder {carry}")
+        return Polynomial(quot, self.var)
+
     def radical_roots(self) -> Dict[Any, int]:
-        """All roots, exactly, as the JAX package's ``sympy.roots`` gives
-        them: {root: multiplicity} in sympy's order, each root a rational
-        or a ``radicals.Surd`` ``p + q·√d``.  A factor of degree ≥ 3 that
-        is irreducible over ℚ raises ``NotImplementedError``."""
+        """The roots, exactly, as the JAX package's ``sympy.roots`` gives
+        them: {root: multiplicity} in sympy's order, each root a rational,
+        a ``radicals.Surd`` ``p + q·√d`` or a ``radexpr.Radical`` (cubic
+        and binomial radicals).  Where sympy has no formula for a factor the
+        set is partial or empty, as there; the forms sympy writes that are
+        not ported (quartics, cyclotomic cosines, nested radicals) raise
+        ``NotImplementedError``."""
         return radicals.radical_roots(self.powers)
 
     # -- rendering --------------------------------------------------------

@@ -12,7 +12,8 @@
   and the summary) and the returned dict;
 - ``eigenvalues_with_geometric_multiplicities`` and ``diagonalize`` on
   the random builders' diagonalizable and Jordan 3×3 / 4×4 matrices;
-- ``NotImplementedError`` for λ³ − 2 and for a non-rational eigenspace.
+- ``NotImplementedError`` for what is not ported: a general quartic's
+  roots, a cube-root eigenvalue's eigenspace and diagonalization.
 
 Both planner engines are the Python one (``LINALG_TPU_NATIVE=0``): the
 JAX package takes its native engine only where its library was built.
@@ -233,19 +234,24 @@ def test_geometric_multiplicities_match():
 
 
 def test_cube_root_factor_and_radical_eigenspace_raise():
-    companion = [[0, 0, 2], [1, 0, 0], [0, 1, 0]]   # λ³ − 2
+    """What is still not ported raises, citing queue 1 item 7: the roots
+    of a general quartic (``roots_quartic``), a cube-root eigenvalue's
+    eigenspace basis and a successful diagonalization with one.  The cube
+    roots themselves and the quadratic eigenspaces are ported."""
     with pytest.raises(NotImplementedError, match="queue 1 item 7"):
-        ttrace.capture_logs(
-            lambda: TMatrix(fraction_rows(companion)).eigenvalues())
+        TPoly({4: 1, 1: 1, 0: 1}).radical_roots()          # λ⁴ + λ + 1
+    companion = [[0, 0, 2], [1, 0, 0], [0, 1, 0]]           # λ³ − 2
+    cube = TMatrix(fraction_rows(companion))
+    roots = []
+    ttrace.capture_logs(lambda: roots.extend(cube.eigenvalues()))
+    want = JPoly({3: 1, 0: -2}).radical_roots()
+    assert [cformat(r) for r in roots] == [sympy.latex(r) for r in want]
     with pytest.raises(NotImplementedError, match="queue 1 item 7"):
-        TPoly({3: 1, 0: -2}).radical_roots()
-    # the JAX package returns cube roots there, which the port does not
-    assert len(JPoly({3: 1, 0: -2}).radical_roots()) == 3
+        cube.find_eigenspace(roots[0])
+    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
+        ttrace.capture_logs(cube.diagonalize)
     quad = TMatrix(fraction_rows([[1, 2], [3, 1]]))          # 1 ± √6
     roots = []
     ttrace.capture_logs(lambda: roots.extend(quad.eigenvalues()))
     assert [cformat(r) for r in roots] == [r"1 - \sqrt{6}", r"1 + \sqrt{6}"]
-    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
-        quad.find_eigenspace(roots[0])
-    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
-        ttrace.capture_logs(quad.diagonalize)
+    assert quad.find_eigenspace(roots[0]).dim() == 1

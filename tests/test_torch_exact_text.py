@@ -243,8 +243,7 @@ def test_from_reference_items_and_eigen_raise():
     assert all(isinstance(x, Fraction) for r in rows for x in r)
     with pytest.raises(TypeError):
         from_reference_items([[0.5]])
-    # λ² − λ − 17/2: the eigenvalues (1 ± √35)/2 are found since the eigen
-    # slice, but an eigenspace over Q(√35) is not ported
+    # λ² − λ − 17/2: the eigenvalues (1 ± √35)/2 and their eigenspaces
     m = TMatrix(rows)
     roots = []
     ttrace.capture_logs(lambda: roots.extend(m.eigenvalues()))
@@ -253,7 +252,15 @@ def test_from_reference_items_and_eigen_raise():
         r"\frac{1}{2} + \frac{\sqrt{35}}{2}"]
     assert m.simplify() is m
     assert m.find_eigenspace(1).dim() == 0
-    for call in (m.diagonalize, m.eigenvalues_with_geometric_multiplicities,
-                 lambda: m.find_eigenspace(roots[0])):
-        with pytest.raises(NotImplementedError, match="queue 1 item 7"):
-            ttrace.capture_logs(call)
+    # the eigenspaces over Q(√35) are ported: A = P D P⁻¹ exactly
+    assert m.find_eigenspace(roots[0]).dim() == 1
+    box = []
+    ttrace.capture_logs(lambda: box.append(m.diagonalize()))
+    res = box[0]
+    assert res.success
+    assert list(res.eigenvalue_multiplicities.values()) == [(1, 1), (1, 1)]
+    P, D, Pi = res.P.items, res.D.items, res.P_inv.items
+    PD = [[sum((P[i][k] * D[k][j] for k in range(2)), 0) for j in range(2)]
+          for i in range(2)]
+    assert [[sum((PD[i][k] * Pi[k][j] for k in range(2)), 0)
+             for j in range(2)] for i in range(2)] == rows
