@@ -430,6 +430,17 @@ order; any failure is an uncaught exception and a non-zero exit:
     result, byte for byte against ``tests/data_torch/eigen_radicals.tex``
     (which a CPU test holds the JAX package to), with its seconds; no
     kernel.
+79. the rest of sympy's roots on this host, with sympy, mpmath and jax
+    refused (``drive_roots``): for the matrices of ``ROOT_MATRICES``
+    (three 4×4 int matrices whose characteristic polynomial has float
+    coefficients, Ferrari's quartics λ⁴ − λ − 1, λ⁴ + λ + 1 and
+    λ⁴ − 3λ³ − λ² + 3λ − 1 (the cube root of a real, a complex and a
+    negative number), the decompositions λ⁴ − 10λ² + 1 and λ⁴ − 2λ² − 2,
+    the cyclotomic Φ₅, Φ₇ and Φ₉, the binomials λ⁵ + 2 and λ⁷ − 3, the
+    product λ⁶ − 12λ⁴ + 21λ² − 2 that Zassenhaus splits) ``eigenvalues()``
+    and ``eigenvalues(real_only=True)`` byte for byte against
+    ``tests/data_torch/eigen_roots.tex`` (which a CPU test holds the JAX
+    package to), with its seconds; no kernel.
 
 The line before the last is a JSON summary of the twelve kernels, each with
 its bound (the larger of its bytes over 3.35 TB/s and its operations
@@ -464,6 +475,7 @@ from __future__ import annotations
 import json
 import math
 import subprocess
+import sys
 import time
 
 import torch
@@ -7872,6 +7884,127 @@ def drive_radicals():
     return seconds
 
 
+# 79. the rest of sympy's roots on the card's host, sympy, mpmath and jax
+# refused
+ROOTS_GOLDEN = "tests/data_torch/eigen_roots.tex"
+#: (name, integer rows, exact?): an exact matrix is handed over as exact
+#: numbers, the others as Python ints (a non-fraction-free AddRow then
+#: makes float coefficients, as it does in the JAX package)
+def _companion(coeffs):
+    """The companion matrix of the monic polynomial ``coeffs`` (highest
+    degree first): its characteristic polynomial."""
+    n = len(coeffs) - 1
+    rows = [[0] * n for _ in range(n)]
+    for i in range(1, n):
+        rows[i][i - 1] = 1
+    for i in range(n):
+        rows[i][n - 1] = -coeffs[n - i]
+    return rows
+
+
+ROOT_MATRICES = [
+    ("float-a", [[1, 1, -5, -1], [3, 2, 1, -1], [2, 0, 4, -2],
+                 [3, -3, -1, -3]], False),
+    ("float-b", [[-4, 4, -1, 3], [4, -3, -1, -4], [-4, 5, 0, 2],
+                 [3, -4, 0, 1]], False),
+    ("float-c", [[0, 3, 2, -4], [-1, 3, -1, -4], [3, 0, 3, -2],
+                 [4, 3, 4, -1]], False),
+    ("ferrari-x4-x-1", _companion([1, 0, 0, -1, -1]), True),
+    ("ferrari-complex-x4+x+1", _companion([1, 0, 0, 1, 1]), True),
+    ("ferrari-negative-x4-3x3-x2+3x-1", _companion([1, -3, -1, 3, -1]),
+     True),
+    ("decompose-x4-10x2+1", _companion([1, 0, -10, 0, 1]), True),
+    ("decompose-x4-2x2-2", _companion([1, 0, -2, 0, -2]), True),
+    ("cyclotomic-phi5", _companion([1, 1, 1, 1, 1]), True),
+    ("cyclotomic-phi9", _companion([1, 0, 0, 1, 0, 0, 1]), True),
+    ("cyclotomic-phi7", _companion([1, 1, 1, 1, 1, 1, 1]), True),
+    ("binomial-x5+2", _companion([1, 0, 0, 0, 0, 2]), True),
+    ("binomial-x7-3", _companion([1, 0, 0, 0, 0, 0, 0, -3]), True),
+    ("zassenhaus-x6-12x4+21x2-2", _companion([1, 0, -12, 0, 21, 0, -2]),
+     True),
+]
+
+
+def roots_text(Matrix, capture, exact):
+    """The golden file's text: ``eigenvalues()`` and ``eigenvalues(
+    real_only=True)`` of every matrix of ``ROOT_MATRICES`` through a
+    package's ``Matrix`` and ``capture``, each under a ``%% name part``
+    line (``exact`` makes an integer the package's exact number)."""
+    out = []
+    for name, rows, is_exact in ROOT_MATRICES:
+        for part in ("eig", "real"):
+            conv = exact if is_exact else int
+            out.append(f"%% {name} {part}")
+            out.append(capture(lambda: Matrix(
+                [[conv(x) for x in row] for row in rows]).eigenvalues(
+                    real_only=part == "real")))
+    return "\n".join(out) + "\n"
+
+
+class _Refused:
+    """A meta path finder that refuses to import the named packages."""
+
+    def __init__(self, names):
+        self.names = names
+
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in self.names:
+            raise ImportError(f"{name} is refused in this phase")
+        return None
+
+
+def drive_roots():
+    """Phase 79: float-coefficient polynomials (``nroots``), Ferrari's
+    quartic, decompositions, cyclotomic polynomials, binomials and an
+    exact factorization over Z, written by the port on this host with
+    sympy, mpmath, jax and the JAX package refused (their modules removed
+    from ``sys.modules`` and their imports raising) and held byte for byte
+    against ``ROOTS_GOLDEN``.  Launches no kernel.  Returns the seconds."""
+    import os
+    import pathlib
+    from fractions import Fraction
+
+    from linalg_solver_tpu_torch.exact import Matrix
+    from linalg_solver_tpu_torch.utils.trace import capture_logs
+
+    refused = ("sympy", "mpmath", "jax", "linalg_solver_tpu")
+    saved_modules = {k: v for k, v in sys.modules.items()
+                     if k.split(".")[0] in refused}
+    for k in saved_modules:
+        del sys.modules[k]
+    finder = _Refused(refused)
+    sys.meta_path.insert(0, finder)
+    saved = os.environ.get("LINALG_TPU_NATIVE")
+    os.environ["LINALG_TPU_NATIVE"] = "0"
+    t0 = time.perf_counter()
+    try:
+        text = roots_text(Matrix, capture_logs, Fraction)
+    finally:
+        sys.meta_path.remove(finder)
+        sys.modules.update(saved_modules)
+        if saved is None:
+            os.environ.pop("LINALG_TPU_NATIVE", None)
+        else:
+            os.environ["LINALG_TPU_NATIVE"] = saved
+    seconds = time.perf_counter() - t0
+    golden = (pathlib.Path(__file__).resolve().parent / ROOTS_GOLDEN
+              ).read_text(encoding="utf-8")
+    same = text == golden
+    print(f"roots phase 79: {len(ROOT_MATRICES)} matrices, "
+          f"{text.count('%% ')} sections with sympy, mpmath and jax "
+          f"refused, equal to {ROOTS_GOLDEN} byte for byte: {same}, "
+          f"{seconds:.3f} s")
+    if not same:
+        got, want = text.splitlines(), golden.splitlines()
+        for i, (a, b) in enumerate(zip(got, want)):
+            if a != b:
+                print(f"roots: first difference at line {i + 1}:\n"
+                      f"  port:   {a[:300]}\n  golden: {b[:300]}")
+                break
+        raise AssertionError(f"the roots text differs from {ROOTS_GOLDEN}")
+    return seconds
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py: no CUDA device; there is no CPU path")
@@ -8144,6 +8277,9 @@ def main() -> None:
     # 78: the exact eigen stack's radicals, on the host
     radicals_s = drive_radicals()
     print(f"phase 78 time: {radicals_s:.3f} s")
+    # 79: the rest of sympy's roots, on the host, sympy and mpmath refused
+    roots_s = drive_roots()
+    print(f"phase 79 time: {roots_s:.3f} s")
     new_counts = {
         "fused": graft["launches"],
         "butterfly": sum(c["butterfly"] for c in lu21["counts"].values()),

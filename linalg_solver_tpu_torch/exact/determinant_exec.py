@@ -30,6 +30,7 @@ from ..planner import (
 )
 from ..utils.fmt import cformat, make_latex_matrix, multi_add, multi_mul, pcformat
 from ..utils.trace import log
+from . import nroots
 from .permutation import Permutation, RowColPermutation
 from .polynomial import Polynomial
 
@@ -382,8 +383,10 @@ def _exec_block_triangular(matrix, raw: BlockTriangular, rows, cols, do_log, sig
 
 def polynomial_safe_divide(numerator: Any, denominator: Any) -> Any:
     """Exact quotient of the fraction-free AddRow: long division of
-    ``Polynomial`` values (raises where it leaves a remainder); a quotient
-    of degree 0 comes back as its coefficient."""
+    ``Polynomial`` values (raises where it leaves a remainder), or where
+    the coefficients are rational and float, the JAX package's
+    ``sympy.cancel`` over RR (``nroots.cancel_quotient``, ``Float``
+    coefficients); a quotient of degree 0 comes back as its coefficient."""
     var = r"\lambda"
     if isinstance(numerator, Polynomial):
         var = numerator.var
@@ -391,7 +394,17 @@ def polynomial_safe_divide(numerator: Any, denominator: Any) -> Any:
         var = denominator.var
     if not isinstance(numerator, Polynomial):
         numerator = Polynomial({0: numerator}, var)
-    quotient, remainder = numerator.div_rem(denominator)
+    den = denominator if isinstance(denominator, Polynomial) \
+        else Polynomial({0: denominator}, var)
+    coeffs = list(numerator.powers.values()) + list(den.powers.values())
+    if not nroots.is_real_float(coeffs):
+        quotient, remainder = numerator.div_rem(den)
+    else:
+        # a float coefficient: sympy.cancel over RR, as the JAX package
+        # takes it (a remainder leaves it a rational function)
+        powers = nroots.cancel_quotient(numerator.powers, den.powers)
+        quotient = Polynomial(powers or {}, var)
+        remainder = numerator if powers is None else Polynomial({}, var)
     if remainder.powers:
         raise ValueError(
             f"AddRow: {cformat(numerator)} is not divisible by "

@@ -787,9 +787,9 @@ class Matrix:
             if sum(g for _, g in eig_mults.values()) != n:
                 return DiagonalizationResult(eig_mults, False)
             raise NotImplementedError(
-                "Matrix.diagonalize: P, P^-1 and D with cubic or binomial "
-                "radical eigenvalues are sympy.simplify forms, which are "
-                "not ported (ROADMAP.md queue 1 item 7)")
+                "Matrix.diagonalize: P, P^-1 and D with cubic, quartic or "
+                "binomial radical eigenvalues are sympy.simplify forms, "
+                "which are not ported (ROADMAP.md queue 1 item 7)")
         blocks: List[Tuple[Any, List[List[Any]]]] = []
         for eig, (alg, geom) in eig_mults.items():
             space = self.find_eigenspace(eig)

@@ -8,9 +8,10 @@ whose final division is ``div_rem``'s exact long division).
 
 Coefficients are ints, ``Fraction`` or anything with ring arithmetic; a
 quotient of two ints is taken as a ``Fraction``, so division stays exact
-where the JAX package divides ``sympy.Rational``.  The roots in radicals
-(``radical_roots``) are those of ``radicals``: rationals, ``p + q·√d`` and
-the cubic and binomial radicals of ``radexpr``.
+where the JAX package divides ``sympy.Rational``; a float coefficient
+divides as the JAX package's ``sympy`` RR and CC domains do (``nroots``).
+The roots (``radical_roots``) are those of ``radicals``: rationals,
+``p + q·√d``, the radicals of ``radexpr`` and float roots.
 """
 
 from __future__ import annotations
@@ -21,7 +22,7 @@ from fractions import Fraction
 from typing import Any, Dict, List, Tuple
 
 from ..utils.fmt import cformat
-from . import radexpr, radicals
+from . import nroots, radexpr, radicals
 
 
 def _exact_div(a: Any, b: Any) -> Any:
@@ -170,10 +171,22 @@ class Polynomial:
         f's roots are given (``real_only``), single-term roots (binomial
         roots such as ∛2) divide one at a time in expanded arithmetic; a
         longer radical raises ``LoneRootQuotient``.  A radical root that
-        fails the check or leaves a remainder raises ``ArithmeticError``."""
+        fails the check or leaves a remainder raises ``ArithmeticError``.
+        A polynomial with a float coefficient divides by each root as the
+        JAX package's ``sympy.div`` over RR / CC does
+        (``nroots.remove_float_root``: ``ValueError`` on a remainder)."""
         residual = self
         groups: Dict[Tuple[int, ...], List[Tuple[Any, int]]] = {}
-        for root, mult in roots:
+        if not all(isinstance(c, numbers.Rational)
+                   for c in self.powers.values()):
+            powers = self.powers
+            for root, mult in roots:
+                for _ in range(mult):
+                    powers = nroots.remove_float_root(powers, root)
+            residual, exact = Polynomial(powers, self.var), []
+        else:
+            exact = roots
+        for root, mult in exact:
             if isinstance(root, radexpr.Radical):
                 groups.setdefault(root.minpoly, []).append((root, mult))
                 continue
@@ -244,8 +257,8 @@ class Polynomial:
         quot: Dict[int, Any] = {}
         carry: Any = 0
         for e in range(deg, -1, -1):
-            carry = radexpr.add(self.powers.get(e, 0),
-                                radexpr.expand_mul(root, carry))
+            carry = radexpr.expand(radexpr.add(
+                self.powers.get(e, 0), radexpr.expand_mul(root, carry)))
             if e:
                 quot[e - 1] = carry
         if carry != 0:
@@ -257,11 +270,12 @@ class Polynomial:
     def radical_roots(self) -> Dict[Any, int]:
         """The roots, exactly, as the JAX package's ``sympy.roots`` gives
         them: {root: multiplicity} in sympy's order, each root a rational,
-        a ``radicals.Surd`` ``p + q·√d`` or a ``radexpr.Radical`` (cubic
-        and binomial radicals).  Where sympy has no formula for a factor the
-        set is partial or empty, as there; the forms sympy writes that are
-        not ported (quartics, cyclotomic cosines, nested radicals) raise
-        ``NotImplementedError``."""
+        a ``radicals.Surd`` ``p + q·√d``, a ``radexpr.Radical`` (cubic,
+        quartic, binomial, cyclotomic and nested radicals) or, for a float
+        coefficient, an ``nroots.Float`` / ``nroots.Complex``.  Where sympy
+        has no formula for a factor the set is partial or empty, as there;
+        the forms sympy writes that are not ported (roots written with
+        atan) raise ``NotImplementedError``."""
         return radicals.radical_roots(self.powers)
 
     # -- rendering --------------------------------------------------------

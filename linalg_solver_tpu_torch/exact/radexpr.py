@@ -29,6 +29,7 @@ compare equal across the two types.
 
 from __future__ import annotations
 
+import functools
 import math
 import numbers
 import re
@@ -106,8 +107,16 @@ def _int_pow(b: int, e: Fraction) -> Optional[Mono]:
         if e == Fraction(1, 2):
             c, pows, im = _pow_mono(-b, e)
             return c, pows, not im
-        raise NotImplementedError(
-            f"radexpr: ({b})**({e}) is not one of sympy's shapes here")
+        if e < 0:
+            raise NotImplementedError(
+                f"radexpr: ({b})**({e}) is not one of sympy's shapes here")
+        # a perfect root, or the roots collected from -b, times (-1)**e
+        x, exact = _nthroot(-b, e.denominator)
+        got = (Fraction(x ** e.numerator), [], False) if exact \
+            else _int_pow(-b, e)
+        if got is None:
+            return None
+        return _times(got, (Fraction(1), [(-1, e)], False))
     if e < 0:
         return _rat_pow(Fraction(1, b), -e)
     x, exact = _nthroot(b, e.denominator)
@@ -150,7 +159,8 @@ def _int_pow(b: int, e: Fraction) -> Optional[Mono]:
 
 
 def _rat_pow(r: Fraction, e: Fraction) -> Mono:
-    """``Rational(r)**e`` (r > 0), as ``Rational._eval_power``."""
+    """``Rational(r)**e`` (r > 0, or r < 0 and e > 0), as
+    ``Rational._eval_power``."""
     r = Fraction(r)
     if r.denominator == 1:
         return _pow_mono(r.numerator, e)
@@ -232,8 +242,12 @@ def _mul_numeric(seq: List[Any]) -> Mono:
                 seq += [c] + [("pow", pb, pe) for pb, pe in pows]
                 if im:
                     seq.append(_I)
-            elif b != 1:
-                pnum_rat.setdefault(b, []).append(e)
+            else:
+                if b < 0:
+                    neg1e += e
+                    b = -b
+                if b != 1:
+                    pnum_rat.setdefault(b, []).append(e)
         else:
             coeff *= Fraction(o)
     comb_e: Dict[Fraction, List[int]] = {}
@@ -283,13 +297,21 @@ def _mul_numeric(seq: List[Any]) -> Mono:
         num_rat.extend(grow)
         i += 1
     imag = False
+    keep: List[Tuple[int, Fraction]] = []
     if neg1e:
         n, p = divmod(neg1e.numerator, neg1e.denominator)
         if n % 2:
             coeff = -coeff
         if neg1e.denominator == 2:
             imag = True
-    out: List[Tuple[int, Fraction]] = []
+        elif p:
+            # (-1)**(p/q) joins a positive base of the same exponent
+            neg1e = Fraction(p, neg1e.denominator)
+            if neg1e in pnew:
+                pnew[neg1e] = [-math.prod(pnew[neg1e])]
+            else:
+                keep.append((-1, neg1e))
+    out: List[Tuple[int, Fraction]] = list(keep)
     for e, bs in pnew.items():
         c, pows, _ = _pow_mono(math.prod(bs), e)
         coeff *= c
@@ -373,7 +395,7 @@ def _distributed(c: Fraction, k: Key) -> Terms:
     pows, imag, adds = k
     if not pows and not imag and len(adds) == 1:
         (base, e), = adds
-        if e == 1:
+        if e == 1 and isinstance(base, Radical):
             out: Terms = {}
             for bk, bc in base.terms.items():
                 cc, kk = _mul_keys(c, _ONE_KEY, bc, bk)
@@ -409,6 +431,27 @@ def expand_mul(a, b):
     return _number(out)
 
 
+def expand(x):
+    """``x.expand()``: every product of a term and a sum (a power of a sum
+    to the exponent 1) distributed, sums inside expanded first."""
+    out: Terms = {}
+    for k, c in _terms(x).items():
+        pows, imag, adds = k
+        sums = [b for b, e in adds if isinstance(b, Radical) and e == 1]
+        if not sums:
+            part = {k: c}
+        else:
+            rest = (pows, imag, frozenset((b, e) for b, e in adds
+                                          if not (b in sums and e == 1)))
+            acc = _number({rest: c})
+            for b in sums:
+                acc = expand_mul(acc, expand(_number(b.terms)))
+            part = _terms(acc)
+        for kk, cc in part.items():
+            out[kk] = out.get(kk, Fraction(0)) + cc
+    return _number(out)
+
+
 def add(a, b):
     out = _terms(a)
     for k, c in _terms(b).items():
@@ -435,8 +478,10 @@ def power(x, e):
             if e == Fraction(1, 2):
                 c, pows, imag = _rat_pow(-r, e)
                 return _number({(tuple(pows), not imag, frozenset()): c})
-            raise NotImplementedError(
-                f"radexpr: ({r})**({e}) is not one of sympy's shapes here")
+            if e < 0:
+                raise NotImplementedError(
+                    f"radexpr: ({r})**({e}) is not one of sympy's shapes "
+                    f"here")
         c, pows, imag = _rat_pow(r, e)
         return _number({(tuple(pows), imag, frozenset()): c})
     if len(t) == 1 and e.denominator == 1:
@@ -472,6 +517,226 @@ def root(x, n: int):
 
 def sqrt(x):
     return power(x, Fraction(1, 2))
+
+
+# ---------------------------------------------------------------------------
+# count_ops (the measure sympy's simplify minimises)
+# ---------------------------------------------------------------------------
+
+def count_ops(x) -> int:
+    """``sympy.count_ops(x)`` for these numbers: NEG and DIV of a rational,
+    a Mul's NEG, its DIV where it is a fraction and MUL between its
+    factors, ADD / SUB between an Add's terms (NEG where all are
+    negative), POW and the exponent of a power (DIV alone for 1/b)."""
+    t = _terms(x)
+    if not t:
+        return 0
+    if len(t) == 1:
+        (k, c), = t.items()
+        return _count_term(c, k)
+    ops, negs = 0, 0
+    items = sorted(t.items(), key=lambda kc: functools.cmp_to_key(_compare)(
+        _term_node(kc[1], kc[0])))
+    for i, (k, c) in enumerate(items):
+        if c < 0:
+            negs += 1
+        ops += _count_term(abs(c), k) + (1 if i > 0 else 0)
+    if negs == len(items):
+        ops += 1
+    return ops
+
+
+def _count_num(r: Fraction) -> int:
+    return 0 if r == 1 else (r < 0) + (r.denominator != 1)
+
+
+def _count_factor(f: tuple) -> int:
+    if f[0] == "I":
+        return 0
+    e = f[2]
+    base = 0 if f[0] in ("pow", "trig") else count_ops(_number(f[1].terms))
+    if e == -1:
+        return 1 + base
+    return 1 + base + _count_num(Fraction(e))
+
+
+def _count_term(c: Fraction, k: Key) -> int:
+    c = Fraction(c)
+    if k == _ONE_KEY:
+        return _count_num(c)
+    factors = _factor_list(k)
+    if c == 1 and len(factors) == 1:
+        return _count_factor(factors[0])
+    ops = 0
+    if c < 0:
+        ops, c = 1, -c
+    num = [f for f in factors if f[0] == "I" or f[2] > 0]
+    den = [(f[0], f[1], -f[2]) for f in factors if f[0] != "I" and f[2] < 0]
+    n_int, d_int = c.numerator, c.denominator
+    if not num:                                 # an integer over the rest
+        d_items = ([] if d_int == 1 else [d_int]) + den
+        return ops + 1 + _count_product(d_int, den, len(d_items))
+    if den or d_int != 1:
+        d_items = ([] if d_int == 1 else [d_int]) + den
+        n_items = ([] if n_int == 1 else [n_int]) + num
+        if den:
+            ops += _count_product(d_int, den, len(d_items))
+        return ops + 1 + _count_product(n_int, num, len(n_items))
+    return ops + _count_product(n_int, num, len(num) + (n_int != 1))
+
+
+def _count_product(coeff: int, factors: List[tuple], nargs: int) -> int:
+    """A Mul of a positive integer and factors: MUL between its arguments
+    and each argument's own count."""
+    if nargs == 1 and not factors:
+        return _count_num(Fraction(coeff))
+    if nargs == 1:
+        return _count_factor(factors[0])
+    return (nargs - 1) + _count_num(Fraction(coeff)) * (coeff != 1) + \
+        sum(_count_factor(f) for f in factors)
+
+
+# ---------------------------------------------------------------------------
+# cos and sin of rational multiples of π (sympy's cos.eval / sin.eval)
+# ---------------------------------------------------------------------------
+
+_PI = Decimal("3.14159265358979323846264338327950288419716939937510582097494"
+              "459230781640628620899862803482534211706798")
+# cos(kπ/q) = cos(kπ/a)·cos(kπ/b) + sin(kπ/a)·sin(kπ/b) (sympy's _table2)
+_TABLE2 = {12: (3, 4), 20: (4, 5), 30: (5, 6), 15: (6, 10), 24: (6, 8),
+           40: (8, 10), 60: (20, 30), 120: (40, 60)}
+
+
+class Trig:
+    """The unevaluated ``cos(r·π)`` or ``sin(r·π)`` that sympy keeps for
+    0 < r < 1/2 where it has no radicals (a denominator of r above 12 and
+    not in its table, or 7, 9, 11): a factor of a term, like a power of a
+    sum."""
+
+    __slots__ = ("name", "r")
+
+    def __init__(self, name: str, r: Fraction):
+        self.name, self.r = name, Fraction(r)
+
+    def __eq__(self, other) -> bool:
+        return isinstance(other, Trig) and (self.name, self.r) == \
+            (other.name, other.r)
+
+    def __hash__(self) -> int:
+        return hash(("Trig", self.name, self.r))
+
+    @property
+    def class_key(self) -> tuple:
+        """``Function.class_key``: (4, 20, 'sin') or (4, 21, 'cos')."""
+        return (4, 20 if self.name == "sin" else 21, self.name)
+
+    def value(self) -> Decimal:
+        """cos or sin of r·π by its Taylor series at the context's
+        precision."""
+        with localcontext() as ctx:
+            ctx.prec += 10
+            x = _PI * Decimal(self.r.numerator) / Decimal(self.r.denominator)
+            term = Decimal(1) if self.name == "cos" else x
+            total, k = term, 1 if self.name == "cos" else 2
+            while True:
+                term = -term * x * x / (Decimal(k) * Decimal(k + 1))
+                k += 2
+                if abs(term) < Decimal(10) ** -(ctx.prec + 2):
+                    break
+                total += term
+        return +total
+
+    def latex_arg(self) -> str:
+        p, q = self.r.numerator, self.r.denominator
+        top = r"\pi" if p == 1 else r"%d \pi" % p
+        return r"\frac{%s}{%d}" % (top, q)
+
+    def __repr__(self) -> str:
+        return f"{self.name}({self.r}*pi)"
+
+
+def _trig_number(name: str, r: Fraction):
+    return _number({((), False, frozenset({(Trig(name, r), Fraction(1))})):
+                    Fraction(1)})
+
+
+def _is_atom(x, name: str) -> bool:
+    t = _terms(x)
+    if len(t) != 1:
+        return False
+    (k, c), = t.items()
+    if c != 1 or k[0] or k[1] or len(k[2]) != 1:
+        return False
+    (base, e), = k[2]
+    return isinstance(base, Trig) and base.name == name and e == 1
+
+
+def _chebyshev_t(p: int, x):
+    """T_p(x), expanded."""
+    t0, t1 = 1, x
+    if p == 0:
+        return t0
+    for _ in range(p - 1):
+        t0, t1 = t1, add(expand_mul(2, expand_mul(x, t1)), mul(-1, t0))
+    return t1
+
+
+def cos_pi(r):
+    """``cos(r·π)`` as sympy evaluates it: radicals for a denominator of
+    r up to 12 but 7, 9 and 11 (3 and 5 by Chebyshev polynomials, even ones
+    by the half angle) and those of its table, else the atom."""
+    r = Fraction(r)
+    if r < 0:
+        r = -r
+    if r.denominator == 1:
+        return (-1) ** (r.numerator % 2)
+    if r.denominator == 2:
+        return 0
+    q = r.denominator
+    p = r.numerator % (2 * q)
+    if p > q:
+        return mul(-1, cos_pi(r - 1))
+    if 2 * p > q:
+        return mul(-1, cos_pi(1 - r))
+    if q in _TABLE2:
+        a, b = _TABLE2[q]
+        a, b = Fraction(p, a), Fraction(p, b)
+        return add(mul(cos_pi(a), cos_pi(b)),
+                   mul(cos_pi(Fraction(1, 2) - a), cos_pi(Fraction(1, 2) - b)))
+    if q > 12:
+        return _trig_number("cos", r)
+    if q == 3:
+        return _chebyshev_t(r.numerator, Fraction(1, 2))
+    if q == 5:
+        return _chebyshev_t(r.numerator,
+                            add(Fraction(1, 4), mul(sqrt(5), Fraction(1, 4))))
+    if q % 2 == 0:
+        nval = cos_pi(2 * r)
+        x = (2 * r + 1) / 2
+        sign = (-1) ** (int(abs(x)) % 2)
+        return mul(sign, sqrt(mul(add(1, nval), Fraction(1, 2))))
+    return _trig_number("cos", r)
+
+
+def sin_pi(r):
+    """``sin(r·π)`` as sympy evaluates it: through cos((r + 3/2)·π), else
+    the atom."""
+    r = Fraction(r)
+    if r < 0:
+        return mul(-1, sin_pi(-r))
+    if r.denominator == 1:
+        return 0
+    if r.denominator == 2:
+        return (-1) ** (((r - Fraction(1, 2)).numerator) % 2)
+    x = r % 2
+    if x > 1:
+        return mul(-1, sin_pi(x % 1))
+    if 2 * x > 1:
+        return sin_pi(1 - x)
+    got = cos_pi((r + Fraction(3, 2)) % 2)
+    if _is_atom(got, "cos"):
+        return _trig_number("sin", r)
+    return got
 
 
 # ---------------------------------------------------------------------------
@@ -539,17 +804,8 @@ class Radical:
 
     @property
     def is_real(self) -> Optional[bool]:
-        """sympy's ``is_real`` for these shapes: True where no term holds the
-        imaginary unit, False for a real part beside one imaginary term,
-        None (undecided) where a power of a complex sum appears."""
-        if not _has_imag(self.terms):
-            return True
-        complex_adds = any(_has_imag(b.terms)
-                           for k in self.terms for b, _ in k[2])
-        imag_terms = [k for k in self.terms if _has_imag({k: 1})]
-        if not complex_adds and len(imag_terms) == 1:
-            return False
-        return None
+        """sympy's ``is_real`` of the same expression (``_assume``)."""
+        return _add_facts(self.terms).real
 
     # -- rendering ---------------------------------------------------------
     def cformat(self, arg_of: Optional[str] = None) -> str:
@@ -557,13 +813,6 @@ class Radical:
 
     def __repr__(self) -> str:
         return f"Radical({_latex(self.terms)})"
-
-
-def _has_imag(terms: Terms) -> bool:
-    for pows, imag, adds in terms:
-        if imag or any(_has_imag(b.terms) for b, _ in adds):
-            return True
-    return False
 
 
 I = _number({((), True, frozenset()): Fraction(1)})
@@ -608,6 +857,23 @@ def _croot(a, q: int):
     return z
 
 
+def numeric(x, digits: int = _PREC) -> Tuple[Decimal, Decimal]:
+    """The value of a root of any kind the port writes (a rational, a
+    float or ``nroots``' ``Float`` and ``Complex``, a ``Surd``, a
+    ``Radical``) as (real, imaginary) Decimals to about ``digits``
+    significant digits."""
+    if isinstance(x, numbers.Rational):
+        with localcontext() as ctx:
+            ctx.prec = digits
+            return Decimal(x.numerator) / x.denominator, Decimal(0)
+    if isinstance(x, float):
+        return Decimal(x), Decimal(0)
+    if hasattr(x, "value"):
+        return x.value(digits)
+    z = complex(x)
+    return Decimal(z.real), Decimal(z.imag)
+
+
 def _value_terms(terms: Terms):
     re_, im_ = Decimal(0), Decimal(0)
     for k, c in terms.items():
@@ -621,11 +887,19 @@ def _value_term(c: Fraction, k: Key):
     pows, imag, adds = k
     v = (Decimal(c.numerator) / Decimal(c.denominator), Decimal(0))
     for b, e in pows:
+        if b < 0:                   # the principal root of a negative base
+            w = _cpow_int(_croot((Decimal(b), Decimal(0)), e.denominator),
+                          e.numerator)
+            v = _cmul(v, w)
+            continue
         r = Decimal(b) ** (Decimal(e.numerator) / Decimal(e.denominator))
         v = (v[0] * r, v[1] * r)
     if imag:
         v = (-v[1], v[0])
     for base, e in adds:
+        if isinstance(base, Trig):
+            v = _cmul(v, _cpow_int((base.value(), Decimal(0)), e.numerator))
+            continue
         bv = _value_terms(base.terms)
         w = _croot(bv, e.denominator) if e.denominator != 1 else bv
         v = _cmul(v, _cpow_int(w, e.numerator))
@@ -633,10 +907,420 @@ def _value_term(c: Fraction, k: Key):
 
 
 def _term_complex(c: Fraction, k: Key) -> complex:
+    """A term's value as ``Expr.as_terms`` computes it to order an Add: the
+    coefficient as a complex double times each factor's value rounded to
+    a double, in the order of the Mul's arguments."""
+    v = complex(float(Fraction(c)))
+    node = _term_node(Fraction(1), k) if k != _ONE_KEY else None
+    if node is None:
+        return v
+    for f in (node[1] if node[0] == "mul" else [node]):
+        v *= _node_complex(f)
+    return v
+
+
+def _node_complex(n: tuple) -> complex:
     with localcontext() as ctx:
-        ctx.prec = 30
-        v = _value_term(c, k)
+        ctx.prec = 40
+        if n[0] == "I":
+            return 1j
+        if n[0] == "fn":
+            return complex(float(n[1].value()), 0.0)
+        if n[0] == "pow" and n[1][0] == "fn":
+            return complex(float(n[1][1].value() ** int(n[2])), 0.0)
+        if n[0] == "pow" and n[1][0] == "num":
+            key: Key = (((int(n[1][1]), n[2]),), False, frozenset())
+        else:
+            key = ((), False, frozenset({(n[1][1], n[2])}))
+        v = _value_term(Fraction(1), key)
     return complex(float(v[0]), float(v[1]))
+
+
+# ---------------------------------------------------------------------------
+# sympy's assumptions on these numbers (is_real and what it rests on)
+# ---------------------------------------------------------------------------
+
+class _Facts:
+    """The facts sympy derives for a number: real, imaginary, positive,
+    negative, zero (each True, False or None)."""
+
+    __slots__ = ("real", "imag", "pos", "neg", "zero")
+
+    def __init__(self, real, imag, pos, neg, zero):
+        # the assumption system's deductions from the facts a handler gave
+        if pos or neg:
+            real, zero = True, False
+            imag = False
+        if imag:
+            real, zero, pos, neg = False, False, False, False
+        if real is False:
+            pos, neg = False, False
+        self.real, self.imag, self.pos, self.neg, self.zero = \
+            real, imag, pos, neg, zero
+
+
+_RATIONAL_FACTS = {1: _Facts(True, False, True, False, False),
+                   -1: _Facts(True, False, False, True, False)}
+_I_FACTS = _Facts(False, True, False, False, False)
+_COMPLEX_FACTS = _Facts(False, False, False, False, False)
+
+
+def _fuzzy_group(values, quick_exit=False):
+    saw_other = False
+    for a in values:
+        if a is True:
+            continue
+        if a is None:
+            return None
+        if quick_exit and saw_other:
+            return None
+        saw_other = True
+    return not saw_other
+
+
+def _factor_facts(f: tuple) -> _Facts:
+    if f[0] == "I":
+        return _I_FACTS
+    if f[0] == "pow":
+        # a negative base's principal root is neither real nor imaginary
+        return _RATIONAL_FACTS[1] if f[1] > 0 else _COMPLEX_FACTS
+    if f[0] == "trig":                  # cos, sin of an angle in (0, π/2)
+        return _RATIONAL_FACTS[1]
+    base, e = f[1], f[2]
+    b = _add_facts(base.terms)
+    if b.real is None:
+        real = None
+    elif b.real:
+        real = True if b.pos else (False if b.neg else None)
+    elif e.numerator == 1:
+        real = False
+    elif e < 0 and b.zero is False:
+        real = _factor_facts(("add", base, -e)).real
+    else:
+        real = None
+    # Pow._eval_is_imaginary for a real base and a rational exponent
+    imag = None
+    if b.real:
+        if b.pos:
+            imag = False
+        else:
+            imag = b.neg if (2 * e).denominator == 1 else False
+    pos = True if b.pos else None
+    neg = False if b.pos else None
+    zero = False if (b.zero is False or b.pos or b.neg) else None
+    return _Facts(real, imag, pos, neg, zero)
+
+
+def _term_facts(c: Fraction, k: Key) -> _Facts:
+    """``Mul._eval_real_imag`` (is_real), ``_eval_pos_neg`` and
+    ``_eval_is_zero`` of ``c·factors``."""
+    factors = _factor_list(k)
+    if k == _ONE_KEY:
+        return _RATIONAL_FACTS[1 if c > 0 else -1]
+    if c == 1 and len(factors) == 1:
+        return _factor_facts(factors[0])
+    fs = [_RATIONAL_FACTS[1 if c > 0 else -1]] + \
+        [_factor_facts(f) for f in factors]
+    # _eval_real_imag(real=True)
+    real, zero, t_not, out = True, False, None, "open"
+    for t in fs:
+        if t.imag:
+            real = not real
+        elif t.real:
+            z = t.zero
+            if not z and zero is False:
+                zero = z
+            elif z:
+                out = True
+                break
+        elif t.real is False or t.imag is False:
+            if t_not is not None:
+                out = None
+                break
+            t_not = t
+        else:
+            out = None
+            break
+    if out == "open":
+        out = None
+        if t_not is not None:
+            if t_not.real is False and real:
+                out = zero
+            elif t_not.imag is False and not real:
+                out = zero
+        elif zero is False:
+            out = real
+        elif real:
+            out = real
+    # _eval_pos_neg: the sign where every factor's sign is known
+    sign, pos, neg = 1, None, None
+    for t in fs:
+        if t.pos:
+            continue
+        if t.neg:
+            sign = -sign
+            continue
+        sign = 0
+        break
+    if sign:
+        pos, neg = sign > 0, sign < 0
+    zero = False if all(t.zero is False for t in fs) else None
+    return _Facts(out, None, pos, neg, zero)
+
+
+_FACTS_CACHE: Dict[frozenset, _Facts] = {}
+
+
+def _add_facts(terms: Terms) -> _Facts:
+    """The facts of a sum: ``Add._eval_is_extended_real`` (every term real,
+    or one not), and the sign sympy reads numerically
+    (``Expr._eval_is_extended_positive_negative``: decided only where the
+    sum evaluated term by term at 2 bits, ``_eval_evalf(2)``, is a finite
+    real number; then the sign of its value)."""
+    key = frozenset(terms.items())
+    got = _FACTS_CACHE.get(key)
+    if got is not None:
+        return got
+    if len(terms) == 1:
+        (k, c), = terms.items()
+        got = _term_facts(c, k)
+    elif not terms:
+        got = _Facts(True, False, False, False, True)
+    else:
+        real = _fuzzy_group((_term_facts(c, k).real
+                             for k, c in terms.items()), quick_exit=True)
+        pos = neg = None
+        if _crude_add(terms)[0] == "r":
+            with localcontext() as ctx:
+                ctx.prec = 50
+                re_, im_ = _value_terms(terms)
+            if abs(im_) > Decimal(10) ** -40 * (1 + abs(re_)):
+                pos = neg = False
+            elif not _complex_inside(terms):
+                # a real sum evaluated through complex numbers keeps an
+                # imaginary part of no significance: evalf(2) decides no
+                # sign
+                pos, neg = re_ > 0, re_ < 0
+        zero = False if (pos or neg) else None
+        got = _Facts(real, None, pos, neg, zero)
+    _FACTS_CACHE[key] = got
+    return got
+
+
+def _complex_inside(terms: Terms) -> bool:
+    """Whether evaluating the sum passes through a complex number: the
+    imaginary unit, a root of a negative integer, or a power of a sum with
+    a complex value or one evaluated so itself."""
+    for pows, imag, adds in terms:
+        if imag or any(b < 0 for b, _ in pows):
+            return True
+        for base, _ in adds:
+            if isinstance(base, Trig):
+                continue
+            with localcontext() as ctx:
+                ctx.prec = 50
+                re_, im_ = _value_terms(base.terms)
+            if abs(im_) > Decimal(10) ** -40 * (1 + abs(re_)) \
+                    or _complex_inside(base.terms):
+                return True
+    return False
+
+
+# -- _eval_evalf(2): every node evaluated at 2 bits, numbers folded in
+# argument order, each step rounded to nearest -------------------------------
+
+_P2 = 2
+
+
+def _f2(x: Fraction):
+    from .nroots import div
+    x = Fraction(x)
+    if x == 0:
+        return ("r", (0, 0))
+    return ("r", div((x.numerator, 0), (x.denominator, 0), _P2))
+
+
+def _crude_mul(a, b):
+    from .nroots import mul as fmul
+    if a[0] == "r" and b[0] == "r":
+        return ("r", fmul(a[1], b[1], _P2))
+    kinds = {a[0], b[0]}
+    if "nan" in kinds:
+        return ("nan",)
+    if "zoo" in kinds:
+        zero = (a[0] == "r" and a[1][0] == 0) or (b[0] == "r" and b[1][0] == 0)
+        return ("nan",) if zero else ("zoo",)
+    return ("c",)
+
+
+def _crude_add2(a, b):
+    from .nroots import add as fadd
+    if a[0] == "r" and b[0] == "r":
+        return ("r", fadd(a[1], b[1], _P2))
+    kinds = {a[0], b[0]}
+    if "nan" in kinds or kinds == {"zoo"}:
+        return ("nan",)
+    if "zoo" in kinds:
+        return ("zoo",)
+    return ("c",)
+
+
+def _crude_pow(base, e: Fraction):
+    """``Pow(Float, Float(e))`` at 2 bits: mpf_pow of a positive base (a
+    square root for e = ±1/2, else exp(e·log b) with the log at 12 bits),
+    0 or zoo at a zero base, a complex number at a negative one."""
+    from .nroots import _round, div, sqrt as fsqrt
+    if base[0] == "zoo":
+        return ("r", (0, 0)) if e < 0 else ("zoo",)
+    if base[0] != "r":
+        return base if base[0] == "nan" else ("c",)
+    m, x = base[1]
+    if m == 0:
+        return ("zoo",) if e < 0 else ("r", (0, 0))
+    if m < 0:
+        return ("c",)
+    ef = _f2(e)[1]                          # the exponent as a 2-bit Float
+    if ef[1] == -1 and abs(ef[0]) == 1:      # ±1/2
+        if ef[0] > 0:
+            return ("r", fsqrt(base[1], _P2))
+        return ("r", div((1, 0), fsqrt(base[1], _P2 + 10), _P2))
+    with localcontext() as ctx:
+        ctx.prec = 40
+        lg = Fraction((Decimal(m) * Decimal(2) ** x).ln())
+        # the log rounded to 12 bits, as mpf_log(s, prec + 10)
+        lm = _round((lg.numerator << 200) // lg.denominator, -200, 12)
+        v = (Decimal(lm[0]) * Decimal(2) ** lm[1] * Decimal(ef[0])
+             * Decimal(2) ** ef[1]).exp()
+        mant = int((v * Decimal(2) ** 60).to_integral_value())
+    return ("r", _round(mant, -60, _P2))
+
+
+# -- Basic.compare: the canonical order of Add and Mul arguments ------------
+
+_CLASS_ORDER = ["Zero", "One", "Half", "NegativeOne", "Integer", "Rational",
+                "ImaginaryUnit", "Pow", "Mul", "Add"]
+
+
+def _num_class(r: Fraction) -> str:
+    if r == 0:
+        return "Zero"
+    if r == 1:
+        return "One"
+    if r == -1:
+        return "NegativeOne"
+    if r == Fraction(1, 2):
+        return "Half"
+    return "Integer" if r.denominator == 1 else "Rational"
+
+
+def _term_node(c: Fraction, k: Key) -> tuple:
+    """One term as sympy's tree: ("num", r), ("I",), ("pow", base, e) with
+    base ("num", b) or ("add", Radical), ("mul", args)."""
+    c = Fraction(c)
+    if k == _ONE_KEY:
+        return ("num", c)
+    factors = []
+    for f in _factor_list(k):
+        if f[0] == "I":
+            factors.append(("I",))
+        elif f[0] == "pow":
+            factors.append(("pow", ("num", Fraction(f[1])), f[2]))
+        elif f[0] == "trig":
+            factors.append(("fn", f[1]) if f[2] == 1
+                           else ("pow", ("fn", f[1]), f[2]))
+        else:
+            factors.append(("pow", ("add", f[1]), f[2]))
+    if c == 1 and len(factors) == 1:
+        return factors[0]
+    factors.sort(key=functools.cmp_to_key(_compare))
+    return ("mul", ([("num", c)] if c != 1 else []) + factors)
+
+
+def _args_of(terms: Terms) -> List[tuple]:
+    """An Add's arguments in sympy's order (``_addsort``)."""
+    return sorted((_term_node(c, k) for k, c in terms.items()),
+                  key=functools.cmp_to_key(_compare))
+
+
+def _node_class(n: tuple) -> str:
+    if n[0] == "num":
+        return _num_class(n[1])
+    if n[0] == "fn":
+        return n[1].name
+    return {"I": "ImaginaryUnit", "pow": "Pow", "mul": "Mul",
+            "add": "Add"}[n[0]]
+
+
+def _content(n: tuple) -> tuple:
+    if n[0] == "num":
+        r = n[1]
+        return (r.numerator,) if r.denominator == 1 else \
+            (r.numerator, r.denominator)
+    if n[0] == "I":
+        return ()
+    if n[0] == "fn":
+        return (n[1].r,)
+    if n[0] == "pow":
+        return (n[1], ("num", n[2]))
+    if n[0] == "mul":
+        return tuple(n[1])
+    return tuple(_args_of(n[1].terms))
+
+
+def _compare(a: tuple, b: tuple) -> int:
+    """``Basic.compare``: the class order, then the length of the hashable
+    content, then its items one by one."""
+    ca, cb = _node_class(a), _node_class(b)
+    if ca != cb:
+        unknown = len(_CLASS_ORDER) + 1
+        ia = _CLASS_ORDER.index(ca) if ca in _CLASS_ORDER else unknown
+        ib = _CLASS_ORDER.index(cb) if cb in _CLASS_ORDER else unknown
+        if ia == ib:
+            return (ca > cb) - (ca < cb)
+        return (ia > ib) - (ia < ib)
+    sa, sb = _content(a), _content(b)
+    if len(sa) != len(sb):
+        return (len(sa) > len(sb)) - (len(sa) < len(sb))
+    for x, y in zip(sa, sb):
+        if isinstance(x, tuple):
+            c = _compare(x, y)
+        else:
+            c = (x > y) - (x < y)
+        if c:
+            return c
+    return 0
+
+
+def _crude_node(n: tuple):
+    """``_eval_evalf(2)`` of a node: ("r", mpf), ("c",) complex, ("zoo",) or
+    ("nan",)."""
+    if n[0] == "num":
+        return _f2(n[1])
+    if n[0] == "I":
+        return ("c",)
+    if n[0] == "fn":
+        from .nroots import _round
+        v = n[1].value()
+        return ("r", _round(int(v * Decimal(2) ** 80), -80, _P2))
+    if n[0] == "pow" and n[1][0] == "fn":
+        return _crude_mul(("r", (1, 0)), _crude_node(n[1])) if n[2] == 1 \
+            else _crude_pow(_crude_node(n[1]), n[2])
+    if n[0] == "pow":
+        return _crude_pow(_crude_node(n[1]), n[2])
+    if n[0] == "mul":
+        acc = ("r", (1, 0))
+        for a in n[1]:
+            acc = _crude_mul(acc, _crude_node(a))
+        return acc
+    return _crude_add(n[1].terms)
+
+
+def _crude_add(terms: Terms):
+    acc = None
+    for a in _args_of(terms):
+        t = _crude_node(a)
+        acc = t if acc is None else _crude_add2(acc, t)
+    return acc if acc is not None else ("r", (0, 0))
 
 
 # ---------------------------------------------------------------------------
@@ -658,7 +1342,8 @@ def _factor_list(k: Key) -> List[tuple]:
     out: List[tuple] = [("pow", b, e) for b, e in pows]
     if imag:
         out.append(("I",))
-    out += [("add", base, e) for base, e in adds]
+    out += [("trig" if isinstance(base, Trig) else "add", base, e)
+            for base, e in adds]
     return out
 
 
@@ -668,6 +1353,8 @@ def _factor_sort_key(f: tuple) -> tuple:
     if f[0] == "I":
         return (_ATOM_I, (1, ("I",)), _ONE_SORT, 1)
     base, e = f[1], f[2]
+    if f[0] == "trig":
+        return (base.class_key, (1, ((("pi",), base.r),)), _num_key(e), 1)
     return (_ADD, _add_args(base.terms), _num_key(e), 1)
 
 
@@ -713,7 +1400,8 @@ def _term_nodes(c: Fraction, k: Key) -> int:
         return 1
     factors = _factor_list(k)
     n = sum(1 if f[0] == "I" else 3 if f[0] == "pow"
-            else _nodes_of(f[1].terms) + (0 if f[2] == 1 else 2)
+            else (4 if f[0] == "trig" else _nodes_of(f[1].terms))
+            + (0 if f[2] == 1 else 2)
             for f in factors)
     if c == 1 and len(factors) == 1:
         return n
@@ -768,8 +1456,14 @@ def _latex_factor(f: tuple) -> str:
     """``_print_Pow`` / ``_print`` of one factor with a positive exponent."""
     if f[0] == "I":
         return "i"
+    if f[0] == "trig":
+        power = "" if f[2] == 1 else "^{%d}" % f[2]
+        return r"\%s%s{\left(%s \right)}" % (f[1].name, power,
+                                              f[1].latex_arg())
     if f[0] == "pow":
         base, e = str(f[1]), f[2]
+        if f[1] < 0 and not (abs(e.numerator) == 1 and e.denominator != 1):
+            base = r"\left(%s\right)" % base
     else:
         base, e = _latex(f[1].terms), f[2]
         if e == 1:

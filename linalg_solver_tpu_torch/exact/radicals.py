@@ -1,14 +1,17 @@
-"""Exact roots of rational polynomials: the port's counterpart of the
-JAX package's ``sympy.roots(poly, multiple=False)``
+"""Exact roots of polynomials: the port's counterpart of the JAX
+package's ``sympy.roots(poly, multiple=False)``
 (``linalg_solver_tpu.exact.polynomial.Polynomial.radical_roots``).
 
-A root is a rational (``int`` or ``Fraction``), a ``Surd`` ``p + q·√d``
-(d a squarefree integer, d < 0 for ``i·√|d|``), which prints as
-``sympy.latex`` prints the same number (``utils.fmt.latex_surd``), or a
-``radexpr.Radical``: the roots ``roots_cubic`` (``trig=False``) writes for
-an irreducible cubic, and those ``roots_binomial`` writes for a·xⁿ + b at
-n = 3, 4, 6 (and 8 where -b/a > 0), built step by step as sympy builds
-them.
+A root of a rational polynomial is a rational (``int`` or ``Fraction``), a
+``Surd`` ``p + q·√d`` (d a squarefree integer, d < 0 for ``i·√|d|``),
+which prints as ``sympy.latex`` prints the same number
+(``utils.fmt.latex_surd``), or a ``radexpr.Radical`` built step by step as
+sympy builds it: ``roots_cubic`` (``trig=False``), ``roots_quartic``
+(every branch rational coefficients reach), ``roots_binomial`` and
+``roots_cyclotomic`` at every degree (cosines of π/n in radicals where
+sympy evaluates them, else ``radexpr.Trig``), and ``_try_decompose``'s
+roots of g(h(x)) (binomials and quadratics over EX).  A polynomial with a
+float coefficient takes ``nroots``, as sympy's RR domain does.
 
 The order of the returned dict is sympy's, which the LaTeX text shows:
 ``roots`` strips the zero roots (added back last), makes the polynomial a
@@ -18,32 +21,33 @@ degree 2, else ``roots_binomial``'s order of the n-th roots), a lone
 quadratic's two roots, an irreducible polynomial's roots through
 ``_try_decompose``, or each factor's roots in the order of ``factor_list``
 (``_sort_factors``: by length, multiplicity, then the coefficient list).
-A quadratic's roots come as ``B - |D|``, ``B + |D|``.
-
-As in sympy (``quintics=False``), a factor of degree ≥ 5 that is neither a
-binomial nor cyclotomic has no roots here: the dict is then partial, or
-empty.  The factors come from subsets of float roots, each checked by
-exact division, so such a factor is first proved irreducible modulo
-primes.  What sympy writes in forms not ported raises
-``NotImplementedError`` citing ROADMAP.md queue 1 item 7: ``roots_quartic``,
-``roots_cyclotomic`` (cosines of π/n), binomials of other degrees,
-decompositions into nested radicals, and a factor that no prime proves
-irreducible (an exact factorization over ℤ is not ported).
+The factors are exact (``zfactor``: Zassenhaus over ℤ).  As in sympy
+(``quintics=False``), a factor of degree ≥ 5 that is neither a binomial
+nor cyclotomic nor decomposable has no roots: the dict is then partial,
+or empty.  What sympy writes in forms not ported raises
+``NotImplementedError`` citing ROADMAP.md queue 1 item 7: a root written
+with ``atan`` (the principal root of a complex number at an angle atan
+does not evaluate), ``roots_quadratic`` over EX with a Gaussian
+coefficient, cubic or quartic inner components of a decomposition, and
+a coefficient neither rational nor float (sympy's EX).  Where Ferrari's
+formula takes the cube root of a complex or negative number
+(``quartic_branch``), sympy orders and branches the terms by the rounding
+noise of its ``evalf``: the port writes the same roots, exactly, in terms
+that can be ordered or branched otherwise (item 7 too).
 """
 
 from __future__ import annotations
 
 import cmath
-import itertools
+import functools
 import math
 import numbers
 from decimal import Decimal, localcontext
 from fractions import Fraction
 from typing import Any, Dict, List, Optional, Tuple
 
-import numpy as np
-
-from ..utils.fmt import latex_surd
+from ..utils.fmt import cformat, latex_surd
+from . import nroots, zfactor
 
 _QUEUE = "ROADMAP.md queue 1 item 7"
 
@@ -343,46 +347,6 @@ def _mul(a: List, b: List) -> List[Fraction]:
     return out
 
 
-def _factor_of_size(c: List[int], roots, k: int) -> Optional[List[int]]:
-    """A factor of c over ℤ of degree k, from the products of k of its
-    float roots closed under conjugation; each candidate is checked by
-    exact division."""
-    lead = abs(c[0])
-    for idx in itertools.combinations(range(len(roots)), k):
-        prod = np.poly(roots[list(idx)])
-        if np.max(np.abs(prod.imag)) > 1e-6 * (1 + np.max(np.abs(prod))):
-            continue
-        for a in _divisors(lead):
-            cand = [int(round(a * x)) for x in prod.real]
-            if cand[-1] == 0 or any(
-                    abs(a * x - y) > 1e-5 * (1 + abs(y))
-                    for x, y in zip(prod.real, cand)):
-                continue
-            if _divides(c, cand) is not None:
-                return cand
-    return None
-
-
-def _irreducible_factors(c: List[int]) -> List[List[int]]:
-    """The irreducible factors over ℤ of a squarefree integer polynomial
-    without rational roots (positive leading coefficients)."""
-    found = []
-    while len(c) > 3:
-        roots = np.roots(np.array([float(x) for x in c]))
-        f = None
-        for k in range(2, (len(c) - 1) // 2 + 1):
-            f = _factor_of_size(c, roots, k)
-            if f is not None:
-                break
-        if f is None:
-            break
-        found.append(_positive(f))
-        c = _primitive(_divides(c, f))
-    if len(c) >= 3:
-        found.append(_positive(c))
-    return found
-
-
 def _factor_list(c: List[int]) -> List[Tuple[List[int], int]]:
     """Irreducible factors over ℤ (positive leading coefficients) with
     multiplicities, in ``_sort_factors`` order: length, multiplicity,
@@ -393,7 +357,7 @@ def _factor_list(c: List[int]) -> List[Tuple[List[int], int]]:
         factors.append(([r.denominator, -r.numerator], m))
     if len(rest) > 1:
         for part, m in _squarefree_parts(_primitive(rest)):
-            for f in _irreducible_factors(_primitive(part)):
+            for f in zfactor.factor_squarefree(_positive(part)):
                 factors.append((f, m))
     return sorted(factors, key=lambda fm: (len(fm[0]), fm[1], fm[0]))
 
@@ -437,131 +401,30 @@ def rank_over_field(items: List[List[Any]], minpoly) -> int:
 
 
 # ---------------------------------------------------------------------------
-# Irreducibility proved modulo primes
-# ---------------------------------------------------------------------------
-
-def _mod_divmod(a: List[int], b: List[int], p: int
-                ) -> Tuple[List[int], List[int]]:
-    """Long division of integer lists mod p (b's leading term a unit);
-    the zero polynomial is ``[]``."""
-    a, inv, q = list(a), pow(b[0], -1, p), []
-    while len(a) >= len(b):
-        c = a[0] * inv % p
-        q.append(c)
-        for i, x in enumerate(b):
-            a[i] = (a[i] - c * x) % p
-        a.pop(0)
-    return q, _mod_trim(a)
-
-
-def _mod_trim(a: List[int]) -> List[int]:
-    i = 0
-    while i < len(a) and a[i] == 0:
-        i += 1
-    return a[i:]
-
-
-def _mod_mul(a: List[int], b: List[int], p: int) -> List[int]:
-    if not a or not b:
-        return []
-    out = [0] * (len(a) + len(b) - 1)
-    for i, x in enumerate(a):
-        for j, y in enumerate(b):
-            out[i + j] = (out[i + j] + x * y) % p
-    return out
-
-
-def _mod_sub(a: List[int], b: List[int], p: int) -> List[int]:
-    n = max(len(a), len(b))
-    a, b = [0] * (n - len(a)) + a, [0] * (n - len(b)) + b
-    return _mod_trim([(x - y) % p for x, y in zip(a, b)])
-
-
-def _mod_gcd(a: List[int], b: List[int], p: int) -> List[int]:
-    while b:
-        a, b = b, _mod_divmod(a, b, p)[1]
-    return a
-
-
-def _degree_pattern(f: List[int], p: int) -> List[int]:
-    """The degrees of f's irreducible factors mod p (f squarefree mod p,
-    its leading coefficient a unit), by distinct-degree factorization:
-    the product of the factors of degree d is gcd(f, x^(p^d) − x)."""
-    degrees, h, d = [], [1, 0], 0
-    while len(f) - 1 >= 2 * (d + 1):
-        d += 1
-        power, base, e = [1], h, p                  # h ← h^p mod f
-        while e:
-            if e & 1:
-                power = _mod_divmod(_mod_mul(power, base, p), f, p)[1]
-            base = _mod_divmod(_mod_mul(base, base, p), f, p)[1]
-            e >>= 1
-        h = power
-        g = _mod_gcd(f, _mod_sub(h, [1, 0], p), p)
-        if len(g) > 1:
-            degrees += [d] * ((len(g) - 1) // d)
-            f = _mod_divmod(f, g, p)[0]
-            h = _mod_divmod(h, f, p)[1]
-    if len(f) > 1:
-        degrees.append(len(f) - 1)
-    return degrees
-
-
-def _primes(count: int) -> List[int]:
-    out, k = [], 2
-    while len(out) < count:
-        if all(k % q for q in out if q * q <= k):
-            out.append(k)
-        k += 1
-    return out
-
-
-def _proven_irreducible(f: List[int]) -> bool:
-    """Whether f is proved irreducible over ℚ: a factor over ℚ of degree
-    k reduces mod every prime p (not dividing f's leading coefficient,
-    f squarefree mod p) to a product of some of f's factors mod p, so k
-    is a sum of some of their degrees at every such p.  Proved once no k
-    in 1..n−1 is left over the first 60 primes."""
-    n = len(f) - 1
-    possible = set(range(1, n))
-    for p in _primes(60):
-        fp = [x % p for x in f]
-        if fp[0] == 0:
-            continue
-        deriv = _mod_trim([x * (n - i) % p for i, x in enumerate(fp[:-1])])
-        if len(_mod_gcd(fp, deriv, p)) != 1:
-            continue
-        sums = {0}
-        for d in _degree_pattern(fp, p):
-            sums |= {s + d for s in sums}
-        possible &= sums
-        if not possible:
-            return True
-    return False
-
-
-# ---------------------------------------------------------------------------
 # Cyclotomic and composed polynomials (what sympy's dispatch tests)
 # ---------------------------------------------------------------------------
 
-def _cyclotomic(m: int) -> List[int]:
+@functools.lru_cache(maxsize=None)
+def _cyclotomic(m: int) -> Tuple[int, ...]:
     """Φ_m, highest degree first."""
     num = [1] + [0] * (m - 1) + [-1]
     for d in range(1, m):
         if m % d == 0:
-            num = [int(x) for x in _divmod(num, _cyclotomic(d))[0]]
-    return num
+            num = [int(x) for x in _divmod(num, list(_cyclotomic(d)))[0]]
+    return tuple(num)
 
 
-def _is_cyclotomic(f: List[int]) -> bool:
-    """``Poly.is_cyclotomic`` of an irreducible factor: monic with a ±1
-    constant term and equal to some Φ_m."""
+def _cyclotomic_index(f: List[int]) -> Optional[int]:
+    """The m with Φ_m = f (``Poly.is_cyclotomic`` of an irreducible factor:
+    monic with a ±1 constant term), or None."""
     if f[0] != 1 or f[-1] not in (1, -1):
-        return False
+        return None
     n = len(f) - 1
-    phi = lambda m: sum(1 for k in range(1, m + 1) if math.gcd(k, m) == 1)
-    return any(phi(m) == n and _cyclotomic(m) == list(f)
-               for m in range(1, 4 * n * n + 3))
+    for m in range(1, 4 * n * n + 3):
+        if sum(1 for k in range(1, m + 1) if math.gcd(k, m) == 1) == n \
+                and _cyclotomic(m) == tuple(f):
+            return m
+    return None
 
 
 def _right_decompose(f: List[Fraction], s: int) -> List[Fraction]:
@@ -595,11 +458,12 @@ def _left_decompose(f: List[Fraction], h: List[Fraction]) -> Optional[List[Fract
     return [g.get(e, Fraction(0)) for e in range(max(g), -1, -1)]
 
 
-def _outer_component(f: List[int]) -> Optional[List[Fraction]]:
-    """``Poly.decompose()[0]`` where f decomposes (sympy peels the right
-    factor of least degree until none is left), else None."""
+def _decompose(f: List[int]) -> List[List[Fraction]]:
+    """``Poly.decompose`` over QQ: ``[g, h_k, …, h_1]`` with
+    f = g(h_k(…h_1(x))), each hᵢ monic with no constant term; sympy peels
+    the right factor of least degree until none is left."""
     g = [Fraction(x) for x in f]
-    peeled = False
+    chain: List[List[Fraction]] = []
     while True:
         df = len(g) - 1
         for s in range(2, df):
@@ -608,21 +472,11 @@ def _outer_component(f: List[int]) -> Optional[List[Fraction]]:
             h = _right_decompose(g, s)
             outer = _left_decompose(g, h)
             if outer is not None:
-                g, peeled = outer, True
+                g = outer
+                chain.insert(0, h)
                 break
         else:
-            return g if peeled else None
-
-
-def _solvable(f: List) -> bool:
-    """Whether ``_try_heuristics`` has a formula for f (an irreducible
-    factor): all but a non-binomial, non-cyclotomic factor of degree ≥ 5,
-    for which it returns no roots."""
-    n = len(f) - 1
-    if n <= 4 or sum(1 for x in f if x != 0) == 2:
-        return True
-    return all(Fraction(x).denominator == 1 for x in f) and \
-        _is_cyclotomic([int(x) for x in f])
+            return [g] + chain
 
 
 # ---------------------------------------------------------------------------
@@ -635,17 +489,22 @@ def _sqrt(r: Fraction):
     return surd(0, Fraction(s, r.denominator), d)
 
 
-def _quadratic(a: int, b: int, c: int) -> List:
-    """``roots_quadratic`` (and ``roots_binomial`` at degree 2): the root
-    with the radical subtracted first."""
+def _quadratic(a, b, c) -> List:
+    """``roots_quadratic`` of a·x² + b·x + c with rational coefficients
+    (and ``roots_binomial`` at degree 2): 0 and −b/a in increasing order
+    where c = 0, else the root with the radical subtracted first (the two
+    swapped where a < 0)."""
     a, b, c = Fraction(a), Fraction(b), Fraction(c)
+    if c == 0:
+        r0, r1 = 0, _rational(-b / a)
+        return [r1, r0] if r1 < 0 else [r0, r1]
     if b == 0:
         big = _sqrt(-c / a)
         return [-big, big]
-    s, d = _squarefree(int(b * b - 4 * a * c))
     B = -b / (2 * a)
-    big = surd(0, Fraction(s) / (2 * abs(a)), d)
-    return [B - big, B + big]
+    D = _sqrt(b * b - 4 * a * c) / (2 * a)
+    r0, r1 = B - D, B + D
+    return [r1, r0] if a < 0 else [r0, r1]
 
 
 def _multiple(coeffs: List) -> List:
@@ -705,40 +564,278 @@ def roots_cubic(coeffs: List) -> List:
                    -aon3) for u in us]
 
 
-def _cos_sin(deg: Fraction) -> Tuple[Any, Any]:
-    """cos and sin of ``deg`` degrees (a multiple of 30 or 45), exactly as
-    sympy evaluates them."""
-    deg = Fraction(deg) % 360
-    half3 = rx.mul(rx.sqrt(3), Fraction(1, 2))
-    half2 = rx.mul(rx.sqrt(2), Fraction(1, 2))
-    table = {0: (1, 0), 30: (half3, Fraction(1, 2)), 45: (half2, half2),
-             60: (Fraction(1, 2), half3), 90: (0, 1)}
-    ref = deg % 180
-    if ref > 90:
-        c, s = table[180 - ref]
-        c = rx.mul(-1, c)
-    else:
-        c, s = table[ref]
-    if deg >= 180:
-        c = rx.mul(-1, c)
-        s = rx.mul(-1, s)
-    return c, s
+def _euler_resolvent_root(p: Fraction, q: Fraction,
+                          r: Fraction) -> Optional[Fraction]:
+    """The largest nonzero rational root of the Descartes–Euler resolvent
+    64R³ + 32pR² + (4p² − 16r)R − q² of x⁴ + p·x² + q·x + r, else None."""
+    res = _primitive([64, 32 * p, 4 * p * p - 16 * r, -q * q])
+    xsols = [x for x, _ in _rational_roots(res)[0] if x != 0]
+    return max(xsols) if xsols else None
 
 
-def _binomial_radicals(c: List[int]) -> List:
-    """``roots_binomial`` of ``a·xⁿ + b`` (n = 3, 4, 6, 8): alpha, the
-    principal n-th root of ``-b/a`` expanded into real and imaginary parts,
-    times each n-th root of unity, expanded."""
-    n = len(c) - 1
-    base = Fraction(-c[-1], c[0])
-    rho = rx.root(abs(base), n)
-    if base > 0:
-        alpha = rho
+def _euler(p: Fraction, q: Fraction, r: Fraction, a: Fraction):
+    """``_roots_quartic_euler``: the Descartes–Euler roots of
+    x⁴ + p·x² + q·x + r shifted by −a, where the resolvent has a nonzero
+    rational root R (``_euler_resolvent_root``)."""
+    R = _euler_resolvent_root(p, q, r)
+    c1 = _sqrt(R)
+    B = rx.mul(-q / (4 * R), c1)
+    A = -R - p / 2
+    c2, c3 = rx.sqrt(rx.add(A, B)), rx.sqrt(rx.add(A, rx.mul(-1, B)))
+    neg = lambda x: rx.mul(-1, x)                           # noqa: E731
+    return [rx.add(rx.add(c1, neg(c2)), -a),
+            rx.add(rx.add(neg(c1), neg(c3)), -a),
+            rx.add(rx.add(neg(c1), c3), -a),
+            rx.add(rx.add(c1, c2), -a)]
+
+
+def _depressed(coeffs: List) -> Tuple[Fraction, ...]:
+    """a, b, c, d of the monic quartic x⁴ + a·x³ + b·x² + c·x + d and
+    e, f, g of its depressed form y⁴ + e·y² + f·y + g (x = y − a/4)."""
+    lead = Fraction(coeffs[0])
+    _, a, b, c, d = [Fraction(x) / lead for x in coeffs]
+    a2 = a * a
+    e = b - 3 * a2 / 8
+    f = c + a * (a2 / 8 - b / 2)
+    g = d - a / 4 * (a * (3 * a2 / 64 - b / 4) + c)
+    return a, b, c, d, e, f, g
+
+
+def quartic_branch(coeffs: List) -> str:
+    """The branch of ``roots_quartic`` that a quartic with rational
+    coefficients (highest first) takes: ``zero root`` (d = 0),
+    ``quasi-symmetric`` ((c/a)² = d), ``f = 0``, ``g = 0``, ``euler`` (the
+    resolvent has a nonzero rational root), ``ferrari p = 0``, or Ferrari's
+    cube root of r = −q/2 + √(q²/4 + p³/27): ``ferrari real`` where r is
+    real and positive, ``ferrari complex`` where it is complex or
+    negative (there sympy orders and branches the terms of the roots by
+    the rounding noise of its ``evalf``, which the port does not emulate:
+    ROADMAP.md queue 1 item 7)."""
+    a, b, c, d, e, f, g = _depressed(coeffs)
+    if d == 0:
+        return "zero root"
+    if a != 0 and (c / a) ** 2 == d:
+        return "quasi-symmetric"
+    if f == 0:
+        return "f = 0"
+    if g == 0:
+        return "g = 0"
+    if _euler_resolvent_root(e, f, g) is not None:
+        return "euler"
+    p = -e ** 2 / 12 - g
+    q = -e ** 3 / 108 + e * g / 3 - f ** 2 / 8
+    if p == 0:
+        return "ferrari p = 0"
+    if q * q / 4 + p ** 3 / 27 < 0 or (q > 0 and p < 0):
+        return "ferrari complex"
+    return "ferrari real"
+
+
+def roots_quartic(coeffs: List) -> List:
+    """sympy's ``roots_quartic`` of a quartic with rational coefficients
+    (highest first), on every branch rational coefficients reach
+    (``quartic_branch``; ``p`` rational, so no ``Piecewise``)."""
+    branch = quartic_branch(coeffs)
+    a, b, c, d, e, f, g = _depressed(coeffs)
+    aon4 = a / 4
+    if branch == "zero root":
+        return [0] + _multiple([1, a, b, c])
+    if branch == "quasi-symmetric":
+        return _quasi_symmetric(a, b, c / a)
+    if branch == "f = 0":
+        y1, y2 = [rx.sqrt(t) for t in _multiple([1, e, g])]
+        return [rx.add(t, -aon4)
+                for t in (rx.mul(-1, y1), rx.mul(-1, y2), y1, y2)]
+    if branch == "g = 0":
+        return [rx.add(t, -aon4) for t in [0] + _multiple([1, 0, e, f])]
+    if branch == "euler":
+        return _euler(e, f, g, aon4)
+    p = -e ** 2 / 12 - g
+    q = -e ** 3 / 108 + e * g / 3 - f ** 2 / 8
+
+    def ans(y):
+        w = rx.sqrt(rx.add(e, rx.mul(2, y)))
+        arg1 = rx.add(3 * e, rx.mul(2, y))
+        arg2 = rx.mul(2 * f, rx.power(w, -1))
+        out = []
+        for s in (-1, 1):
+            root = rx.sqrt(rx.mul(-1, rx.add(arg1, rx.mul(s, arg2))))
+            for t in (-1, 1):
+                half = rx.mul(rx.add(rx.mul(s, w), rx.mul(-t, root)),
+                              Fraction(1, 2))
+                out.append(rx.add(half, -aon4))
+        return out
+
+    if branch == "ferrari p = 0":
+        return ans(rx.add(e * Fraction(-5, 6),
+                          rx.mul(-1, rx.power(q, Fraction(1, 3)))))
+    r = rx.add(-q / 2, rx.sqrt(q ** 2 / 4 + p ** 3 / 27))
+    u = rx.power(r, Fraction(1, 3))
+    y2 = rx.add(rx.add(e * Fraction(-5, 6), u),
+                rx.mul(-1, rx.mul(rx.mul(p, rx.power(u, -1)),
+                                  Fraction(1, 3))))
+    return ans(y2)
+
+
+def _quasi_symmetric(a: Fraction, b: Fraction, m: Fraction) -> List:
+    """``roots_quartic``'s quasi-symmetric case x⁴ + a·x³ + b·x² + m·a·x + m²:
+    the roots z1, z2 of z² + a·z + b − 2m, then those of x² − zᵢ·x + m
+    (``roots_quadratic`` over EX where zᵢ is irrational)."""
+    out = []
+    for z in _quadratic(1, a, b - 2 * m):
+        if isinstance(z, numbers.Rational):
+            out += _quadratic(1, -z, m)
+        else:
+            out += _ex_quadratic(-z, m)
+    return out
+
+
+def _content(x) -> Fraction:
+    """``Add.primitive``'s content: the gcd of the terms' numerators over
+    the lcm of their denominators."""
+    num, den = 0, 1
+    for c in rx._terms(x).values():
+        num = math.gcd(num, c.numerator)
+        den = den * c.denominator // math.gcd(den, c.denominator)
+    return Fraction(num, den)
+
+
+def _ex_quadratic(b: Surd, c: Fraction) -> List:
+    """``roots_quadratic`` of x² + b·x + c over EX with b = p + q·√k
+    irrational: d = b² − 4c as ``simplify`` leaves it (the expanded number
+    where ``count_ops`` finds it shorter than b² − 4c, else b's square
+    kept, its content taken out and its sign made the rational part's
+    positive), B = −b/2,
+    D = factor_terms(√d/2), and B − D, B + D."""
+    if b.d == -1:
+        raise NotImplementedError(
+            f"Polynomial.radical_roots: roots_quadratic over EX with the "
+            f"Gaussian coefficient {cformat(b)} (whose square sympy's "
+            f"simplify keeps or expands by rules not ported) ({_QUEUE})")
+    expanded = b * b - 4 * c
+    cb = _content(b)
+    t = b / cb
+    if t.p < 0:
+        t = -t
+    kept = rx.add(rx.mul(cb * cb, rx.power(t, 2)), -4 * c)
+    orig = rx.add(rx.power(b, 2), -4 * c)
+    d = expanded if rx.count_ops(expanded) < rx.count_ops(orig) else kept
+    B = -b / 2
+    if isinstance(d, numbers.Rational):
+        D = _sqrt(Fraction(d)) / 2
+    elif d is expanded:
+        D = _ex_sqrt(d, Fraction(2))
     else:
-        cos_a, sin_a = _cos_sin(Fraction(180, n))
-        alpha = rx.add(rx.mul(rho, cos_a),
-                       rx.mul(rx.mul(rho, sin_a), rx.I))
-    neg = base < 0
+        cd = _factor_terms_content(d)
+        prim = rx.mul(Fraction(1) / cd, d)
+        D = rx.mul(rx.mul(rx.sqrt(cd), Fraction(1, 2)), rx.sqrt(prim))
+    return [rx.add(B, rx.mul(-1, D)), rx.add(B, D)]
+
+
+def _unit_root(c: Fraction):
+    """``exp(c·π·i).expand(complex=True)``: ±1 and ±i where 2c is an
+    integer, else cos(c·π) + i·sin(c·π) with c taken into (−1, 1]."""
+    c = Fraction(c) % 2
+    if c > 1:
+        c -= 2
+    if (2 * c).denominator == 1:
+        return {0: 1, 1: -1, Fraction(1, 2): rx.I,
+                Fraction(-1, 2): rx.mul(-1, rx.I)}[c]
+    return rx.expand(rx.add(rx.cos_pi(c), rx.mul(rx.sin_pi(c), rx.I)))
+
+
+def roots_cyclotomic(f: List[int]) -> List:
+    """sympy's ``roots_cyclotomic`` of Φ_n: exp(2πik/n) for k prime to n,
+    in its order of k."""
+    n = _cyclotomic_index(f)
+    h = n // 2
+    ks = [i for i in range(1, n + 1) if math.gcd(i, n) == 1]
+    ks.sort(key=lambda x: (x, -1) if x <= h else (abs(x - n), 1))
+    return [_unit_root(Fraction(2 * k, n)) for k in reversed(ks)]
+
+
+def _surd_part(t) -> Optional[Tuple[Fraction, int]]:
+    """(c, m) with t = c·√m (m = 1 for a rational), or None."""
+    t = rx._terms(t)
+    if not t:
+        return Fraction(0), 1
+    if len(t) != 1:
+        return None
+    (k, c), = t.items()
+    pows, _, adds = k
+    if adds or len(pows) > 1 or (pows and pows[0][1] != Fraction(1, 2)):
+        return None
+    return Fraction(c), (pows[0][0] if pows else 1)
+
+
+def _complex_principal_root(base, n: int):
+    """``root(base, n).expand(complex=True)`` for a complex base x + i·y
+    (x, y rationals or rational multiples of one square root):
+    |base|^(1/n)·(cos(θ/n) + i·sin(θ/n)) with θ = atan2(y, x), where atan
+    evaluates θ (y/x one of ±1, ±√3, ±√3/3, or x = 0)."""
+    terms = rx._terms(base)
+    re_ = rx._number({k: c for k, c in terms.items() if not k[1]})
+    im_ = rx._number({(k[0], False, k[2]): c for k, c in terms.items()
+                      if k[1]})
+    x, y = _surd_part(re_), _surd_part(im_)
+    theta = None
+    if x is not None and y is not None:
+        mod2 = x[0] ** 2 * x[1] + y[0] ** 2 * y[1]
+        r = _sqrt(mod2)
+        if x[0] == 0:
+            theta = Fraction(1 if y[0] > 0 else -1, 2)
+        else:
+            ratio = y[0] / x[0]              # y/x = ratio·√(my/mx)
+            m = Fraction(y[1], x[1])
+            table = {(1, 1): Fraction(1, 4), (3, 1): Fraction(1, 3),
+                     (Fraction(1, 3), 1): Fraction(1, 6),
+                     (1, 3): Fraction(1, 3), (1, Fraction(1, 3)): Fraction(1, 6)}
+            key = (m, abs(ratio))
+            if m == 3 and abs(ratio) == Fraction(1, 3):
+                key = (Fraction(1, 3), 1)
+            if key in table:
+                theta = table[key] * (1 if ratio > 0 else -1)
+                if x[0] < 0:
+                    theta += 1 if y[0] > 0 else -1
+    if theta is None:
+        raise NotImplementedError(
+            f"Polynomial.radical_roots: the principal root of "
+            f"{cformat(base)} is written with atan, which is not ported "
+            f"({_QUEUE})")
+    # |base|^(1/n): sqrt(|base|²) to the 1/n, as Pow combines them
+    rho = rx.power(r, Fraction(1, n)) if isinstance(r, numbers.Rational) \
+        else rx.power(mod2, Fraction(1, 2 * n))
+    return rx.expand(rx.add(rx.mul(rho, rx.cos_pi(theta / n)),
+                            rx.mul(rx.mul(rho, rx.sin_pi(theta / n)), rx.I)))
+
+
+def _binomial_roots(n: int, base) -> List:
+    """``roots_binomial`` of xⁿ − base for a real exact ``base`` (a
+    rational, a ``Surd`` or a ``Radical`` of known sign): alpha, the
+    principal n-th root of base expanded into real and imaginary parts,
+    times each n-th root of unity exp(2πik/n), expanded, in sympy's order
+    of k."""
+    facts = rx._add_facts(rx._terms(base))
+    if facts.real is not True:
+        alpha, neg = _complex_principal_root(base, n), False
+    elif not facts.pos and not facts.neg:
+        raise NotImplementedError(
+            f"Polynomial.radical_roots: roots_binomial of a base whose sign "
+            f"sympy does not decide ({cformat(base)}) is not ported "
+            f"({_QUEUE})")
+    else:
+        neg = bool(facts.neg)
+        if n == 2:
+            alpha = rx.mul(rx.I, rx.sqrt(rx.mul(-1, base))) if neg \
+                else rx.sqrt(base)
+        else:
+            rho = rx.root(rx.mul(-1, base) if neg else base, n)
+            alpha = rho
+            if neg:
+                cos_a = rx.cos_pi(Fraction(1, n))
+                sin_a = rx.sin_pi(Fraction(1, n))
+                alpha = rx.expand(rx.add(rx.mul(rho, cos_a),
+                                         rx.mul(rx.mul(rho, sin_a), rx.I)))
     ks, imax = [], n // 2           # sympy's order of k
     if n % 2 == 0:
         ks.append(imax)
@@ -751,25 +848,18 @@ def _binomial_radicals(c: List[int]) -> List:
         ks.append(0)
     out = []
     for k in ks:
-        cz, sz = _cos_sin(Fraction(360 * k, n))
-        zeta = rx.add(cz, rx.mul(sz, rx.I))
-        out.append(rx.expand_mul(alpha, zeta))
+        out.append(rx.expand(rx.expand_mul(alpha,
+                                           _unit_root(Fraction(2 * k, n)))))
     return out
 
 
 def _binomial(c: List[int]) -> List:
-    """``roots_binomial`` of ``a·xⁿ + b``: every n-th root of ``-b/a``, in
-    sympy's order of k (the root ``alpha·exp(2πik/n)``, alpha the
-    principal root), where sympy writes it in square and n-th roots: at
-    n = 2, 3, 4, 6, and at n = 8 for a positive ``-b/a``."""
+    """``roots_binomial`` of ``a·xⁿ + b`` (``roots_quadratic`` at n = 2):
+    every n-th root of ``-b/a``, in sympy's order of k."""
     n = len(c) - 1
     if n == 2:
         return _quadratic(c[0], 0, c[2])
-    if n in (3, 4, 6) or (n == 8 and Fraction(-c[-1], c[0]) > 0):
-        return _binomial_radicals(c)
-    raise NotImplementedError(
-        f"Polynomial.radical_roots: the roots of a binomial of degree {n} "
-        f"need cosines of pi/{2 * n}, which are not ported ({_QUEUE})")
+    return _binomial_roots(n, Fraction(-c[-1], c[0]))
 
 
 def _factor_roots(f: List[int]) -> List:
@@ -783,44 +873,84 @@ def _factor_roots(f: List[int]) -> List:
         return _binomial(f)
     if n == 2:
         return _quadratic(*f)
-    if _is_cyclotomic(f):
-        raise NotImplementedError(
-            f"Polynomial.radical_roots: roots_cyclotomic (cosines of pi/n) "
-            f"of a cyclotomic factor of degree {n} is not ported ({_QUEUE})")
+    if _cyclotomic_index(f):
+        return roots_cyclotomic(f)
     if n == 3:
         return roots_cubic(f)
     if n == 4:
-        raise NotImplementedError(
-            f"Polynomial.radical_roots: roots_quartic of an irreducible "
-            f"quartic factor is not ported ({_QUEUE})")
-    return _unsolved(f)
-
-
-def _unsolved(f: List[int]) -> List:
-    """No roots for a factor of degree ≥ 5 that sympy has no formula for,
-    once f is proved irreducible (else the float-root search may have
-    missed a factor whose roots sympy writes)."""
-    if not _proven_irreducible(f):
-        raise NotImplementedError(
-            f"Polynomial.radical_roots: {f} is not proved irreducible over "
-            f"Q (no prime's factor degrees rule out a factor), and an exact "
-            f"factorization over Z is not ported ({_QUEUE})")
+        return roots_quartic(f)
     return []
 
 
-def _single_irreducible(c: List[int]) -> List:
-    """``_try_decompose`` on a polynomial irreducible over ℚ: a composed
-    polynomial whose outer component has a formula gives nested radicals
-    (not ported); one whose outer component has none gives no roots."""
-    outer = _outer_component(c)
-    if outer is None:
-        return _factor_roots(c)
-    if not _solvable(outer):
-        return _unsolved(c)
+def _factor_terms_content(x) -> Fraction:
+    """The content ``factor_terms`` (``clear=False``) takes out of a sum:
+    ``_content``, but only its numerator where a term of x over it keeps
+    an integer coefficient."""
+    c = _content(x)
+    if c.denominator != 1 and any(
+            (v / c.numerator).denominator == 1 for v in rx._terms(x).values()):
+        return Fraction(c.numerator)
+    return c
+
+
+def _ex_sqrt(d, A: Fraction, signsimp: bool = False):
+    """``factor_terms(sqrt(d)/A)`` in ``roots_quadratic`` over EX, for
+    d = p + q·√k: the positive rational content c of d taken out of the
+    root (sqrt(c) a coefficient and a numeric root), and the imaginary
+    unit where both terms of a real d are negative; with ``signsimp``
+    (``_try_heuristics`` ``cancel``s the roots, whose ``signsimp`` takes
+    −1 out of a sum with a negative rational part), also where the
+    rational part alone is negative and d's value is."""
+    if isinstance(d, Surd) and d.p == 0 and d.d > 0:
+        # sqrt(q·√k) = |q|^(1/2)·k^(1/4), times i for q < 0
+        out = rx.mul(rx.mul(rx.sqrt(abs(d.q)), rx.root(d.d, 4)),
+                     Fraction(1) / A)
+        return rx.mul(out, rx.I) if d.q < 0 else out
+    if not isinstance(d, Surd) or d.p == 0:
+        raise NotImplementedError(
+            f"Polynomial.radical_roots: roots_quadratic over EX with the "
+            f"discriminant {cformat(d)} is not ported ({_QUEUE})")
+    c = _factor_terms_content(d)
+    t = d / c
+    imag = d.d > 0 and t.p < 0 and (t.q < 0 or (
+        signsimp and not rx._add_facts(rx._terms(t)).pos))
+    if imag:
+        t = -t
+    if t.d == -1 and isinstance(_sqrt(t.p ** 2 + t.q ** 2), numbers.Rational):
+        raise NotImplementedError(
+            f"Polynomial.radical_roots: the square root of the Gaussian "
+            f"number {t.cformat()} is not ported ({_QUEUE})")
+    out = rx.mul(rx.mul(rx.sqrt(c), Fraction(1) / A), rx.sqrt(t))
+    return rx.mul(out, rx.I) if imag else out
+
+
+def _ex_heuristics(h: List[Fraction], r) -> List:
+    """``_try_heuristics`` of h − r (h monic with no constant term, r a root
+    of the outer component): a binomial's roots where h is a monomial,
+    else ``roots_quadratic`` over EX."""
+    n = len(h) - 1
+    if all(x == 0 for x in h[1:]):
+        return _binomial_roots(n, r)
+    if n == 2:
+        b = h[1]
+        d = rx.add(b * b, rx.mul(4, r))
+        B = _rational(-b / 2)
+        D = _ex_sqrt(d, Fraction(2), signsimp=True)
+        return [rx.add(B, rx.mul(-1, D)), rx.add(B, D)]
     raise NotImplementedError(
-        f"Polynomial.radical_roots: a decomposition of a degree-"
-        f"{len(c) - 1} polynomial into nested radicals is not ported "
-        f"({_QUEUE})")
+        f"Polynomial.radical_roots: the roots of a degree-{n} inner "
+        f"component over EX are not ported ({_QUEUE})")
+
+
+def _try_decompose(c: List[int]) -> List:
+    """``_try_decompose`` on a polynomial irreducible over ℚ: the roots of
+    the outer component g (``_try_heuristics``), then for each inner
+    component h in turn, the roots of h − r for each root r so far."""
+    chain = _decompose(c)
+    roots = _factor_roots(_positive(chain[0]))
+    for h in chain[1:]:
+        roots = [x for r in roots for x in _ex_heuristics(h, r)]
+    return roots
 
 
 def _vanishing_factor(root: Any, factors: List[List[int]]) -> List[int]:
@@ -844,16 +974,19 @@ def _vanishing_factor(root: Any, factors: List[List[int]]) -> List[int]:
 
 def radical_roots(powers: Dict[int, Any]) -> Dict[Any, int]:
     """``{root: multiplicity}`` of ``Σ c_e·x^e`` in sympy's order, the
-    coefficients rational.  Where sympy has no formula for a factor, its
-    roots are left out, as ``sympy.roots`` leaves them out: the result is
-    then partial, or empty."""
+    coefficients rational, or rational and float (sympy's RR: ``nroots``).
+    Where sympy has no formula for a factor, its roots are left out, as
+    ``sympy.roots`` leaves them out: the result is then partial, or
+    empty."""
     if not powers:
         return {}
-    for c in powers.values():
-        if not isinstance(c, numbers.Rational):
+    if not all(isinstance(c, numbers.Rational) for c in powers.values()):
+        if not nroots.is_real_float(powers.values()):
             raise NotImplementedError(
-                f"Polynomial.radical_roots: coefficient {c!r} is not "
-                f"rational; only rational polynomials are ported ({_QUEUE})")
+                "Polynomial.radical_roots: coefficients other than rational "
+                "and float ones (sympy's EX domain) are not ported "
+                f"({_QUEUE})")
+        return nroots.float_roots(powers)
     low = min(powers)
     zeros = {0: low} if low else {}
     deg = max(powers) - low
@@ -884,7 +1017,7 @@ def radical_roots(powers: Dict[int, Any]) -> Dict[Any, int]:
         if len(factors) == 1 and deg == 2:
             put(_quadratic(*coeffs), coeffs)
         elif len(factors) == 1 and factors[0][1] == 1:
-            put(_single_irreducible(coeffs), coeffs)
+            put(_try_decompose(coeffs), coeffs)
         else:
             for f, m in factors:
                 put(_factor_roots(f), f, m)

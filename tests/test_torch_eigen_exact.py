@@ -12,8 +12,9 @@
   and the summary) and the returned dict;
 - ``eigenvalues_with_geometric_multiplicities`` and ``diagonalize`` on
   the random builders' diagonalizable and Jordan 3×3 / 4×4 matrices;
-- ``NotImplementedError`` for what is not ported: a general quartic's
-  roots, a cube-root eigenvalue's eigenspace and diagonalization.
+- ``NotImplementedError`` for what is not ported: a cube-root
+  eigenvalue's eigenspace and diagonalization (a general quartic's roots,
+  which raised here before, are held against sympy).
 
 Both planner engines are the Python one (``LINALG_TPU_NATIVE=0``): the
 JAX package takes its native engine only where its library was built.
@@ -36,6 +37,7 @@ from linalg_solver_tpu_torch.exact import Polynomial as TPoly
 from linalg_solver_tpu_torch.utils import trace as ttrace
 from linalg_solver_tpu_torch.utils.fmt import cformat
 
+from tools.sweep_radicals import roots_differ, sympy_values
 from torch_text_cases import fraction_rows, sympy_rows
 
 X = sympy.symbols("x")
@@ -234,12 +236,15 @@ def test_geometric_multiplicities_match():
 
 
 def test_cube_root_factor_and_radical_eigenspace_raise():
-    """What is still not ported raises, citing queue 1 item 7: the roots
-    of a general quartic (``roots_quartic``), a cube-root eigenvalue's
-    eigenspace basis and a successful diagonalization with one.  The cube
-    roots themselves and the quadratic eigenspaces are ported."""
-    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
-        TPoly({4: 1, 1: 1, 0: 1}).radical_roots()          # λ⁴ + λ + 1
+    """What is still not ported raises, citing queue 1 item 7: a cube-root
+    eigenvalue's eigenspace basis and a successful diagonalization with
+    one.  The roots of a general quartic (``roots_quartic``: λ⁴ + λ + 1,
+    whose terms sympy orders by the rounding noise of evalf, not ported,
+    so they are held in value with their multiplicities and ``is_real``),
+    the cube roots themselves and the quadratic eigenspaces are ported."""
+    quartic = TPoly({4: 1, 1: 1, 0: 1}).radical_roots()     # λ⁴ + λ + 1
+    want = JPoly({4: 1, 1: 1, 0: 1}).radical_roots()
+    assert roots_differ(quartic, sympy_values(want)) is None
     companion = [[0, 0, 2], [1, 0, 0], [0, 1, 0]]           # λ³ − 2
     cube = TMatrix(fraction_rows(companion))
     roots = []

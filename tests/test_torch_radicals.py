@@ -21,7 +21,6 @@ exactly where sympy's is, and the value within 1e-25 relative of sympy's
 import functools
 import itertools
 import random
-from decimal import Decimal
 from fractions import Fraction
 
 import pytest
@@ -33,8 +32,8 @@ from linalg_solver_tpu.utils import trace as jtrace
 from linalg_solver_tpu_torch.exact import Matrix as TMatrix
 from linalg_solver_tpu_torch.exact import radicals
 from linalg_solver_tpu_torch.utils import trace as ttrace
-from linalg_solver_tpu_torch.utils.fmt import cformat
 
+from tools.sweep_radicals import text_differs
 from torch_text_cases import fraction_rows, sympy_rows
 
 X = sympy.symbols("x")
@@ -45,32 +44,11 @@ def python_engine(monkeypatch):
     monkeypatch.setenv("LINALG_TPU_NATIVE", "0")
 
 
-def _value(r):
-    """A port root's value as a complex pair of Decimals."""
-    if isinstance(r, (int, Fraction)):
-        return Decimal(Fraction(r).numerator) / Fraction(r).denominator, \
-            Decimal(0)
-    return r.value(45)
-
-
-def _close(port_root, sympy_root):
-    want = sympy.N(sympy_root, 40)
-    w_re, w_im = (Decimal(str(sympy.re(want))), Decimal(str(sympy.im(want))))
-    re_, im_ = _value(port_root)
-    err = abs(re_ - w_re) + abs(im_ - w_im)
-    return err <= Decimal("1e-25") * (1 + abs(w_re) + abs(w_im))
-
-
 def _same(port_list, sympy_list):
     """Root lists (or dict items) equal: text, negation, multiplicity,
     sympy's ``is_real is True``, value."""
-    assert len(port_list) == len(sympy_list)
-    for (rp, mp), (rs, ms) in zip(port_list, sympy_list):
-        assert mp == ms
-        assert cformat(rp) == sympy.latex(rs)
-        assert cformat(-rp) == sympy.latex(-rs)
-        assert (getattr(rp, "is_real", True) is True) == (rs.is_real is True)
-        assert _close(rp, rs), (cformat(rp), rs)
+    msg = text_differs(port_list, sympy_list)
+    assert msg is None, msg
 
 
 def _check(coeffs):
@@ -201,22 +179,12 @@ def test_binomials_match_sympy():
                     _check([lead] + [0] * (n - 1) + [-b])
 
 
-def test_factor_the_float_search_misses_raises(monkeypatch):
-    """A cubic times a quintic with large coefficients: the partial set
-    sympy gives (the cubic's roots); and with the float-root factor search
-    made to miss, the product is not proved irreducible modulo any prime,
-    so the port raises instead of returning no roots.  λ⁵ − λ − 1 and the
-    quintic alone are proved irreducible."""
-    cubic = sympy.Poly([1000003, 0, -999983, 123457], X)
-    quintic = sympy.Poly([7919, 0, 0, 0, -104729, -1299709], X)
-    coeffs = [int(v) for v in (cubic * quintic).all_coeffs()]
-    got = _check(coeffs)
-    assert len(got) == 3
-    assert all(r.minpoly == tuple(int(v) for v in cubic.all_coeffs())
-               for r in got)
-    for f in ([1, 0, 0, 0, -1, -1], [int(v) for v in quintic.all_coeffs()]):
-        assert radicals._proven_irreducible(f)
-    monkeypatch.setattr(radicals, "_factor_of_size", lambda *a: None)
-    with pytest.raises(NotImplementedError, match="not proved irreducible"):
-        radicals.radical_roots({len(coeffs) - 1 - i: c
-                                for i, c in enumerate(coeffs) if c})
+def test_only_rational_and_float_coefficients_are_solved():
+    """A float coefficient beside rational ones takes sympy's RR domain
+    (``nroots``); a radical or complex coefficient (sympy's EX) is not
+    ported and raises, rather than being rounded to a float."""
+    assert list(radicals.radical_roots({2: 1, 0: -4.0})) == [-2.0, 2.0]
+    sqrt2 = radicals._sqrt(Fraction(2))
+    for other in (sqrt2, 1j, complex(2, 0)):
+        with pytest.raises(NotImplementedError, match="queue 1 item 7"):
+            radicals.radical_roots({2: 1, 1: other, 0: -1})
